@@ -1,0 +1,87 @@
+"""K1 — split-KV GQA flash decode over a ragged contiguous cache, on the
+card (``csrc/decode_attention.cu``).
+
+Replaces ``repro/kernels/decode_attention.py::decode_attention_bhgd``
+and also merges the current token's K/V as the always-valid self
+partial of ``repro/models/attention.py::decode_attention``. One wrapper
+call is two launches (split partials, then the fixed-order combine) and
+counts once in ``launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0
+
+SPLIT = 128   # cache slots per pass-1 block (kSplit in the source)
+MAX_G = 8     # query heads per KV head (kMaxG)
+HEAD_DIMS = (64, 128)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIG = {"decode_attention_launch":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _F, _I, _P]}
+
+
+def _row_lengths(cache_len, b: int, device) -> torch.Tensor:
+    """``cache_len`` (int, 0-d or (B,)) as a contiguous (B,) int32
+    tensor on ``device``."""
+    t = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
+    return torch.broadcast_to(t.reshape(-1), (b,)).contiguous()
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     extra_k: torch.Tensor | None = None,
+                     extra_v: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B,1,Hq,Dh); caches (B,C,Hkv,Dh); ``cache_len`` scalar or (B,)
+    valid slots per row; ``extra_k``/``extra_v`` (B,1,Hkv,Dh), the
+    current token's KV, or both None. Returns (B,1,Hq,Dh)."""
+    global launches
+    b, _, hq, dh = q.shape
+    _, cap, hkv, _ = k_cache.shape
+    if q.shape[1] != 1 or tuple(v_cache.shape) != tuple(k_cache.shape) \
+            or k_cache.shape[0] != b or k_cache.shape[3] != dh:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
+    if hq % hkv or hq // hkv > MAX_G:
+        raise ValueError(f"decode_attention: Hq={hq}, Hkv={hkv} needs "
+                         f"Hq % Hkv == 0 and G <= {MAX_G}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: Dh={dh} not in {HEAD_DIMS}")
+    if (extra_k is None) != (extra_v is None):
+        raise ValueError("decode_attention: pass extra_k and extra_v together")
+    extras = () if extra_k is None else (extra_k, extra_v)
+    for e in extras:
+        if tuple(e.shape) != (b, 1, hkv, dh):
+            raise ValueError(f"decode_attention: extra shape "
+                             f"{tuple(e.shape)} != {(b, 1, hkv, dh)}")
+    code = _build.launch_dtype("decode_attention", q, k_cache, v_cache,
+                               *extras)
+    lens = _row_lengths(cache_len, b, q.device)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    g = hq // hkv
+    ns = max(1, -(-cap // SPLIT))
+    o_part = torch.empty((b, hkv, g, ns, dh), dtype=torch.float32,
+                         device=q.device)
+    m_part = torch.empty((b, hkv, g, ns), dtype=torch.float32,
+                         device=q.device)
+    l_part = torch.empty_like(m_part)
+    lib = _build.load("decode_attention", _SIG)
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        extra_k.data_ptr() if extras else None,
+        extra_v.data_ptr() if extras else None,
+        lens.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
+        l_part.data_ptr(), out.data_ptr(), b, cap, hkv, g, dh, ns,
+        1.0 / math.sqrt(dh), code, _build.stream_handle(q))
+    _build.check(lib, err, "decode_attention")
+    launches += 1
+    return out

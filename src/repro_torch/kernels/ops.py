@@ -1,0 +1,63 @@
+"""Public kernel entry points: the hand-written kernel for a CUDA tensor,
+the plain PyTorch version (:mod:`repro_torch.kernels.ref`) for a CPU
+tensor. Nothing else — a kernel that fails to build or launch raises.
+
+Counterpart of ``repro/kernels/ops.py`` (whose entries pick Pallas
+interpret mode off-TPU). Layouts are the model's: q (B,S,Hq,Dh), caches
+(B,C,Hkv,Dh).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
+
+_KERNELS = {"rmsnorm": _rn, "flash_attention": _fa,
+            "decode_attention": _dec}
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def rmsnorm(x, w, *, eps=1e-6):
+    """Fused RMSNorm over the last axis (K5)."""
+    if _on_card(x):
+        return _rn.rmsnorm(x, w, eps=eps)
+    return ref.rmsnorm(x, w, eps)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """Causal / windowed prefill attention at absolute positions (K3)."""
+    if _on_card(q):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    return ref.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
+                     extra_v=None):
+    """Ragged split-KV decode attention with the self partial (K1)."""
+    if _on_card(q):
+        return _dec.decode_attention(q, k_cache, v_cache, cache_len,
+                                     extra_k=extra_k, extra_v=extra_v)
+    return ref.decode_attention(q, k_cache, v_cache, cache_len,
+                                extra_k=extra_k, extra_v=extra_v)
+
+
+def launch_counts() -> dict:
+    """Kernel launches made by each wrapper since the last reset."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0

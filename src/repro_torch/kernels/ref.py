@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+The CPU path of :mod:`repro_torch.kernels.ops`, and the oracle every
+kernel is held to on the card. Each computes in fp32 and returns the
+input dtype, with the masks of its TPU counterpart
+(``repro/kernels/ref.py``, ``repro/models/attention.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q (B,Sq,Hq,Dh); k, v (B,Skv,Hkv,Dh) — GQA grouped, not expanded.
+    Query i sits at ``q_offset + i``, key j at j."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    scores = scores.masked_fill(~ok, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     extra_k: torch.Tensor | None = None,
+                     extra_v: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B,1,Hq,Dh); caches (B,C,Hkv,Dh) valid to ``cache_len`` (scalar
+    or (B,)); optional current-token ``extra_k``/``extra_v``
+    (B,1,Hkv,Dh) merged as one always-valid self partial, exactly as
+    ``repro.models.attention.decode_attention`` does."""
+    b, _, hq, dh = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, dh)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg,
+                          k_cache.float()) / math.sqrt(dh)
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = torch.broadcast_to(
+        torch.arange(smax, device=q.device)[None, :] < clen, (b, smax))
+    valid = valid[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m1 = torch.clamp(scores.amax(-1), min=NEG_INF)
+    p1 = torch.where(valid, torch.exp(scores - m1[..., None]), 0.0)
+    l1 = p1.sum(-1)
+    o1 = torch.einsum("bhgk,bkhd->bhgd", p1, v_cache.float())
+    if extra_k is None:
+        out = o1 / torch.clamp(l1, min=1e-30)[..., None]
+    else:
+        s2 = torch.einsum("bhgd,bhd->bhg", qg,
+                          extra_k[:, 0].float()) / math.sqrt(dh)
+        m = torch.maximum(m1, s2)
+        a1, a2 = torch.exp(m1 - m), torch.exp(s2 - m)
+        v2 = extra_v[:, 0].float()[:, :, None, :]
+        out = (o1 * a1[..., None] + v2 * a2[..., None]) \
+            / torch.clamp(l1 * a1 + a2, min=1e-30)[..., None]
+    return out.reshape(b, 1, hq, dh).to(q.dtype)
