@@ -6,17 +6,27 @@
 Phases, one line each (any failure exits non-zero):
 
 1. device — the card, its power limit, the toolchain; every kernel of
-   the main path built from ``src/repro_torch/kernels/csrc`` with nvcc;
-2. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes, in bf16 and float32, with its time (CUDA events),
+   the served paths built from ``src/repro_torch/kernels/csrc`` with
+   nvcc, one process per source, all started together;
+2. kernels — each kernel against its plain PyTorch version at the
+   paths' shapes, in bf16 and float32, with its time (CUDA events),
    the plain version's, one PyTorch library call's where one computes
-   the same function, and the bound the card's roofline allows;
+   the same function, and the bound the card's roofline allows; the
+   paged decode (K2) must also be bitwise equal to the contiguous one
+   (K1) on the same rows;
 3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
-   seed) served greedily by ``ServingEngine``; the streams must equal
-   the port's own batch-1 prefill + decode_step loop;
-4. engine, bf16 run — 16 seeded requests through 8 slots: tok/s, TTFT,
-   inter-token latency; the first prefill's logits held against a run
-   through the plain versions; every kernel's launch count checked.
+   seed) served greedily by ``ServingEngine``: contiguous + blocking
+   must equal the port's own batch-1 prefill + decode_step loop, and
+   paged + blocking, chunked and speculative on both backends must
+   equal contiguous + blocking;
+4. engine, bf16 runs — 16 seeded requests through 8 slots on contiguous
+   + blocking, paged + chunked and paged + speculative: tok/s, TTFT,
+   inter-token latency, resident KV, chunk dispatches, acceptance; the
+   first prefill's and the first chunked prefill's logits held against
+   runs through the plain versions.
+
+Every engine run checks each kernel's launch count against what its
+path must launch.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. It needs CUDA and the repository's
@@ -139,12 +149,15 @@ def _compare(name, case, dtype_name, got, want, *, ms, plain_ms, lib_ms,
 
 
 def kernel_cases(gen, dtype):
-    """(name, case, kernel_fn, plain_fn, library_fn|None, bytes, flops)
-    at the main path's shapes for one dtype."""
+    """(name, case, kernel_fn, plain_fn, library_fn|None, bytes, flops,
+    same_fn|None) at the paths' shapes for one dtype; ``same_fn`` is a
+    second kernel whose output must be bitwise equal."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import paged_decode_attention as kpdec
+    from repro_torch.kernels import prefill_attention as kpre
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as krn
     elt = torch.tensor([], dtype=dtype).element_size()
@@ -159,7 +172,7 @@ def kernel_cases(gen, dtype):
             lambda x=x, w=w: krn.rmsnorm(x, w),
             lambda x=x, w=w: ref.rmsnorm(x, w),
             lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps=1e-6),
-            (2 * m * d + d) * elt, 4 * m * d))
+            (2 * m * d + d) * elt, 4 * m * d, None))
 
     def sdpa(q, k, v, mask=None, causal=True):
         g = q.shape[2] // k.shape[2]
@@ -190,9 +203,10 @@ def kernel_cases(gen, dtype):
                 q, k, v, causal=True, window=w),
             lambda q=q, k=k, v=v, m=mask: sdpa(q, k, v, m),
             (2 * q.numel() + k.numel() + v.numel()) * elt,
-            4 * pairs * hq * dh))
+            4 * pairs * hq * dh, None))
 
-    b, cap = 8, 2048
+    b, cap, bs = 8, 2048, 16
+    nb, w = b * cap // bs, cap // bs
     for case, hq, hkv in (("mha", 16, 16), ("gqa", 8, 2)):
         q = _rand(gen, (b, 1, hq, dh), dtype)
         kc = _rand(gen, (b, cap, hkv, dh), dtype)
@@ -203,6 +217,8 @@ def kernel_cases(gen, dtype):
                              device="cuda", dtype=torch.int32)
         lens[0] = cap  # one full row
         tot = int(lens.sum().item())
+        dec_bytes = ((2 * tot * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh)
+                     * elt + 4 * b)
         cases.append((
             "decode_attention",
             f"B={b},C={cap},Hq={hq},Hkv={hkv},Dh={dh},sum_len={tot},self",
@@ -212,10 +228,74 @@ def kernel_cases(gen, dtype):
             lambda q=q, kc=kc, vc=vc, lens=lens, ek=ek, ev=ev:
                 ref.decode_attention(q, kc, vc, lens, extra_k=ek,
                                      extra_v=ev),
-            None,
-            (2 * tot * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh) * elt
-            + 4 * b,
-            4 * (tot + b) * hq * dh))
+            None, dec_bytes, 4 * (tot + b) * hq * dh, None))
+        # K2: the same rows in a pool of NB blocks, at a seeded random
+        # permutation of block ids; entries past each row's length are
+        # sentinels (NB)
+        perm = torch.randperm(nb, generator=gen, device="cuda")
+        tab = perm.reshape(b, w).to(torch.int32)
+        kp = torch.empty((nb, bs, hkv, dh), dtype=dtype, device="cuda")
+        vp = torch.empty_like(kp)
+        kp[tab.reshape(-1).long()] = kc.reshape(b * w, bs, hkv, dh)
+        vp[tab.reshape(-1).long()] = vc.reshape(b * w, bs, hkv, dh)
+        n_blk = (lens.long() + bs - 1) // bs
+        tab[torch.arange(w, device="cuda")[None, :] >= n_blk[:, None]] = nb
+        cases.append((
+            "paged_decode_attention",
+            f"B={b},C={cap},bs={bs},NB={nb},Hq={hq},Hkv={hkv},Dh={dh},"
+            f"sum_len={tot},self,scattered",
+            lambda q=q, kp=kp, vp=vp, tab=tab, lens=lens, ek=ek, ev=ev:
+                kpdec.paged_decode_attention(q, kp, vp, tab, lens,
+                                             extra_k=ek, extra_v=ev),
+            lambda q=q, kp=kp, vp=vp, tab=tab, lens=lens, ek=ek, ev=ev:
+                ref.paged_decode_attention(q, kp, vp, tab, lens,
+                                           extra_k=ek, extra_v=ev),
+            None, dec_bytes + 4 * tab.numel(), 4 * (tot + b) * hq * dh,
+            # K1 on the dense copy of the same rows: bitwise equal
+            lambda q=q, kc=kc, vc=vc, lens=lens, ek=ek, ev=ev:
+                kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
+                                      extra_v=ev)))
+
+    # K4: one chunk over a cached history, then a ragged verify
+    for case, bq, s, hq, hkv, hist in (
+            ("chunk", 1, 256, 16, 16, [768]),
+            ("chunk,gqa", 1, 256, 8, 2, [768]),
+            ("verify", 8, 5, 16, 16, None)):
+        q = _rand(gen, (bq, s, hq, dh), dtype)
+        kh = _rand(gen, (bq, cap, hkv, dh), dtype)
+        vh = _rand(gen, (bq, cap, hkv, dh), dtype)
+        ks = _rand(gen, (bq, s, hkv, dh), dtype)
+        vs = _rand(gen, (bq, s, hkv, dh), dtype)
+        if hist is None:  # ragged per-row history, one row near capacity
+            hl = torch.randint(1, cap - s + 1, (bq,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+            hl[0] = cap - s
+        else:
+            hl = torch.tensor(hist, dtype=torch.int32, device="cuda")
+        tot = int(hl.sum().item())
+        pairs = tot * s + bq * s * (s + 1) // 2
+        # library yardstick: SDPA over history ++ self with a boolean
+        # mask, both built here, outside the timed call
+        k_cat, v_cat = torch.cat([kh, ks], 1), torch.cat([vh, vs], 1)
+        pos = torch.arange(cap + s, device="cuda")
+        rel = torch.arange(s, device="cuda")
+        mask = torch.where(pos[None, None, :] < cap,
+                           pos[None, None, :] < hl[:, None, None],
+                           pos[None, None, :] - cap <= rel[None, :, None])
+        mask = mask[:, None]                        # (B, 1, S, C + S)
+        cases.append((
+            "prefill_attention",
+            f"{case},B={bq},S={s},C={cap},hist_len="
+            f"{hist[0] if hist else 'ragged'},sum_hist={tot},Hq={hq},"
+            f"Hkv={hkv},Dh={dh}",
+            lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
+                kpre.prefill_attention(q, kh, vh, hl, ks, vs),
+            lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
+                ref.prefill_attention(q, kh, vh, hl, ks, vs),
+            lambda q=q, k=k_cat, v=v_cat, m=mask: sdpa(q, k, v, m),
+            (2 * q.numel() + (2 * tot + 2 * bq * s) * hkv * dh) * elt
+            + 4 * bq,
+            4 * pairs * hq * dh, None))
     return cases
 
 
@@ -228,10 +308,18 @@ def phase_kernels() -> dict:
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
-        for name, case, kfn, pfn, lfn, nbytes, flops in kernel_cases(
+        for name, case, kfn, pfn, lfn, nbytes, flops, same in kernel_cases(
                 gen, dtype):
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
+            if same is not None:
+                equal = torch.equal(got, same())
+                log("kernels", kernel=name, case=case, dtype=dname,
+                    bitwise_equal_to_contiguous=equal)
+                if not equal:
+                    raise AssertionError(f"{name} {case} {dname}: not "
+                                         "bitwise equal to K1 on the "
+                                         "same rows")
             res = _compare(
                 name, case, dname, got, want, ms=time_ms(kfn),
                 plain_ms=time_ms(pfn),
@@ -255,14 +343,17 @@ def plain_kernels():
     reference run on the card (this script's comparison only; the
     package itself never falls back)."""
     from repro_torch.kernels import ops, ref
-    saved = (ops.rmsnorm, ops.flash_attention, ops.decode_attention)
+    names = ("flash_attention", "decode_attention", "paged_decode_attention",
+             "prefill_attention")
+    saved = {n: getattr(ops, n) for n in ("rmsnorm", *names)}
     ops.rmsnorm = lambda x, w, *, eps=1e-6: ref.rmsnorm(x, w, eps)
-    ops.flash_attention = ref.flash_attention
-    ops.decode_attention = ref.decode_attention
+    for n in names:
+        setattr(ops, n, getattr(ref, n))
     try:
         yield
     finally:
-        ops.rmsnorm, ops.flash_attention, ops.decode_attention = saved
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
 def straight_line_generate(params, cfg, prompt, n_new, capacity):
@@ -280,25 +371,52 @@ def straight_line_generate(params, cfg, prompt, n_new, capacity):
     return out
 
 
-def check_launches(phase, counts, prefills, decodes, n_layers) -> None:
-    """Every kernel of the path ran, exactly as often as the path says:
-    2 RMSNorms per layer + 1 final per dispatch, one flash prefill per
-    layer per prefill, one split-KV decode per layer per decode step."""
-    want = {"rmsnorm": (2 * n_layers + 1) * (prefills + decodes),
-            "flash_attention": n_layers * prefills,
-            "decode_attention": n_layers * decodes}
-    log(phase, launches=json.dumps(counts), expected=json.dumps(want))
-    if counts != want or not all(counts.values()):
-        raise AssertionError(f"{phase}: kernel launches {counts} != {want}")
+def check_launches(phase, eng, counts) -> None:
+    """Every kernel of the path ran, exactly as often as the path says.
+    Target model (L layers): 2L + 1 RMSNorms per dispatch, L flash
+    prefills per blocking prefill, L split-KV decodes (contiguous) or L
+    paged decodes per decode step, L prefill-over-cache launches per
+    chunk and per verify dispatch. Draft (k layers): 2k + 1 RMSNorms per
+    dispatch, k flash prefills per draft prefill, k split-KV decodes per
+    draft decode (its shadow cache is contiguous)."""
+    s = eng.summary()
+    n = eng.cfg.n_layers
+    k = eng.draft_cfg.n_layers if eng.draft_cfg is not None else 0
+    decodes = s["decode_dispatches"] - s["verify_dispatches"]
+    draft_decodes = s["draft_dispatches"] - s["draft_prefills"]
+    over_cache = s["prefill_chunk_dispatches"] + s["verify_dispatches"]
+    paged = s["kv_cache"] == "paged"
+    want = {
+        "rmsnorm": ((2 * n + 1) * (s["prefills"] + s["decode_dispatches"]
+                                   + s["prefill_chunk_dispatches"])
+                    + (2 * k + 1) * s["draft_dispatches"]),
+        "flash_attention": n * s["prefills"] + k * s["draft_prefills"],
+        "decode_attention": (0 if paged else n * decodes) + k * draft_decodes,
+        "paged_decode_attention": n * decodes if paged else 0,
+        "prefill_attention": n * over_cache,
+    }
+    # the kernels this path must have launched at least once
+    path = {"rmsnorm",
+            "flash_attention" if s["prefills"] else "prefill_attention"}
+    if s["scheduler"] == "speculative":
+        path |= {"decode_attention", "prefill_attention"}
+    else:
+        path.add("paged_decode_attention" if paged else "decode_attention")
+    log(phase, launches=json.dumps(counts), expected=json.dumps(want),
+        path=",".join(sorted(path)))
+    if counts != want or not all(counts[name] for name in path):
+        raise AssertionError(f"{phase}: kernel launches {counts} != {want} "
+                             f"or a kernel of {sorted(path)} never ran")
 
 
-def run_engine(params, cfg, prompts, max_new):
-    """Serve ``prompts`` on a fresh engine; returns (engine, counts)."""
+def run_engine(params, cfg, prompts, max_new, **ecfg):
+    """Serve ``prompts`` on a fresh engine; returns (engine, counts) with
+    the launch counts of exactly this run."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving import EngineConfig, ServingEngine
     eng = ServingEngine(params, cfg, EngineConfig(
-        max_batch=8, max_seq_len=2048, max_new_tokens=max_new))
+        max_batch=8, max_seq_len=2048, max_new_tokens=max_new, **ecfg))
     for p in prompts:
         eng.submit(p)
     torch.cuda.synchronize()
@@ -306,6 +424,38 @@ def run_engine(params, cfg, prompts, max_new):
     eng.run()
     torch.cuda.synchronize()
     return eng, ops.launch_counts()
+
+
+# engine configurations (EngineConfig fields) held to contiguous +
+# blocking in the float32 gate; phase 4 serves the paged ones in bf16
+CHUNK_TOKENS = 256
+CHUNKED = {"scheduler": "chunked", "chunk_tokens": CHUNK_TOKENS}
+SPECULATIVE = {"scheduler": "speculative", "spec_gamma": 4}
+GATE_CONFIGS = {
+    "paged+blocking": {"kv_cache": "paged"},
+    "contiguous+chunked": CHUNKED,
+    "paged+chunked": {"kv_cache": "paged", **CHUNKED},
+    "contiguous+speculative": SPECULATIVE,
+    "paged+speculative": {"kv_cache": "paged", **SPECULATIVE},
+}
+
+
+def _check_engine(phase, eng, counts, n_requests):
+    s = eng.summary()
+    check_launches(phase, eng, counts)
+    if s["decode_dispatches"] != s["decode_steps"]:
+        raise AssertionError(f"{phase}: target dispatches "
+                             f"{s['decode_dispatches']} != steps "
+                             f"{s['decode_steps']}")
+    if s["requests"] != n_requests:
+        raise AssertionError(f"{phase}: {s['requests']} of {n_requests} "
+                             "requests finished")
+    if s["kv_cache"] == "paged":
+        target_peak = s["peak_resident_kv_bytes"] - s["draft_kv_bytes"]
+        if not target_peak < s["contiguous_kv_bytes"]:
+            raise AssertionError(f"{phase}: paged peak {target_peak} B not "
+                                 f"below {s['contiguous_kv_bytes']} B")
+    return s
 
 
 def phase_engine_f32() -> None:
@@ -319,24 +469,67 @@ def phase_engine_f32() -> None:
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in (17, 200, 511, 1000)]
     eng, counts = run_engine(params, cfg, prompts, 16)
-    s = eng.summary()
-    check_launches("engine_f32", counts, s["prefills"],
-                   s["decode_dispatches"], cfg.n_layers)
-    if s["decode_dispatches"] != s["decode_steps"]:
-        raise AssertionError(f"decode dispatches {s['decode_dispatches']} "
-                             f"!= steps {s['decode_steps']}")
-    got = {r.rid: r.output for r in eng.finished}
+    s = _check_engine("engine_f32", eng, counts, len(prompts))
+    base = {r.rid: r.output for r in eng.finished}
     for i, p in enumerate(prompts):
         want = straight_line_generate(params, cfg, p, 16, 2048)
         log("engine_f32", request=i, prompt_len=len(p),
-            equal=got[i] == want, tokens=got[i][:8])
-        if got[i] != want:
-            raise AssertionError(f"request {i}: engine {got[i]} != "
+            equal=base[i] == want, tokens=base[i][:8])
+        if base[i] != want:
+            raise AssertionError(f"request {i}: engine {base[i]} != "
                                  f"straight-line {want}")
-    log("engine_f32", requests=s["requests"], tokens=s["tokens"],
-        decode_dispatches=s["decode_dispatches"],
+    log("engine_f32", config="contiguous+blocking", requests=s["requests"],
+        tokens=s["tokens"], decode_dispatches=s["decode_dispatches"],
         decode_steps=s["decode_steps"], prefills=s["prefills"],
         streams_equal=True)
+    del eng
+    for label, kw in GATE_CONFIGS.items():
+        torch.cuda.empty_cache()
+        eng, counts = run_engine(params, cfg, prompts, 16, **kw)
+        s = _check_engine(f"engine_f32 {label}", eng, counts, len(prompts))
+        got = {r.rid: r.output for r in eng.finished}
+        log("engine_f32", config=label, streams_equal=got == base,
+            decode_dispatches=s["decode_dispatches"],
+            decode_steps=s["decode_steps"],
+            chunk_dispatches=s["prefill_chunk_dispatches"],
+            draft_dispatches=s["draft_dispatches"],
+            accepted_per_step=f"{s['accepted_tokens_per_step']:.3f}",
+            peak_resident_kv_bytes=s["peak_resident_kv_bytes"],
+            contiguous_kv_bytes=s["contiguous_kv_bytes"])
+        if got != base:
+            raise AssertionError(f"{label}: streams {got} != contiguous "
+                                 f"blocking {base}")
+        del eng
+
+
+def _first_logits(params, cfg, prompt, chunk):
+    """The prompt's logits through bucketed prefill and through chunked
+    prefill over a one-slot contiguous cache (the engine's route)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as MD
+    n = len(prompt)
+    nb = 16
+    while nb < n:
+        nb *= 2
+    toks = np.zeros((1, nb), np.int32)
+    toks[0, :n] = prompt
+    whole, _ = MD.prefill(params, cfg,
+                          {"tokens": torch.as_tensor(toks, device="cuda")},
+                          None, logit_index=n - 1)
+    cache = MD.init_cache(cfg, 1, 2048, device="cuda")
+    done = 0
+    while done < n:
+        m = min(chunk, n - done)
+        toks = np.zeros((1, chunk), np.int32)
+        toks[0, :m] = prompt[done:done + m]
+        logits, ks, vs = MD.prefill_chunk(
+            params, cfg, {"tokens": torch.as_tensor(toks, device="cuda")},
+            cache["k"], cache["v"], done, logit_index=m - 1)
+        cache["k"][:, :, done:done + m] = ks[:, :, :m]
+        cache["v"][:, :, done:done + m] = vs[:, :, :m]
+        done += m
+    return whole, logits
 
 
 def phase_engine_bf16(card: str) -> dict:
@@ -352,49 +545,62 @@ def phase_engine_bf16(card: str) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in rng.integers(32, 1025, size=16)]
 
-    # the first prefill through the kernels and through the plain versions
-    n0 = len(prompts[0])
-    nb = 16
-    while nb < n0:
-        nb *= 2
-    toks = np.zeros((1, nb), np.int32)
-    toks[0, :n0] = prompts[0]
-    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
-    got, _ = MD.prefill(params, cfg, batch, None, logit_index=n0 - 1)
+    # the first prefill, whole and chunked, through the kernels and
+    # through the plain versions
+    got = _first_logits(params, cfg, prompts[0], CHUNK_TOKENS)
     with plain_kernels():
-        want, _ = MD.prefill(params, cfg, batch, None, logit_index=n0 - 1)
-    rel = ((got - want).norm() / want.norm()).item()
-    log("engine_bf16", first_prefill_len=n0, bucket=nb,
-        logits_max_abs_err=f"{(got - want).abs().max().item():.3e}",
-        logits_rel_err=f"{rel:.3e}", tol=TOL["bfloat16"],
-        argmax_equal=bool((got.argmax(-1) == want.argmax(-1)).all()))
-    if not rel <= TOL["bfloat16"]:
-        raise AssertionError(f"bf16 prefill logits: relative error {rel}")
+        want = _first_logits(params, cfg, prompts[0], CHUNK_TOKENS)
+    for what, g, w in (("prefill", got[0], want[0]),
+                       ("chunked_prefill", got[1], want[1])):
+        rel = ((g - w).norm() / w.norm()).item()
+        log("engine_bf16", logits=what, prompt_len=len(prompts[0]),
+            chunk=CHUNK_TOKENS, max_abs_err=f"{(g - w).abs().max().item():.3e}",
+            rel_err=f"{rel:.3e}", tol=TOL["bfloat16"],
+            argmax_equal=bool((g.argmax(-1) == w.argmax(-1)).all()))
+        if not rel <= TOL["bfloat16"]:
+            raise AssertionError(f"bf16 {what} logits: relative error {rel}")
 
     run_engine(params, cfg, prompts[:2], 4)  # warm-up (allocator, cuBLAS)
-    eng, counts = run_engine(params, cfg, prompts, 64)
-    s = eng.summary()
-    check_launches("engine_bf16", counts, s["prefills"],
-                   s["decode_dispatches"], cfg.n_layers)
-    if s["decode_dispatches"] != s["decode_steps"] or s["requests"] != 16:
-        raise AssertionError(f"bf16 engine summary off: {s}")
-    for r in eng.finished:
-        if len(r.output) != 64:
-            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens")
-    log("engine_bf16", requests=s["requests"], tokens=s["tokens"],
-        tok_per_s=f"{s['tokens_per_s']:.1f}",
-        ttft_p50_ms=f"{s['ttft_p50_s'] * 1e3:.1f}",
-        ttft_p99_ms=f"{s['ttft_p99_s'] * 1e3:.1f}",
-        itl_p50_ms=f"{s['itl_p50_s'] * 1e3:.2f}",
-        itl_p99_ms=f"{s['itl_p99_s'] * 1e3:.2f}",
-        decode_steps=s["decode_steps"], prefills=s["prefills"],
-        card=f"'{card}'")
-    return counts
+    total: dict = {}
+    for label in ("contiguous+blocking", "paged+chunked",
+                  "paged+speculative"):
+        kw = GATE_CONFIGS.get(label, {})
+        torch.cuda.empty_cache()
+        eng, counts = run_engine(params, cfg, prompts, 64, **kw)
+        s = _check_engine(f"engine_bf16 {label}", eng, counts, 16)
+        for r in eng.finished:
+            if len(r.output) != 64:
+                raise AssertionError(f"{label} request {r.rid}: "
+                                     f"{len(r.output)} tokens")
+        log("engine_bf16", config=label, requests=s["requests"],
+            tokens=s["tokens"], tok_per_s=f"{s['tokens_per_s']:.1f}",
+            ttft_p50_ms=f"{s['ttft_p50_s'] * 1e3:.1f}",
+            ttft_p99_ms=f"{s['ttft_p99_s'] * 1e3:.1f}",
+            itl_p50_ms=f"{s['itl_p50_s'] * 1e3:.2f}",
+            itl_p99_ms=f"{s['itl_p99_s'] * 1e3:.2f}",
+            decode_steps=s["decode_steps"], prefills=s["prefills"],
+            chunk_dispatches=s["prefill_chunk_dispatches"],
+            verify_dispatches=s["verify_dispatches"],
+            draft_dispatches=s["draft_dispatches"],
+            acceptance=f"{s['accepted_tokens_per_step']:.3f}",
+            peak_resident_kv_bytes=s["peak_resident_kv_bytes"],
+            draft_kv_bytes=s["draft_kv_bytes"],
+            contiguous_kv_bytes=s["contiguous_kv_bytes"],
+            launches=json.dumps(counts), card=f"'{card}'")
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+        del eng
+    return total
 
 
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:134"),
+    "prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
+                          "src/repro/kernels/flash_attention.py:148"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:230"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",

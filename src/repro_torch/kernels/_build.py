@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("rmsnorm", "flash_attention", "decode_attention")
+SOURCES = ("rmsnorm", "flash_attention", "decode_attention",
+           "prefill_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,47 +1,81 @@
-// K1 — split-KV GQA flash decode over a contiguous, ragged KV cache.
+// K1 — split-KV GQA flash decode over a contiguous, ragged KV cache, and
+// K2 — the same decode over a paged KV cache (shared block pool read
+// through per-row block tables).
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py::
-// decode_attention_bhgd (body ``_kernel``): one query token per batch
-// row attends its row's first cache_len[b] cache slots; all G query
-// heads of a KV head share each K/V read; softmax state in fp32. It
-// also carries what the model-side decode attention adds on top of the
-// Pallas kernel (src/repro/models/attention.py:314-328): the current
-// token's own K/V (extra_k / extra_v) merged as one always-valid "self"
-// partial. Choice: the self slot is merged in the combine pass, not by
-// writing the token's KV into the cache first and attending len + 1 —
-// the cache write then stays outside attention, as in the reference,
-// and the masks match the reference slot for slot.
+// Replaces the TPU kernels src/repro/kernels/decode_attention.py::
+// decode_attention_bhgd (K1, body ``_kernel``) and
+// decode_attention_paged_bhgd (K2, body ``_paged_kernel``): one query
+// token per batch row attends its row's first cache_len[b] logical cache
+// positions; all G query heads of a KV head share each K/V read; softmax
+// state in fp32. It also carries what the model-side decode attention
+// adds on top of the Pallas kernels (src/repro/models/attention.py:
+// 314-328): the current token's own K/V (extra_k / extra_v) merged as one
+// always-valid "self" partial. Choice: the self slot is merged in the
+// combine pass, not by writing the token's KV into the cache first and
+// attending len + 1 — the cache write then stays outside attention, as in
+// the reference, and the masks match the reference slot for slot.
 //
 // Bound on the H100: bytes. Decode reads every valid K and V element
-// once per token (~2 * sum(len) * Hkv * Dh * bytes per layer) and does
-// 2 flops per element per query head — G flops per byte in bf16 (G = 1
-// for MHA), far below the card's ~295 bf16 flops per byte.
+// once per token (~2 * sum(len) * Hkv * Dh * bytes per layer; K2 also
+// reads 4 bytes per table entry) and does 2 flops per element per query
+// head — G flops per byte in bf16 (G = 1 for MHA), far below the card's
+// ~295 bf16 flops per byte.
 //
-// Design: pass 1 runs one block per (KV split of 128 slots, kv head,
+// Design: pass 1 runs one block per (KV split of 128 positions, kv head,
 // batch row) — thousands of blocks, enough to keep all 132 SMs
 // streaming. Each block reads its row's length itself; a split that
 // starts past it returns at once, so tiles past the length are never
-// read. Thread t owns slot t of the split: it loads that K row with
-// 16-byte vectors and scores it against the G queries staged in shared
-// memory. The block takes the split's max and exp-sum per query head,
-// then accumulates P V with threads laid along Dh (coalesced V reads)
-// and writes the unnormalised partial (o, m, l) in fp32. Pass 2 runs
-// one block per (batch row, query head): it computes the self score,
-// then merges the valid splits' partials and the self partial in split
-// order — a fixed order without atomics, so the output is
-// deterministic — and writes the normalised result.
+// read. Thread t owns position t of the split: it finds that position's
+// row once (the ``Rows`` template parameter: contiguous, or one block-
+// table lookup per position for K2), keeps it in shared memory for the
+// V pass, loads the K row with 16-byte vectors and scores it against the
+// G queries staged in shared memory. The block takes the split's max and
+// exp-sum per query head, then accumulates P V with threads laid along
+// Dh (coalesced V reads) and writes the unnormalised partial (o, m, l)
+// in fp32. Pass 2 runs one block per (batch row, query head): it
+// computes the self score, then merges the valid splits' partials and
+// the self partial in split order — a fixed order without atomics, so
+// the output is deterministic — and writes the normalised result.
+//
+// K2 does not copy the Pallas kernel's tile of one cache block (bs = 16
+// positions per grid step, steered by scalar prefetch): a Hopper block
+// still covers 128 logical positions, i.e. 128 / bs pool blocks, and
+// every block loads its own table entries. Only the address of a
+// position differs from K1; the arithmetic and its order are the same
+// code, so K2 on a pool holding the same logical rows as a K1 cache is
+// bitwise equal to K1. Sentinel table entries (>= NB) are clamped to
+// NB - 1 and only ever sit past the row's length, where nothing is read.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kSplit = 128;  // cache slots per pass-1 block == threads
+constexpr int kSplit = 128;  // cache positions per pass-1 block == threads
 constexpr int kMaxG = 8;     // query heads per KV head
 
-template <typename T, int DH>
+// Where logical position p of batch row b lives: the row index into a
+// (rows, Hkv, Dh) K or V array.
+struct ContiguousRows {  // K1: cache (B, cap, Hkv, Dh)
+  int cap;
+  __device__ __forceinline__ size_t operator()(int b, int p) const {
+    return static_cast<size_t>(b) * cap + p;
+  }
+};
+
+struct PagedRows {  // K2: pool (NB, bs, Hkv, Dh), tables (B, W)
+  const int* tab;
+  int w, bs, nb;
+  __device__ __forceinline__ size_t operator()(int b, int p) const {
+    int blk = tab[static_cast<size_t>(b) * w + p / bs];
+    blk = min(max(blk, 0), nb - 1);  // sentinel -> a real block
+    return static_cast<size_t>(blk) * bs + p % bs;
+  }
+};
+
+template <typename T, int DH, typename Rows>
 __global__ void __launch_bounds__(kSplit)
     decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                           const T* __restrict__ vc,
-                          const int* __restrict__ lens,
+                          const int* __restrict__ lens, Rows rows,
                           float* __restrict__ o_part,
                           float* __restrict__ m_part,
                           float* __restrict__ l_part, int cap, int hkv,
@@ -57,6 +91,7 @@ __global__ void __launch_bounds__(kSplit)
   float* ps = qs + g * DH;           // [g][kSplit] scores, then probs
   float* part = ps + g * kSplit;     // [kSplit / DH][g][DH] PV partials
   __shared__ float red[32];
+  __shared__ size_t row_of[kSplit];  // KV row of each split position
 
   const int tid = threadIdx.x;
   const T* qb = q + (static_cast<size_t>(b) * hkv + h) * g * DH;
@@ -66,10 +101,11 @@ __global__ void __launch_bounds__(kSplit)
 
   const int j = start + tid;
   const bool valid = j < len;
+  if (valid) row_of[tid] = rows(b, j);
   {
     float kf[DH];
     if (valid) {
-      const T* kr = kc + ((static_cast<size_t>(b) * cap + j) * hkv + h) * DH;
+      const T* kr = kc + (row_of[tid] * hkv + h) * DH;
 #pragma unroll
       for (int i = 0; i < DH; i += N) port::load_vec(kr + i, kf + i);
     }
@@ -96,7 +132,7 @@ __global__ void __launch_bounds__(kSplit)
       l_part[(row + gi) * ns + split] = sum;
     }
   }
-  __syncthreads();  // all probabilities visible
+  __syncthreads();  // all probabilities and rows visible
 
   // P V: thread -> (dim d, slot group grp); groups stride over the split
   const int d = tid % DH, grp = tid / DH, ngrp = kSplit / DH;
@@ -105,8 +141,7 @@ __global__ void __launch_bounds__(kSplit)
   for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
   const int n_here = min(kSplit, len - start);
   for (int jj = grp; jj < n_here; jj += ngrp) {
-    const float vv = port::to_f(
-        vc[((static_cast<size_t>(b) * cap + start + jj) * hkv + h) * DH + d]);
+    const float vv = port::to_f(vc[(row_of[jj] * hkv + h) * DH + d]);
 #pragma unroll
     for (int gi = 0; gi < kMaxG; ++gi)
       if (gi < g) acc[gi] += ps[gi * kSplit + jj] * vv;
@@ -163,17 +198,18 @@ __global__ void decode_combine_kernel(
   if (dim_ok) out[row * DH + d] = port::from_f<T>(num / fmaxf(den, 1e-30f));
 }
 
-template <typename T, int DH>
+template <typename T, int DH, typename Rows>
 cudaError_t launch_dh(const void* q, const void* kc, const void* vc,
                       const void* ek, const void* ev, const int* lens,
-                      float* o_part, float* m_part, float* l_part, void* out,
-                      int b, int cap, int hkv, int g, int ns, float scale,
-                      cudaStream_t stream) {
+                      Rows rows, float* o_part, float* m_part,
+                      float* l_part, void* out, int b, int cap, int hkv,
+                      int g, int ns, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * g * (DH + kSplit + kSplit);
-  decode_partial_kernel<T, DH><<<dim3(ns, hkv, b), kSplit, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lens, o_part, m_part, l_part, cap, hkv, g,
-      ns, scale);
+  decode_partial_kernel<T, DH, Rows>
+      <<<dim3(ns, hkv, b), kSplit, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(kc),
+          static_cast<const T*>(vc), lens, rows, o_part, m_part, l_part,
+          cap, hkv, g, ns, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = DH < 32 ? 32 : DH;
@@ -184,22 +220,44 @@ cudaError_t launch_dh(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Rows>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* ek, const void* ev, const int* lens,
-                   float* o_part, float* m_part, float* l_part, void* out,
-                   int b, int cap, int hkv, int g, int dh, int ns,
+                   Rows rows, float* o_part, float* m_part, float* l_part,
+                   void* out, int b, int cap, int hkv, int g, int dh, int ns,
                    float scale, cudaStream_t s) {
   switch (dh) {
     case 64:
-      return launch_dh<T, 64>(q, kc, vc, ek, ev, lens, o_part, m_part,
+      return launch_dh<T, 64>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
                               l_part, out, b, cap, hkv, g, ns, scale, s);
     case 128:
-      return launch_dh<T, 128>(q, kc, vc, ek, ev, lens, o_part, m_part,
-                               l_part, out, b, cap, hkv, g, ns, scale, s);
+      return launch_dh<T, 128>(q, kc, vc, ek, ev, lens, rows, o_part,
+                               m_part, l_part, out, b, cap, hkv, g, ns,
+                               scale, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename Rows>
+int launch_dtype(const void* q, const void* kc, const void* vc,
+                 const void* ek, const void* ev, const void* lens, Rows rows,
+                 void* o_part, void* m_part, void* l_part, void* out, int b,
+                 int cap, int hkv, int g, int dh, int ns, float scale,
+                 int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ln = static_cast<const int*>(lens);
+  float* op = static_cast<float*>(o_part);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  if (g < 1 || g > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == port::DT_F32)
+    return launch<float>(q, kc, vc, ek, ev, ln, rows, op, mp, lp, out, b,
+                         cap, hkv, g, dh, ns, scale, s);
+  if (dtype == port::DT_BF16)
+    return launch<__nv_bfloat16>(q, kc, vc, ek, ev, ln, rows, op, mp, lp,
+                                 out, b, cap, hkv, g, dh, ns, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -214,17 +272,23 @@ KERNEL_EXPORT int decode_attention_launch(
     const void* ev, const void* lens, void* o_part, void* m_part,
     void* l_part, void* out, int b, int cap, int hkv, int g, int dh, int ns,
     float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ln = static_cast<const int*>(lens);
-  float* op = static_cast<float*>(o_part);
-  float* mp = static_cast<float*>(m_part);
-  float* lp = static_cast<float*>(l_part);
-  if (g < 1 || g > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == port::DT_F32)
-    return launch<float>(q, kc, vc, ek, ev, ln, op, mp, lp, out, b, cap,
-                         hkv, g, dh, ns, scale, s);
-  if (dtype == port::DT_BF16)
-    return launch<__nv_bfloat16>(q, kc, vc, ek, ev, ln, op, mp, lp, out, b,
-                                 cap, hkv, g, dh, ns, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype(q, kc, vc, ek, ev, lens, ContiguousRows{cap}, o_part,
+                      m_part, l_part, out, b, cap, hkv, g, dh, ns, scale,
+                      dtype, stream);
+}
+
+// K2. kp, vp: pools (nb, bs, hkv, dh); tab: (b, w) int32 block ids on
+// the device (ids >= nb are sentinels, clamped to nb - 1 and masked by
+// the length). The logical capacity is w * bs; ns = ceil(w * bs / 128).
+// Everything else as decode_attention_launch.
+KERNEL_EXPORT int paged_decode_attention_launch(
+    const void* q, const void* kp, const void* vp, const void* ek,
+    const void* ev, const void* lens, const void* tab, void* o_part,
+    void* m_part, void* l_part, void* out, int b, int w, int bs, int nb,
+    int hkv, int g, int dh, int ns, float scale, int dtype, void* stream) {
+  if (w < 1 || bs < 1 || nb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedRows rows{static_cast<const int*>(tab), w, bs, nb};
+  return launch_dtype(q, kp, vp, ek, ev, lens, rows, o_part, m_part, l_part,
+                      out, b, w * bs, hkv, g, dh, ns, scale, dtype, stream);
 }

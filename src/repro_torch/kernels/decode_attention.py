@@ -23,16 +23,58 @@ MAX_G = 8     # query heads per KV head (kMaxG)
 HEAD_DIMS = (64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIG = {"decode_attention_launch":
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _I, _F, _I, _P]}
+# both exports of csrc/decode_attention.cu (K1 here, K2 in
+# paged_decode_attention.py): one library, one signature table
+SIG = {"decode_attention_launch":
+       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _I, _P],
+       "paged_decode_attention_launch":
+       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
 
 
-def _row_lengths(cache_len, b: int, device) -> torch.Tensor:
+def row_lengths(cache_len, b: int, device) -> torch.Tensor:
     """``cache_len`` (int, 0-d or (B,)) as a contiguous (B,) int32
     tensor on ``device``."""
     t = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
     return torch.broadcast_to(t.reshape(-1), (b,)).contiguous()
+
+
+def check_operands(what: str, q: torch.Tensor, kv_shape: tuple,
+                   extra_k, extra_v) -> tuple:
+    """Shared checks of K1 and K2: q (B,1,Hq,Dh) against a K/V array
+    whose last two dims are (Hkv, Dh), the GQA group bound and the
+    optional self KV. Returns the self operands, () or (k, v)."""
+    b, _, hq, dh = q.shape
+    hkv = kv_shape[-2]
+    if q.shape[1] != 1 or kv_shape[-1] != dh:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} kv {kv_shape}")
+    if hq % hkv or hq // hkv > MAX_G:
+        raise ValueError(f"{what}: Hq={hq}, Hkv={hkv} needs "
+                         f"Hq % Hkv == 0 and G <= {MAX_G}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{what}: Dh={dh} not in {HEAD_DIMS}")
+    if (extra_k is None) != (extra_v is None):
+        raise ValueError(f"{what}: pass extra_k and extra_v together")
+    extras = () if extra_k is None else (extra_k, extra_v)
+    for e in extras:
+        if tuple(e.shape) != (b, 1, hkv, dh):
+            raise ValueError(f"{what}: extra shape "
+                             f"{tuple(e.shape)} != {(b, 1, hkv, dh)}")
+    return extras
+
+
+def split_scratch(q: torch.Tensor, hkv: int, cap: int):
+    """fp32 partials (o, m, l) of pass 1 for a logical capacity ``cap``,
+    and the split count ``ns``."""
+    b, _, hq, dh = q.shape
+    g = hq // hkv
+    ns = max(1, -(-cap // SPLIT))
+    o_part = torch.empty((b, hkv, g, ns, dh), dtype=torch.float32,
+                         device=q.device)
+    m_part = torch.empty((b, hkv, g, ns), dtype=torch.float32,
+                         device=q.device)
+    return o_part, m_part, torch.empty_like(m_part), ns
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -45,42 +87,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     global launches
     b, _, hq, dh = q.shape
     _, cap, hkv, _ = k_cache.shape
-    if q.shape[1] != 1 or tuple(v_cache.shape) != tuple(k_cache.shape) \
-            or k_cache.shape[0] != b or k_cache.shape[3] != dh:
+    if tuple(v_cache.shape) != tuple(k_cache.shape) or k_cache.shape[0] != b:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
-    if hq % hkv or hq // hkv > MAX_G:
-        raise ValueError(f"decode_attention: Hq={hq}, Hkv={hkv} needs "
-                         f"Hq % Hkv == 0 and G <= {MAX_G}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: Dh={dh} not in {HEAD_DIMS}")
-    if (extra_k is None) != (extra_v is None):
-        raise ValueError("decode_attention: pass extra_k and extra_v together")
-    extras = () if extra_k is None else (extra_k, extra_v)
-    for e in extras:
-        if tuple(e.shape) != (b, 1, hkv, dh):
-            raise ValueError(f"decode_attention: extra shape "
-                             f"{tuple(e.shape)} != {(b, 1, hkv, dh)}")
+    extras = check_operands("decode_attention", q, tuple(k_cache.shape),
+                            extra_k, extra_v)
     code = _build.launch_dtype("decode_attention", q, k_cache, v_cache,
                                *extras)
-    lens = _row_lengths(cache_len, b, q.device)
+    lens = row_lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
     if b == 0:
         return out
-    g = hq // hkv
-    ns = max(1, -(-cap // SPLIT))
-    o_part = torch.empty((b, hkv, g, ns, dh), dtype=torch.float32,
-                         device=q.device)
-    m_part = torch.empty((b, hkv, g, ns), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    lib = _build.load("decode_attention", _SIG)
+    o_part, m_part, l_part, ns = split_scratch(q, hkv, cap)
+    lib = _build.load("decode_attention", SIG)
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         extra_k.data_ptr() if extras else None,
         extra_v.data_ptr() if extras else None,
         lens.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), out.data_ptr(), b, cap, hkv, g, dh, ns,
+        l_part.data_ptr(), out.data_ptr(), b, cap, hkv, hq // hkv, dh, ns,
         1.0 / math.sqrt(dh), code, _build.stream_handle(q))
     _build.check(lib, err, "decode_attention")
     launches += 1

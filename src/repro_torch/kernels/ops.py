@@ -12,11 +12,14 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_decode_attention as _pdec
+from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
 _KERNELS = {"rmsnorm": _rn, "flash_attention": _fa,
-            "decode_attention": _dec}
+            "decode_attention": _dec, "paged_decode_attention": _pdec,
+            "prefill_attention": _pre}
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -51,6 +54,34 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
                                      extra_k=extra_k, extra_v=extra_v)
     return ref.decode_attention(q, k_cache, v_cache, cache_len,
                                 extra_k=extra_k, extra_v=extra_v)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
+                           extra_k=None, extra_v=None):
+    """Split-KV decode over a paged pool through block tables, with the
+    self partial (K2)."""
+    if _on_card(q):
+        return _pdec.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                            cache_len, extra_k=extra_k,
+                                            extra_v=extra_v)
+    return ref.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                      cache_len, extra_k=extra_k,
+                                      extra_v=extra_v)
+
+
+def prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self):
+    """Chunked-prefill attention over cached history plus the chunk's own
+    causal KV (K4)."""
+    if _on_card(q):
+        return _pre.prefill_attention(q, k_hist, v_hist, hist_len, k_self,
+                                      v_self)
+    return ref.prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self)
+
+
+def verify_attention(q, k_hist, v_hist, hist_len, k_self, v_self):
+    """Speculative-verify attention: each row's S = gamma + 1 candidates
+    at its own ``hist_len`` (per-row (B,)) — the same kernel (K4)."""
+    return prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self)
 
 
 def launch_counts() -> dict:

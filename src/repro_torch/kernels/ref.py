@@ -76,3 +76,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         out = (o1 * a1[..., None] + v2 * a2[..., None]) \
             / torch.clamp(l1 * a1 + a2, min=1e-30)[..., None]
     return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def gather_kv_blocks(pool: torch.Tensor, block_tables: torch.Tensor
+                     ) -> torch.Tensor:
+    """Paged-cache gather: ``pool`` (NB, bs, Hkv, Dh) through per-row
+    block tables (B, W) -> dense view (B, W*bs, Hkv, Dh). Sentinel ids
+    are clamped onto a real block; those rows are garbage that the
+    valid length masks downstream."""
+    nb, bs, hkv, dh = pool.shape
+    idx = block_tables.long().clamp(0, nb - 1)
+    return pool[idx].reshape(idx.shape[0], idx.shape[1] * bs, hkv, dh)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           cache_len, *, extra_k: torch.Tensor | None = None,
+                           extra_v: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Pools (NB,bs,Hkv,Dh) read through ``block_tables`` (B,W): the
+    table gather, then :func:`decode_attention` on the dense view — the
+    reference's paged decode."""
+    return decode_attention(q, gather_kv_blocks(k_pool, block_tables),
+                            gather_kv_blocks(v_pool, block_tables),
+                            cache_len, extra_k=extra_k, extra_v=extra_v)
+
+
+def prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
+                      v_hist: torch.Tensor, hist_len, k_self: torch.Tensor,
+                      v_self: torch.Tensor) -> torch.Tensor:
+    """q (B,S,Hq,Dh) at ``hist_len .. hist_len+S-1`` against history
+    (B,C,Hkv,Dh) masked to ``hist_len`` (scalar or (B,)) plus its own
+    causal KV (B,S,Hkv,Dh): one fp32 softmax over history + self, as
+    ``repro.kernels.ref.verify_attention_ref`` (GQA grouped)."""
+    b, s, hq, dh = q.shape
+    c, hkv = k_hist.shape[1], k_hist.shape[2]
+    k = torch.cat([k_hist.float(), k_self.float()], dim=1)
+    v = torch.cat([v_hist.float(), v_self.float()], dim=1)
+    qg = q.float().reshape(b, s, hkv, hq // hkv, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / math.sqrt(dh)
+    clen = torch.as_tensor(hist_len, device=q.device).reshape(-1, 1, 1)
+    hist_ok = torch.broadcast_to(
+        torch.arange(c, device=q.device)[None, None, :] < clen, (b, s, c))
+    rel = torch.arange(s, device=q.device)
+    self_ok = torch.broadcast_to(rel[None, :] <= rel[:, None], (b, s, s))
+    ok = torch.cat([hist_ok, self_ok], dim=-1)          # (b, s, c + s)
+    scores = scores.masked_fill(~ok[:, None, None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    return out.reshape(b, s, hq, dh).to(q.dtype)

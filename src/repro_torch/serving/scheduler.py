@@ -1,15 +1,25 @@
 """Scheduling policy for the continuous-batching serving engine.
 
 Counterpart of ``repro/serving/scheduler.py``. The engine keeps the
-mechanism (prefills, the single ragged decode dispatch, retirement
-bookkeeping); a :class:`Scheduler` owns the policy — which waiting
-request enters which slot, which prefill work runs this step, and when
-a slot retires. This slice ships :class:`BlockingScheduler`: a
-request's whole prompt prefills at admission in one bucketed dispatch.
-Chunked, speculative and SLO policies are later slices.
+mechanism (prefills, chunks, the single ragged decode or verify
+dispatch, retirement bookkeeping); a :class:`Scheduler` owns the policy
+— which waiting request enters which slot, which prefill work runs this
+step, and when a slot retires:
+
+- :class:`BlockingScheduler`: a request's whole prompt prefills at
+  admission in one bucketed dispatch;
+- :class:`ChunkedScheduler`: admission only binds a slot; every step
+  carries decode tokens for all live slots plus at most one
+  ``chunk_tokens`` prefill chunk, shortest remaining prompt first;
+- :class:`SpeculativeScheduler`: blocking admission (target and draft),
+  then every step drafts ``spec_gamma`` tokens per live slot and
+  verifies all slots' windows in one target dispatch.
+
+The SLO policy (preemption) is a later slice of the port.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -19,12 +29,10 @@ import numpy as np
 class PrefillState:
     """Host-side progress of one chunked prefill occupying a slot (the
     chunked policy's state; the blocking policy never creates one)."""
-    prompt: np.ndarray   # token part, already truncated to capacity
-    n_prefix: int        # non-token prefix positions (vlm image tokens)
-    n_prompt: int        # total sequence positions incl. prefix
+    prompt: np.ndarray   # already truncated to capacity
+    n_prompt: int        # prompt positions
     budget: int          # generation budget at admission
-    seed: int            # sampling seed resolved at admission
-    done: int = 0        # sequence positions already cached
+    done: int = 0        # positions already cached
 
     @property
     def remaining(self) -> int:
@@ -55,6 +63,11 @@ class Scheduler:
         """Policy hook: admit ``req`` into ``slot``; False to defer."""
         raise NotImplementedError
 
+    def select_chunk(self, eng) -> int | None:
+        """Slot whose prefill receives this step's chunk (``None``: no
+        prefill work pending)."""
+        return None
+
     def retire(self, eng) -> None:
         """A decode-phase slot releases when its budget is spent, it
         sampled EOS, or it reached capacity."""
@@ -77,13 +90,60 @@ class BlockingScheduler(Scheduler):
         return eng._admit_one(slot, req)
 
 
+class ChunkedScheduler(Scheduler):
+    """Sarathi-style mixed steps: admission binds a request to a slot
+    (no dispatch); every step then carries decode tokens for all live
+    slots plus at most one prefill chunk, shortest-remaining-first."""
+
+    name = "chunked"
+
+    def __init__(self, chunk_tokens: int):
+        self.chunk_tokens = int(chunk_tokens)
+
+    def _admit_request(self, eng, slot: int, req) -> bool:
+        return eng._start_prefill(slot, req)
+
+    def select_chunk(self, eng) -> int | None:
+        best = None
+        for slot, st in eng.prefilling.items():
+            key = (st.remaining, eng.slot_req[slot].rid)
+            if best is None or key < best[0]:
+                best = (key, slot)
+        return None if best is None else best[1]
+
+
+class SpeculativeScheduler(BlockingScheduler):
+    """Blocking admission (the engine also prefills the draft's cache);
+    the engine's step then drafts and verifies instead of decoding one
+    token — still one target dispatch per step."""
+
+    name = "speculative"
+
+
+def policy_supported(cfg) -> bool:
+    """Whether chunked prefill / speculative verify can express this
+    model: both resume attention from a KV view, which recurrent state
+    and rolling-SWA caches cannot do."""
+    return (cfg.family in ("dense", "moe", "vlm")
+            and cfg.sliding_window is None)
+
+
 def make_scheduler(cfg, ecfg) -> Scheduler:
     kind = ecfg.scheduler
     if kind == "blocking":
         return BlockingScheduler()
-    if kind in ("chunked", "speculative", "slo"):
+    if kind in ("chunked", "speculative"):
+        if not policy_supported(cfg):
+            warnings.warn(
+                f"{kind} scheduling unsupported for family="
+                f"{cfg.family!r} sliding_window={cfg.sliding_window}; "
+                "falling back to blocking", stacklevel=2)
+            return BlockingScheduler()
+        if kind == "chunked":
+            return ChunkedScheduler(ecfg.chunk_tokens)
+        return SpeculativeScheduler()
+    if kind == "slo":
         raise NotImplementedError(
-            f"scheduler={kind!r} is a later slice of the port (chunked "
-            "prefill and speculative verify come with the "
-            "prefill-over-cache kernel K4); only 'blocking' runs")
+            "scheduler='slo' (SLO admission with preemption through "
+            "export_slot/import_slot) is a later slice of the port")
     raise ValueError(f"unknown scheduler {kind!r}")

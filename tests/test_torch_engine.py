@@ -58,11 +58,14 @@ def test_engine_config_and_slices(setup):
     _, _, cfg, tp = setup
     with pytest.raises(ValueError, match="max_batch"):
         EngineConfig(max_batch=0)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServingEngine(tp, cfg, EngineConfig(kv_cache="paged"), device="cpu")
+    # what this slice of the port still leaves to later ones
     with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(tp, cfg, EngineConfig(scheduler="chunked"),
+        ServingEngine(tp, cfg, EngineConfig(scheduler="slo"), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ServingEngine(tp, cfg, EngineConfig(prefix_cache=True),
                       device="cpu")
+    with pytest.raises(ValueError, match="unknown kv_cache"):
+        ServingEngine(tp, cfg, EngineConfig(kv_cache="ring"), device="cpu")
     with pytest.raises(ValueError, match="engine runs on"):
         ServingEngine(tp, cfg, EngineConfig(), device="meta")
     eng = ServingEngine(tp, cfg, EngineConfig(max_seq_len=16), device="cpu")

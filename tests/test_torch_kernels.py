@@ -84,11 +84,64 @@ def test_decode_attention_plain_matches_pallas_and_model(hq, hkv):
     _close(got, want)
 
 
+def _scattered_tables(rng, lens, nb, bs, w):
+    """Per-row block tables over a seeded permutation of ``nb`` pool
+    blocks; entries past each row's length are the sentinel ``nb``."""
+    perm = rng.permutation(nb)
+    tab = np.full((len(lens), w), nb, np.int32)
+    k = 0
+    for i, n in enumerate(lens):
+        m = -(-int(n) // bs)
+        tab[i, :m] = perm[k:k + m]
+        k += m
+    return tab
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+def test_paged_decode_attention_plain_matches_pallas_and_model(hq, hkv):
+    b, nb, bs, w, dh = 3, 12, 8, 5, 16
+    q, kp, vp, ek, ev = _inputs(4, (b, 1, hq, dh), (nb, bs, hkv, dh),
+                                (nb, bs, hkv, dh), (b, 1, hkv, dh),
+                                (b, 1, hkv, dh))
+    lens = np.array([w * bs, 17, 1], np.int32)  # one full row, ragged
+    tab = _scattered_tables(np.random.default_rng(5), lens, nb, bs, w)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, tab, lens, ek, ev)]
+    j = [jnp.asarray(a) for a in (q, kp, vp, tab, lens, ek, ev)]
+    # pool only: the Pallas paged kernel (block table as scalar prefetch)
+    _close(ops.paged_decode_attention(*t[:5]),
+           jops.paged_decode_attention(*j[:5]))
+    # with the self partial: the model's gather-then-decode
+    got = ops.paged_decode_attention(*t[:5], extra_k=t[5], extra_v=t[6])
+    _close(got, jattn.decode_attention(j[0], j[1], j[2], j[4], extra_k=j[5],
+                                       extra_v=j[6], block_tables=j[3]))
+    _close(pattn.decode_attention(t[0], t[1], t[2], t[4], extra_k=t[5],
+                                  extra_v=t[6], block_tables=t[3]),
+           got.numpy(), dict(atol=0, rtol=0))
+
+
+@pytest.mark.parametrize("s", [16, 3])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_prefill_attention_plain_matches_pallas_and_model(s, per_row):
+    b, c, hq, hkv, dh = 3, 40, 8, 2, 16
+    q, kh, vh, ks, vs = _inputs(6, (b, s, hq, dh), (b, c, hkv, dh),
+                                (b, c, hkv, dh), (b, s, hkv, dh),
+                                (b, s, hkv, dh))
+    hist = np.array([0, 17, c], np.int32) if per_row else np.int32(23)
+    t = [torch.from_numpy(np.asarray(a)) for a in (q, kh, vh, hist, ks, vs)]
+    j = [jnp.asarray(a) for a in (q, kh, vh, hist, ks, vs)]
+    got = ops.prefill_attention(*t)
+    _close(got, jops.prefill_attention(*j))         # Pallas interpret
+    _close(got, jattn.prefill_over_cache(*j))       # the model's op
+    _close(ops.verify_attention(*t), got.numpy(), dict(atol=0, rtol=0))
+    _close(pattn.prefill_over_cache(*t), got.numpy(), dict(atol=0, rtol=0))
+
+
 def test_cpu_ops_take_plain_versions_and_launch_nothing():
     ops.reset_launch_counts()
     x, w = _inputs(3, (4, 64), (64,))
     got = ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(w))
     assert torch.equal(got, ref.rmsnorm(torch.from_numpy(x),
                                         torch.from_numpy(w)))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                                   "decode_attention": 0}
+    assert ops.launch_counts() == {
+        "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+        "paged_decode_attention": 0, "prefill_attention": 0}
