@@ -5,15 +5,16 @@
 
 Phases, one line each (any failure exits non-zero):
 
-1. device — the card, its power limit, the toolchain; every kernel of
-   the served paths built from ``src/repro_torch/kernels/csrc`` with
-   nvcc, one process per source, all started together;
+1. device — the card, its power limit, the toolchain; every kernel
+   built from ``src/repro_torch/kernels/csrc`` with nvcc, one process
+   per source, all started together;
 2. kernels — each kernel against its plain PyTorch version at the
    paths' shapes, in bf16 and float32, with its time (CUDA events),
    the plain version's, one PyTorch library call's where one computes
    the same function, and the bound the card's roofline allows; the
    paged decode (K2) must also be bitwise equal to the contiguous one
-   (K1) on the same rows;
+   (K1) on the same rows; the int4 GEMV (K6) at phi3-mini's projection
+   shapes, K1 / K2 / K3 at its head dim 96;
 3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
    must equal the port's own batch-1 prefill + decode_step loop, and
@@ -23,14 +24,20 @@ Phases, one line each (any failure exits non-zero):
    + blocking, paged + chunked and paged + speculative: tok/s, TTFT,
    inter-token latency, resident KV, chunk dispatches, acceptance; the
    first prefill's and the first chunked prefill's logits held against
-   runs through the plain versions.
+   runs through the plain versions;
+5. W4A16 mobile decode — full-width phi3-mini-3.8b in bf16, every
+   projection int4 at group 128: a 512-token prefill, then 16
+   teacher-forced W16 ``decode_step``s beside ``w4_decode_step``s
+   (``examples/torch_w4_mobile_decode.py``): per-step fidelity and wall
+   ms, the prefill's and every W4 step's logits held against runs
+   through the plain versions.
 
-Every engine run checks each kernel's launch count against what its
-path must launch.
+Every engine run and every W4 step checks each kernel's launch count
+against what its path must launch.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. It needs CUDA and the repository's
-``src/`` beside it; it imports nothing of JAX.
+``src/`` and ``examples/`` beside it; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -148,15 +155,89 @@ def _compare(name, case, dtype_name, got, want, *, ms, plain_ms, lib_ms,
             "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
 
 
+def sdpa(q, k, v, mask=None, causal=True):
+    """``scaled_dot_product_attention`` on the model's (B, S, H, Dh)
+    layout (the library yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=g > 1).transpose(1, 2)
+
+
+def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
+    """K1 over a ragged contiguous cache with the self partial, and K2
+    on the same rows in a pool of scattered blocks (bitwise K1). Library
+    yardstick of both: SDPA over cache ++ self with a boolean mask —
+    the mask, the concatenation and, for K2, the table gather built
+    here, outside the timed call."""
+    import torch
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import paged_decode_attention as kpdec
+    from repro_torch.kernels import ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nb, w = b * cap // bs, cap // bs
+    q = _rand(gen, (b, 1, hq, dh), dtype)
+    kc = _rand(gen, (b, cap, hkv, dh), dtype)
+    vc = _rand(gen, (b, cap, hkv, dh), dtype)
+    ek = _rand(gen, (b, 1, hkv, dh), dtype)
+    ev = _rand(gen, (b, 1, hkv, dh), dtype)
+    lens = torch.randint(1, cap + 1, (b,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    lens[0] = cap  # one full row
+    tot = int(lens.sum().item())
+    dec_bytes = ((2 * tot * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh)
+                 * elt + 4 * b)
+    pos = torch.arange(cap + 1, device="cuda")
+    mask = ((pos[None, :] < lens[:, None]) | (pos[None, :] == cap)
+            )[:, None, None, :]                     # (B, 1, 1, C + 1)
+    k_cat, v_cat = torch.cat([kc, ek], 1), torch.cat([vc, ev], 1)
+    cases = [(
+        "decode_attention",
+        f"B={b},C={cap},Hq={hq},Hkv={hkv},Dh={dh},sum_len={tot},self",
+        lambda: kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
+                                      extra_v=ev),
+        lambda: ref.decode_attention(q, kc, vc, lens, extra_k=ek,
+                                     extra_v=ev),
+        lambda: sdpa(q, k_cat, v_cat, mask),
+        dec_bytes, 4 * (tot + b) * hq * dh, None)]
+    # K2: the same rows in a pool of NB blocks, at a seeded random
+    # permutation of block ids; entries past each row's length are
+    # sentinels (NB)
+    perm = torch.randperm(nb, generator=gen, device="cuda")
+    tab = perm.reshape(b, w).to(torch.int32)
+    kp = torch.empty((nb, bs, hkv, dh), dtype=dtype, device="cuda")
+    vp = torch.empty_like(kp)
+    kp[tab.reshape(-1).long()] = kc.reshape(b * w, bs, hkv, dh)
+    vp[tab.reshape(-1).long()] = vc.reshape(b * w, bs, hkv, dh)
+    n_blk = (lens.long() + bs - 1) // bs
+    tab[torch.arange(w, device="cuda")[None, :] >= n_blk[:, None]] = nb
+    kg = torch.cat([ref.gather_kv_blocks(kp, tab), ek], 1)
+    vg = torch.cat([ref.gather_kv_blocks(vp, tab), ev], 1)
+    cases.append((
+        "paged_decode_attention",
+        f"B={b},C={cap},bs={bs},NB={nb},Hq={hq},Hkv={hkv},Dh={dh},"
+        f"sum_len={tot},self,scattered",
+        lambda: kpdec.paged_decode_attention(q, kp, vp, tab, lens,
+                                             extra_k=ek, extra_v=ev),
+        lambda: ref.paged_decode_attention(q, kp, vp, tab, lens,
+                                           extra_k=ek, extra_v=ev),
+        lambda: sdpa(q, kg, vg, mask),
+        dec_bytes + 4 * tab.numel(), 4 * (tot + b) * hq * dh,
+        # K1 on the dense copy of the same rows: bitwise equal
+        lambda: kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
+                                      extra_v=ev)))
+    return cases
+
+
 def kernel_cases(gen, dtype):
     """(name, case, kernel_fn, plain_fn, library_fn|None, bytes, flops,
     same_fn|None) at the paths' shapes for one dtype; ``same_fn`` is a
     second kernel whose output must be bitwise equal."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import paged_decode_attention as kpdec
     from repro_torch.kernels import prefill_attention as kpre
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as krn
@@ -173,13 +254,6 @@ def kernel_cases(gen, dtype):
             lambda x=x, w=w: ref.rmsnorm(x, w),
             lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps=1e-6),
             (2 * m * d + d) * elt, 4 * m * d, None))
-
-    def sdpa(q, k, v, mask=None, causal=True):
-        g = q.shape[2] // k.shape[2]
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=g > 1).transpose(1, 2)
 
     s, dh = 512, 64
     for case, hq, hkv, window in (("causal", 16, 16, None),
@@ -205,56 +279,9 @@ def kernel_cases(gen, dtype):
             (2 * q.numel() + k.numel() + v.numel()) * elt,
             4 * pairs * hq * dh, None))
 
-    b, cap, bs = 8, 2048, 16
-    nb, w = b * cap // bs, cap // bs
+    b, cap = 8, 2048
     for case, hq, hkv in (("mha", 16, 16), ("gqa", 8, 2)):
-        q = _rand(gen, (b, 1, hq, dh), dtype)
-        kc = _rand(gen, (b, cap, hkv, dh), dtype)
-        vc = _rand(gen, (b, cap, hkv, dh), dtype)
-        ek = _rand(gen, (b, 1, hkv, dh), dtype)
-        ev = _rand(gen, (b, 1, hkv, dh), dtype)
-        lens = torch.randint(1, cap + 1, (b,), generator=gen,
-                             device="cuda", dtype=torch.int32)
-        lens[0] = cap  # one full row
-        tot = int(lens.sum().item())
-        dec_bytes = ((2 * tot * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh)
-                     * elt + 4 * b)
-        cases.append((
-            "decode_attention",
-            f"B={b},C={cap},Hq={hq},Hkv={hkv},Dh={dh},sum_len={tot},self",
-            lambda q=q, kc=kc, vc=vc, lens=lens, ek=ek, ev=ev:
-                kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
-                                      extra_v=ev),
-            lambda q=q, kc=kc, vc=vc, lens=lens, ek=ek, ev=ev:
-                ref.decode_attention(q, kc, vc, lens, extra_k=ek,
-                                     extra_v=ev),
-            None, dec_bytes, 4 * (tot + b) * hq * dh, None))
-        # K2: the same rows in a pool of NB blocks, at a seeded random
-        # permutation of block ids; entries past each row's length are
-        # sentinels (NB)
-        perm = torch.randperm(nb, generator=gen, device="cuda")
-        tab = perm.reshape(b, w).to(torch.int32)
-        kp = torch.empty((nb, bs, hkv, dh), dtype=dtype, device="cuda")
-        vp = torch.empty_like(kp)
-        kp[tab.reshape(-1).long()] = kc.reshape(b * w, bs, hkv, dh)
-        vp[tab.reshape(-1).long()] = vc.reshape(b * w, bs, hkv, dh)
-        n_blk = (lens.long() + bs - 1) // bs
-        tab[torch.arange(w, device="cuda")[None, :] >= n_blk[:, None]] = nb
-        cases.append((
-            "paged_decode_attention",
-            f"B={b},C={cap},bs={bs},NB={nb},Hq={hq},Hkv={hkv},Dh={dh},"
-            f"sum_len={tot},self,scattered",
-            lambda q=q, kp=kp, vp=vp, tab=tab, lens=lens, ek=ek, ev=ev:
-                kpdec.paged_decode_attention(q, kp, vp, tab, lens,
-                                             extra_k=ek, extra_v=ev),
-            lambda q=q, kp=kp, vp=vp, tab=tab, lens=lens, ek=ek, ev=ev:
-                ref.paged_decode_attention(q, kp, vp, tab, lens,
-                                           extra_k=ek, extra_v=ev),
-            None, dec_bytes + 4 * tab.numel(), 4 * (tot + b) * hq * dh,
-            # K1 on the dense copy of the same rows: bitwise equal
-            lambda q=q, kc=kc, vc=vc, lens=lens, ek=ek, ev=ev:
-                kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
-                                      extra_v=ev)))
+        cases += decode_cases(gen, dtype, b, cap, hq, hkv, dh)
 
     # K4: one chunk over a cached history, then a ragged verify
     for case, bq, s, hq, hkv, hist in (
@@ -299,17 +326,105 @@ def kernel_cases(gen, dtype):
     return cases
 
 
+def int4pack_library(x, packed, scales, group):
+    """PyTorch's int4 weight-only GEMM (``aten._weight_int4pack_mm``)
+    on the same weight as a library yardstick: repacked here, outside
+    the timed call, into its (N, K/2) uint8 input — unsigned nibbles
+    q = v + 8, even k in the high nibble — which it dequantizes as
+    (q - 8) * scale + zero, with zero = 0 and the scales rounded to
+    bf16. Returns (fn, note), or (None, why) when the installed PyTorch
+    refuses the shape or disagrees with the plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    q = ref.unpack_int4(packed).t().to(torch.int32) + 8          # (N, K)
+    w_u8 = ((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8).contiguous()
+    sz = torch.stack([scales, torch.zeros_like(scales)], -1).to(
+        torch.bfloat16).contiguous()                         # (K/g, N, 2)
+    try:
+        w4d = torch.ops.aten._convert_weight_to_int4pack(w_u8, 8)
+        got = torch.ops.aten._weight_int4pack_mm(x, w4d, group, sz).float()
+    except RuntimeError as e:  # the yardstick only: the port never calls it
+        return None, f"refused: {str(e).splitlines()[0][:120]}"
+    want = ref.quant_gemv(x, packed, scales, group=group).float()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=TOL["bfloat16"],
+                          rtol=TOL["bfloat16"]):
+        return None, ("disagrees with the plain version: "
+                      f"max_abs_err={err:.3e}")
+    return (lambda: torch.ops.aten._weight_int4pack_mm(x, w4d, group, sz)
+            ), f"max_abs_err={err:.3e}"
+
+
+# K6 at the W4 path's projection shapes of phi3-mini-3.8b (d 3072,
+# d_ff 8192), then B=8, group 64 and a ragged column tile
+QUANT_SHAPES = (("w_gate", 1, 3072, 8192, 128),
+                ("w_down", 1, 8192, 3072, 128),
+                ("wq", 1, 3072, 3072, 128),
+                ("w_gate", 8, 3072, 8192, 128),
+                ("w_gate", 1, 3072, 8192, 64),
+                ("ragged_N", 1, 3072, 3000, 128))
+
+
+def w4_path_cases(gen, dtype):
+    """The W4 path's kernels (its own generator, so the earlier cases'
+    inputs stay as they were): K6 at ``QUANT_SHAPES``; K3 and K1 (with
+    K2 bitwise K1) at phi3-mini's head dim 96 and 32 heads."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import quant_gemv as kqg
+    from repro_torch.kernels import ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    dname = str(dtype).removeprefix("torch.")
+    cases = []
+    for label, b, k, n, group in QUANT_SHAPES:
+        case = f"{label},B={b},K={k},N={n},group={group}"
+        x = _rand(gen, (b, k), dtype)
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        packed, scales = ref.quantize_int4(w, group=group)
+        lib = None
+        if dtype == torch.bfloat16:
+            lib, note = int4pack_library(x, packed, scales, group)
+            w_deq = (ref.unpack_int4(packed).float()
+                     * scales.repeat_interleave(group, 0)).to(dtype)
+            log("kernels", kernel="quant_gemv", case=case, dtype=dname,
+                library="aten._weight_int4pack_mm", library_note=note,
+                w16_matmul_ms=f"{time_ms(lambda: x @ w_deq):.4f}")
+            del w_deq
+        cases.append((
+            "quant_gemv", case,
+            lambda x=x, p=packed, s=scales, g=group: kqg.quant_gemv(
+                x, p, s, group=g),
+            lambda x=x, p=packed, s=scales, g=group: ref.quant_gemv(
+                x, p, s, group=g),
+            lib, k * n // 2 + 4 * (k // group) * n + (b * k + b * n) * elt,
+            2 * b * k * n, None))
+
+    s, h, dh = 512, 32, 96
+    q = _rand(gen, (1, s, h, dh), dtype)
+    k = _rand(gen, (1, s, h, dh), dtype)
+    v = _rand(gen, (1, s, h, dh), dtype)
+    cases.append((
+        "flash_attention", f"B=1,S={s},Hq={h},Hkv={h},Dh={dh},causal",
+        lambda: kfa.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention(q, k, v, causal=True),
+        lambda: sdpa(q, k, v),
+        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * h * dh, None))
+    cases += decode_cases(gen, dtype, 8, 2048, h, h, dh)
+    return cases
+
+
 def phase_kernels() -> dict:
     """Every kernel vs its plain version, both dtypes. Returns, per
     kernel, the bf16 numbers at its first (main-path) shape and the
     largest error seen."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen_w4 = torch.Generator(device="cuda").manual_seed(SEED + 13)
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
-        for name, case, kfn, pfn, lfn, nbytes, flops, same in kernel_cases(
-                gen, dtype):
+        for name, case, kfn, pfn, lfn, nbytes, flops, same in (
+                kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)):
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
             if same is not None:
@@ -344,7 +459,7 @@ def plain_kernels():
     package itself never falls back)."""
     from repro_torch.kernels import ops, ref
     names = ("flash_attention", "decode_attention", "paged_decode_attention",
-             "prefill_attention")
+             "prefill_attention", "quant_gemv")
     saved = {n: getattr(ops, n) for n in ("rmsnorm", *names)}
     ops.rmsnorm = lambda x, w, *, eps=1e-6: ref.rmsnorm(x, w, eps)
     for n in names:
@@ -394,6 +509,7 @@ def check_launches(phase, eng, counts) -> None:
         "decode_attention": (0 if paged else n * decodes) + k * draft_decodes,
         "paged_decode_attention": n * decodes if paged else 0,
         "prefill_attention": n * over_cache,
+        "quant_gemv": 0,
     }
     # the kernels this path must have launched at least once
     path = {"rmsnorm",
@@ -593,6 +709,139 @@ def phase_engine_bf16(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the W4A16 mobile decode path at full width
+# ---------------------------------------------------------------------------
+
+W4_ARCH = "phi3-mini-3.8b"
+W4_GROUP = 128
+W4_PROMPT = 512
+W4_CAPACITY = 1024
+W4_STEPS = 16
+
+
+def _logit_gate(what, got, want) -> float:
+    """Normwise relative error of ``got`` against ``want`` within the
+    bf16 tolerance, and the same argmax in every row."""
+    import torch
+    rel = ((got - want).norm() / want.norm()).item()
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    if not (rel <= TOL["bfloat16"] and same):
+        raise AssertionError(f"{what}: relative error {rel:.3e} (tolerance "
+                             f"{TOL['bfloat16']}), argmax equal {same}")
+    return rel
+
+
+def phase_w4(card: str) -> dict:
+    """Full-width phi3-mini-3.8b in bf16 (seeded weights), every
+    projection quantized to int4 at group 128: a 512-token prefill at
+    capacity 1024, then 16 teacher-forced steps of the W16
+    ``decode_step`` beside ``w4_decode_step``, through
+    ``examples/torch_w4_mobile_decode.py``. Gates: the prefill logits
+    and every W4 step's logits against the same run through the plain
+    versions, and the exact launches of each W4 step. Returns the launch
+    counts of the prefill and the teacher-forced run."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO / "examples"))
+    import torch_w4_mobile_decode as tw4
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+    from repro_torch.models import w4
+    cfg = registry.get_config(W4_ARCH)
+    if cfg.dtype != "bfloat16" or cfg.d_head != 96:
+        raise AssertionError(f"{W4_ARCH}: dtype {cfg.dtype}, Dh "
+                             f"{cfg.d_head}; expected bfloat16 and 96")
+    n = cfg.n_layers
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    t0 = time.perf_counter()
+    qp = w4.quantize_params(params, W4_GROUP)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    packed = scales = dense = 0
+    for sub, names in (("attn", ("wq", "wk", "wv", "wo")),
+                       ("mlp", ("w_gate", "w_up", "w_down"))):
+        for name in names:
+            packed += qp["layers"][sub][name]["packed"].numel()
+            scales += qp["layers"][sub][name]["scales"].numel() * 4
+            dense += params["layers"][sub][name].numel() * 2
+    log("w4", arch=W4_ARCH, layers=n, d_model=cfg.d_model,
+        heads=cfg.n_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, group=W4_GROUP, quantize_s=f"{quant_s:.1f}",
+        packed_bytes=packed, scale_bytes=scales, bf16_proj_bytes=dense,
+        proj_byte_ratio=f"{dense / (packed + scales):.3f}")
+
+    rng = np.random.default_rng(SEED + 2)
+    prompt = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(1, W4_PROMPT)),
+        dtype=torch.int32, device="cuda")
+    batch = {"tokens": prompt}
+    with plain_kernels():
+        want, _ = MD.prefill(params, cfg, batch, None)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits, cache = MD.prefill(params, cfg, batch, W4_CAPACITY)
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    want_prefill = {k: 0 for k in total} | {"flash_attention": n,
+                                            "rmsnorm": 2 * n + 1}
+    if total != want_prefill:
+        raise AssertionError(f"w4 prefill launches {total} != "
+                             f"{want_prefill}")
+    rel = _logit_gate("w4 bf16 prefill logits", logits, want)
+    log("w4", logits="prefill", prompt_len=W4_PROMPT, rel_err=f"{rel:.3e}",
+        tol=TOL["bfloat16"], argmax_equal=True,
+        launches=json.dumps(total))
+
+    tw4.teacher_forced(params, qp, cfg, logits, cache, 2, W4_GROUP)  # warm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = tw4.teacher_forced(params, qp, cfg, logits, cache, W4_STEPS,
+                             W4_GROUP)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    per_step = {k: 0 for k in counts} | {"quant_gemv": 7 * n,
+                                         "rmsnorm": 2 * n + 1,
+                                         "decode_attention": n}
+    want_run = {k: 0 for k in counts} | {
+        "quant_gemv": 7 * n * W4_STEPS,
+        "rmsnorm": (2 * n + 1) * 2 * W4_STEPS,
+        "decode_attention": n * 2 * W4_STEPS}
+    log("w4", launches=json.dumps(counts), expected=json.dumps(want_run),
+        per_w4_step=json.dumps(res["w4_launches"][0]),
+        expected_per_w4_step=json.dumps(per_step))
+    if counts != want_run or any(c != per_step for c in res["w4_launches"]):
+        raise AssertionError(f"w4: launches {counts} != {want_run}, or a "
+                             f"W4 step's launches != {per_step}")
+    with plain_kernels():
+        plain = tw4.teacher_forced(params, qp, cfg, logits, cache, W4_STEPS,
+                                   W4_GROUP, tokens=res["tokens"])
+    corr, mad = [], []
+    for i in range(W4_STEPS):
+        c, m = tw4.fidelity(res["w16"][i], res["w4"][i])
+        corr.append(c)
+        mad.append(m)
+        rel = _logit_gate(f"w4 step {i} logits", res["w4"][i],
+                          plain["w4"][i])
+        rel16 = ((res["w16"][i] - plain["w16"][i]).norm()
+                 / plain["w16"][i].norm()).item()
+        log("w4", step=i, token=int(res["tokens"][i][0, 0]),
+            corr=f"{c:.4f}", max_abs_dlogprob=f"{m:.4f}",
+            w16_ms=f"{res['w16_ms'][i]:.2f}", w4_ms=f"{res['w4_ms'][i]:.2f}",
+            w4_vs_plain_rel_err=f"{rel:.3e}",
+            w16_vs_plain_rel_err=f"{rel16:.3e}")
+    log("w4", steps=W4_STEPS, min_corr=f"{min(corr):.4f}",
+        max_abs_dlogprob=f"{max(mad):.4f}",
+        w16_ms_median=f"{statistics.median(res['w16_ms']):.2f}",
+        w4_ms_median=f"{statistics.median(res['w4_ms']):.2f}",
+        w4_plain_ms_median=f"{statistics.median(plain['w4_ms']):.2f}",
+        tol=TOL["bfloat16"], card=f"'{card}'")
+    for name, c in counts.items():
+        total[name] += c
+    return total
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -605,6 +854,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:230"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:25"),
+    "quant_gemv": ("src/repro_torch/kernels/csrc/quant_gemv.cu",
+                   "src/repro/kernels/quant_gemv.py:56"),
 }
 
 
@@ -623,6 +874,9 @@ def main() -> int:
     phase_engine_f32()
     torch.cuda.empty_cache()
     counts = phase_engine_bf16(card)
+    torch.cuda.empty_cache()
+    for name, c in phase_w4(card).items():
+        counts[name] += c
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("rmsnorm", "flash_attention", "decode_attention",
-           "prefill_attention")
+           "prefill_attention", "quant_gemv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,25 +106,35 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def check_operand(what: str, t: torch.Tensor, dtype: torch.dtype, *,
+                  align: int = 16) -> None:
+    """Validate one kernel operand: ``dtype``, on CUDA device 0 (the
+    libraries' runtime targets the first card), contiguous, ``align``-
+    byte aligned (16 for the kernels' vector loads)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: operand dtype {t.dtype}, the kernel "
+                        f"takes {dtype}")
+    if t.device.type != "cuda" or (t.device.index or 0) != 0:
+        raise ValueError(f"{what}: operand on {t.device}, the kernel "
+                         "runs on cuda:0")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: operand of shape {tuple(t.shape)} "
+                         "is not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{what}: operand is not {align}-byte aligned")
+
+
 def launch_dtype(what: str, *tensors: torch.Tensor) -> int:
-    """Validate kernel operands — on CUDA device 0 (the libraries'
-    runtime targets the first card), contiguous, 16-byte aligned, one
-    element type the kernels take — and return that type's code."""
+    """Validate kernel operands of one element type the kernels take
+    (each as :func:`check_operand`) and return that type's code."""
     dt = tensors[0].dtype
     if dt not in _DTYPE_CODES:
         raise TypeError(f"{what}: dtype {dt} unsupported "
                         "(float32 or bfloat16)")
     for t in tensors:
-        if t.device.type != "cuda" or (t.device.index or 0) != 0:
-            raise ValueError(f"{what}: operand on {t.device}, the kernel "
-                             "runs on cuda:0")
         if t.dtype != dt:
             raise TypeError(f"{what}: mixed dtypes {dt} and {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: operand of shape {tuple(t.shape)} "
-                             "is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: operand is not 16-byte aligned")
+        check_operand(what, t, dt)
     return _DTYPE_CODES[dt]
 
 

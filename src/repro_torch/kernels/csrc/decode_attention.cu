@@ -134,19 +134,23 @@ __global__ void __launch_bounds__(kSplit)
   }
   __syncthreads();  // all probabilities and rows visible
 
-  // P V: thread -> (dim d, slot group grp); groups stride over the split
+  // P V: thread -> (dim d, slot group grp); groups stride over the split.
+  // When DH does not divide kSplit (DH = 96) the threads past
+  // ngrp * DH have no group and do no PV work.
   const int d = tid % DH, grp = tid / DH, ngrp = kSplit / DH;
-  float acc[kMaxG];
+  if (grp < ngrp) {
+    float acc[kMaxG];
 #pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
-  const int n_here = min(kSplit, len - start);
-  for (int jj = grp; jj < n_here; jj += ngrp) {
-    const float vv = port::to_f(vc[(row_of[jj] * hkv + h) * DH + d]);
+    for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
+    const int n_here = min(kSplit, len - start);
+    for (int jj = grp; jj < n_here; jj += ngrp) {
+      const float vv = port::to_f(vc[(row_of[jj] * hkv + h) * DH + d]);
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi)
-      if (gi < g) acc[gi] += ps[gi * kSplit + jj] * vv;
+      for (int gi = 0; gi < kMaxG; ++gi)
+        if (gi < g) acc[gi] += ps[gi * kSplit + jj] * vv;
+    }
+    for (int gi = 0; gi < g; ++gi) part[(grp * g + gi) * DH + d] = acc[gi];
   }
-  for (int gi = 0; gi < g; ++gi) part[(grp * g + gi) * DH + d] = acc[gi];
   __syncthreads();
   if (grp == 0) {
     for (int gi = 0; gi < g; ++gi) {
@@ -230,6 +234,9 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
     case 64:
       return launch_dh<T, 64>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
                               l_part, out, b, cap, hkv, g, ns, scale, s);
+    case 96:
+      return launch_dh<T, 96>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
+                              l_part, out, b, cap, hkv, g, ns, scale, s);
     case 128:
       return launch_dh<T, 128>(q, kc, vc, ek, ev, lens, rows, o_part,
                                m_part, l_part, out, b, cap, hkv, g, ns,
@@ -266,7 +273,7 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
 // dh) or both null (no self partial); lens: (b,) int32 on the device.
 // o_part (b, hkv, g, ns, dh), m_part / l_part (b, hkv, g, ns): fp32
 // scratch from the caller, ns = ceil(cap / 128). g <= 8, dh in
-// {64, 128}; pointers 16-byte aligned.
+// {64, 96, 128}; pointers 16-byte aligned.
 KERNEL_EXPORT int decode_attention_launch(
     const void* q, const void* kc, const void* vc, const void* ek,
     const void* ev, const void* lens, void* o_part, void* m_part,

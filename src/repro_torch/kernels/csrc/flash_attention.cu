@@ -128,7 +128,10 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out,
                       int b, int sq, int skv, int hq, int hkv, int causal,
                       int window, int q_offset, float scale,
                       cudaStream_t stream) {
-  constexpr int BK = DH >= 128 ? 32 : 64;
+  // K and V tiles of BK x DH fp32 in static shared memory (48 KiB at
+  // most): 64 keys at DH 64, 32 from DH 96 on (64 x 96 would fill the
+  // 48 KiB exactly)
+  constexpr int BK = DH > 64 ? 32 : 64;
   dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
   flash_fwd_kernel<T, DH, BK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -146,6 +149,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch_dh<T, 64>(q, k, v, out, b, sq, skv, hq, hkv, causal,
                               window, q_offset, scale, s);
+    case 96:
+      return launch_dh<T, 96>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                              window, q_offset, scale, s);
     case 128:
       return launch_dh<T, 128>(q, k, v, out, b, sq, skv, hq, hkv, causal,
                                window, q_offset, scale, s);
@@ -157,7 +163,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q, out: (b, sq, hq, dh); k, v: (b, skv, hkv, dh); all contiguous, one
-// dtype. window <= 0 means no window. dh in {64, 128}.
+// dtype. window <= 0 means no window. dh in {64, 96, 128}.
 KERNEL_EXPORT int flash_attention_launch(const void* q, const void* k,
                                          const void* v, void* out, int b,
                                          int sq, int skv, int hq, int hkv,

@@ -20,7 +20,7 @@ launches = 0
 
 SPLIT = 128   # cache slots per pass-1 block (kSplit in the source)
 MAX_G = 8     # query heads per KV head (kMaxG)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # both exports of csrc/decode_attention.cu (K1 here, K2 in

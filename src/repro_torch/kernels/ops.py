@@ -14,12 +14,13 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import prefill_attention as _pre
+from repro_torch.kernels import quant_gemv as _qg
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
 _KERNELS = {"rmsnorm": _rn, "flash_attention": _fa,
             "decode_attention": _dec, "paged_decode_attention": _pdec,
-            "prefill_attention": _pre}
+            "prefill_attention": _pre, "quant_gemv": _qg}
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -82,6 +83,15 @@ def verify_attention(q, k_hist, v_hist, hist_len, k_self, v_self):
     """Speculative-verify attention: each row's S = gamma + 1 candidates
     at its own ``hist_len`` (per-row (B,)) — the same kernel (K4)."""
     return prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self)
+
+
+def quant_gemv(x, w_packed, scales, *, group=128):
+    """W4A16 GEMV/GEMM: x (B, K) @ the int4 weight ``w_packed``
+    (K//2, N) uint8 with per-group ``scales`` (K//group, N), fp32
+    accumulation, x's dtype out (K6)."""
+    if _on_card(x):
+        return _qg.quant_gemv(x, w_packed, scales, group=group)
+    return ref.quant_gemv(x, w_packed, scales, group=group)
 
 
 def launch_counts() -> dict:

@@ -125,3 +125,45 @@ def prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     return out.reshape(b, s, hq, dh).to(q.dtype)
+
+
+def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 in [-8, 7] -> (K//2, N) uint8, row 2k in the low
+    nibble and row 2k+1 in the high one (``repro.kernels.ref.pack_int4``,
+    byte for byte)."""
+    w = torch.where(w_int < 0, w_int + 16, w_int).to(torch.uint8)
+    return w[0::2] | (w[1::2] << 4)
+
+
+def quantize_int4(w: torch.Tensor, group: int = 128):
+    """(K, N) float -> (packed (K//2, N) uint8, scales (K//group, N) f32):
+    symmetric per-(group, column) int4, the reference's arithmetic step
+    for step (amax / 7, floor 1e-8, round half to even, clip to [-8, 7]),
+    so the bytes and scales are identical to
+    ``repro.kernels.ref.quantize_int4``."""
+    k, n = w.shape
+    wg = w.float().reshape(k // group, group, n)
+    scales = torch.clamp(wg.abs().amax(1) / 7.0, min=1e-8)
+    q = torch.clamp(torch.round(wg / scales[:, None, :]), -8, 7)
+    return pack_int4(q.reshape(k, n).to(torch.int8)), scales
+
+
+def unpack_int4(w_packed: torch.Tensor) -> torch.Tensor:
+    """(K//2, N) uint8 -> (K, N) int8 in [-8, 7]: nibbles >= 8 are
+    ``v - 16``."""
+    kp, n = w_packed.shape
+    lo = (w_packed & 0xF).to(torch.int8)
+    hi = (w_packed >> 4).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.stack([lo, hi], dim=1).reshape(2 * kp, n)
+
+
+def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
+               scales: torch.Tensor, *, group: int = 128) -> torch.Tensor:
+    """W4A16 GEMV/GEMM ``x (B, K) @ dequant(w_packed, scales)``: the
+    weight dequantized to fp32, the product accumulated in fp32, the
+    result in x's dtype (``repro.kernels.ref.quant_gemv_ref``)."""
+    s_full = scales.float().repeat_interleave(group, dim=0)     # (K, N)
+    w_deq = unpack_int4(w_packed).float() * s_full
+    return (x.float() @ w_deq).to(x.dtype)

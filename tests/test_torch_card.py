@@ -108,3 +108,53 @@ def test_prefill_attention_matches_plain_on_card(card, dtype, tol, s):
         want = ref.prefill_attention(q, kh, vh, hist_len, ks, vs)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,k,n,group", [(1, 3072, 8192, 128),
+                                         (8, 3072, 8192, 128),
+                                         (3, 512, 320, 64),
+                                         (1, 1024, 200, 256)])
+def test_quant_gemv_matches_plain_on_card(card, dtype, tol, b, k, n, group):
+    """K6 against its plain version; N = 320 and 200 leave a ragged
+    column tile."""
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn((b, k), generator=g, device=card).to(dtype)
+    w = torch.randn((k, n), generator=g, device=card) / k ** 0.5
+    packed, scales = ref.quantize_int4(w, group=group)
+    got = ops.quant_gemv(x, packed, scales, group=group)
+    want = ref.quant_gemv(x, packed, scales, group=group)
+    assert got.dtype == dtype and tuple(got.shape) == (b, n)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_head_dim_96_kernels_match_plain_on_card(card, dtype, tol):
+    """K3 and K1 at phi3-mini's head dim, and K2 bitwise K1 there."""
+    g = torch.Generator(device=card).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=card).to(dtype)
+
+    q, k, v = rnd(1, 200, 4, 96), rnd(1, 200, 4, 96), rnd(1, 200, 4, 96)
+    torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                               ref.flash_attention(q, k, v).float(),
+                               atol=tol, rtol=tol)
+    b, cap, bs, h = 4, 304, 16, 4
+    q, kc, vc = rnd(b, 1, h, 96), rnd(b, cap, h, 96), rnd(b, cap, h, 96)
+    ek, ev = rnd(b, 1, h, 96), rnd(b, 1, h, 96)
+    lens = torch.tensor([304, 129, 1, 0], dtype=torch.int32, device=card)
+    got = ops.decode_attention(q, kc, vc, lens, extra_k=ek, extra_v=ev)
+    want = ref.decode_attention(q, kc, vc, lens, extra_k=ek, extra_v=ev)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    kp, tab = _scatter_to_pool(kc, bs, 80, lens.tolist(),
+                               torch.Generator().manual_seed(4))
+    vp, _ = _scatter_to_pool(vc, bs, 80, lens.tolist(),
+                             torch.Generator().manual_seed(4))
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, tab, lens,
+                                                  extra_k=ek, extra_v=ev),
+                       got)

@@ -1,9 +1,11 @@
-"""The port and its chip smoke script import neither JAX nor anything of
-the JAX package (``repro``), and the port's entry points refuse a CUDA
-device that is absent instead of carrying on on the CPU."""
+"""The port, its chip smoke script and its examples import neither JAX
+nor anything of the JAX package (``repro``), and the port's entry
+points refuse a CUDA device that is absent instead of carrying on on
+the CPU."""
 from __future__ import annotations
 
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -11,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_w4_mobile_decode.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -36,3 +38,11 @@ def test_cuda_entry_points_refuse_a_missing_card(monkeypatch):
     cfg = registry.get_smoke_config("qwen1.5-0.5b")
     with pytest.raises(RuntimeError, match="cuda"):
         MD.init_params(cfg)
+
+
+def test_w4_example_refuses_a_missing_card(monkeypatch):
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_w4_mobile_decode as tw4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tw4.run(n_steps=1, verbose=False)

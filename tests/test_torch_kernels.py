@@ -144,4 +144,5 @@ def test_cpu_ops_take_plain_versions_and_launch_nothing():
                                         torch.from_numpy(w)))
     assert ops.launch_counts() == {
         "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-        "paged_decode_attention": 0, "prefill_attention": 0}
+        "paged_decode_attention": 0, "prefill_attention": 0,
+        "quant_gemv": 0}

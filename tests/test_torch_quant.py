@@ -1,0 +1,107 @@
+"""Port int4 quantization and the plain W4A16 GEMV (K6's CPU path)
+against the JAX reference: ``repro.kernels.ref`` and the Pallas
+``quant_gemv`` in interpret mode, at small shapes."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+
+def _weights(seed, k, n, group):
+    """Seeded (K, N) float32 weights; the first column holds, in every
+    group, values exactly half a step between two int4 levels (scale
+    0.25: amax 1.75, entries (m + 0.5) * 0.25), so round-half-to-even
+    decides them."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((k, n)) * 0.5).astype(np.float32)
+    half = (np.arange(group) % 14 - 7 + 0.5) * 0.25    # -1.625 .. 1.625
+    half[0] = 1.75                                      # amax = 7 * 0.25
+    w[:, 0] = np.tile(half, k // group).astype(np.float32)
+    return w
+
+
+@pytest.mark.parametrize("group", [64, 128, 256])
+def test_quantize_int4_bytes_identical_to_reference(group):
+    k, n = 512, 96
+    w = _weights(group, k, n, group)
+    packed, scales = ref.quantize_int4(torch.from_numpy(w), group=group)
+    jp, js = jref.quantize_int4(jnp.asarray(w), group=group)
+    assert packed.dtype == torch.uint8 and scales.dtype == torch.float32
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(js))
+    # the half-step column really sits on ties: w / scale is k + 0.5
+    ratio = w[1:group, 0] / np.asarray(js)[0, 0]
+    assert np.all(ratio - np.floor(ratio) == 0.5)
+
+
+def test_pack_and_unpack_int4_round_trip_against_reference():
+    rng = np.random.default_rng(5)
+    w_int = rng.integers(-8, 8, size=(64, 24)).astype(np.int8)
+    packed = ref.pack_int4(torch.from_numpy(w_int))
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jref.pack_int4(
+                                      jnp.asarray(w_int))))
+    np.testing.assert_array_equal(ref.unpack_int4(packed).numpy(), w_int)
+
+
+# tests/test_kernels.py's (b, k, n, group), plus an N that is not a
+# multiple of the Pallas column block and group 64
+SHAPES = [(1, 256, 512, 128), (4, 512, 256, 128), (2, 1024, 1024, 256),
+          (3, 256, 320, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,k,n,group", SHAPES)
+def test_plain_quant_gemv_matches_pallas_and_reference(b, k, n, group,
+                                                       dtype):
+    """bf16: within the JAX test's own 5e-2 (one bf16 rounding of the
+    output); float32: the two differ only in summation order, so within
+    1e-5 of the output's magnitude."""
+    rng = np.random.default_rng(b * k + n)
+    x = rng.standard_normal((b, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.5).astype(np.float32)
+    jp, js = jref.quantize_int4(jnp.asarray(w), group=group)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = ops.quant_gemv(tx, torch.from_numpy(np.array(jp)),
+                         torch.from_numpy(np.array(js)), group=group)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (b, n)
+    got = got.float().numpy()
+    for want in (jops.quant_gemv(jx, jp, js, group=group, block_n=128),
+                 jref.quant_gemv_ref(jx, jp, js, group=group)):
+        want = np.asarray(want, np.float32)
+        if dtype == "float32":
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        else:
+            np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
+
+
+def test_quant_gemv_wrapper_refuses_cpu_operands_before_building():
+    from repro_torch.kernels import quant_gemv as kqg
+    x = torch.zeros((1, 128), dtype=torch.bfloat16)
+    packed = torch.zeros((64, 256), dtype=torch.uint8)
+    scales = torch.ones((1, 256))
+    with pytest.raises(ValueError, match="cuda:0"):
+        kqg.quant_gemv(x, packed, scales, group=128)
+    with pytest.raises(ValueError, match="group=96"):
+        kqg.quant_gemv(x, packed, torch.ones((1, 256)), group=96)
+    with pytest.raises(ValueError, match="shapes"):
+        kqg.quant_gemv(x, packed[:32], scales, group=128)
+
+
+@pytest.mark.parametrize("b,k,n,group", [(1, 3072, 8192, 128),
+                                         (1, 8192, 3072, 128),
+                                         (8, 3072, 8192, 128),
+                                         (1, 3072, 3000, 64),
+                                         (3, 256, 320, 64)])
+def test_k_splits_cover_every_group_once(b, k, n, group):
+    from repro_torch.kernels import quant_gemv as kqg
+    gps, ns = kqg.k_splits(b, k, n, group)
+    ng = k // group
+    assert gps >= 1 and (ns - 1) * gps < ng <= ns * gps
