@@ -9,12 +9,16 @@ Phases, one line each (any failure exits non-zero):
    built from ``src/repro_torch/kernels/csrc`` with nvcc, one process
    per source, all started together;
 2. kernels — each kernel against its plain PyTorch version at the
-   paths' shapes, in bf16 and float32, with its time (CUDA events),
-   the plain version's, one PyTorch library call's where one computes
-   the same function, and the bound the card's roofline allows; the
-   paged decode (K2) must also be bitwise equal to the contiguous one
-   (K1) on the same rows; the int4 GEMV (K6) at phi3-mini's projection
-   shapes, K1 / K2 / K3 at its head dim 96;
+   paths' shapes, in bf16 and float32, with its time per call (CUDA
+   events, host launch cost included), its device time per call
+   (``torch.profiler``), the plain version's time, one PyTorch library
+   call's where one computes the same function (both times), and the
+   bound the card's roofline allows; the paged decode (K2) must also be
+   bitwise equal to the contiguous one (K1) on the same rows, and the
+   prefill over a cache (K4) to its second run and to a run over a
+   block-table gather of the same rows from a larger pool; the int4
+   GEMV (K6) at phi3-mini's projection shapes, K1 / K2 / K3 / K4 at its
+   head dim 96;
 3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
    must equal the port's own batch-1 prefill + decode_step loop, and
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -95,6 +100,25 @@ def time_ms(fn, *, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(samples)
 
 
+def device_ms(fn, *, reps: int = 20) -> float | None:
+    """Device time per call: the kernels' summed device time in a
+    ``torch.profiler`` trace of ``reps`` calls (after a warm-up), over
+    ``reps`` — what ``time_ms`` reads without the host's launch cost;
+    None (not measured) if the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     """Least time the card could take: bytes over HBM bandwidth or
     operations over the dtype's peak rate, whichever is larger."""
@@ -106,6 +130,75 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # phase 1: device + build
 # ---------------------------------------------------------------------------
+
+def _instantiation(mangled: str) -> str:
+    """``kernel<args>`` from a mangled kernel name (float, bf16, int and
+    file-local struct template arguments), or the mangled name itself."""
+    for m in re.finditer(r"\d+", mangled):  # <length><identifier>
+        end = m.end() + int(m.group())
+        if (mangled[m.end():end].endswith("_kernel")
+                and mangled[end:end + 1] == "I" and "EEv" in mangled[end:]):
+            break
+    else:
+        return mangled
+    kernel, rest = mangled[m.end():end], mangled[end + 1:]
+    rest = rest[:rest.index("EEv")]
+    args = []
+    while rest:
+        if rest.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+            rest = rest[15:]
+        elif rest.startswith("f"):
+            args.append("f32")
+            rest = rest[1:]
+        elif re.match(r"NS_\d+", rest):          # a struct of the file
+            m = re.match(r"NS_(\d+)", rest)
+            args.append(rest[m.end():m.end() + int(m.group(1))])
+            rest = rest[m.end() + int(m.group(1)) + 1:]
+        elif rest.startswith("Li") and "E" in rest:
+            args.append(rest[2:rest.index("E")])
+            rest = rest[rest.index("E") + 1:]
+        else:
+            return mangled
+    return f"{kernel}<{','.join(args)}>"
+
+
+def ptxas_summary(log_text: str) -> list:
+    """One ``kernel<args>=registers/static smem bytes[/spills]`` entry
+    per instantiation in an ``nvcc -Xptxas -v`` log (dynamic shared
+    memory is set at launch and does not appear here)."""
+    out, name, spill = [], None, ""
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = _instantiation(m.group(1)), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and m.group(1) + m.group(2) != "00":
+            spill = f"/spill{m.group(1)}+{m.group(2)}B"
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+        if m and name is not None:
+            out.append(f"{name}={m.group(1)}r/{m.group(2) or 0}B{spill}")
+            name = None
+    return out
+
+
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM")  # tensor-core MMA, cp.async, ldmatrix
+
+
+def sass_counts(so: Path) -> str:
+    """How many tensor-core MMA, cp.async and ldmatrix instructions the
+    library's machine code holds (``cuobjdump -sass``)."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return "cuobjdump_not_found"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts = {op: len(re.findall(r"\b" + op + r"\b", sass))
+              for op in SASS_OPS}
+    return ",".join(f"{op}:{n}" for op, n in counts.items())
+
 
 def phase_device() -> str:
     import torch
@@ -120,9 +213,8 @@ def phase_device() -> str:
     build_s = time.perf_counter() - t0
     for name in _build.SOURCES:
         so = _build.library_path(name)
-        ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-                 .splitlines() if "registers" in ln or "spill" in ln]
-        log("build", kernel=name, lib=so.name, ptxas=" | ".join(ptxas))
+        log("build", kernel=name, lib=so.name, sass=sass_counts(so),
+            ptxas=" ".join(ptxas_summary(so.with_suffix(".log").read_text())))
     log("build", seconds=f"{build_s:.1f}", parallel_nvcc=len(_build.SOURCES))
     return card
 
@@ -137,7 +229,7 @@ def _rand(gen, shape, dtype):
 
 
 def _compare(name, case, dtype_name, got, want, *, ms, plain_ms, lib_ms,
-             nbytes, flops):
+             dev_ms, lib_dev_ms, nbytes, flops):
     import torch
     err = (got.float() - want.float()).abs().max().item()
     tol = TOL[dtype_name]
@@ -147,12 +239,17 @@ def _compare(name, case, dtype_name, got, want, *, ms, plain_ms, lib_ms,
         max_abs_err=f"{err:.3e}", tol=tol, ok=ok, ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}",
         library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
+        device_ms="null" if dev_ms is None else f"{dev_ms:.4f}",
+        library_device_ms="null" if lib_dev_ms is None
+        else f"{lib_dev_ms:.4f}",
         bound_ms=f"{bms:.4f}", bound_by=by)
     if not ok:
         raise AssertionError(f"{name} {case} {dtype_name}: max |err| "
                              f"{err:.3e} exceeds {tol}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms, "bound_ms": bms,
+            "bound_by": by}
 
 
 def sdpa(q, k, v, mask=None, causal=True):
@@ -201,7 +298,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
         lambda: ref.decode_attention(q, kc, vc, lens, extra_k=ek,
                                      extra_v=ev),
         lambda: sdpa(q, k_cat, v_cat, mask),
-        dec_bytes, 4 * (tot + b) * hq * dh, None)]
+        dec_bytes, 4 * (tot + b) * hq * dh, [])]
     # K2: the same rows in a pool of NB blocks, at a seeded random
     # permutation of block ids; entries past each row's length are
     # sentinels (NB)
@@ -226,19 +323,99 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
         lambda: sdpa(q, kg, vg, mask),
         dec_bytes + 4 * tab.numel(), 4 * (tot + b) * hq * dh,
         # K1 on the dense copy of the same rows: bitwise equal
-        lambda: kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
-                                      extra_v=ev)))
+        [("K1_on_the_same_rows",
+          lambda: kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
+                                        extra_v=ev))]))
+    return cases
+
+
+def gathered_history(gen, kh, hist_len, bs=16, extra_w=2):
+    """``kh``'s rows in a pool twice the size they need, at seeded
+    scattered block ids, read back through block tables ``extra_w``
+    blocks wider than the capacity (entries past each row's length are
+    the sentinel): the dense view a paged chunk or verify dispatch
+    gathers, longer than ``kh`` and holding other blocks' data past the
+    lengths."""
+    import torch
+    from repro_torch.kernels import ref
+    b, cap = kh.shape[:2]
+    w = cap // bs + extra_w
+    nb = 2 * b * w
+    tab = torch.randperm(nb, generator=gen, device="cuda")[:b * w].reshape(
+        b, w).to(torch.int32)
+    pool = _rand(gen, (nb, bs, *kh.shape[2:]), kh.dtype)
+    pool[tab[:, :cap // bs].reshape(-1).long()] = kh.reshape(
+        -1, bs, *kh.shape[2:])
+    n_blk = (hist_len.long() + bs - 1) // bs
+    tab[torch.arange(w, device="cuda")[None, :] >= n_blk[:, None]] = nb
+    return ref.gather_kv_blocks(pool, tab)
+
+
+def prefill_cases(gen, dtype, dh, specs, cap=2048):
+    """K4 at (case, B, S, Hq, Hkv, hist_len or None for ragged rows, one
+    near capacity), each with two bitwise checks: a second run, and the
+    history read through a block-table gather of a larger pool. Library
+    yardstick: SDPA over history ++ self with a boolean mask, both built
+    here, outside the timed call."""
+    import torch
+    from repro_torch.kernels import prefill_attention as kpre
+    from repro_torch.kernels import ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    cases = []
+    for case, bq, s, hq, hkv, hist in specs:
+        q = _rand(gen, (bq, s, hq, dh), dtype)
+        kh = _rand(gen, (bq, cap, hkv, dh), dtype)
+        vh = _rand(gen, (bq, cap, hkv, dh), dtype)
+        ks = _rand(gen, (bq, s, hkv, dh), dtype)
+        vs = _rand(gen, (bq, s, hkv, dh), dtype)
+        if hist is None:  # ragged per-row history, one row near capacity
+            hl = torch.randint(1, cap - s + 1, (bq,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+            hl[0] = cap - s
+        else:
+            hl = torch.tensor([hist], dtype=torch.int32, device="cuda")
+        tot = int(hl.sum().item())
+        pairs = tot * s + bq * s * (s + 1) // 2
+        k_cat, v_cat = torch.cat([kh, ks], 1), torch.cat([vh, vs], 1)
+        pos = torch.arange(cap + s, device="cuda")
+        rel = torch.arange(s, device="cuda")
+        mask = torch.where(pos[None, None, :] < cap,
+                           pos[None, None, :] < hl[:, None, None],
+                           pos[None, None, :] - cap <= rel[None, :, None])
+        mask = mask[:, None]                        # (B, 1, S, C + S)
+        kg, vg = gathered_history(gen, kh, hl), gathered_history(gen, vh, hl)
+        shape = "tiles"  # the launch shape; for splits, how many are read
+        if kpre.launch_plan(bq, s, cap, hq, dh, dtype).splits:
+            shape = f"splits={sum(kpre.live_splits(hl, bq, cap))}"
+        cases.append((
+            "prefill_attention",
+            f"{case},B={bq},S={s},C={cap},hist_len="
+            f"{hist if hist is not None else 'ragged'},sum_hist={tot},"
+            f"Hq={hq},Hkv={hkv},Dh={dh},{shape}",
+            lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
+                kpre.prefill_attention(q, kh, vh, hl, ks, vs),
+            lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
+                ref.prefill_attention(q, kh, vh, hl, ks, vs),
+            lambda q=q, k=k_cat, v=v_cat, m=mask: sdpa(q, k, v, m),
+            (2 * q.numel() + (2 * tot + 2 * bq * s) * hkv * dh) * elt
+            + 4 * bq,
+            4 * pairs * hq * dh,
+            [("second_run",
+              lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
+                  kpre.prefill_attention(q, kh, vh, hl, ks, vs)),
+             (f"block_table_gather_C={kg.shape[1]}",
+              lambda q=q, kg=kg, vg=vg, hl=hl, ks=ks, vs=vs:
+                  kpre.prefill_attention(q, kg, vg, hl, ks, vs))]))
     return cases
 
 
 def kernel_cases(gen, dtype):
     """(name, case, kernel_fn, plain_fn, library_fn|None, bytes, flops,
-    same_fn|None) at the paths' shapes for one dtype; ``same_fn`` is a
-    second kernel whose output must be bitwise equal."""
+    same) at the paths' shapes for one dtype; ``same`` lists (label, fn)
+    of kernel runs whose output must be bitwise equal to the first."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import prefill_attention as kpre
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as krn
     elt = torch.tensor([], dtype=dtype).element_size()
@@ -253,7 +430,7 @@ def kernel_cases(gen, dtype):
             lambda x=x, w=w: krn.rmsnorm(x, w),
             lambda x=x, w=w: ref.rmsnorm(x, w),
             lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps=1e-6),
-            (2 * m * d + d) * elt, 4 * m * d, None))
+            (2 * m * d + d) * elt, 4 * m * d, []))
 
     s, dh = 512, 64
     for case, hq, hkv, window in (("causal", 16, 16, None),
@@ -277,52 +454,26 @@ def kernel_cases(gen, dtype):
                 q, k, v, causal=True, window=w),
             lambda q=q, k=k, v=v, m=mask: sdpa(q, k, v, m),
             (2 * q.numel() + k.numel() + v.numel()) * elt,
-            4 * pairs * hq * dh, None))
+            4 * pairs * hq * dh, []))
 
     b, cap = 8, 2048
     for case, hq, hkv in (("mha", 16, 16), ("gqa", 8, 2)):
         cases += decode_cases(gen, dtype, b, cap, hq, hkv, dh)
 
-    # K4: one chunk over a cached history, then a ragged verify
-    for case, bq, s, hq, hkv, hist in (
-            ("chunk", 1, 256, 16, 16, [768]),
-            ("chunk,gqa", 1, 256, 8, 2, [768]),
-            ("verify", 8, 5, 16, 16, None)):
-        q = _rand(gen, (bq, s, hq, dh), dtype)
-        kh = _rand(gen, (bq, cap, hkv, dh), dtype)
-        vh = _rand(gen, (bq, cap, hkv, dh), dtype)
-        ks = _rand(gen, (bq, s, hkv, dh), dtype)
-        vs = _rand(gen, (bq, s, hkv, dh), dtype)
-        if hist is None:  # ragged per-row history, one row near capacity
-            hl = torch.randint(1, cap - s + 1, (bq,), generator=gen,
-                               device="cuda", dtype=torch.int32)
-            hl[0] = cap - s
-        else:
-            hl = torch.tensor(hist, dtype=torch.int32, device="cuda")
-        tot = int(hl.sum().item())
-        pairs = tot * s + bq * s * (s + 1) // 2
-        # library yardstick: SDPA over history ++ self with a boolean
-        # mask, both built here, outside the timed call
-        k_cat, v_cat = torch.cat([kh, ks], 1), torch.cat([vh, vs], 1)
-        pos = torch.arange(cap + s, device="cuda")
-        rel = torch.arange(s, device="cuda")
-        mask = torch.where(pos[None, None, :] < cap,
-                           pos[None, None, :] < hl[:, None, None],
-                           pos[None, None, :] - cap <= rel[None, :, None])
-        mask = mask[:, None]                        # (B, 1, S, C + S)
-        cases.append((
-            "prefill_attention",
-            f"{case},B={bq},S={s},C={cap},hist_len="
-            f"{hist[0] if hist else 'ragged'},sum_hist={tot},Hq={hq},"
-            f"Hkv={hkv},Dh={dh}",
-            lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
-                kpre.prefill_attention(q, kh, vh, hl, ks, vs),
-            lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
-                ref.prefill_attention(q, kh, vh, hl, ks, vs),
-            lambda q=q, k=k_cat, v=v_cat, m=mask: sdpa(q, k, v, m),
-            (2 * q.numel() + (2 * tot + 2 * bq * s) * hkv * dh) * elt
-            + 4 * bq,
-            4 * pairs * hq * dh, None))
+    # K4: one chunk over a cached history, then a ragged verify (MHA and
+    # GQA 8/2); then K3 at the qwen prefill's 1024-token bucket
+    cases += prefill_cases(gen, dtype, dh, (("chunk", 1, 256, 16, 16, 768),
+                                            ("chunk,gqa", 1, 256, 8, 2, 768),
+                                            ("verify", 8, 5, 16, 16, None),
+                                            ("verify,gqa", 8, 5, 8, 2, None)))
+    s, hq = 1024, 16
+    q, k, v = (_rand(gen, (1, s, hq, dh), dtype) for _ in range(3))
+    cases.append((
+        "flash_attention", f"B=1,S={s},Hq={hq},Hkv={hq},Dh={dh},causal",
+        lambda: kfa.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention(q, k, v, causal=True),
+        lambda: sdpa(q, k, v),
+        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * hq * dh, []))
     return cases
 
 
@@ -366,9 +517,10 @@ QUANT_SHAPES = (("w_gate", 1, 3072, 8192, 128),
 
 
 def w4_path_cases(gen, dtype):
-    """The W4 path's kernels (its own generator, so the earlier cases'
-    inputs stay as they were): K6 at ``QUANT_SHAPES``; K3 and K1 (with
-    K2 bitwise K1) at phi3-mini's head dim 96 and 32 heads."""
+    """The W4 path's kernels and phi3-mini's serving shapes (its own
+    generator, so the earlier cases' inputs stay as they were): K6 at
+    ``QUANT_SHAPES``; K3, K1 (with K2 bitwise K1) and K4 chunk and verify
+    at phi3-mini's head dim 96 and 32 heads."""
     import torch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import quant_gemv as kqg
@@ -397,7 +549,7 @@ def w4_path_cases(gen, dtype):
             lambda x=x, p=packed, s=scales, g=group: ref.quant_gemv(
                 x, p, s, group=g),
             lib, k * n // 2 + 4 * (k // group) * n + (b * k + b * n) * elt,
-            2 * b * k * n, None))
+            2 * b * k * n, []))
 
     s, h, dh = 512, 32, 96
     q = _rand(gen, (1, s, h, dh), dtype)
@@ -408,8 +560,11 @@ def w4_path_cases(gen, dtype):
         lambda: kfa.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention(q, k, v, causal=True),
         lambda: sdpa(q, k, v),
-        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * h * dh, None))
+        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * h * dh, []))
     cases += decode_cases(gen, dtype, 8, 2048, h, h, dh)
+    # K4 at phi3-mini's head dim: its chunked-prefill and verify shapes
+    cases += prefill_cases(gen, dtype, dh, (("chunk", 1, 256, h, h, 768),
+                                            ("verify", 8, 5, h, h, None)))
     return cases
 
 
@@ -427,21 +582,23 @@ def phase_kernels() -> dict:
                 kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)):
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
-            if same is not None:
-                equal = torch.equal(got, same())
+            for label, fn in same:
+                equal = torch.equal(got, fn())
                 log("kernels", kernel=name, case=case, dtype=dname,
-                    bitwise_equal_to_contiguous=equal)
+                    bitwise_equal=equal, against=label)
                 if not equal:
                     raise AssertionError(f"{name} {case} {dname}: not "
-                                         "bitwise equal to K1 on the "
-                                         "same rows")
+                                         f"bitwise equal to {label}")
             res = _compare(
                 name, case, dname, got, want, ms=time_ms(kfn),
                 plain_ms=time_ms(pfn),
                 lib_ms=None if lfn is None else time_ms(lfn),
+                dev_ms=device_ms(kfn),
+                lib_dev_ms=None if lfn is None else device_ms(lfn),
                 nbytes=nbytes, flops=flops)
-            row = rows.setdefault(name, {"max_abs_err": 0.0})
+            row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+            row["cases"].append({"case": case, "dtype": dname, **res})
             if dname == "bfloat16" and "ms" not in row:
                 row.update({k: v for k, v in res.items()
                             if k != "max_abs_err"}, case=case)
@@ -886,7 +1043,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "case": r["case"]})
+            "case": r["case"], "cases": r["cases"]})
     log("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

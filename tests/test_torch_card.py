@@ -89,25 +89,41 @@ def test_paged_decode_is_bitwise_contiguous_decode(card, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("s", [5, 40, 200])
-def test_prefill_attention_matches_plain_on_card(card, dtype, tol, s):
-    g = torch.Generator(device=card).manual_seed(2)
+# per-row history lengths of K4's card tests: empty, one position, both
+# sides of the 128-position split edge, and the whole capacity
+K4_C = 300
+K4_HIST = [0, 1, 127, 128, 129, K4_C]
+
+
+def _k4_inputs(card, dtype, s, dh, seed, c=K4_C, hq=8, hkv=2):
+    g = torch.Generator(device=card).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=card).to(dtype)
 
-    b, c, hkv, hq, dh = 3, 300, 2, 8, 64
-    q, ks, vs = rnd(b, s, hq, dh), rnd(b, s, hkv, dh), rnd(b, s, hkv, dh)
-    kh, vh = rnd(b, c, hkv, dh), rnd(b, c, hkv, dh)
-    for hist_len in (torch.tensor([0, 129, 300], dtype=torch.int32,
-                                  device=card), 77):
+    b = len(K4_HIST)
+    hl = torch.tensor(K4_HIST, dtype=torch.int32, device=card).clamp(max=c)
+    return (rnd(b, s, hq, dh), rnd(b, c, hkv, dh), rnd(b, c, hkv, dh), hl,
+            rnd(b, s, hkv, dh), rnd(b, s, hkv, dh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("dh", [64, 96, 128])
+@pytest.mark.parametrize("s", [1, 5, 16, 17, 40, 64, 200, 256])
+def test_prefill_attention_matches_plain_on_card(card, dtype, tol, dh, s):
+    """K4 against its plain version at every head dim, on both launch
+    shapes (S <= 16: history splits; S > 16: query tiles) and the tile
+    edges between them, GQA 8/2, with ragged per-row history lengths
+    and one scalar length."""
+    q, kh, vh, hl, ks, vs = _k4_inputs(card, dtype, s, dh, seed=2)
+    for hist_len in (hl, 77):
         got = ops.prefill_attention(q, kh, vh, hist_len, ks, vs)
         want = ref.prefill_attention(q, kh, vh, hist_len, ks, vs)
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=tol, rtol=tol,
+            msg=lambda m: f"hist_len={hist_len}: {m}")
 
 
 @pytest.mark.cuda
@@ -158,3 +174,64 @@ def test_head_dim_96_kernels_match_plain_on_card(card, dtype, tol):
     assert torch.equal(ops.paged_decode_attention(q, kp, vp, tab, lens,
                                                   extra_k=ek, extra_v=ev),
                        got)
+
+
+def _k3_cases():
+    """(sq, skv, hq, hkv, causal, window, q_offset) for K3: S at the
+    64-row tile edges (self-attention, causal), GQA 8/2, a continuation
+    at q_offset > 0, a window, and a non-causal call whose keys end
+    mid-tile."""
+    cases = [(s, s, 4, 4, True, None, 0)
+             for s in (1, 15, 16, 17, 63, 64, 65, 1024)]
+    cases += [(200, 200, 8, 2, True, None, 0),
+              (65, 200, 8, 2, True, None, 135),
+              (300, 300, 4, 4, True, 64, 0),
+              (17, 130, 4, 4, False, None, 0)]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("dh", [64, 96, 128])
+def test_flash_attention_tiles_match_plain_on_card(card, dtype, tol, dh):
+    """K3 against its plain version at every head dim it takes, over
+    tile-edge lengths and every mask it applies."""
+    g = torch.Generator(device=card).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=card).to(dtype)
+
+    for sq, skv, hq, hkv, causal, window, q_off in _k3_cases():
+        q = rnd(1, sq, hq, dh)
+        k, v = rnd(1, skv, hkv, dh), rnd(1, skv, hkv, dh)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention(q, k, v, **kw)
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=tol, rtol=tol,
+            msg=lambda m: f"S={sq} Skv={skv} {hq}/{hkv} {kw}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [5, 64])
+def test_prefill_attention_is_deterministic_and_layout_free(card, dtype, s):
+    """K4 twice on the same inputs is bit-for-bit the same, and K4 over a
+    block-table gather of the history rows from a larger pool (a longer
+    view whose tail is other blocks' data) is bit-for-bit K4 over the
+    contiguous rows: splits and tiles start at fixed positions."""
+    q, kh, vh, hl, ks, vs = _k4_inputs(card, dtype, s, 96, seed=8, c=304,
+                                       hq=32, hkv=32)
+    first = ops.prefill_attention(q, kh, vh, hl, ks, vs)
+    assert torch.equal(first, ops.prefill_attention(q, kh, vh, hl, ks, vs))
+    # the rows in a pool twice the size they need, read back through
+    # tables 3 blocks wider than the capacity: the view a paged dispatch
+    # gathers, whose tail past each row's length is other blocks' data
+    b, c = kh.shape[:2]
+    nb = 2 * b * (c // 16 + 3)
+    kg, vg = (ref.gather_kv_blocks(*_scatter_to_pool(
+        torch.cat([x, x[:, :48]], 1), 16, nb, hl.tolist(),
+        torch.Generator().manual_seed(7))) for x in (kh, vh))
+    assert kg.shape[1] == c + 48
+    assert torch.equal(first, ops.prefill_attention(q, kg, vg, hl, ks, vs))
