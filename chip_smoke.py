@@ -7,13 +7,18 @@ Phases, one line each (any failure exits non-zero):
 
 1. device — the card, its power limit, the toolchain; every kernel
    built from ``src/repro_torch/kernels/csrc`` with nvcc, one process
-   per source, all started together;
+   per source, all started together; per library the ptxas registers
+   of each instantiation and its SASS count of tensor-core MMAs,
+   cp.async (LDGSTS), ldmatrix, 128-bit global loads and int -> float
+   conversions;
 2. kernels — each kernel against its plain PyTorch version at the
    paths' shapes, in bf16 and float32, with its time per call (CUDA
    events, host launch cost included), its device time per call
    (``torch.profiler``), the plain version's time, one PyTorch library
    call's where one computes the same function (both times), and the
-   bound the card's roofline allows; the paged decode (K2) must also be
+   bound the card's roofline allows; for K1, K2 and K6 also both times
+   cold in L2, kernel and library, round-robin over copies of the
+   caches or weights that exceed the L2; the paged decode (K2) must also be
    bitwise equal to the contiguous one (K1) on the same rows, and the
    prefill over a cache (K4) to its second run and to a run over a
    block-table gather of the same rows from a larger pool; the int4
@@ -46,6 +51,7 @@ The line before last is the ``kernels`` JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import re
 import statistics
@@ -100,23 +106,61 @@ def time_ms(fn, *, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(samples)
 
 
+DEVICE_TRIES = 3   # fresh profiler traces before a device time is missing
+device_misses = 0  # traces that held no device time, over the whole run
+
+
 def device_ms(fn, *, reps: int = 20) -> float | None:
     """Device time per call: the kernels' summed device time in a
     ``torch.profiler`` trace of ``reps`` calls (after a warm-up), over
-    ``reps`` — what ``time_ms`` reads without the host's launch cost;
-    None (not measured) if the trace holds no device time."""
+    ``reps`` — what ``time_ms`` reads without the host's launch cost.
+    A trace that holds no device activity (CUPTI now and then hands the
+    profiler an empty activity buffer) is taken again, fresh, up to
+    ``DEVICE_TRIES`` times; None (not measured) only if every try is
+    empty. Misses are counted in ``device_misses``."""
+    global device_misses
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0 else None
+    for _ in range(DEVICE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+        device_misses += 1
+    return None
+
+
+COLD_BYTES = 120e6    # what a round of copies streams: > 2x the 50 MB L2
+
+
+def cold_copies(nbytes: float) -> int:
+    """Copies of an operand set of ``nbytes`` that one round-robin round
+    must visit so that each copy is evicted from L2 before its next
+    call."""
+    return max(2, -(-int(COLD_BYTES) // max(int(nbytes), 1)))
+
+
+def round_robin(fns):
+    """One call per step, to each of ``fns`` (kernels on different
+    copies of their operands) in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def cold_times(fns) -> tuple[float, float | None]:
+    """(ms, device ms) per call over ``fns`` taken round-robin, in
+    multiples of a whole round: each call finds its operands cold in L2,
+    as a step streaming the model's weights or caches finds them."""
+    reps = len(fns) * max(1, -(-20 // len(fns)))
+    fn = round_robin(fns)
+    return time_ms(fn, reps=reps), device_ms(fn, reps=reps)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -136,8 +180,11 @@ def _instantiation(mangled: str) -> str:
     file-local struct template arguments), or the mangled name itself."""
     for m in re.finditer(r"\d+", mangled):  # <length><identifier>
         end = m.end() + int(m.group())
-        if (mangled[m.end():end].endswith("_kernel")
-                and mangled[end:end + 1] == "I" and "EEv" in mangled[end:]):
+        if not mangled[m.end():end].endswith("_kernel"):
+            continue
+        if mangled[end:end + 1] == "E":            # not a template
+            return mangled[m.end():end]
+        if mangled[end:end + 1] == "I" and "EEv" in mangled[end:]:
             break
     else:
         return mangled
@@ -184,19 +231,22 @@ def ptxas_summary(log_text: str) -> list:
     return out
 
 
-SASS_OPS = ("HMMA", "LDGSTS", "LDSM")  # tensor-core MMA, cp.async, ldmatrix
+# tensor-core MMA, cp.async, ldmatrix, 128-bit global loads, int ->
+# float conversions
+SASS_OPS = {"HMMA": r"\bHMMA\b", "LDGSTS": r"\bLDGSTS\b",
+            "LDSM": r"\bLDSM\b", "LDG.E.128": r"\bLDG\.E\.128\b",
+            "I2F": r"\bI2FP?\b"}
 
 
 def sass_counts(so: Path) -> str:
-    """How many tensor-core MMA, cp.async and ldmatrix instructions the
-    library's machine code holds (``cuobjdump -sass``)."""
+    """How many of each ``SASS_OPS`` instruction the library's machine
+    code holds (``cuobjdump -sass``)."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     if not tool.exists():
         return "cuobjdump_not_found"
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, timeout=120).stdout
-    counts = {op: len(re.findall(r"\b" + op + r"\b", sass))
-              for op in SASS_OPS}
+    counts = {op: len(re.findall(pat, sass)) for op, pat in SASS_OPS.items()}
     return ",".join(f"{op}:{n}" for op, n in counts.items())
 
 
@@ -252,6 +302,23 @@ def _compare(name, case, dtype_name, got, want, *, ms, plain_ms, lib_ms,
             "bound_by": by}
 
 
+def _cold(name, case, dtype_name, kfns, lfns) -> dict:
+    """Kernel and library times with every call's operands cold in L2:
+    round-robin over ``len(kfns)`` copies of the weights or caches."""
+    import torch
+    ms, dev = cold_times(kfns)
+    lib_ms, lib_dev = (None, None) if lfns is None else cold_times(lfns)
+    res = {"cold_ms": ms, "cold_device_ms": dev, "library_cold_ms": lib_ms,
+           "library_cold_device_ms": lib_dev, "cold_copies": len(kfns)}
+    log("kernels", kernel=name, case=case, dtype=dtype_name,
+        cold_copies=len(kfns), **{k: "null" if v is None else f"{v:.4f}"
+                                  for k, v in res.items()
+                                  if k != "cold_copies"})
+    del kfns, lfns
+    torch.cuda.empty_cache()
+    return res
+
+
 def sdpa(q, k, v, mask=None, causal=True):
     """``scaled_dot_product_attention`` on the model's (B, S, H, Dh)
     layout (the library yardstick; the port never calls it)."""
@@ -290,6 +357,17 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
     mask = ((pos[None, :] < lens[:, None]) | (pos[None, :] == cap)
             )[:, None, None, :]                     # (B, 1, 1, C + 1)
     k_cat, v_cat = torch.cat([kc, ek], 1), torch.cat([vc, ev], 1)
+
+    def k1_cold():
+        caches = [(kc.clone(), vc.clone())
+                  for _ in range(cold_copies(dec_bytes))]
+        cats = [(torch.cat([k, ek], 1), torch.cat([v, ev], 1))
+                for k, v in caches]
+        return ([lambda k=k, v=v: kdec.decode_attention(
+                    q, k, v, lens, extra_k=ek, extra_v=ev)
+                 for k, v in caches],
+                [lambda k=k, v=v: sdpa(q, k, v, mask) for k, v in cats])
+
     cases = [(
         "decode_attention",
         f"B={b},C={cap},Hq={hq},Hkv={hkv},Dh={dh},sum_len={tot},self",
@@ -298,7 +376,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
         lambda: ref.decode_attention(q, kc, vc, lens, extra_k=ek,
                                      extra_v=ev),
         lambda: sdpa(q, k_cat, v_cat, mask),
-        dec_bytes, 4 * (tot + b) * hq * dh, [])]
+        dec_bytes, 4 * (tot + b) * hq * dh, [], k1_cold)]
     # K2: the same rows in a pool of NB blocks, at a seeded random
     # permutation of block ids; entries past each row's length are
     # sentinels (NB)
@@ -312,6 +390,16 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
     tab[torch.arange(w, device="cuda")[None, :] >= n_blk[:, None]] = nb
     kg = torch.cat([ref.gather_kv_blocks(kp, tab), ek], 1)
     vg = torch.cat([ref.gather_kv_blocks(vp, tab), ev], 1)
+
+    def k2_cold():
+        pools = [(kp.clone(), vp.clone())
+                 for _ in range(cold_copies(dec_bytes))]
+        views = [(kg.clone(), vg.clone()) for _ in pools]
+        return ([lambda k=k, v=v: kpdec.paged_decode_attention(
+                    q, k, v, tab, lens, extra_k=ek, extra_v=ev)
+                 for k, v in pools],
+                [lambda k=k, v=v: sdpa(q, k, v, mask) for k, v in views])
+
     cases.append((
         "paged_decode_attention",
         f"B={b},C={cap},bs={bs},NB={nb},Hq={hq},Hkv={hkv},Dh={dh},"
@@ -325,7 +413,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
         # K1 on the dense copy of the same rows: bitwise equal
         [("K1_on_the_same_rows",
           lambda: kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
-                                        extra_v=ev))]))
+                                        extra_v=ev))], k2_cold))
     return cases
 
 
@@ -542,14 +630,26 @@ def w4_path_cases(gen, dtype):
                 library="aten._weight_int4pack_mm", library_note=note,
                 w16_matmul_ms=f"{time_ms(lambda: x @ w_deq):.4f}")
             del w_deq
+        nbytes = k * n // 2 + 4 * (k // group) * n + (b * k + b * n) * elt
+
+        def cold(x=x, packed=packed, scales=scales, group=group,
+                 nbytes=nbytes, lib=lib):
+            ws = [(packed.clone(), scales.clone())
+                  for _ in range(cold_copies(nbytes))]
+            libs = None
+            if lib is not None:
+                libs = [int4pack_library(x, p, s, group)[0] for p, s in ws]
+                libs = None if None in libs else libs
+            return ([lambda p=p, s=s: kqg.quant_gemv(x, p, s, group=group)
+                     for p, s in ws], libs)
+
         cases.append((
             "quant_gemv", case,
             lambda x=x, p=packed, s=scales, g=group: kqg.quant_gemv(
                 x, p, s, group=g),
             lambda x=x, p=packed, s=scales, g=group: ref.quant_gemv(
                 x, p, s, group=g),
-            lib, k * n // 2 + 4 * (k // group) * n + (b * k + b * n) * elt,
-            2 * b * k * n, []))
+            lib, nbytes, 2 * b * k * n, [], cold))
 
     s, h, dh = 512, 32, 96
     q = _rand(gen, (1, s, h, dh), dtype)
@@ -578,7 +678,7 @@ def phase_kernels() -> dict:
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
-        for name, case, kfn, pfn, lfn, nbytes, flops, same in (
+        for name, case, kfn, pfn, lfn, nbytes, flops, same, *cold in (
                 kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)):
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -596,12 +696,16 @@ def phase_kernels() -> dict:
                 dev_ms=device_ms(kfn),
                 lib_dev_ms=None if lfn is None else device_ms(lfn),
                 nbytes=nbytes, flops=flops)
+            if cold:
+                res.update(_cold(name, case, dname, *cold[0]()))
             row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
             row["cases"].append({"case": case, "dtype": dname, **res})
             if dname == "bfloat16" and "ms" not in row:
                 row.update({k: v for k, v in res.items()
                             if k != "max_abs_err"}, case=case)
+    log("kernels", device_time_misses=device_misses,
+        device_time_tries=DEVICE_TRIES)
     return rows
 
 

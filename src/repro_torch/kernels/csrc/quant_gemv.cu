@@ -12,159 +12,501 @@
 // Bound on the H100: bytes. The call must read K * N / 2 packed bytes
 // and 4 * (K / group) * N bytes of scales (13.4 MB for a 3072 x 8192
 // projection at group 128, 4.0 us at 3.35 TB/s) and does 2 * B flops per
-// weight, ~0.53 bytes: at the decode path's B = 1 that is 3.8 flops per
-// byte, far below the card's ~20 fp32 flops per byte on the CUDA cores,
-// and the launch itself costs about as much as the bound. (At B = 8 it
-// is 30 flops per byte, above the CUDA cores' line: there the tensor
-// cores are the cure, in a later PR.)
+// weight: at the decode path's B = 1 that is 3.8 flops per byte, below
+// the CUDA cores' ~20 fp32 flops per byte. (At B = 8 it is 30 flops per
+// byte: there the tensor cores are the cure, in a later PR.)
 //
-// Design (simple first; 16-byte nibble loads, tensor cores and TMA are
-// later work): one thread per output column, 128 columns per block, so
-// the 32 threads of a warp read 32 consecutive bytes of a packed row
-// and the block a 128-byte line. The Pallas kernel walks K in order on
-// one core, carrying the sum in VMEM scratch; on Hopper the K axis is
-// cut into splits of whole groups, one block per (column tile, split,
-// tile of up to 8 x rows), sized so that N = 3072 still gives several
-// hundred blocks for 132 SMs. A block stages one group of x (R rows x
-// group values, fp32) in shared memory, keeps R fp32 accumulators per
-// thread in registers, and writes its split's partial sums in fp32. A
-// second pass adds the splits of each output in split order — a fixed
-// order without atomics, so the result is deterministic — and casts.
-// Columns past N (an N that is not a multiple of 128) are masked, as the
-// Pallas wrapper pads them.
-#include "common.cuh"
+// Design, for streaming int4 at the card's memory rate:
+// - Loads. A lane reads 16 bytes of one packed row (16 columns x 2 K
+//   rows, 32 weights) through the read-only path; 8 lanes cover a
+//   128-column strip (one 128-byte line per row) and the 4 lane rows of
+//   a warp read 4 packed rows at once. Each lane keeps 8 such loads in
+//   flight before it uses the first; on the tensor cores a warp's first
+//   8 are issued before x is staged, so the two overlap. An N that is
+//   not a multiple of 16 takes 8-byte (or, for N not a multiple of 8,
+//   1-byte) loads and a strip of 8 x that many columns: every vector is
+//   wholly inside or wholly past N, so the ragged edge is masked per
+//   lane.
+// - Dequantisation without int -> float conversions. bf16 x (the W4
+//   decode path) with N a multiple of 16 runs on the tensor cores: a
+//   byte permute and one LOP3 turn a byte's two nibbles into the bf16
+//   pair 128 + (v ^ 8), one bf16x2 FMA subtracts 136 — exact, the int4
+//   values -8..7 — and those are the A operand of mma.sync m16n8k16
+//   (the 8 n columns are up to 8 x rows; the fragment's K pairs are a
+//   byte's two nibbles, its M rows the lane's 16 columns), x the B
+//   operand, products exact in fp32, summed in fp32 per group, then
+//   times the group's fp32 scale. float32 x, or a ragged N, runs on the
+//   CUDA cores: the biased nibble placed in the mantissa of 2^23 by one
+//   byte permute (0x4B0000xx) minus 2^23 + 8 in fp32 — exact — times
+//   the scale and an fp32 FMA with x, as the reference's ``_kernel``.
+// - Work split. One block of 4 warps per (column strip, K split, tile
+//   of x rows: up to 8 on the tensor cores, 4 on the CUDA cores). A K
+//   split is 4 x gpw whole groups, gpw per warp.
+//   x for the block's K range is staged once in shared memory as fp32.
+//   On the CUDA cores a warp sums its 4 lane rows by shuffles; the block
+//   adds its 4 warps in warp order through shared memory.
+// - Across blocks, one launch. With one split the block writes the
+//   output. Otherwise each block writes its split's fp32 partial, then
+//   takes a ticket from a per-(strip, row tile) counter; the block that
+//   draws the last ticket adds all splits in split order, writes the
+//   output and resets the counter to 0 for the next call. The ticket
+//   only says who adds, never in what order, so the result is the same
+//   bits on every run.
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int kCols = 128;      // output columns per block == threads
-constexpr int kMaxGroup = 256;  // largest group staged in shared memory
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowLanes = 4;   // packed rows a warp reads at once
+constexpr int kColLanes = 8;   // lanes along N on one packed row
+constexpr int kUnroll = 8;     // weight loads in flight per lane
+constexpr int kMaxXFloats = 8192;  // x values staged per block (32 KB)
+constexpr int kMmaRows = 8;    // x rows of a tensor-core tile (mma's N)
 
-// signed value of a 4-bit two's-complement nibble
-__device__ __forceinline__ int nibble(uint32_t v) {
-  return static_cast<int>(v ^ 8u) - 8;
+template <int V>
+struct Vec4 {  // 32-bit words in a V-byte load, columns per word
+  static constexpr int W = V >= 4 ? V / 4 : 1;
+  static constexpr int C = V >= 4 ? 4 : V;
+};
+
+// V consecutive packed bytes (V-byte aligned) through the read-only path
+template <int V>
+__device__ __forceinline__ void load_w(const uint8_t* p,
+                                       uint32_t (&w)[Vec4<V>::W]) {
+  if constexpr (V == 16) {
+    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+  } else if constexpr (V == 8) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = r.x, w[1] = r.y;
+  } else {
+    static_assert(V == 1, "1-, 8- or 16-byte loads");
+    w[0] = __ldg(p);
+  }
 }
 
-template <typename T, int R>
-__global__ void __launch_bounds__(kCols)
-    quant_partial_kernel(const T* __restrict__ x,
-                         const uint8_t* __restrict__ wp,
-                         const float* __restrict__ scales,
-                         float* __restrict__ part, int b, int k, int n,
-                         int group, int gps) {
-  __shared__ float xs[R * kMaxGroup];
-  const int col = blockIdx.x * kCols + threadIdx.x;
-  const int split = blockIdx.y;
+// The signed value of byte e's biased nibble (v ^ 8 in 0..15) as fp32:
+// 0x4B0000xx is 2^23 + xx, exactly (e is a constant after unrolling).
+__device__ __forceinline__ float nibble_f(uint32_t biased, int e) {
+  return __int_as_float(static_cast<int>(
+             __byte_perm(biased, 0x4B00u, 0x5440u | e))) -
+         8388616.f;  // 2^23 + 8
+}
+
+// The block's end: ``red`` holds each warp's sums, [kWarps][rs][SC]
+// (x row, strip column); add them in warp order and write the output
+// (one split) or this split's partial, and then, in the strip's last
+// block to finish, the sum of all splits in split order.
+template <typename T, int SC>
+__device__ __forceinline__ void finish_block(
+    const float* red, int rs, int rows, int r0, int strip, int split,
+    int b, int n, int ns, float* __restrict__ part,
+    int* __restrict__ tickets, T* __restrict__ out) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < rows * SC; i += kThreads) {
+    const int r = i / SC, c = i % SC, column = strip * SC + c;
+    if (column >= n) continue;
+    float v = red[r * SC + c];
+#pragma unroll
+    for (int wi = 1; wi < kWarps; ++wi) v += red[(wi * rs + r) * SC + c];
+    const size_t o = static_cast<size_t>(r0 + r) * n + column;
+    if (ns == 1)
+      out[o] = port::from_f<T>(v);
+    else
+      part[static_cast<size_t>(split) * b * n + o] = v;
+  }
+  if (ns == 1) return;
+
+  // the last block of this (strip, row tile) to finish adds the splits
+  __shared__ int last;
+  __threadfence();  // this block's partials are visible card-wide
+  __syncthreads();
+  int* ticket = tickets + blockIdx.z * gridDim.x + strip;
+  if (tid == 0) last = atomicAdd(ticket, 1) == ns - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < rows * SC; i += kThreads) {
+    const int r = i / SC, c = i % SC, column = strip * SC + c;
+    if (column >= n) continue;
+    const size_t o = static_cast<size_t>(r0 + r) * n + column;
+    float v = 0.f;
+    for (int sp = 0; sp < ns; ++sp)
+      v += __ldcg(part + static_cast<size_t>(sp) * b * n + o);
+    out[o] = port::from_f<T>(v);
+  }
+  if (tid == 0) *ticket = 0;
+}
+
+// CUDA-core body: float32 x, or an N that is not a multiple of 16.
+template <typename T, int R, int V>
+__global__ void __launch_bounds__(kThreads)
+    quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ wp,
+                      const float* __restrict__ scales,
+                      float* __restrict__ part, int* __restrict__ tickets,
+                      T* __restrict__ out, int b, int k, int n, int group,
+                      int ng, int gpw, int ns) {
+  constexpr int NW = Vec4<V>::W, CW = Vec4<V>::C;
+  constexpr int SC = kColLanes * V;  // columns of a strip
+  extern __shared__ float smem[];
+  const int strip = blockIdx.x, split = blockIdx.y;
   const int r0 = blockIdx.z * R;
   const int rows = min(R, b - r0);
-  const int g0 = split * gps;
-  const int g1 = min(g0 + gps, k / group);
-  const int half = group / 2;
-  const bool col_ok = col < n;
+  const int g_blk = split * kWarps * gpw;
+  const int g_end = min(g_blk + kWarps * gpw, ng);
+  const int kcap = kWarps * gpw * group;  // x row stride in shared memory
+  const int kspan = (g_end - g_blk) * group;
+  float* xs = smem;              // [R][kcap] x of the block's K range
+  float* red = xs + R * kcap;    // [kWarps][R][SC] per-warp sums
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int r = 0; r < R; ++r)
+    for (int j = tid; j < kspan; j += kThreads)
+      xs[r * kcap + j] =
+          r < rows ? port::to_f(x[static_cast<size_t>(r0 + r) * k +
+                                  static_cast<size_t>(g_blk) * group + j])
+                   : 0.f;
+  __syncthreads();
 
-  for (int g = g0; g < g1; ++g) {
-    __syncthreads();  // the previous group's x has been read
-    for (int i = threadIdx.x; i < R * group; i += kCols) {
-      const int r = i / group, j = i - r * group;
-      xs[i] = r < rows ? port::to_f(x[static_cast<size_t>(r0 + r) * k +
-                                      static_cast<size_t>(g) * group + j])
-                       : 0.f;
-    }
-    __syncthreads();
-    if (col_ok) {
-      const float s = scales[static_cast<size_t>(g) * n + col];
-      const uint8_t* wcol = wp + static_cast<size_t>(g) * half * n + col;
-#pragma unroll 8
-      for (int i = 0; i < half; ++i) {
-        const uint32_t byte = wcol[static_cast<size_t>(i) * n];
-        const float w0 = static_cast<float>(nibble(byte & 0xFu)) * s;
-        const float w1 = static_cast<float>(nibble(byte >> 4)) * s;
+  const int rl = lane / kColLanes, cl = lane % kColLanes;
+  const int col = strip * SC + cl * V;
+  float acc[R][V];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[r] += xs[r * group + 2 * i] * w0;
-          acc[r] += xs[r * group + 2 * i + 1] * w1;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < V; ++c) acc[r][c] = 0.f;
+
+  if (col < n) {
+    const int half = group >> 1;             // packed rows per group
+    const int per_lane = half / kRowLanes;   // a multiple of kUnroll
+    const int gw0 = g_blk + warp * gpw, gw1 = min(gw0 + gpw, g_end);
+    for (int g = gw0; g < gw1; ++g) {
+      float s[V];
+      const float* sg = scales + static_cast<size_t>(g) * n + col;
+      if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < V; c += 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(sg + c));
+          s[c] = v.x, s[c + 1] = v.y, s[c + 2] = v.z, s[c + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < V; ++c) s[c] = __ldg(sg + c);
+      }
+      const uint8_t* wg =
+          wp + (static_cast<size_t>(g) * half + rl) * n + col;
+      const float* xg = xs + (g - g_blk) * group + 2 * rl;
+      for (int i0 = 0; i0 < per_lane; i0 += kUnroll) {
+        uint32_t w[kUnroll][NW];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          load_w<V>(wg + static_cast<size_t>(i0 + u) * kRowLanes * n, w[u]);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          // K rows 2p and 2p + 1 of packed row p = rl + 4 (i0 + u)
+          const int kk = 2 * kRowLanes * (i0 + u);
+          float x0[R], x1[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float2 v =
+                *reinterpret_cast<const float2*>(xg + r * kcap + kk);
+            x0[r] = v.x, x1[r] = v.y;
+          }
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            const uint32_t lo = (w[u][j] & 0x0F0F0F0Fu) ^ 0x08080808u;
+            const uint32_t hi = ((w[u][j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+            for (int e = 0; e < CW; ++e) {
+              const int c = j * 4 + e;
+              const float w0 = nibble_f(lo, e) * s[c];
+              const float w1 = nibble_f(hi, e) * s[c];
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                acc[r][c] = fmaf(x0[r], w0, acc[r][c]);
+                acc[r][c] = fmaf(x1[r], w1, acc[r][c]);
+              }
+            }
+          }
         }
       }
     }
   }
-  if (col_ok) {
-    for (int r = 0; r < rows; ++r)
-      part[(static_cast<size_t>(split) * b + r0 + r) * n + col] = acc[r];
+
+  // the warp's 4 lane rows, in fixed order
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 8);
+      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
+    }
+  if (rl == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        red[(warp * R + r) * SC + cl * V + c] = acc[r][c];
   }
+  __syncthreads();
+  finish_block<T, SC>(red, R, rows, r0, strip, split, b, n, ns, part,
+                      tickets, out);
 }
 
-template <typename T>
-__global__ void quant_combine_kernel(const float* __restrict__ part,
-                                     T* __restrict__ out, int total,
-                                     int ns) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < ns; ++sp)
-    s += part[static_cast<size_t>(sp) * total + idx];
-  out[idx] = port::from_f<T>(s);
+// Byte c (0..15) of a lane's 16-byte load — one column, K rows 2p and
+// 2p + 1 in its nibbles — as the bf16 pair (v_lo, v_hi), exactly:
+// (q & 0x000F000F) ^ 0x43084308 is bf16 128 + (v ^ 8) in each half, and
+// the FMA subtracts 136.
+__device__ __forceinline__ uint32_t nibble_pair_bf16(const uint32_t (&w)[4],
+                                                     const uint32_t (&ws)[4],
+                                                     int c) {
+  const int word = c >> 2, e = c & 3;
+  const uint32_t q = __byte_perm(w[word], ws[word], e | ((4 + e) << 8));
+  const uint32_t biased = (q & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t v;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(v)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // x 1 - 136
+  return v;
 }
 
-template <typename T, int R>
-cudaError_t launch_rows(const void* x, const void* wp, const void* scales,
-                        float* part, void* out, int b, int k, int n,
-                        int group, int gps, int ns, cudaStream_t stream) {
-  const dim3 grid((n + kCols - 1) / kCols, ns, (b + R - 1) / R);
-  quant_partial_kernel<T, R><<<grid, kCols, 0, stream>>>(
+// Tensor-core body: bf16 x, N a multiple of 16, up to 8 x rows per tile.
+// Lane (g8, t) = (lane / 4, lane % 4) loads packed rows t and t + 4 of
+// each 16-K tile at its 16 columns — the A fragments of 8 mma tiles,
+// mma j taking columns 2j (M row g8) and 2j + 1 (M row g8 + 8) — and x
+// rows g8 at K pairs 2t and 2t + 8 as the B fragment.
+__global__ void __launch_bounds__(kThreads)
+    quant_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                     const uint8_t* __restrict__ wp,
+                     const float* __restrict__ scales,
+                     float* __restrict__ part, int* __restrict__ tickets,
+                     __nv_bfloat16* __restrict__ out, int b, int k, int n,
+                     int group, int ng, int gpw, int ns) {
+  constexpr int SC = kColLanes * 16;  // 128 columns of a strip
+  constexpr int TILES = 4;            // 16-K tiles per batch of loads
+  extern __shared__ float smem[];
+  const int strip = blockIdx.x, split = blockIdx.y;
+  const int r0 = blockIdx.z * kMmaRows;
+  const int rows = min(kMmaRows, b - r0);
+  const int g_blk = split * kWarps * gpw;
+  const int g_end = min(g_blk + kWarps * gpw, ng);
+  // x as bf16 pairs, rows padded by 4 words: the 8 x rows one B-fragment
+  // load reads fall on distinct banks
+  const int xld = ((kWarps * gpw * group) >> 1) + 4;
+  const int kspan = ((g_end - g_blk) * group) >> 1;  // pairs per row
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem);  // [rows][xld]
+  float* red = smem + rows * xld;                    // [kWarps][rows][SC]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int g8 = lane >> 2, t = lane & 3;
+  const int col = strip * SC + g8 * 16;
+  // mma.sync needs the whole warp: lanes past N (a ragged last strip)
+  // take part with zero weights and scales and write nothing
+  const bool col_ok = col < n;
+  const int half = group >> 1;
+  const int gw0 = g_blk + warp * gpw, gw1 = min(gw0 + gpw, g_end);
+  uint32_t w[TILES][2][4];
+  float s[16];
+  auto load_batch = [&](int g, int kt0) {
+    const uint8_t* wg = wp + (static_cast<size_t>(g) * half + t) * n + col;
+#pragma unroll
+    for (int u = 0; u < TILES; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (col_ok)
+          load_w<16>(wg + static_cast<size_t>((kt0 + u) * 8 + 4 * h) * n,
+                     w[u][h]);
+        else  // byte 0x00 dequantizes to (0 ^ 8) - 8 = 0
+          w[u][h][0] = w[u][h][1] = w[u][h][2] = w[u][h][3] = 0u;
+      }
+  };
+  auto load_scales = [&](int g) {
+    const float* sg = scales + static_cast<size_t>(g) * n + col;
+#pragma unroll
+    for (int c = 0; c < 16; c += 4) {
+      const float4 v = col_ok ? __ldg(reinterpret_cast<const float4*>(sg + c))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      s[c] = v.x, s[c + 1] = v.y, s[c + 2] = v.z, s[c + 3] = v.w;
+    }
+  };
+
+  // the warp's first weights are in flight while x is staged
+  if (gw0 < gw1) {
+    load_scales(gw0);
+    load_batch(gw0, 0);
+  }
+  for (int r = 0; r < rows; ++r) {
+    const uint32_t* xr = reinterpret_cast<const uint32_t*>(
+        x + static_cast<size_t>(r0 + r) * k +
+        static_cast<size_t>(g_blk) * group);
+    for (int j = tid; j < kspan; j += kThreads) xs[r * xld + j] = xr[j];
+  }
+  __syncthreads();
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int g = gw0; g < gw1; ++g) {
+    if (g != gw0) load_scales(g);
+    float accg[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accg[j][e] = 0.f;
+    const uint32_t* xg = xs + g8 * xld + (g - g_blk) * half + t;
+    for (int kt0 = 0; kt0 < (group >> 4); kt0 += TILES) {
+      if (g != gw0 || kt0 != 0) load_batch(g, kt0);
+#pragma unroll
+      for (int u = 0; u < TILES; ++u) {
+        uint32_t b0 = 0, b1 = 0;
+        if (g8 < rows) {
+          b0 = xg[(kt0 + u) * 8];
+          b1 = xg[(kt0 + u) * 8 + 4];
+        }
+        uint32_t ws[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ws[h][i] = w[u][h][i] >> 4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t a[4] = {nibble_pair_bf16(w[u][0], ws[0], 2 * j),
+                                 nibble_pair_bf16(w[u][0], ws[0], 2 * j + 1),
+                                 nibble_pair_bf16(w[u][1], ws[1], 2 * j),
+                                 nibble_pair_bf16(w[u][1], ws[1], 2 * j + 1)};
+          tile::mma_bf16(accg[j], a, b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = fmaf(s[2 * j + (e >> 1)], accg[j][e], acc[j][e]);
+  }
+
+  // d[j][e]: column 16 g8 + 2j + e / 2, x row 2t + e % 2
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 2 * t + (e & 1);
+      if (r < rows)
+        red[(warp * rows + r) * SC + g8 * 16 + 2 * j + (e >> 1)] =
+            acc[j][e];
+    }
+  __syncthreads();
+  finish_block<__nv_bfloat16, SC>(red, rows, rows, r0, strip, split, b, n,
+                                  ns, part, tickets, out);
+}
+
+template <typename T, int R, int V>
+cudaError_t launch_rv(const void* x, const void* wp, const void* scales,
+                      float* part, int* tickets, void* out, int b, int k,
+                      int n, int group, int gpw, int ns,
+                      cudaStream_t stream) {
+  const dim3 grid((n + kColLanes * V - 1) / (kColLanes * V), ns,
+                  (b + R - 1) / R);
+  const size_t smem =
+      sizeof(float) * (R * kWarps * gpw * group + kWarps * R * kColLanes * V);
+  quant_gemv_kernel<T, R, V><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(wp),
-      static_cast<const float*>(scales), part, b, k, n, group, gps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int total = b * n;
-  quant_combine_kernel<T><<<(total + 255) / 256, 256, 0, stream>>>(
-      part, static_cast<T*>(out), total, ns);
+      static_cast<const float*>(scales), part, tickets, static_cast<T*>(out),
+      b, k, n, group, k / group, gpw, ns);
   return cudaGetLastError();
 }
 
+cudaError_t launch_mma(const void* x, const void* wp, const void* scales,
+                       float* part, int* tickets, void* out, int b, int k,
+                       int n, int group, int gpw, int ns,
+                       cudaStream_t stream) {
+  const dim3 grid((n + kColLanes * 16 - 1) / (kColLanes * 16), ns,
+                  (b + kMmaRows - 1) / kMmaRows);
+  const int rows = min(b, kMmaRows);
+  const size_t smem =
+      sizeof(float) * (rows * ((kWarps * gpw * group) / 2 + 4) +
+                       kWarps * rows * kColLanes * 16);
+  quant_mma_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const float*>(scales), part, tickets,
+      static_cast<__nv_bfloat16*>(out), b, k, n, group, k / group, gpw, ns);
+  return cudaGetLastError();
+}
+
+template <typename T, int R>
+cudaError_t launch_r(int vec, const void* x, const void* wp,
+                     const void* scales, float* part, int* tickets, void* out,
+                     int b, int k, int n, int group, int gpw, int ns,
+                     cudaStream_t s) {
+  if (vec == 16) {  // bf16 with 16-byte loads takes the tensor cores
+    if constexpr (sizeof(T) == 4)
+      return launch_rv<T, R, 16>(x, wp, scales, part, tickets, out, b, k, n,
+                                 group, gpw, ns, s);
+    return cudaErrorInvalidValue;
+  }
+  if (vec == 8)
+    return launch_rv<T, R, 8>(x, wp, scales, part, tickets, out, b, k, n,
+                              group, gpw, ns, s);
+  return launch_rv<T, R, 1>(x, wp, scales, part, tickets, out, b, k, n,
+                            group, gpw, ns, s);
+}
+
 template <typename T>
-cudaError_t launch(const void* x, const void* wp, const void* scales,
-                   float* part, void* out, int b, int k, int n, int group,
-                   int gps, int ns, cudaStream_t s) {
-  // x rows per block: the smallest of 1, 2, 4, 8 that holds b (8 beyond)
-  if (b == 1)
-    return launch_rows<T, 1>(x, wp, scales, part, out, b, k, n, group, gps,
-                             ns, s);
-  if (b == 2)
-    return launch_rows<T, 2>(x, wp, scales, part, out, b, k, n, group, gps,
-                             ns, s);
-  if (b <= 4)
-    return launch_rows<T, 4>(x, wp, scales, part, out, b, k, n, group, gps,
-                             ns, s);
-  return launch_rows<T, 8>(x, wp, scales, part, out, b, k, n, group, gps,
-                           ns, s);
+cudaError_t launch(int rows, int vec, const void* x, const void* wp,
+                   const void* scales, float* part, int* tickets, void* out,
+                   int b, int k, int n, int group, int gpw, int ns,
+                   cudaStream_t s) {
+  if (rows == 1)
+    return launch_r<T, 1>(vec, x, wp, scales, part, tickets, out, b, k, n,
+                          group, gpw, ns, s);
+  if (rows == 2)
+    return launch_r<T, 2>(vec, x, wp, scales, part, tickets, out, b, k, n,
+                          group, gpw, ns, s);
+  return launch_r<T, 4>(vec, x, wp, scales, part, tickets, out, b, k, n,
+                        group, gpw, ns, s);
 }
 
 }  // namespace
 
 // x, out: (b, k) and (b, n) of one dtype; wp: (k / 2, n) uint8; scales:
-// (k / group, n) fp32; part: (ns, b, n) fp32 scratch from the caller.
-// The k / group groups are cut into ns splits of gps groups (the last
-// may be shorter, none empty). group even and <= 256, k % group == 0.
+// (k / group, n) fp32. The launch plan (quant_gemv.py::launch_plan):
+// ``vec`` bytes per weight load (16, 8 or 1, dividing n), ``rows`` x
+// rows per block (8 on the tensor cores — bf16 with vec 16 — else 1, 2
+// or 4), ``gpw`` groups per warp and ``ns`` = ceil((k / group) / (4
+// gpw)) K splits. With ns > 1, ``part`` is (ns, b, n) fp32 scratch and
+// ``tickets`` ceil(n / (8 vec)) * ceil(b / rows) int32 counters, all 0
+// (each call leaves them 0). group in {64, 128, 256}, dividing k;
+// pointers 16-byte aligned.
 KERNEL_EXPORT int quant_gemv_launch(const void* x, const void* wp,
                                     const void* scales, void* part,
-                                    void* out, int b, int k, int n,
-                                    int group, int gps, int ns, int dtype,
+                                    void* tickets, void* out, int b, int k,
+                                    int n, int group, int vec, int rows,
+                                    int gpw, int ns, int dtype,
                                     void* stream) {
-  const int ng = group > 0 ? k / group : 0;
-  if (b < 1 || n < 1 || group < 2 || group % 2 || group > kMaxGroup ||
-      k % group || gps < 1 || ns < 1 || (ns - 1) * gps >= ng ||
-      ns * gps < ng)
+  const bool group_ok = group == 64 || group == 128 || group == 256;
+  const int ng = group_ok ? k / group : 0;
+  const bool mma = dtype == port::DT_BF16 && vec == 16;
+  if (b < 1 || n < 1 || !group_ok || k % group || ng < 1 ||
+      (vec != 16 && vec != 8 && vec != 1) || n % vec ||
+      (mma ? rows != kMmaRows : rows != 1 && rows != 2 && rows != 4) ||
+      gpw < 1 || rows * kWarps * gpw * group > kMaxXFloats ||
+      ns != (ng + kWarps * gpw - 1) / (kWarps * gpw) ||
+      (ns > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pt = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
+  if (mma)
+    return launch_mma(x, wp, scales, pt, tk, out, b, k, n, group, gpw, ns,
+                      s);
   if (dtype == port::DT_F32)
-    return launch<float>(x, wp, scales, pt, out, b, k, n, group, gps, ns,
-                         s);
+    return launch<float>(rows, vec, x, wp, scales, pt, tk, out, b, k, n,
+                         group, gpw, ns, s);
   if (dtype == port::DT_BF16)
-    return launch<__nv_bfloat16>(x, wp, scales, pt, out, b, k, n, group,
-                                 gps, ns, s);
+    return launch<__nv_bfloat16>(rows, vec, x, wp, scales, pt, tk, out, b,
+                                 k, n, group, gpw, ns, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,12 +5,14 @@ Replaces ``repro/kernels/decode_attention.py::decode_attention_bhgd``
 and also merges the current token's K/V as the always-valid self
 partial of ``repro/models/attention.py::decode_attention``. One wrapper
 call is two launches (split partials, then the fixed-order combine) and
-counts once in ``launches``.
+counts once in ``launches``. :func:`launch_plan` sizes the splits; K2
+(``paged_decode_attention.py``) takes the same plan.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -18,7 +20,8 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-SPLIT = 128   # cache slots per pass-1 block (kSplit in the source)
+SPLITS = (32, 64, 128)   # positions per pass-1 block the source takes
+TILE = 32                # positions per staged tile (kTile)
 MAX_G = 8     # query heads per KV head (kMaxG)
 HEAD_DIMS = (64, 96, 128)
 
@@ -27,10 +30,38 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # paged_decode_attention.py): one library, one signature table
 SIG = {"decode_attention_launch":
        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
        "paged_decode_attention_launch":
        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
+
+
+class Plan(NamedTuple):
+    """Pass 1's launch: ``split`` positions per block, ``splits`` blocks
+    per (batch row, KV head) over the capacity, ``grid`` (splits, Hkv,
+    B); pass 2 has one block per (query head, batch row)."""
+    split: int
+    splits: int
+    grid: tuple
+
+
+def split_size(b: int, hkv: int) -> int:
+    """Positions per pass-1 block, from the batch and KV-head counts
+    that K1 and K2 share — never from the capacity or the lengths, so a
+    contiguous cache and a block-table view of the same rows are cut at
+    the same positions. Few (row, KV head) pairs take short splits so
+    that B = 1 still puts several blocks on every SM; G, Dh and the dtype
+    change the work per position, not the count of blocks, and leave
+    the split as it is."""
+    rows = b * hkv
+    return 32 if rows <= 32 else 64 if rows <= 64 else 128
+
+
+def launch_plan(b: int, hkv: int, cap: int) -> Plan:
+    """The launch over a (logical) capacity ``cap``."""
+    p = split_size(b, hkv)
+    ns = max(1, -(-cap // p))
+    return Plan(p, ns, (ns, hkv, b))
 
 
 def row_lengths(cache_len, b: int, device) -> torch.Tensor:
@@ -66,15 +97,15 @@ def check_operands(what: str, q: torch.Tensor, kv_shape: tuple,
 
 def split_scratch(q: torch.Tensor, hkv: int, cap: int):
     """fp32 partials (o, m, l) of pass 1 for a logical capacity ``cap``,
-    and the split count ``ns``."""
+    and the launch plan."""
     b, _, hq, dh = q.shape
     g = hq // hkv
-    ns = max(1, -(-cap // SPLIT))
-    o_part = torch.empty((b, hkv, g, ns, dh), dtype=torch.float32,
+    plan = launch_plan(b, hkv, cap)
+    o_part = torch.empty((b, hkv, g, plan.splits, dh), dtype=torch.float32,
                          device=q.device)
-    m_part = torch.empty((b, hkv, g, ns), dtype=torch.float32,
+    m_part = torch.empty((b, hkv, g, plan.splits), dtype=torch.float32,
                          device=q.device)
-    return o_part, m_part, torch.empty_like(m_part), ns
+    return o_part, m_part, torch.empty_like(m_part), plan
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -98,15 +129,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    o_part, m_part, l_part, ns = split_scratch(q, hkv, cap)
+    o_part, m_part, l_part, plan = split_scratch(q, hkv, cap)
     lib = _build.load("decode_attention", SIG)
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         extra_k.data_ptr() if extras else None,
         extra_v.data_ptr() if extras else None,
         lens.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), out.data_ptr(), b, cap, hkv, hq // hkv, dh, ns,
-        1.0 / math.sqrt(dh), code, _build.stream_handle(q))
+        l_part.data_ptr(), out.data_ptr(), b, cap, hkv, hq // hkv, dh,
+        plan.splits, plan.split, 1.0 / math.sqrt(dh), code,
+        _build.stream_handle(q))
     _build.check(lib, err, "decode_attention")
     launches += 1
     return out

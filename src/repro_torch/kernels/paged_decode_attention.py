@@ -5,8 +5,9 @@ Replaces ``repro/kernels/decode_attention.py::decode_attention_paged_bhgd``
 and, like K1, merges the current token's K/V as the always-valid self
 partial of ``repro/models/attention.py::decode_attention``. The pool is
 read through the block tables inside the kernel — there is no dense
-gather. Same source and the same pass-1 body as K1, so on a pool holding
-the same logical rows as a contiguous cache the result is bitwise K1's.
+gather. Same source, the same pass-1 body and the same launch plan
+(``decode_attention.launch_plan``) as K1, so on a pool holding the same
+logical rows as a contiguous cache the result is bitwise K1's.
 One wrapper call is two launches (split partials, combine) and counts
 once in ``launches``.
 """
@@ -52,7 +53,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     w = tab.shape[1]
     if b == 0:
         return out
-    o_part, m_part, l_part, ns = split_scratch(q, hkv, w * bs)
+    o_part, m_part, l_part, plan = split_scratch(q, hkv, w * bs)
     lib = _build.load("decode_attention", SIG)
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -60,8 +61,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         extra_v.data_ptr() if extras else None,
         lens.data_ptr(), tab.data_ptr(), o_part.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, w, bs, nb,
-        hkv, hq // hkv, dh, ns, 1.0 / math.sqrt(dh), code,
-        _build.stream_handle(q))
+        hkv, hq // hkv, dh, plan.splits, plan.split, 1.0 / math.sqrt(dh),
+        code, _build.stream_handle(q))
     _build.check(lib, err, "paged_decode_attention")
     launches += 1
     return out

@@ -3,12 +3,14 @@
 Replaces ``repro/kernels/quant_gemv.py::quant_gemv``: ``x (B, K)``
 times the int4 weight held as ``w_packed (K//2, N)`` uint8 nibbles and
 ``scales (K//group, N)`` fp32, accumulated in fp32, returned in x's
-dtype. One wrapper call is two launches (split partials, then the
-fixed-order combine) and counts once in ``launches``.
+dtype. One wrapper call is one launch: the K splits of a column strip
+are added, in split order, by the strip's last block to finish (a
+per-strip ticket counter, left at 0 by every call).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -16,31 +18,75 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-COLS = 128         # output columns per pass-1 block (kCols in the source)
-ROWS = 8           # x rows per pass-1 block at most
-MAX_GROUP = 256    # kMaxGroup in the source
-TARGET_BLOCKS = 132 * 8   # pass-1 blocks to aim for: 8 per SM
+WARPS = 4          # warps per block (kWarps in the source)
+COL_LANES = 8      # lanes along N on one packed row (kColLanes)
+MMA_ROWS = 8       # x rows of a tensor-core tile (kMmaRows)
+GROUPS = (64, 128, 256)
+MAX_X_FLOATS = 8192          # x values a block stages (kMaxXFloats)
+TARGET_WARPS = 132 * 16      # warps to aim for: 16 per SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"quant_gemv_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _P]}
+_SIG = {"quant_gemv_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P]}
 
 
-def k_splits(b: int, k: int, n: int, group: int) -> tuple[int, int]:
-    """(groups per split, splits): the K axis cut into whole groups so
-    that (column tiles x splits x row tiles) comes near
-    ``TARGET_BLOCKS``, no split empty."""
+class Plan(NamedTuple):
+    """How one call launches. ``mma``: on the tensor cores (bf16 x, N a
+    multiple of 16) or the CUDA cores. Columns: ``strips`` strips of
+    ``strip_cols`` = 8 x ``vec`` columns (``vec`` bytes per weight load:
+    16, 8 or 1, the largest dividing N). Rows: ``row_tiles`` tiles of
+    ``rows`` x rows (8, the mma's N, on the tensor cores). K: ``splits``
+    splits of ``WARPS`` x ``groups_per_warp`` whole groups (the last may
+    be shorter, none empty). Grid: (strips, splits, row_tiles) blocks of
+    ``WARPS`` warps."""
+    mma: bool
+    vec: int
+    strip_cols: int
+    strips: int
+    rows: int
+    row_tiles: int
+    groups_per_warp: int
+    splits: int
+
+
+def launch_plan(b: int, k: int, n: int, group: int,
+                dtype=torch.bfloat16) -> Plan:
+    """The launch for x (b, k) of ``dtype`` times a (k, n) int4 weight
+    at ``group``: one warp per (strip, row tile, group) while the card
+    holds that many (``TARGET_WARPS``), more groups per warp beyond, and
+    never more x than a block stages (``MAX_X_FLOATS``)."""
+    vec = 16 if n % 16 == 0 else 8 if n % 8 == 0 else 1
+    mma = dtype == torch.bfloat16 and vec == 16
+    strip_cols = COL_LANES * vec
+    strips = -(-n // strip_cols)
+    rows = MMA_ROWS if mma else 1 if b == 1 else 2 if b == 2 else 4
+    row_tiles = -(-b // rows)
     ng = k // group
-    tiles = -(-n // COLS) * -(-b // ROWS)
-    want = min(ng, max(1, -(-TARGET_BLOCKS // tiles)))
-    gps = -(-ng // want)
-    return gps, -(-ng // gps)
+    gpw = max(1, strips * row_tiles * ng // TARGET_WARPS)
+    gpw = min(gpw, -(-ng // WARPS),
+              max(1, MAX_X_FLOATS // (WARPS * group * rows)))
+    return Plan(mma, vec, strip_cols, strips, rows, row_tiles, gpw,
+                -(-ng // (WARPS * gpw)))
+
+
+_tickets: dict = {}
+
+
+def _ticket_counters(device, count: int) -> torch.Tensor:
+    """A zeroed int32 counter per (strip, row tile) on ``device``; every
+    call leaves the ones it used at 0, so one buffer serves all calls
+    on the stream."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
 
 
 def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
                scales: torch.Tensor, *, group: int = 128) -> torch.Tensor:
     """x (B, K) float32 or bfloat16; w_packed (K//2, N) uint8; scales
-    (K//group, N) float32; ``group`` even, at most 256, dividing K.
+    (K//group, N) float32; ``group`` in ``GROUPS``, dividing K.
     Returns (B, N) in x's dtype."""
     global launches
     if x.dim() != 2 or w_packed.dim() != 2 or scales.dim() != 2:
@@ -49,27 +95,36 @@ def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
                          f"{tuple(scales.shape)} must be 2-D")
     b, k = x.shape
     kp, n = w_packed.shape
-    if group < 2 or group % 2 or group > MAX_GROUP or k % group:
-        raise ValueError(f"quant_gemv: group={group} must be even, at most "
-                         f"{MAX_GROUP} and divide K={k}")
+    if group not in GROUPS or k % group:
+        raise ValueError(f"quant_gemv: group={group} must be one of "
+                         f"{GROUPS} and divide K={k}")
     if kp * 2 != k or tuple(scales.shape) != (k // group, n):
         raise ValueError(f"quant_gemv: shapes x {tuple(x.shape)} w_packed "
                          f"{tuple(w_packed.shape)} scales "
                          f"{tuple(scales.shape)} at group {group}")
     code = _build.launch_dtype("quant_gemv", x)
-    # both are read element by element: no vector alignment needed
-    _build.check_operand("quant_gemv", w_packed, torch.uint8, align=1)
-    _build.check_operand("quant_gemv", scales, torch.float32, align=4)
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or k == 0:
         return out.zero_()
-    gps, ns = k_splits(b, k, n, group)
-    part = torch.empty((ns, b, n), dtype=torch.float32, device=x.device)
+    plan = launch_plan(b, k, n, group, x.dtype)
+    # the weight is read in vec-byte vectors, the scales in float4s
+    # where vec is 8 or 16
+    _build.check_operand("quant_gemv", w_packed, torch.uint8,
+                         align=plan.vec)
+    _build.check_operand("quant_gemv", scales, torch.float32,
+                         align=16 if plan.vec > 1 else 4)
+    part = tickets = None
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, b, n), dtype=torch.float32,
+                           device=x.device)
+        tickets = _ticket_counters(x.device, plan.strips * plan.row_tiles)
     lib = _build.load("quant_gemv", _SIG)
     err = lib.quant_gemv_launch(
         x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
-        part.data_ptr(), out.data_ptr(), b, k, n, group, gps, ns, code,
-        _build.stream_handle(x))
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        out.data_ptr(), b, k, n, group, plan.vec, plan.rows,
+        plan.groups_per_warp, plan.splits, code, _build.stream_handle(x))
     _build.check(lib, err, "quant_gemv")
     launches += 1
     return out

@@ -235,3 +235,136 @@ def test_prefill_attention_is_deterministic_and_layout_free(card, dtype, s):
         torch.Generator().manual_seed(7))) for x in (kh, vh))
     assert kg.shape[1] == c + 48
     assert torch.equal(first, ops.prefill_attention(q, kg, vg, hl, ks, vs))
+
+
+def _all_bytes_weight(card, k, n, group):
+    """Packed rows holding every byte value (column c of packed row i is
+    (c + 7 i) mod 256), seeded positive scales, and the dequantised
+    float32 weight (K, N)."""
+    i = torch.arange(k // 2)[:, None]
+    c = torch.arange(n)[None, :]
+    packed = ((c + 7 * i) % 256).to(torch.uint8).to(card)
+    g = torch.Generator(device=card).manual_seed(9)
+    scales = torch.rand((k // group, n), generator=g, device=card) + 0.01
+    w = ref.unpack_int4(packed).float() * scales.repeat_interleave(group, 0)
+    return packed, scales, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("b", [1, 2, 5, 8])
+def test_quant_gemv_every_byte_value_exact_on_card(card, group, b, dtype):
+    """One-hot x rows pick weight rows: the output is the dequantised
+    weight (rounded once to bf16 for bf16 x, on the tensor cores), bit
+    for bit, for every byte value of a packed row and every K row (each
+    split's partial of the other groups is an exact zero)."""
+    k, n = 1024, 256
+    packed, scales, w = _all_bytes_weight(card, k, n, group)
+    for k0 in range(0, k, b):
+        ks = [min(k0 + r, k - 1) for r in range(b)]
+        x = torch.zeros((b, k), device=card, dtype=dtype)
+        x[torch.arange(b), torch.tensor(ks)] = 1.0
+        got = ops.quant_gemv(x, packed, scales, group=group)
+        assert torch.equal(got, w[ks].to(dtype)), f"K rows {ks}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("b", [1, 2, 5, 8])
+@pytest.mark.parametrize("n", [3000, 1000, 77, 4096])
+def test_quant_gemv_ragged_and_deterministic_on_card(card, dtype, tol,
+                                                     group, b, n):
+    """K6 against its plain version at N = 3000 and 1000 (8-byte loads,
+    N not a multiple of the 64-column strip), 77 (1-byte loads) and 4096
+    (16-byte loads; the tensor cores in bf16), K = 2048 (several K
+    splits at B = 1), every group and row tile; two runs are the same
+    bits."""
+    from repro_torch.kernels import quant_gemv as kqg
+    k = 2048
+    gen = torch.Generator(device=card).manual_seed(10)
+    x = torch.randn((b, k), generator=gen, device=card).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=card) / k ** 0.5
+    packed, scales = ref.quantize_int4(w, group=group)
+    got = ops.quant_gemv(x, packed, scales, group=group)
+    torch.testing.assert_close(
+        got.float(), ref.quant_gemv(x, packed, scales, group=group).float(),
+        atol=tol, rtol=tol)
+    assert torch.equal(got, ops.quant_gemv(x, packed, scales, group=group))
+    plan = kqg.launch_plan(b, k, n, group, dtype)
+    assert plan.strips * plan.strip_cols >= n
+
+
+def _k1_lens(split, cap):
+    """Per-row lengths around the split edge: 1, split - 1, split,
+    split + 1 and the capacity."""
+    return [1, split - 1, split, split + 1, cap]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("dh", [64, 96, 128])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("hkv", [2, 16])
+@pytest.mark.parametrize("self_kv", [True, False])
+def test_decode_attention_split_edges_on_card(card, dtype, tol, dh, g, hkv,
+                                              self_kv):
+    """K1 against its plain version with lengths on both sides of the
+    split edge (Hkv 2: 32-position splits of one tile; Hkv 16:
+    128-position splits of four double-buffered tiles), every head dim
+    and group size, with and without the self partial; two runs are the
+    same bits."""
+    from repro_torch.kernels import decode_attention as kdec
+    cap = 300
+    gen = torch.Generator(device=card).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    split = kdec.split_size(5, hkv)
+    lens = torch.tensor(_k1_lens(split, cap), dtype=torch.int32,
+                        device=card)
+    b = len(lens)
+    q, kc, vc = rnd(b, 1, hkv * g, dh), rnd(b, cap, hkv, dh), \
+        rnd(b, cap, hkv, dh)
+    kw = dict(extra_k=rnd(b, 1, hkv, dh), extra_v=rnd(b, 1, hkv, dh)) \
+        if self_kv else {}
+    got = ops.decode_attention(q, kc, vc, lens, **kw)
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention(q, kc, vc, lens, **kw).float(),
+        atol=tol, rtol=tol)
+    assert torch.equal(got, ops.decode_attention(q, kc, vc, lens, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv", [(1, 32), (8, 16)])
+def test_paged_decode_wider_table_is_bitwise_contiguous_on_card(card, dtype,
+                                                                b, hkv):
+    """K2 through tables 3 blocks wider than K1's capacity (a larger
+    split count, the same split size) == K1 on the same rows, bit for
+    bit, at B = 1 (32-position splits) and B = 8 (128)."""
+    cap, bs, dh = 512, 16, 96
+    gen = torch.Generator(device=card).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    q, kc, vc = rnd(b, 1, hkv, dh), rnd(b, cap, hkv, dh), rnd(b, cap, hkv, dh)
+    ek, ev = rnd(b, 1, hkv, dh), rnd(b, 1, hkv, dh)
+    lens = torch.randint(1, cap + 1, (b,), generator=gen, device=card,
+                         dtype=torch.int32)
+    lens[0] = cap
+    want = ops.decode_attention(q, kc, vc, lens, extra_k=ek, extra_v=ev)
+    nb = 2 * b * (cap // bs + 3)
+    kp, tab = _scatter_to_pool(torch.cat([kc, kc[:, :3 * bs]], 1), bs, nb,
+                               lens.tolist(), torch.Generator().manual_seed(2))
+    vp, _ = _scatter_to_pool(torch.cat([vc, vc[:, :3 * bs]], 1), bs, nb,
+                             lens.tolist(), torch.Generator().manual_seed(2))
+    assert tab.shape[1] * bs == cap + 3 * bs
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, tab, lens,
+                                                  extra_k=ek, extra_v=ev),
+                       want)

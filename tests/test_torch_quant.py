@@ -101,7 +101,65 @@ def test_quant_gemv_wrapper_refuses_cpu_operands_before_building():
                                          (1, 3072, 3000, 64),
                                          (3, 256, 320, 64)])
 def test_k_splits_cover_every_group_once(b, k, n, group):
+    """K6's launch plan: the K splits of whole groups (WARPS x
+    groups_per_warp each) cover every group once, none empty, and x for
+    a block's K range fits the staged maximum."""
     from repro_torch.kernels import quant_gemv as kqg
-    gps, ns = kqg.k_splits(b, k, n, group)
+    p = kqg.launch_plan(b, k, n, group, torch.bfloat16)
+    gps, ns = kqg.WARPS * p.groups_per_warp, p.splits
     ng = k // group
     assert gps >= 1 and (ns - 1) * gps < ng <= ns * gps
+    assert p.rows * gps * group <= kqg.MAX_X_FLOATS
+
+
+PLAN_SHAPES = [(1, 3072, 8192, 128), (1, 8192, 3072, 128),
+               (1, 3072, 3072, 128), (8, 3072, 8192, 128),
+               (1, 3072, 8192, 64), (1, 3072, 3000, 128),
+               (5, 256, 320, 64), (2, 1024, 200, 256), (8, 8192, 3072, 256),
+               (3, 512, 77, 64), (1, 64, 16, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,k,n,group", PLAN_SHAPES)
+def test_launch_plan_covers_every_column_group_and_row_once(b, k, n, group,
+                                                            dtype):
+    """Walk K6's grid as the source does: every (x row, column, group)
+    falls to exactly one (block, warp, lane) — strips of 8 lanes x vec
+    columns masked at N, row tiles masked at B, warps of whole groups —
+    and every weight load is a whole vec-byte vector inside the row;
+    bf16 with 16-byte loads takes the tensor cores, 8 x rows a tile."""
+    from repro_torch.kernels import quant_gemv as kqg
+    p = kqg.launch_plan(b, k, n, group, dtype)
+    assert p.vec in (16, 8, 1) and n % p.vec == 0
+    assert p.strip_cols == kqg.COL_LANES * p.vec
+    assert p.mma == (dtype == torch.bfloat16 and p.vec == 16)
+    assert p.rows == (kqg.MMA_ROWS if p.mma else 1 if b == 1
+                      else 2 if b == 2 else 4)
+    assert p.row_tiles == -(-b // p.rows)
+    ng = k // group
+    hits = np.zeros((b, n, ng), np.int64)
+    for strip in range(p.strips):
+        cols = [strip * p.strip_cols + cl * p.vec + c
+                for cl in range(kqg.COL_LANES) for c in range(p.vec)
+                if strip * p.strip_cols + cl * p.vec < n]
+        assert all(c < n for c in cols)   # whole vectors only
+        for split in range(p.splits):
+            for warp in range(kqg.WARPS):
+                g0 = (split * kqg.WARPS + warp) * p.groups_per_warp
+                g1 = min(g0 + p.groups_per_warp,
+                         (split + 1) * kqg.WARPS * p.groups_per_warp, ng)
+                for rt in range(p.row_tiles):
+                    rows = range(rt * p.rows, min(rt * p.rows + p.rows, b))
+                    for g in range(g0, g1):
+                        hits[np.ix_(list(rows), cols, [g])] += 1
+    assert (hits == 1).all()
+
+
+def test_launch_plan_fills_the_card_at_the_w4_shapes():
+    """At phi3-mini's B = 1 projections the grid holds at least 4 warps
+    per SM's worth of (strip, group) work, one warp each."""
+    from repro_torch.kernels import quant_gemv as kqg
+    for k, n in ((3072, 3072), (3072, 8192), (8192, 3072)):
+        p = kqg.launch_plan(1, k, n, 128, torch.bfloat16)
+        assert p.groups_per_warp == 1 and p.vec == 16 and p.mma
+        assert p.strips * p.splits * kqg.WARPS >= 132 * 4
