@@ -23,7 +23,7 @@ Phases, one line each (any failure exits non-zero):
    prefill over a cache (K4) to its second run and to a run over a
    block-table gather of the same rows from a larger pool; the int4
    GEMV (K6) at phi3-mini's projection shapes, K1 / K2 / K3 / K4 at its
-   head dim 96;
+   head dim 96, K1 / K2 also at the W4 step's one-row call;
 3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
    must equal the port's own batch-1 prefill + decode_step loop, and
@@ -330,9 +330,10 @@ def sdpa(q, k, v, mask=None, causal=True):
         enable_gqa=g > 1).transpose(1, 2)
 
 
-def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
+def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
     """K1 over a ragged contiguous cache with the self partial, and K2
-    on the same rows in a pool of scattered blocks (bitwise K1). Library
+    on the same rows in a pool of scattered blocks (bitwise K1); row 0
+    holds ``first_len`` positions (default: the capacity). Library
     yardstick of both: SDPA over cache ++ self with a boolean mask —
     the mask, the concatenation and, for K2, the table gather built
     here, outside the timed call."""
@@ -349,7 +350,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16):
     ev = _rand(gen, (b, 1, hkv, dh), dtype)
     lens = torch.randint(1, cap + 1, (b,), generator=gen,
                          device="cuda", dtype=torch.int32)
-    lens[0] = cap  # one full row
+    lens[0] = cap if first_len is None else first_len
     tot = int(lens.sum().item())
     dec_bytes = ((2 * tot * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh)
                  * elt + 4 * b)
@@ -662,6 +663,8 @@ def w4_path_cases(gen, dtype):
         lambda: sdpa(q, k, v),
         4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * h * dh, []))
     cases += decode_cases(gen, dtype, 8, 2048, h, h, dh)
+    # K1 and K2 at the W4 step's call: one row, 512 of 1024 positions
+    cases += decode_cases(gen, dtype, 1, 1024, h, h, dh, first_len=512)
     # K4 at phi3-mini's head dim: its chunked-prefill and verify shapes
     cases += prefill_cases(gen, dtype, dh, (("chunk", 1, 256, h, h, 768),
                                             ("verify", 8, 5, h, h, None)))

@@ -22,7 +22,7 @@
 // cores' ~20 fp32 flops per byte, so the CUDA cores suffice.
 //
 // Design. Pass 1 runs one block of 4 warps per (KV split, kv head, batch
-// row). The split size P (32, 64 or 128 positions, launch_plan in
+// row). The split size P (32 or 128 positions, launch_plan in
 // decode_attention.py) depends only on B and Hkv — never the capacity —
 // so B = 1 still puts several blocks on every SM, and a contiguous cache
 // and a block-table view cut the same positions at the same boundaries.
@@ -374,7 +374,7 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   if (g < 1 || g > kMaxG || cap < 1 ||
-      (psplit != 32 && psplit != 64 && psplit != 128) ||
+      (psplit != 32 && psplit != 128) ||
       ns != (cap + psplit - 1) / psplit)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::DT_F32)
@@ -391,7 +391,7 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
 
 // q, out: (b, hkv * g, dh); kc, vc: (b, cap, hkv, dh); ek, ev: (b, hkv,
 // dh) or both null (no self partial); lens: (b,) int32 on the device.
-// ``psplit`` positions per split (32, 64 or 128: decode_attention.py::
+// ``psplit`` positions per split (32 or 128: decode_attention.py::
 // launch_plan), ns = ceil(cap / psplit). o_part (b, hkv, g, ns, dh),
 // m_part / l_part (b, hkv, g, ns): fp32 scratch from the caller. g <= 8,
 // dh in {64, 96, 128}; pointers 16-byte aligned.

@@ -23,10 +23,8 @@
 //   a warp read 4 packed rows at once. Each lane keeps 8 such loads in
 //   flight before it uses the first; on the tensor cores a warp's first
 //   8 are issued before x is staged, so the two overlap. An N that is
-//   not a multiple of 16 takes 8-byte (or, for N not a multiple of 8,
-//   1-byte) loads and a strip of 8 x that many columns: every vector is
-//   wholly inside or wholly past N, so the ragged edge is masked per
-//   lane.
+//   not a multiple of 16 takes 1-byte loads and a strip of 8 columns,
+//   so the ragged edge is masked per lane.
 // - Dequantisation without int -> float conversions. bf16 x (the W4
 //   decode path) with N a multiple of 16 runs on the tensor cores: a
 //   byte permute and one LOP3 turn a byte's two nibbles into the bf16
@@ -66,8 +64,8 @@ constexpr int kMmaRows = 8;    // x rows of a tensor-core tile (mma's N)
 
 template <int V>
 struct Vec4 {  // 32-bit words in a V-byte load, columns per word
-  static constexpr int W = V >= 4 ? V / 4 : 1;
-  static constexpr int C = V >= 4 ? 4 : V;
+  static constexpr int W = V == 16 ? 4 : 1;
+  static constexpr int C = V == 16 ? 4 : 1;
 };
 
 // V consecutive packed bytes (V-byte aligned) through the read-only path
@@ -77,11 +75,8 @@ __device__ __forceinline__ void load_w(const uint8_t* p,
   if constexpr (V == 16) {
     const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
     w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
-  } else if constexpr (V == 8) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = r.x, w[1] = r.y;
   } else {
-    static_assert(V == 1, "1-, 8- or 16-byte loads");
+    static_assert(V == 1, "1- or 16-byte loads");
     w[0] = __ldg(p);
   }
 }
@@ -184,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int g = gw0; g < gw1; ++g) {
       float s[V];
       const float* sg = scales + static_cast<size_t>(g) * n + col;
-      if constexpr (V % 4 == 0) {
+      if constexpr (V == 16) {
 #pragma unroll
         for (int c = 0; c < V; c += 4) {
           const float4 v = __ldg(reinterpret_cast<const float4*>(sg + c));
@@ -447,9 +442,6 @@ cudaError_t launch_r(int vec, const void* x, const void* wp,
                                  group, gpw, ns, s);
     return cudaErrorInvalidValue;
   }
-  if (vec == 8)
-    return launch_rv<T, R, 8>(x, wp, scales, part, tickets, out, b, k, n,
-                              group, gpw, ns, s);
   return launch_rv<T, R, 1>(x, wp, scales, part, tickets, out, b, k, n,
                             group, gpw, ns, s);
 }
@@ -473,7 +465,7 @@ cudaError_t launch(int rows, int vec, const void* x, const void* wp,
 
 // x, out: (b, k) and (b, n) of one dtype; wp: (k / 2, n) uint8; scales:
 // (k / group, n) fp32. The launch plan (quant_gemv.py::launch_plan):
-// ``vec`` bytes per weight load (16, 8 or 1, dividing n), ``rows`` x
+// ``vec`` bytes per weight load (16 where it divides n, else 1), ``rows`` x
 // rows per block (8 on the tensor cores — bf16 with vec 16 — else 1, 2
 // or 4), ``gpw`` groups per warp and ``ns`` = ceil((k / group) / (4
 // gpw)) K splits. With ns > 1, ``part`` is (ns, b, n) fp32 scratch and
@@ -490,7 +482,7 @@ KERNEL_EXPORT int quant_gemv_launch(const void* x, const void* wp,
   const int ng = group_ok ? k / group : 0;
   const bool mma = dtype == port::DT_BF16 && vec == 16;
   if (b < 1 || n < 1 || !group_ok || k % group || ng < 1 ||
-      (vec != 16 && vec != 8 && vec != 1) || n % vec ||
+      (vec != 16 && vec != 1) || n % vec ||
       (mma ? rows != kMmaRows : rows != 1 && rows != 2 && rows != 4) ||
       gpw < 1 || rows * kWarps * gpw * group > kMaxXFloats ||
       ns != (ng + kWarps * gpw - 1) / (kWarps * gpw) ||

@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-SPLITS = (32, 64, 128)   # positions per pass-1 block the source takes
+SPLITS = (32, 128)   # positions per pass-1 block the source takes
 TILE = 32                # positions per staged tile (kTile)
 MAX_G = 8     # query heads per KV head (kMaxG)
 HEAD_DIMS = (64, 96, 128)
@@ -49,12 +49,11 @@ def split_size(b: int, hkv: int) -> int:
     """Positions per pass-1 block, from the batch and KV-head counts
     that K1 and K2 share — never from the capacity or the lengths, so a
     contiguous cache and a block-table view of the same rows are cut at
-    the same positions. Few (row, KV head) pairs take short splits so
-    that B = 1 still puts several blocks on every SM; G, Dh and the dtype
-    change the work per position, not the count of blocks, and leave
-    the split as it is."""
-    rows = b * hkv
-    return 32 if rows <= 32 else 64 if rows <= 64 else 128
+    the same positions. Up to 64 (row, KV head) pairs take one-tile
+    splits so that B = 1 still puts several blocks on every SM; G, Dh and
+    the dtype change the work per position, not the count of blocks, and
+    leave the split as it is."""
+    return 32 if b * hkv <= 64 else 128
 
 
 def launch_plan(b: int, hkv: int, cap: int) -> Plan:

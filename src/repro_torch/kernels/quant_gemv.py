@@ -34,7 +34,7 @@ class Plan(NamedTuple):
     """How one call launches. ``mma``: on the tensor cores (bf16 x, N a
     multiple of 16) or the CUDA cores. Columns: ``strips`` strips of
     ``strip_cols`` = 8 x ``vec`` columns (``vec`` bytes per weight load:
-    16, 8 or 1, the largest dividing N). Rows: ``row_tiles`` tiles of
+    16 where it divides N, else 1). Rows: ``row_tiles`` tiles of
     ``rows`` x rows (8, the mma's N, on the tensor cores). K: ``splits``
     splits of ``WARPS`` x ``groups_per_warp`` whole groups (the last may
     be shorter, none empty). Grid: (strips, splits, row_tiles) blocks of
@@ -55,7 +55,7 @@ def launch_plan(b: int, k: int, n: int, group: int,
     at ``group``: one warp per (strip, row tile, group) while the card
     holds that many (``TARGET_WARPS``), more groups per warp beyond, and
     never more x than a block stages (``MAX_X_FLOATS``)."""
-    vec = 16 if n % 16 == 0 else 8 if n % 8 == 0 else 1
+    vec = 16 if n % 16 == 0 else 1
     mma = dtype == torch.bfloat16 and vec == 16
     strip_cols = COL_LANES * vec
     strips = -(-n // strip_cols)
@@ -72,14 +72,16 @@ def launch_plan(b: int, k: int, n: int, group: int,
 _tickets: dict = {}
 
 
-def _ticket_counters(device, count: int) -> torch.Tensor:
-    """A zeroed int32 counter per (strip, row tile) on ``device``; every
-    call leaves the ones it used at 0, so one buffer serves all calls
-    on the stream."""
-    t = _tickets.get(device)
+def _ticket_counters(device, stream: int, count: int) -> torch.Tensor:
+    """A zeroed int32 counter per (strip, row tile), one buffer per
+    (device, stream): every call leaves the ones it used at 0, and calls
+    on one stream run one after another, so they can share it. A buffer
+    that is too small is replaced, so a CUDA graph must be captured after
+    a call at its largest shape has grown the buffer."""
+    t = _tickets.get((device, stream))
     if t is None or t.numel() < count:
         t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = t
+        _tickets[device, stream] = t
     return t
 
 
@@ -108,23 +110,25 @@ def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
         return out.zero_()
     plan = launch_plan(b, k, n, group, x.dtype)
     # the weight is read in vec-byte vectors, the scales in float4s
-    # where vec is 8 or 16
+    # where vec is 16
     _build.check_operand("quant_gemv", w_packed, torch.uint8,
                          align=plan.vec)
     _build.check_operand("quant_gemv", scales, torch.float32,
-                         align=16 if plan.vec > 1 else 4)
+                         align=16 if plan.vec == 16 else 4)
+    stream = _build.stream_handle(x)
     part = tickets = None
     if plan.splits > 1:
         part = torch.empty((plan.splits, b, n), dtype=torch.float32,
                            device=x.device)
-        tickets = _ticket_counters(x.device, plan.strips * plan.row_tiles)
+        tickets = _ticket_counters(x.device, stream,
+                                   plan.strips * plan.row_tiles)
     lib = _build.load("quant_gemv", _SIG)
     err = lib.quant_gemv_launch(
         x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
         None if part is None else part.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
         out.data_ptr(), b, k, n, group, plan.vec, plan.rows,
-        plan.groups_per_warp, plan.splits, code, _build.stream_handle(x))
+        plan.groups_per_warp, plan.splits, code, stream)
     _build.check(lib, err, "quant_gemv")
     launches += 1
     return out

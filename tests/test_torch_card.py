@@ -274,14 +274,14 @@ def test_quant_gemv_every_byte_value_exact_on_card(card, group, b, dtype):
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("group", [64, 128, 256])
 @pytest.mark.parametrize("b", [1, 2, 5, 8])
-@pytest.mark.parametrize("n", [3000, 1000, 77, 4096])
+@pytest.mark.parametrize("n", [3000, 1000, 77, 4096, 1008])
 def test_quant_gemv_ragged_and_deterministic_on_card(card, dtype, tol,
                                                      group, b, n):
-    """K6 against its plain version at N = 3000 and 1000 (8-byte loads,
-    N not a multiple of the 64-column strip), 77 (1-byte loads) and 4096
-    (16-byte loads; the tensor cores in bf16), K = 2048 (several K
-    splits at B = 1), every group and row tile; two runs are the same
-    bits."""
+    """K6 against its plain version at N = 3000, 1000 and 77 (1-byte
+    loads in 8-column strips, 77 ending mid-strip), 4096 (16-byte loads;
+    the tensor cores in bf16) and 1008 (16-byte loads, the last
+    128-column strip half past N), K = 2048 (several K splits at B = 1),
+    every group and row tile; two runs are the same bits."""
     from repro_torch.kernels import quant_gemv as kqg
     k = 2048
     gen = torch.Generator(device=card).manual_seed(10)
@@ -308,13 +308,14 @@ def _k1_lens(split, cap):
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("g", [1, 2, 8])
-@pytest.mark.parametrize("hkv", [2, 16])
+@pytest.mark.parametrize("hkv", [2, 8, 16])
 @pytest.mark.parametrize("self_kv", [True, False])
 def test_decode_attention_split_edges_on_card(card, dtype, tol, dh, g, hkv,
                                               self_kv):
     """K1 against its plain version with lengths on both sides of the
-    split edge (Hkv 2: 32-position splits of one tile; Hkv 16:
-    128-position splits of four double-buffered tiles), every head dim
+    split edge (B = 5 with Hkv 2 or 8, the largest pair count that takes
+    them: 32-position splits of one tile; Hkv 16: 128-position splits of
+    four double-buffered tiles), every head dim
     and group size, with and without the self partial; two runs are the
     same bits."""
     from repro_torch.kernels import decode_attention as kdec
@@ -341,12 +342,12 @@ def test_decode_attention_split_edges_on_card(card, dtype, tol, dh, g, hkv,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hkv", [(1, 32), (8, 16)])
+@pytest.mark.parametrize("b,hkv", [(1, 32), (2, 32), (8, 16)])
 def test_paged_decode_wider_table_is_bitwise_contiguous_on_card(card, dtype,
                                                                 b, hkv):
     """K2 through tables 3 blocks wider than K1's capacity (a larger
     split count, the same split size) == K1 on the same rows, bit for
-    bit, at B = 1 (32-position splits) and B = 8 (128)."""
+    bit, at B = 1 and B = 2 (32-position splits) and B = 8 (128)."""
     cap, bs, dh = 512, 16, 96
     gen = torch.Generator(device=card).manual_seed(12)
 

@@ -15,7 +15,9 @@ SHAPES = [(1, 32),    # the W4 step (phi3-mini)
           (4, 2),     # GQA 8/2
           (8, 32),    # phi3-mini served, 8 slots
           (3, 16),
-          (2, 24)]
+          (2, 24),
+          (5, 8),     # 40 pairs: the one-tile splits' upper range
+          (2, 32)]    # 64 pairs: their largest
 
 
 @pytest.mark.parametrize("b,hkv", SHAPES)
