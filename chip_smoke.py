@@ -16,9 +16,13 @@ Phases, one line each (any failure exits non-zero):
    events, host launch cost included), its device time per call
    (``torch.profiler``), the plain version's time, one PyTorch library
    call's where one computes the same function (both times), and the
-   bound the card's roofline allows; for K1, K2 and K6 also both times
-   cold in L2, kernel and library, round-robin over copies of the
-   caches or weights that exceed the L2; the paged decode (K2) must also be
+   bound the card's roofline allows; for every kernel also both times
+   cold in L2, kernel and library, round-robin over copies of its
+   operands that exceed the L2; K5 with the residual add fused
+   (``add_rmsnorm``) at the decode, prefill and W4 rows, its ``s``
+   bitwise torch's ``x + a`` and its ``h`` bitwise the kernel without
+   the add on ``s``, beside the lone ``x + a`` (the launch floor); the
+   paged decode (K2) must also be
    bitwise equal to the contiguous one (K1) on the same rows, and the
    prefill over a cache (K4) to its second run and to a run over a
    block-table gather of the same rows from a larger pool; the int4
@@ -202,9 +206,12 @@ def _instantiation(mangled: str) -> str:
             m = re.match(r"NS_(\d+)", rest)
             args.append(rest[m.end():m.end() + int(m.group(1))])
             rest = rest[m.end() + int(m.group(1)) + 1:]
-        elif rest.startswith("Li") and "E" in rest:
+        elif rest.startswith(("Li", "Lb")) and "E" in rest:
             args.append(rest[2:rest.index("E")])
             rest = rest[rest.index("E") + 1:]
+        elif re.match(r"S\d*_", rest):   # a repeat of an earlier type:
+            args.append("bf16")            # bf16 is the only one named
+            rest = rest[re.match(r"S\d*_", rest).end():]
         else:
             return mangled
     return f"{kernel}<{','.join(args)}>"
@@ -278,12 +285,33 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _flat(out):
+    """A kernel's output, or its tuple of outputs, as one float32
+    vector (for the comparison only, never timed)."""
+    import torch
+    if isinstance(out, tuple):
+        return torch.cat([t.float().flatten() for t in out])
+    return out.float()
+
+
+def _equal(a, b) -> bool:
+    """``torch.equal`` of two outputs or tuples of outputs."""
+    import torch
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(torch.equal, a, b))
+    return torch.equal(a, b)
+
+
 def _compare(name, case, dtype_name, got, want, *, ms, plain_ms, lib_ms,
              dev_ms, lib_dev_ms, nbytes, flops):
     import torch
-    err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[dtype_name]
-    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    outs = got if isinstance(got, tuple) else (got,)
+    # an output rounded to bf16 is held to bf16's tolerance
+    tol = TOL["bfloat16" if any(t.dtype == torch.bfloat16 for t in outs)
+              else dtype_name]
+    got, want = _flat(got), _flat(want)
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, atol=tol, rtol=tol)
     bms, by = bound_ms(nbytes, flops, dtype_name)
     log("kernels", kernel=name, case=case, dtype=dtype_name,
         max_abs_err=f"{err:.3e}", tol=tol, ok=ok, ms=f"{ms:.4f}",
@@ -292,7 +320,7 @@ def _compare(name, case, dtype_name, got, want, *, ms, plain_ms, lib_ms,
         device_ms="null" if dev_ms is None else f"{dev_ms:.4f}",
         library_device_ms="null" if lib_dev_ms is None
         else f"{lib_dev_ms:.4f}",
-        bound_ms=f"{bms:.4f}", bound_by=by)
+        bound_ms=f"{bms:.6f}", bound_by=by)
     if not ok:
         raise AssertionError(f"{name} {case} {dtype_name}: max |err| "
                              f"{err:.3e} exceeds {tol}")
@@ -377,7 +405,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
         lambda: ref.decode_attention(q, kc, vc, lens, extra_k=ek,
                                      extra_v=ev),
         lambda: sdpa(q, k_cat, v_cat, mask),
-        dec_bytes, 4 * (tot + b) * hq * dh, [], k1_cold)]
+        dec_bytes, 4 * (tot + b) * hq * dh, [], {"cold": k1_cold})]
     # K2: the same rows in a pool of NB blocks, at a seeded random
     # permutation of block ids; entries past each row's length are
     # sentinels (NB)
@@ -414,7 +442,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
         # K1 on the dense copy of the same rows: bitwise equal
         [("K1_on_the_same_rows",
           lambda: kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
-                                        extra_v=ev))], k2_cold))
+                                        extra_v=ev))], {"cold": k2_cold}))
     return cases
 
 
@@ -476,6 +504,14 @@ def prefill_cases(gen, dtype, dh, specs, cap=2048):
         shape = "tiles"  # the launch shape; for splits, how many are read
         if kpre.launch_plan(bq, s, cap, hq, dh, dtype).splits:
             shape = f"splits={sum(kpre.live_splits(hl, bq, cap))}"
+        nbytes = ((2 * q.numel() + (2 * tot + 2 * bq * s) * hkv * dh) * elt
+                  + 4 * bq)
+
+        def make(q, kh, vh, ks, vs, hl=hl, m=mask):
+            kc, vc = torch.cat([kh, ks], 1), torch.cat([vh, vs], 1)
+            return (lambda: kpre.prefill_attention(q, kh, vh, hl, ks, vs),
+                    lambda: sdpa(q, kc, vc, m))
+
         cases.append((
             "prefill_attention",
             f"{case},B={bq},S={s},C={cap},hist_len="
@@ -486,22 +522,73 @@ def prefill_cases(gen, dtype, dh, specs, cap=2048):
             lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
                 ref.prefill_attention(q, kh, vh, hl, ks, vs),
             lambda q=q, k=k_cat, v=v_cat, m=mask: sdpa(q, k, v, m),
-            (2 * q.numel() + (2 * tot + 2 * bq * s) * hkv * dh) * elt
-            + 4 * bq,
-            4 * pairs * hq * dh,
+            nbytes, 4 * pairs * hq * dh,
             [("second_run",
               lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
                   kpre.prefill_attention(q, kh, vh, hl, ks, vs)),
              (f"block_table_gather_C={kg.shape[1]}",
               lambda q=q, kg=kg, vg=vg, hl=hl, ks=ks, vs=vs:
-                  kpre.prefill_attention(q, kg, vg, hl, ks, vs))]))
+                  kpre.prefill_attention(q, kg, vg, hl, ks, vs))],
+            {"cold": cold_of(nbytes, make, q, kh, vh, ks, vs)}))
     return cases
+
+
+def cold_of(nbytes, make, *tensors):
+    """A cold factory for ``_cold``: ``make(*copy)`` -> (kernel fn,
+    library fn or None) on each of ``cold_copies(nbytes)`` copies of
+    ``tensors``."""
+    def cold():
+        pairs = [make(*(t.clone() for t in tensors))
+                 for _ in range(cold_copies(nbytes))]
+        lib = [lf for _, lf in pairs]
+        return [kf for kf, _ in pairs], None if None in lib else lib
+    return cold
+
+
+def add_rmsnorm_case(gen, m, d, xdt, adt, hdt):
+    """K5 with the residual add at (m, d), (x, a, h) dtypes: (s, h)
+    against the plain version; bitwise, torch's ``x + a`` and the kernel
+    without the add on it; library: ``x + a`` then ``F.rms_norm`` (cast
+    to h's dtype where it differs); the lone ``x + a`` as the launch
+    floor; cold: copies of x, a and w. Bytes: x and a read, s and h
+    written, w once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as krn
+    x, a = _rand(gen, (m, d), xdt), _rand(gen, (m, d), adt)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(xdt)
+    ex, ea, eh = (torch.tensor([], dtype=t).element_size()
+                  for t in (xdt, adt, hdt))
+    nbytes = m * d * (2 * ex + ea + eh) + d * ex
+
+    def kern(x=x, a=a, w=w):
+        return krn.add_rmsnorm(x, a, w, out_dtype=hdt)
+
+    def lib(x=x, a=a, w=w):
+        out = F.rms_norm(x + a, (d,), w, eps=1e-6)
+        return out if hdt == xdt else out.to(hdt)
+
+    names = ",".join(str(t).removeprefix("torch.") for t in (xdt, adt, hdt))
+    return (
+        "add_rmsnorm", f"M={m},d={d},x+a->h={names}", kern,
+        lambda: ref.add_rmsnorm(x, a, w, out_dtype=hdt), lib,
+        nbytes, 5 * m * d,
+        [("x_plus_a_then_the_kernel_without_a",
+          lambda: (x + a, krn.add_rmsnorm(x + a, None, w,
+                                          out_dtype=hdt)[1]))],
+        {"cold": cold_of(nbytes, lambda *c: (lambda: kern(*c),
+                                              lambda: lib(*c)), x, a, w),
+         "floor": lambda: x + a})
 
 
 def kernel_cases(gen, dtype):
     """(name, case, kernel_fn, plain_fn, library_fn|None, bytes, flops,
-    same) at the paths' shapes for one dtype; ``same`` lists (label, fn)
-    of kernel runs whose output must be bitwise equal to the first."""
+    same[, opts]) at the paths' shapes for one dtype; ``same`` lists
+    (label, fn) of kernel runs whose output must be bitwise equal to the
+    first; ``opts`` may hold ``cold`` (a factory of round-robin kernel
+    and library calls on copies beyond the L2), ``floor`` (the lone
+    elementwise op a fused kernel absorbs)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
@@ -514,12 +601,20 @@ def kernel_cases(gen, dtype):
         x = _rand(gen, (m, d), dtype)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
              ).to(dtype)
+        nbytes = (2 * m * d + d) * elt
         cases.append((
             "rmsnorm", f"M={m},d={d}",
             lambda x=x, w=w: krn.rmsnorm(x, w),
             lambda x=x, w=w: ref.rmsnorm(x, w),
             lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps=1e-6),
-            (2 * m * d + d) * elt, 4 * m * d, []))
+            nbytes, 4 * m * d, [],
+            {"cold": cold_of(nbytes, lambda x, w, d=d: (
+                lambda: krn.rmsnorm(x, w),
+                lambda: F.rms_norm(x, (d,), w, eps=1e-6)), x, w)}))
+    # the fused add: qwen's decode rows and its prefill bucket, in the
+    # serving dtype (the float32 gates' in float32)
+    for m in (8, 1024):
+        cases.append(add_rmsnorm_case(gen, m, d, dtype, dtype, dtype))
 
     s, dh = 512, 64
     for case, hq, hkv, window in (("causal", 16, 16, None),
@@ -534,6 +629,7 @@ def kernel_cases(gen, dtype):
             ok &= pos[None, :] > pos[:, None] - window
         pairs = int(ok.sum().item())
         mask = ok if window is not None else None
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
         cases.append((
             "flash_attention",
             f"B=1,S={s},Hq={hq},Hkv={hkv},Dh={dh},{case}",
@@ -542,8 +638,10 @@ def kernel_cases(gen, dtype):
             lambda q=q, k=k, v=v, w=window: ref.flash_attention(
                 q, k, v, causal=True, window=w),
             lambda q=q, k=k, v=v, m=mask: sdpa(q, k, v, m),
-            (2 * q.numel() + k.numel() + v.numel()) * elt,
-            4 * pairs * hq * dh, []))
+            nbytes, 4 * pairs * hq * dh, [],
+            {"cold": cold_of(nbytes, lambda q, k, v, w=window, m=mask: (
+                lambda: kfa.flash_attention(q, k, v, causal=True, window=w),
+                lambda: sdpa(q, k, v, m)), q, k, v)}))
 
     b, cap = 8, 2048
     for case, hq, hkv in (("mha", 16, 16), ("gqa", 8, 2)):
@@ -562,7 +660,10 @@ def kernel_cases(gen, dtype):
         lambda: kfa.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention(q, k, v, causal=True),
         lambda: sdpa(q, k, v),
-        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * hq * dh, []))
+        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * hq * dh, [],
+        {"cold": cold_of(4 * q.numel() * elt, lambda q, k, v: (
+            lambda: kfa.flash_attention(q, k, v, causal=True),
+            lambda: sdpa(q, k, v)), q, k, v)}))
     return cases
 
 
@@ -650,7 +751,7 @@ def w4_path_cases(gen, dtype):
                 x, p, s, group=g),
             lambda x=x, p=packed, s=scales, g=group: ref.quant_gemv(
                 x, p, s, group=g),
-            lib, nbytes, 2 * b * k * n, [], cold))
+            lib, nbytes, 2 * b * k * n, [], {"cold": cold}))
 
     s, h, dh = 512, 32, 96
     q = _rand(gen, (1, s, h, dh), dtype)
@@ -661,7 +762,15 @@ def w4_path_cases(gen, dtype):
         lambda: kfa.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention(q, k, v, causal=True),
         lambda: sdpa(q, k, v),
-        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * h * dh, []))
+        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * h * dh, [],
+        {"cold": cold_of(4 * q.numel() * elt, lambda q, k, v: (
+            lambda: kfa.flash_attention(q, k, v, causal=True),
+            lambda: sdpa(q, k, v)), q, k, v)}))
+    if dtype == torch.float32:
+        # K5 at the W4 step's norm: float32 residual, K6's bf16 output
+        # added, bf16 h for K6
+        cases.append(add_rmsnorm_case(gen, 1, 3072, torch.float32,
+                                      torch.bfloat16, torch.bfloat16))
     cases += decode_cases(gen, dtype, 8, 2048, h, h, dh)
     # K1 and K2 at the W4 step's call: one row, 512 of 1024 positions
     cases += decode_cases(gen, dtype, 1, 1024, h, h, dh, first_len=512)
@@ -681,12 +790,13 @@ def phase_kernels() -> dict:
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
-        for name, case, kfn, pfn, lfn, nbytes, flops, same, *cold in (
+        for name, case, kfn, pfn, lfn, nbytes, flops, same, *opts in (
                 kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)):
+            opts = opts[0] if opts else {}
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
             for label, fn in same:
-                equal = torch.equal(got, fn())
+                equal = _equal(got, fn())
                 log("kernels", kernel=name, case=case, dtype=dname,
                     bitwise_equal=equal, against=label)
                 if not equal:
@@ -699,8 +809,14 @@ def phase_kernels() -> dict:
                 dev_ms=device_ms(kfn),
                 lib_dev_ms=None if lfn is None else device_ms(lfn),
                 nbytes=nbytes, flops=flops)
-            if cold:
-                res.update(_cold(name, case, dname, *cold[0]()))
+            if "cold" in opts:
+                res.update(_cold(name, case, dname, *opts["cold"]()))
+            if "floor" in opts:
+                res.update(floor_ms=time_ms(opts["floor"]),
+                           floor_device_ms=device_ms(opts["floor"]))
+                log("kernels", kernel=name, case=case, dtype=dname,
+                    floor_ms=res["floor_ms"],
+                    floor_device_ms=res["floor_device_ms"])
             row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
             row["cases"].append({"case": case, "dtype": dname, **res})
@@ -722,10 +838,10 @@ def plain_kernels():
     reference run on the card (this script's comparison only; the
     package itself never falls back)."""
     from repro_torch.kernels import ops, ref
-    names = ("flash_attention", "decode_attention", "paged_decode_attention",
-             "prefill_attention", "quant_gemv")
-    saved = {n: getattr(ops, n) for n in ("rmsnorm", *names)}
-    ops.rmsnorm = lambda x, w, *, eps=1e-6: ref.rmsnorm(x, w, eps)
+    # ops.rmsnorm goes through ops.add_rmsnorm
+    names = ("add_rmsnorm", "flash_attention", "decode_attention",
+             "paged_decode_attention", "prefill_attention", "quant_gemv")
+    saved = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, getattr(ref, n))
     try:
@@ -1116,11 +1232,16 @@ SOURCES = {
                           "src/repro/kernels/flash_attention.py:148"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:230"),
-    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                "src/repro/kernels/rmsnorm.py:25"),
+    "add_rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:25"),
     "quant_gemv": ("src/repro_torch/kernels/csrc/quant_gemv.cu",
                    "src/repro/kernels/quant_gemv.py:56"),
 }
+
+
+# the launch counter of each kernel of the JSON line, where it is named
+# otherwise (``ops.launch_counts()``)
+COUNTERS = {"add_rmsnorm": "rmsnorm"}
 
 
 def main() -> int:
@@ -1144,13 +1265,18 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
+        cases, err = r["cases"], r["max_abs_err"]
+        if name == "add_rmsnorm":   # K5 also runs without the add, and
+            cases = cases + rows["rmsnorm"]["cases"]   # counts both
+            err = max(err, rows["rmsnorm"]["max_abs_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "replaces": replaces,
+            "launches": counts[COUNTERS.get(name, name)],
+            "max_abs_err": err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "case": r["case"], "cases": r["cases"]})
+            "case": r["case"], "cases": cases})
     log("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -103,7 +103,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def check_operand(what: str, t: torch.Tensor, dtype: torch.dtype, *,
@@ -128,14 +128,14 @@ def launch_dtype(what: str, *tensors: torch.Tensor) -> int:
     """Validate kernel operands of one element type the kernels take
     (each as :func:`check_operand`) and return that type's code."""
     dt = tensors[0].dtype
-    if dt not in _DTYPE_CODES:
+    if dt not in DTYPE_CODES:
         raise TypeError(f"{what}: dtype {dt} unsupported "
                         "(float32 or bfloat16)")
     for t in tensors:
         if t.dtype != dt:
             raise TypeError(f"{what}: mixed dtypes {dt} and {t.dtype}")
         check_operand(what, t, dt)
-    return _DTYPE_CODES[dt]
+    return DTYPE_CODES[dt]
 
 
 def stream_handle(t: torch.Tensor) -> int:

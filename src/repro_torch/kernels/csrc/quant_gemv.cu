@@ -26,20 +26,27 @@
 //   not a multiple of 16 takes 1-byte loads and a strip of 8 columns,
 //   so the ragged edge is masked per lane.
 // - Dequantisation without int -> float conversions. bf16 x (the W4
-//   decode path) with N a multiple of 16 runs on the tensor cores: a
-//   byte permute and one LOP3 turn a byte's two nibbles into the bf16
-//   pair 128 + (v ^ 8), one bf16x2 FMA subtracts 136 — exact, the int4
-//   values -8..7 — and those are the A operand of mma.sync m16n8k16
-//   (the 8 n columns are up to 8 x rows; the fragment's K pairs are a
-//   byte's two nibbles, its M rows the lane's 16 columns), x the B
-//   operand, products exact in fp32, summed in fp32 per group, then
-//   times the group's fp32 scale. float32 x, or a ragged N, runs on the
-//   CUDA cores: the biased nibble placed in the mantissa of 2^23 by one
-//   byte permute (0x4B0000xx) minus 2^23 + 8 in fp32 — exact — times
-//   the scale and an fp32 FMA with x, as the reference's ``_kernel``.
+//   decode path) with N and the group multiples of 16 runs on the
+//   tensor cores: a byte permute and one LOP3 turn a byte's two nibbles
+//   into the bf16 pair 128 + (v ^ 8), one bf16x2 FMA subtracts 136 —
+//   exact, the int4 values -8..7 — and those are the A operand of
+//   mma.sync m16n8k16 (the 8 n columns are up to 8 x rows; the
+//   fragment's K pairs are a byte's two nibbles, its M rows the lane's
+//   16 columns), x the B operand, products exact in fp32, summed in fp32
+//   per unit, then times the group's fp32 scale. float32 x, a ragged N
+//   or a group that is not a multiple of 16 runs on the CUDA cores: the
+//   biased nibble placed in the mantissa of 2^23 by one byte permute
+//   (0x4B0000xx) minus 2^23 + 8 in fp32 — exact — times the scale and an
+//   fp32 FMA with x, as the reference's ``_kernel``.
 // - Work split. One block of 4 warps per (column strip, K split, tile
-//   of x rows: up to 8 on the tensor cores, 4 on the CUDA cores). A K
-//   split is 4 x gpw whole groups, gpw per warp.
+//   of x rows: up to 8 on the tensor cores, 4 on the CUDA cores). K is
+//   cut into units of ``unit`` rows, each inside one group: the whole
+//   group, unless 4 warps' x of it would outgrow what a block stages
+//   (then the largest divisor of the group that fits). A K split is
+//   4 x gpw whole units, gpw per warp. Any even group runs: the
+//   tensor cores take groups that are multiples of 16 (in batches of 4,
+//   2 or 1 16-K tiles), the CUDA cores the rest (a lane row's packed
+//   rows in batches of 8, the last batch masked).
 //   x for the block's K range is staged once in shared memory as fp32.
 //   On the CUDA cores a warp sums its 4 lane rows by shuffles; the block
 //   adds its 4 warps in warp order through shared memory.
@@ -79,6 +86,28 @@ __device__ __forceinline__ void load_w(const uint8_t* p,
     static_assert(V == 1, "1- or 16-byte loads");
     w[0] = __ldg(p);
   }
+}
+
+// Division of a unit index by the units a group holds, a run-time value,
+// without a divide: nvcc builds ``/`` by a run-time int from I2F, MUFU.RCP
+// and F2I. q = (umulhi(g, m) + g) >> s with m and s set on the host
+// (round-up reciprocal), exact for 0 <= g < 2^31; a group of one unit
+// (every group that fits a block's stage) has m = 1, s = 0 and q = g.
+struct UnitsPerGroup {
+  unsigned m;
+  int s;
+  __device__ __forceinline__ int group_of(int g) const {
+    return static_cast<int>((__umulhi(static_cast<unsigned>(g), m) +
+                             static_cast<unsigned>(g)) >> s);
+  }
+};
+
+inline UnitsPerGroup units_per_group(int upg) {
+  int s = 0;
+  while ((1u << s) < static_cast<unsigned>(upg)) ++s;
+  const unsigned long long m =
+      ((1ull << 32) * ((1ull << s) - static_cast<unsigned>(upg))) / upg + 1;
+  return {static_cast<unsigned>(m), s};
 }
 
 // The signed value of byte e's biased nibble (v ^ 8 in 0..15) as fp32:
@@ -134,14 +163,16 @@ __device__ __forceinline__ void finish_block(
   if (tid == 0) *ticket = 0;
 }
 
-// CUDA-core body: float32 x, or an N that is not a multiple of 16.
-template <typename T, int R, int V>
+// CUDA-core body: float32 x, an N or a group that is not a multiple of
+// 16. TAIL: a unit that is not a multiple of 64 rows, so a lane row's
+// packed rows do not fill whole batches of 8: the last batch is masked.
+template <typename T, int R, int V, bool TAIL>
 __global__ void __launch_bounds__(kThreads)
     quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ wp,
                       const float* __restrict__ scales,
                       float* __restrict__ part, int* __restrict__ tickets,
-                      T* __restrict__ out, int b, int k, int n, int group,
-                      int ng, int gpw, int ns) {
+                      T* __restrict__ out, int b, int k, int n, int unit,
+                      UnitsPerGroup upg, int ng, int gpw, int ns) {
   constexpr int NW = Vec4<V>::W, CW = Vec4<V>::C;
   constexpr int SC = kColLanes * V;  // columns of a strip
   extern __shared__ float smem[];
@@ -150,8 +181,8 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(R, b - r0);
   const int g_blk = split * kWarps * gpw;
   const int g_end = min(g_blk + kWarps * gpw, ng);
-  const int kcap = kWarps * gpw * group;  // x row stride in shared memory
-  const int kspan = (g_end - g_blk) * group;
+  const int kcap = kWarps * gpw * unit;  // x row stride in shared memory
+  const int kspan = (g_end - g_blk) * unit;
   float* xs = smem;              // [R][kcap] x of the block's K range
   float* red = xs + R * kcap;    // [kWarps][R][SC] per-warp sums
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -160,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = tid; j < kspan; j += kThreads)
       xs[r * kcap + j] =
           r < rows ? port::to_f(x[static_cast<size_t>(r0 + r) * k +
-                                  static_cast<size_t>(g_blk) * group + j])
+                                  static_cast<size_t>(g_blk) * unit + j])
                    : 0.f;
   __syncthreads();
 
@@ -173,12 +204,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < V; ++c) acc[r][c] = 0.f;
 
   if (col < n) {
-    const int half = group >> 1;             // packed rows per group
-    const int per_lane = half / kRowLanes;   // a multiple of kUnroll
+    const int half = unit >> 1;              // packed rows per unit
+    // packed rows rl, rl + 4, ... of the unit fall to this lane row (a
+    // multiple of kUnroll unless TAIL)
+    const int per_lane = (half - rl + kRowLanes - 1) / kRowLanes;
     const int gw0 = g_blk + warp * gpw, gw1 = min(gw0 + gpw, g_end);
     for (int g = gw0; g < gw1; ++g) {
       float s[V];
-      const float* sg = scales + static_cast<size_t>(g) * n + col;
+      const float* sg =
+          scales + static_cast<size_t>(upg.group_of(g)) * n + col;
       if constexpr (V == 16) {
 #pragma unroll
         for (int c = 0; c < V; c += 4) {
@@ -191,14 +225,17 @@ __global__ void __launch_bounds__(kThreads)
       }
       const uint8_t* wg =
           wp + (static_cast<size_t>(g) * half + rl) * n + col;
-      const float* xg = xs + (g - g_blk) * group + 2 * rl;
+      const float* xg = xs + (g - g_blk) * unit + 2 * rl;
       for (int i0 = 0; i0 < per_lane; i0 += kUnroll) {
         uint32_t w[kUnroll][NW];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u)
-          load_w<V>(wg + static_cast<size_t>(i0 + u) * kRowLanes * n, w[u]);
+          if (!TAIL || i0 + u < per_lane)
+            load_w<V>(wg + static_cast<size_t>(i0 + u) * kRowLanes * n,
+                      w[u]);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
+          if (TAIL && i0 + u >= per_lane) continue;
           // K rows 2p and 2p + 1 of packed row p = rl + 4 (i0 + u)
           const int kk = 2 * kRowLanes * (i0 + u);
           float x0[R], x1[R];
@@ -266,20 +303,23 @@ __device__ __forceinline__ uint32_t nibble_pair_bf16(const uint32_t (&w)[4],
   return v;
 }
 
-// Tensor-core body: bf16 x, N a multiple of 16, up to 8 x rows per tile.
+// Tensor-core body: bf16 x, N and the unit multiples of 16, up to 8 x
+// rows per tile; TILES 16-K tiles per batch of loads (4, or 2 or 1 where
+// the unit holds no multiple of 4 tiles).
 // Lane (g8, t) = (lane / 4, lane % 4) loads packed rows t and t + 4 of
 // each 16-K tile at its 16 columns — the A fragments of 8 mma tiles,
 // mma j taking columns 2j (M row g8) and 2j + 1 (M row g8 + 8) — and x
 // rows g8 at K pairs 2t and 2t + 8 as the B fragment.
+template <int TILES>
 __global__ void __launch_bounds__(kThreads)
     quant_mma_kernel(const __nv_bfloat16* __restrict__ x,
                      const uint8_t* __restrict__ wp,
                      const float* __restrict__ scales,
                      float* __restrict__ part, int* __restrict__ tickets,
                      __nv_bfloat16* __restrict__ out, int b, int k, int n,
-                     int group, int ng, int gpw, int ns) {
+                     int unit, UnitsPerGroup upg, int ng, int gpw,
+                     int ns) {
   constexpr int SC = kColLanes * 16;  // 128 columns of a strip
-  constexpr int TILES = 4;            // 16-K tiles per batch of loads
   extern __shared__ float smem[];
   const int strip = blockIdx.x, split = blockIdx.y;
   const int r0 = blockIdx.z * kMmaRows;
@@ -288,8 +328,8 @@ __global__ void __launch_bounds__(kThreads)
   const int g_end = min(g_blk + kWarps * gpw, ng);
   // x as bf16 pairs, rows padded by 4 words: the 8 x rows one B-fragment
   // load reads fall on distinct banks
-  const int xld = ((kWarps * gpw * group) >> 1) + 4;
-  const int kspan = ((g_end - g_blk) * group) >> 1;  // pairs per row
+  const int xld = ((kWarps * gpw * unit) >> 1) + 4;
+  const int kspan = ((g_end - g_blk) * unit) >> 1;  // pairs per row
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem);  // [rows][xld]
   float* red = smem + rows * xld;                    // [kWarps][rows][SC]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -299,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
   // mma.sync needs the whole warp: lanes past N (a ragged last strip)
   // take part with zero weights and scales and write nothing
   const bool col_ok = col < n;
-  const int half = group >> 1;
+  const int half = unit >> 1;
   const int gw0 = g_blk + warp * gpw, gw1 = min(gw0 + gpw, g_end);
   uint32_t w[TILES][2][4];
   float s[16];
@@ -317,7 +357,8 @@ __global__ void __launch_bounds__(kThreads)
       }
   };
   auto load_scales = [&](int g) {
-    const float* sg = scales + static_cast<size_t>(g) * n + col;
+    const float* sg =
+        scales + static_cast<size_t>(upg.group_of(g)) * n + col;
 #pragma unroll
     for (int c = 0; c < 16; c += 4) {
       const float4 v = col_ok ? __ldg(reinterpret_cast<const float4*>(sg + c))
@@ -334,7 +375,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < rows; ++r) {
     const uint32_t* xr = reinterpret_cast<const uint32_t*>(
         x + static_cast<size_t>(r0 + r) * k +
-        static_cast<size_t>(g_blk) * group);
+        static_cast<size_t>(g_blk) * unit);
     for (int j = tid; j < kspan; j += kThreads) xs[r * xld + j] = xr[j];
   }
   __syncthreads();
@@ -352,7 +393,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) accg[j][e] = 0.f;
     const uint32_t* xg = xs + g8 * xld + (g - g_blk) * half + t;
-    for (int kt0 = 0; kt0 < (group >> 4); kt0 += TILES) {
+    for (int kt0 = 0; kt0 < (unit >> 4); kt0 += TILES) {
       if (g != gw0 || kt0 != 0) load_batch(g, kt0);
 #pragma unroll
       for (int u = 0; u < TILES; ++u) {
@@ -401,90 +442,110 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int R, int V>
 cudaError_t launch_rv(const void* x, const void* wp, const void* scales,
                       float* part, int* tickets, void* out, int b, int k,
-                      int n, int group, int gpw, int ns,
+                      int n, int group, int unit, int gpw, int ns,
                       cudaStream_t stream) {
   const dim3 grid((n + kColLanes * V - 1) / (kColLanes * V), ns,
                   (b + R - 1) / R);
   const size_t smem =
-      sizeof(float) * (R * kWarps * gpw * group + kWarps * R * kColLanes * V);
-  quant_gemv_kernel<T, R, V><<<grid, kThreads, smem, stream>>>(
+      sizeof(float) * (R * kWarps * gpw * unit + kWarps * R * kColLanes * V);
+  auto kernel = unit % (2 * kRowLanes * kUnroll)
+                    ? quant_gemv_kernel<T, R, V, true>
+                    : quant_gemv_kernel<T, R, V, false>;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(wp),
       static_cast<const float*>(scales), part, tickets, static_cast<T*>(out),
-      b, k, n, group, k / group, gpw, ns);
+      b, k, n, unit, units_per_group(group / unit), k / unit, gpw, ns);
+  return cudaGetLastError();
+}
+
+template <int TILES>
+cudaError_t launch_mma_t(const void* x, const void* wp, const void* scales,
+                         float* part, int* tickets, void* out, int b, int k,
+                         int n, int group, int unit, int gpw, int ns,
+                         cudaStream_t stream) {
+  const dim3 grid((n + kColLanes * 16 - 1) / (kColLanes * 16), ns,
+                  (b + kMmaRows - 1) / kMmaRows);
+  const int rows = min(b, kMmaRows);
+  const size_t smem =
+      sizeof(float) * (rows * ((kWarps * gpw * unit) / 2 + 4) +
+                       kWarps * rows * kColLanes * 16);
+  quant_mma_kernel<TILES><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const float*>(scales), part, tickets,
+      static_cast<__nv_bfloat16*>(out), b, k, n, unit,
+      units_per_group(group / unit), k / unit, gpw, ns);
   return cudaGetLastError();
 }
 
 cudaError_t launch_mma(const void* x, const void* wp, const void* scales,
                        float* part, int* tickets, void* out, int b, int k,
-                       int n, int group, int gpw, int ns,
-                       cudaStream_t stream) {
-  const dim3 grid((n + kColLanes * 16 - 1) / (kColLanes * 16), ns,
-                  (b + kMmaRows - 1) / kMmaRows);
-  const int rows = min(b, kMmaRows);
-  const size_t smem =
-      sizeof(float) * (rows * ((kWarps * gpw * group) / 2 + 4) +
-                       kWarps * rows * kColLanes * 16);
-  quant_mma_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
-      static_cast<const float*>(scales), part, tickets,
-      static_cast<__nv_bfloat16*>(out), b, k, n, group, k / group, gpw, ns);
-  return cudaGetLastError();
+                       int n, int group, int unit, int gpw, int ns,
+                       cudaStream_t s) {
+  const int tiles = unit >> 4;
+  if (tiles % 4 == 0)
+    return launch_mma_t<4>(x, wp, scales, part, tickets, out, b, k, n, group,
+                           unit, gpw, ns, s);
+  if (tiles % 2 == 0)
+    return launch_mma_t<2>(x, wp, scales, part, tickets, out, b, k, n, group,
+                           unit, gpw, ns, s);
+  return launch_mma_t<1>(x, wp, scales, part, tickets, out, b, k, n, group,
+                         unit, gpw, ns, s);
 }
 
 template <typename T, int R>
 cudaError_t launch_r(int vec, const void* x, const void* wp,
                      const void* scales, float* part, int* tickets, void* out,
-                     int b, int k, int n, int group, int gpw, int ns,
-                     cudaStream_t s) {
-  if (vec == 16) {  // bf16 with 16-byte loads takes the tensor cores
-    if constexpr (sizeof(T) == 4)
-      return launch_rv<T, R, 16>(x, wp, scales, part, tickets, out, b, k, n,
-                                 group, gpw, ns, s);
-    return cudaErrorInvalidValue;
-  }
+                     int b, int k, int n, int group, int unit, int gpw,
+                     int ns, cudaStream_t s) {
+  if (vec == 16)
+    return launch_rv<T, R, 16>(x, wp, scales, part, tickets, out, b, k, n,
+                               group, unit, gpw, ns, s);
   return launch_rv<T, R, 1>(x, wp, scales, part, tickets, out, b, k, n,
-                            group, gpw, ns, s);
+                            group, unit, gpw, ns, s);
 }
 
 template <typename T>
 cudaError_t launch(int rows, int vec, const void* x, const void* wp,
                    const void* scales, float* part, int* tickets, void* out,
-                   int b, int k, int n, int group, int gpw, int ns,
+                   int b, int k, int n, int group, int unit, int gpw, int ns,
                    cudaStream_t s) {
   if (rows == 1)
     return launch_r<T, 1>(vec, x, wp, scales, part, tickets, out, b, k, n,
-                          group, gpw, ns, s);
+                          group, unit, gpw, ns, s);
   if (rows == 2)
     return launch_r<T, 2>(vec, x, wp, scales, part, tickets, out, b, k, n,
-                          group, gpw, ns, s);
+                          group, unit, gpw, ns, s);
   return launch_r<T, 4>(vec, x, wp, scales, part, tickets, out, b, k, n,
-                        group, gpw, ns, s);
+                        group, unit, gpw, ns, s);
 }
 
 }  // namespace
 
 // x, out: (b, k) and (b, n) of one dtype; wp: (k / 2, n) uint8; scales:
-// (k / group, n) fp32. The launch plan (quant_gemv.py::launch_plan):
-// ``vec`` bytes per weight load (16 where it divides n, else 1), ``rows`` x
-// rows per block (8 on the tensor cores — bf16 with vec 16 — else 1, 2
-// or 4), ``gpw`` groups per warp and ``ns`` = ceil((k / group) / (4
-// gpw)) K splits. With ns > 1, ``part`` is (ns, b, n) fp32 scratch and
-// ``tickets`` ceil(n / (8 vec)) * ceil(b / rows) int32 counters, all 0
-// (each call leaves them 0). group in {64, 128, 256}, dividing k;
-// pointers 16-byte aligned.
+// (k / group, n) fp32, group even and dividing k. The launch plan
+// (quant_gemv.py::launch_plan): ``unit`` K rows per piece (even, dividing
+// the group), ``vec`` bytes per weight load (16 where it divides n, else
+// 1), ``rows`` x rows per block (8 on the tensor cores — bf16 with vec 16
+// and unit % 16 == 0 — else 1, 2 or 4), ``gpw`` units per warp and ``ns``
+// = ceil((k / unit) / (4 gpw)) K splits. With ns > 1, ``part`` is (ns, b,
+// n) fp32 scratch and ``tickets`` ceil(n / (8 vec)) * ceil(b / rows)
+// int32 counters, all 0 (each call leaves them 0). Pointers 16-byte
+// aligned.
 KERNEL_EXPORT int quant_gemv_launch(const void* x, const void* wp,
                                     const void* scales, void* part,
                                     void* tickets, void* out, int b, int k,
-                                    int n, int group, int vec, int rows,
-                                    int gpw, int ns, int dtype,
+                                    int n, int group, int unit, int vec,
+                                    int rows, int gpw, int ns, int dtype,
                                     void* stream) {
-  const bool group_ok = group == 64 || group == 128 || group == 256;
-  const int ng = group_ok ? k / group : 0;
-  const bool mma = dtype == port::DT_BF16 && vec == 16;
-  if (b < 1 || n < 1 || !group_ok || k % group || ng < 1 ||
-      (vec != 16 && vec != 1) || n % vec ||
+  const bool unit_ok = group >= 2 && group % 2 == 0 && k % group == 0 &&
+                       unit >= 2 && unit % 2 == 0 && group % unit == 0;
+  const int ng = unit_ok ? k / unit : 0;
+  const bool mma =
+      dtype == port::DT_BF16 && vec == 16 && group % 16 == 0;
+  if (b < 1 || n < 1 || !unit_ok || ng < 1 || (vec != 16 && vec != 1) ||
+      n % vec || (mma && unit % 16) ||
       (mma ? rows != kMmaRows : rows != 1 && rows != 2 && rows != 4) ||
-      gpw < 1 || rows * kWarps * gpw * group > kMaxXFloats ||
+      gpw < 1 || rows * kWarps * gpw * unit > kMaxXFloats ||
       ns != (ng + kWarps * gpw - 1) / (kWarps * gpw) ||
       (ns > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -492,13 +553,13 @@ KERNEL_EXPORT int quant_gemv_launch(const void* x, const void* wp,
   float* pt = static_cast<float*>(part);
   int* tk = static_cast<int*>(tickets);
   if (mma)
-    return launch_mma(x, wp, scales, pt, tk, out, b, k, n, group, gpw, ns,
-                      s);
+    return launch_mma(x, wp, scales, pt, tk, out, b, k, n, group, unit, gpw,
+                      ns, s);
   if (dtype == port::DT_F32)
     return launch<float>(rows, vec, x, wp, scales, pt, tk, out, b, k, n,
-                         group, gpw, ns, s);
+                         group, unit, gpw, ns, s);
   if (dtype == port::DT_BF16)
     return launch<__nv_bfloat16>(rows, vec, x, wp, scales, pt, tk, out, b,
-                                 k, n, group, gpw, ns, s);
+                                 k, n, group, unit, gpw, ns, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

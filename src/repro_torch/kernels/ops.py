@@ -31,11 +31,20 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
-def rmsnorm(x, w, *, eps=1e-6):
-    """Fused RMSNorm over the last axis (K5)."""
+def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None):
+    """Residual add and RMSNorm over the last axis in one pass (K5):
+    (s, h) with s = x + a as torch rounds it (x itself when a is None)
+    and h = RMSNorm(s) * w in ``out_dtype`` (default x's dtype). The
+    shape and dtype contract of the kernel holds on both devices."""
     if _on_card(x):
-        return _rn.rmsnorm(x, w, eps=eps)
-    return ref.rmsnorm(x, w, eps)
+        return _rn.add_rmsnorm(x, a, w, eps=eps, out_dtype=out_dtype)
+    _rn.check_shapes(x, a, w, out_dtype)
+    return ref.add_rmsnorm(x, a, w, eps, out_dtype=out_dtype)
+
+
+def rmsnorm(x, w, *, eps=1e-6):
+    """RMSNorm over the last axis (K5 without the add)."""
+    return add_rmsnorm(x, None, w, eps=eps)[1]
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):

@@ -21,52 +21,65 @@ launches = 0
 WARPS = 4          # warps per block (kWarps in the source)
 COL_LANES = 8      # lanes along N on one packed row (kColLanes)
 MMA_ROWS = 8       # x rows of a tensor-core tile (kMmaRows)
-GROUPS = (64, 128, 256)
 MAX_X_FLOATS = 8192          # x values a block stages (kMaxXFloats)
 TARGET_WARPS = 132 * 16      # warps to aim for: 16 per SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"quant_gemv_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _P]}
+                              _I, _I, _I, _I, _I, _P]}
 
 
 class Plan(NamedTuple):
-    """How one call launches. ``mma``: on the tensor cores (bf16 x, N a
-    multiple of 16) or the CUDA cores. Columns: ``strips`` strips of
-    ``strip_cols`` = 8 x ``vec`` columns (``vec`` bytes per weight load:
-    16 where it divides N, else 1). Rows: ``row_tiles`` tiles of
-    ``rows`` x rows (8, the mma's N, on the tensor cores). K: ``splits``
-    splits of ``WARPS`` x ``groups_per_warp`` whole groups (the last may
-    be shorter, none empty). Grid: (strips, splits, row_tiles) blocks of
-    ``WARPS`` warps."""
+    """How one call launches. ``mma``: on the tensor cores (bf16 x, N
+    and the group multiples of 16) or the CUDA cores. Columns:
+    ``strips`` strips of ``strip_cols`` = 8 x ``vec`` columns (``vec``
+    bytes per weight load: 16 where it divides N, else 1). Rows:
+    ``row_tiles`` tiles of ``rows`` x rows (8, the mma's N, on the
+    tensor cores). K: units of ``unit`` rows, each inside one group (the
+    whole group unless a block's x would outgrow ``MAX_X_FLOATS``);
+    ``splits`` splits of ``WARPS`` x ``units_per_warp`` whole units (the
+    last may be shorter, none empty). Grid: (strips, splits, row_tiles)
+    blocks of ``WARPS`` warps."""
     mma: bool
     vec: int
     strip_cols: int
     strips: int
     rows: int
     row_tiles: int
-    groups_per_warp: int
+    unit: int
+    units_per_warp: int
     splits: int
+
+
+def _unit(group: int, rows: int, mma: bool) -> int:
+    """The K rows a warp takes as one piece: the whole group where four
+    warps' x of it fits ``MAX_X_FLOATS``, else the largest divisor of the
+    group that does (a multiple of 16 on the tensor cores, even on the
+    CUDA cores)."""
+    step = 16 if mma else 2
+    top = min(group, MAX_X_FLOATS // (WARPS * rows)) // step * step
+    return next(u for u in range(top, 0, -step) if group % u == 0)
 
 
 def launch_plan(b: int, k: int, n: int, group: int,
                 dtype=torch.bfloat16) -> Plan:
     """The launch for x (b, k) of ``dtype`` times a (k, n) int4 weight
-    at ``group``: one warp per (strip, row tile, group) while the card
-    holds that many (``TARGET_WARPS``), more groups per warp beyond, and
-    never more x than a block stages (``MAX_X_FLOATS``)."""
+    at an even ``group`` dividing k: one warp per (strip, row tile,
+    unit) while the card holds that many (``TARGET_WARPS``), more units
+    per warp beyond, and never more x than a block stages
+    (``MAX_X_FLOATS``)."""
     vec = 16 if n % 16 == 0 else 1
-    mma = dtype == torch.bfloat16 and vec == 16
+    mma = dtype == torch.bfloat16 and vec == 16 and group % 16 == 0
     strip_cols = COL_LANES * vec
     strips = -(-n // strip_cols)
     rows = MMA_ROWS if mma else 1 if b == 1 else 2 if b == 2 else 4
     row_tiles = -(-b // rows)
-    ng = k // group
-    gpw = max(1, strips * row_tiles * ng // TARGET_WARPS)
-    gpw = min(gpw, -(-ng // WARPS),
-              max(1, MAX_X_FLOATS // (WARPS * group * rows)))
-    return Plan(mma, vec, strip_cols, strips, rows, row_tiles, gpw,
-                -(-ng // (WARPS * gpw)))
+    unit = _unit(group, rows, mma)
+    nu = k // unit
+    upw = max(1, strips * row_tiles * nu // TARGET_WARPS)
+    upw = min(upw, -(-nu // WARPS), MAX_X_FLOATS // (WARPS * unit * rows))
+    return Plan(mma, vec, strip_cols, strips, rows, row_tiles, unit, upw,
+                -(-nu // (WARPS * upw)))
 
 
 _tickets: dict = {}
@@ -88,8 +101,8 @@ def _ticket_counters(device, stream: int, count: int) -> torch.Tensor:
 def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
                scales: torch.Tensor, *, group: int = 128) -> torch.Tensor:
     """x (B, K) float32 or bfloat16; w_packed (K//2, N) uint8; scales
-    (K//group, N) float32; ``group`` in ``GROUPS``, dividing K.
-    Returns (B, N) in x's dtype."""
+    (K//group, N) float32; ``group`` even, dividing K. Returns (B, N)
+    in x's dtype."""
     global launches
     if x.dim() != 2 or w_packed.dim() != 2 or scales.dim() != 2:
         raise ValueError(f"quant_gemv: x {tuple(x.shape)}, w_packed "
@@ -97,9 +110,9 @@ def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
                          f"{tuple(scales.shape)} must be 2-D")
     b, k = x.shape
     kp, n = w_packed.shape
-    if group not in GROUPS or k % group:
-        raise ValueError(f"quant_gemv: group={group} must be one of "
-                         f"{GROUPS} and divide K={k}")
+    if group < 2 or group % 2 or k % group:
+        raise ValueError(f"quant_gemv: group={group} must be even and "
+                         f"divide K={k}")
     if kp * 2 != k or tuple(scales.shape) != (k // group, n):
         raise ValueError(f"quant_gemv: shapes x {tuple(x.shape)} w_packed "
                          f"{tuple(w_packed.shape)} scales "
@@ -127,8 +140,8 @@ def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
         x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
         None if part is None else part.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
-        out.data_ptr(), b, k, n, group, plan.vec, plan.rows,
-        plan.groups_per_warp, plan.splits, code, stream)
+        out.data_ptr(), b, k, n, group, plan.unit, plan.vec, plan.rows,
+        plan.units_per_warp, plan.splits, code, stream)
     _build.check(lib, err, "quant_gemv")
     launches += 1
     return out

@@ -21,6 +21,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def add_rmsnorm(x: torch.Tensor, a: torch.Tensor | None, w: torch.Tensor,
+                eps: float = 1e-6, *, out_dtype: torch.dtype | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, h): s = x + a (x when a is None), then :func:`rmsnorm` of s,
+    cast to ``out_dtype``."""
+    s = x if a is None else x + a
+    return s, rmsnorm(s, w, eps).to(out_dtype or s.dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0) -> torch.Tensor:

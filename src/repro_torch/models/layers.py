@@ -38,18 +38,17 @@ def embed_init(gen, shape, dtype, device):
 # norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
-    """Fused RMSNorm (K5 on the card)."""
-    return ops.rmsnorm(x.contiguous(), w, eps=eps)
-
-
-def apply_norm(p, cfg, x):
+def add_norm(p, cfg, x, a=None, *, out_dtype=None):
+    """The residual add and the norm after it, in one pass (K5 on the
+    card): (s, h) with s = x + a as torch rounds it (x itself when a is
+    None) and h = RMSNorm(s) * w in ``out_dtype`` (default s's dtype)."""
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(
             f"norm={cfg.norm!r}: only rmsnorm is ported in this slice "
             "(layernorm comes with the audio family)")
-    return rmsnorm(x, p["w"])
+    return ops.add_rmsnorm(x.contiguous(),
+                           None if a is None else a.contiguous(), p["w"],
+                           out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------

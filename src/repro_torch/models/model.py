@@ -154,34 +154,40 @@ def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
 # decoder blocks
 # ---------------------------------------------------------------------------
 
-def decoder_block(p, cfg, x, *, positions, causal=True, window=None):
-    h = L.apply_norm(p["ln1"], cfg, x)
+# A block's input is the residual ``x`` plus the previous block's MLP
+# output ``delta`` (None before the first block); its ``ln1`` adds them
+# as it normalises (K5 with the add), and its ``ln2`` adds the attention
+# output the same way. A block returns (residual, MLP output) un-added,
+# for the next block's ``ln1`` or the final norm to add: the reference's
+# adds, in its order, each fused into the norm that follows it.
+
+def decoder_block(p, cfg, x, delta, *, positions, causal=True,
+                  window=None):
+    x, h = L.add_norm(p["ln1"], cfg, x, delta)
     a, (k, v) = attn_full(p["attn"], cfg, h, positions=positions,
                           causal=causal, window=window)
-    x = x + a
-    h = L.apply_norm(p["ln2"], cfg, x)
-    return x + L.apply_mlp(p["mlp"], cfg, h), (k, v)
+    x, h = L.add_norm(p["ln2"], cfg, x, a)
+    return (x, L.apply_mlp(p["mlp"], cfg, h)), (k, v)
 
 
-def decoder_block_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
+def decoder_block_chunk(p, cfg, x, delta, k_hist, v_hist, hist_len, *,
+                        positions):
     """Decoder block over one chunk with a KV history (chunked prefill
     and speculative verify)."""
-    h = L.apply_norm(p["ln1"], cfg, x)
+    x, h = L.add_norm(p["ln1"], cfg, x, delta)
     a, (k, v) = attn_chunk(p["attn"], cfg, h, k_hist, v_hist, hist_len,
                            positions=positions)
-    x = x + a
-    h = L.apply_norm(p["ln2"], cfg, x)
-    return x + L.apply_mlp(p["mlp"], cfg, h), (k, v)
+    x, h = L.add_norm(p["ln2"], cfg, x, a)
+    return (x, L.apply_mlp(p["mlp"], cfg, h)), (k, v)
 
 
-def decoder_block_decode(p, cfg, x, k_cache, v_cache, cache_len, *,
+def decoder_block_decode(p, cfg, x, delta, k_cache, v_cache, cache_len, *,
                          block_tables=None):
-    h = L.apply_norm(p["ln1"], cfg, x)
+    x, h = L.add_norm(p["ln1"], cfg, x, delta)
     a, k1, v1 = attn_decode(p["attn"], cfg, h, k_cache, v_cache, cache_len,
                             block_tables=block_tables)
-    x = x + a
-    h = L.apply_norm(p["ln2"], cfg, x)
-    return x + L.apply_mlp(p["mlp"], cfg, h), k1, v1
+    x, h = L.add_norm(p["ln2"], cfg, x, a)
+    return (x, L.apply_mlp(p["mlp"], cfg, h)), k1, v1
 
 
 # ---------------------------------------------------------------------------
@@ -227,14 +233,16 @@ def init_paged_pools(cfg, num_blocks, block_size, *, device="cuda"):
 # prefill
 # ---------------------------------------------------------------------------
 
-def _read_rows(x, logit_index):
-    """x (B,S,d) -> (B,1,d) at ``logit_index`` (scalar or (B,)), or the
-    last position."""
+def _read_rows(logit_index, *xs):
+    """Each of ``xs`` (B,S,d) -> (B,1,d) at ``logit_index`` (scalar or
+    (B,)), or the last position."""
     if logit_index is None:
-        return x[:, -1:]
-    idx = torch.as_tensor(logit_index, device=x.device).reshape(-1)
-    idx = torch.broadcast_to(idx, (x.shape[0],)).long()
-    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+        return [x[:, -1:] for x in xs]
+    b, dev = xs[0].shape[0], xs[0].device
+    idx = torch.as_tensor(logit_index, device=dev).reshape(-1)
+    idx = torch.broadcast_to(idx, (b,)).long()
+    rows = torch.arange(b, device=dev)
+    return [x[rows, idx][:, None] for x in xs]
 
 
 def prefill(params, cfg, batch, capacity, *, logit_index=None):
@@ -256,9 +264,11 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None):
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)
     ks, vs = [], []
+    delta = None
     for i in range(cfg.n_layers):
-        x, (k, v) = decoder_block(layer_params(params["layers"], i), cfg, x,
-                                  positions=positions)
+        (x, delta), (k, v) = decoder_block(layer_params(params["layers"], i),
+                                           cfg, x, delta,
+                                           positions=positions)
         ks.append(k)
         vs.append(v)
     k_all, v_all = torch.stack(ks), torch.stack(vs)
@@ -272,8 +282,9 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None):
         cache["k"][:, :, :s] = k_all
         cache["v"][:, :, :s] = v_all
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    x = L.apply_norm(params["final_norm"], cfg, _read_rows(x, logit_index))
-    return L.logits_from_hidden(_head(params, cfg), x)[:, 0], cache
+    _, h = L.add_norm(params["final_norm"], cfg,
+                      *_read_rows(logit_index, x, delta))
+    return L.logits_from_hidden(_head(params, cfg), h)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -375,9 +386,10 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
         pool = cache["k"]
         index = _paged_write_index(btab, n, 1, pool.shape[1] - 1,
                                   pool.shape[2], live)
+    delta = None
     for i in range(cfg.n_layers):
-        x, k1, v1 = decoder_block_decode(
-            layer_params(params["layers"], i), cfg, x, cache["k"][i],
+        (x, delta), k1, v1 = decoder_block_decode(
+            layer_params(params["layers"], i), cfg, x, delta, cache["k"][i],
             cache["v"][i], n, block_tables=btab)
         # layer i's attention has read its cache; the token's KV lands
         # at its slot now (later layers never read layer i's rows)
@@ -388,8 +400,8 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
             _write_paged(cache["k"][i], k1, index)
             _write_paged(cache["v"][i], v1, index)
     cache["len"] = n + 1 if live is None else n + live.to(torch.int32)
-    x = L.apply_norm(params["final_norm"], cfg, x)
-    return L.logits_from_hidden(_head(params, cfg), x)[:, 0], cache
+    _, h = L.add_norm(params["final_norm"], cfg, x, delta)
+    return L.logits_from_hidden(_head(params, cfg), h)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -399,14 +411,16 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
 def _layers_over_cache(params, cfg, x, hist, hist_len, positions, write):
     """Run every layer over ``x`` against layer ``i``'s history
     ``hist(i)`` -> (k_hist, v_hist); ``write(i, k, v)`` takes the
-    layer's own KV once its attention has read the history."""
+    layer's own KV once its attention has read the history. Returns the
+    last block's (residual, MLP output), un-added."""
+    delta = None
     for i in range(cfg.n_layers):
         kh, vh = hist(i)
-        x, (k, v) = decoder_block_chunk(layer_params(params["layers"], i),
-                                        cfg, x, kh, vh, hist_len,
-                                        positions=positions)
+        (x, delta), (k, v) = decoder_block_chunk(
+            layer_params(params["layers"], i), cfg, x, delta, kh, vh,
+            hist_len, positions=positions)
         write(i, k, v)
-    return x
+    return x, delta
 
 
 def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
@@ -437,10 +451,12 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
                 gather_kv_blocks(v_hist[i], block_table))
 
     ks, vs = [], []
-    x = _layers_over_cache(params, cfg, x, hist, hl, positions,
-                           lambda i, k, v: (ks.append(k), vs.append(v)))
-    x = L.apply_norm(params["final_norm"], cfg, _read_rows(x, logit_index))
-    logits = L.logits_from_hidden(_head(params, cfg), x)[:, 0]
+    x, delta = _layers_over_cache(
+        params, cfg, x, hist, hl, positions,
+        lambda i, k, v: (ks.append(k), vs.append(v)))
+    _, h = L.add_norm(params["final_norm"], cfg,
+                      *_read_rows(logit_index, x, delta))
+    logits = L.logits_from_hidden(_head(params, cfg), h)[:, 0]
     return logits, torch.stack(ks), torch.stack(vs)
 
 
@@ -487,10 +503,10 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
             _write_paged(kc[i], k, index)
             _write_paged(vc[i], v, index)
 
-    x = _layers_over_cache(params, cfg, x, hist, n, positions, write)
+    x, delta = _layers_over_cache(params, cfg, x, hist, n, positions, write)
     cache["len"] = n + (s if live is None else s * live.to(torch.int32))
-    x = L.apply_norm(params["final_norm"], cfg, x)
-    return L.logits_from_hidden(_head(params, cfg), x), cache
+    _, h = L.add_norm(params["final_norm"], cfg, x, delta)
+    return L.logits_from_hidden(_head(params, cfg), h), cache
 
 
 def self_draft_params(params, cfg, n_draft_layers: int):

@@ -7,8 +7,11 @@ of the dense decoder becomes packed int4 plus per-group scales, and a
 greedy decode step runs every projection through the int4 GEMV (K6 on
 the card) with the activations in fp32:
 
-- embeddings in fp32; each GEMV input cast to bf16, its bf16 output
-  cast back to fp32;
+- embeddings in fp32; each GEMV input in bf16, its bf16 output cast
+  back to fp32. The norms write their bf16 output directly (K5 rounds
+  its fp32 result once, as the cast would), and the two residual deltas
+  per layer stay bf16 until the fused add-and-norm after them adds them
+  in fp32 (as ``x + y.float()``);
 - RoPE at the scalar position ``n = cache["len"]``;
 - split-KV decode attention (K1) on the layer's cache cast to fp32,
   with the token's own KV as the self partial;
@@ -75,15 +78,22 @@ def layer_slice(tree, i):
     return tree[i]
 
 
-def linear(x, w, group):
-    """x (..., K) @ w — the int4 GEMV when packed, matmul otherwise."""
+def _packed(w) -> bool:
+    return isinstance(w, dict) and bool(w.get("__w4__"))
+
+
+def linear(x, w, group, *, f32=True):
+    """x (..., K) @ w — the int4 GEMV when packed (x in bf16; its bf16
+    output cast to fp32 unless ``f32`` is False, for a fused add that
+    takes it as it is), an fp32 matmul otherwise."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if isinstance(w, dict) and w.get("__w4__"):
+    if _packed(w):
         y = ops.quant_gemv(x2.to(torch.bfloat16), w["packed"], w["scales"],
-                           group=group).float()
+                           group=group)
+        y = y.float() if f32 else y
     else:
-        y = x2 @ w.float()
+        y = x2.float() @ w.float()
     return y.reshape(*lead, -1)
 
 
@@ -98,9 +108,16 @@ def w4_decode_step(qp, cfg, tokens, cache, group):
     pos = n.reshape(1)
     slot = pos.long()
 
+    delta = None   # the last layer's MLP output, added by the next norm
     for i in range(cfg.n_layers):
         lp = layer_slice(qp["layers"], i)
-        h = L.apply_norm(lp["ln1"], cfg, x)
+        # the norms' outputs feed only wq, wk, wv, w_gate and w_up: bf16
+        # when all of them are packed, as the GEMV would cast them
+        hdt = (torch.bfloat16 if all(
+            _packed(lp[sub][name]) for sub, name in (
+                ("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                ("mlp", "w_gate"), ("mlp", "w_up"))) else torch.float32)
+        x, h = L.add_norm(lp["ln1"], cfg, x, delta, out_dtype=hdt)
         q = linear(h, lp["attn"]["wq"], group).reshape(
             b, 1, cfg.n_heads, cfg.d_head)
         k1 = linear(h, lp["attn"]["wk"], group).reshape(
@@ -112,14 +129,15 @@ def w4_decode_step(qp, cfg, tokens, cache, group):
         o = decode_attention(q.float(), cache["k"][i].float(),
                              cache["v"][i].float(), n,
                              extra_k=k1.float(), extra_v=v1.float())
-        x = x + linear(o.reshape(b, 1, -1), lp["attn"]["wo"], group)
-        h = L.apply_norm(lp["ln2"], cfg, x)
+        x, h = L.add_norm(lp["ln2"], cfg, x,
+                          linear(o.reshape(b, 1, -1), lp["attn"]["wo"],
+                                 group, f32=False), out_dtype=hdt)
         g = linear(h, lp["mlp"]["w_gate"], group)
         u = linear(h, lp["mlp"]["w_up"], group)
-        x = x + linear(F.silu(g) * u, lp["mlp"]["w_down"], group)
+        delta = linear(F.silu(g) * u, lp["mlp"]["w_down"], group, f32=False)
         cache["k"][i].index_copy_(1, slot, k1.to(cache["k"].dtype))
         cache["v"][i].index_copy_(1, slot, v1.to(cache["v"].dtype))
     cache["len"] = n + 1
-    x = L.apply_norm(qp["final_norm"], cfg, x)
+    _, h = L.add_norm(qp["final_norm"], cfg, x, delta)
     head = qp["embed"]["table"] if cfg.tie_embeddings else qp["head"]
-    return L.logits_from_hidden(head, x)[:, 0], cache
+    return L.logits_from_hidden(head, h)[:, 0], cache

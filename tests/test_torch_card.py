@@ -132,10 +132,16 @@ def test_prefill_attention_matches_plain_on_card(card, dtype, tol, dh, s):
 @pytest.mark.parametrize("b,k,n,group", [(1, 3072, 8192, 128),
                                          (8, 3072, 8192, 128),
                                          (3, 512, 320, 64),
-                                         (1, 1024, 200, 256)])
+                                         (1, 1024, 200, 256),
+                                         (1, 3072, 8192, 32),
+                                         (2, 3072, 1000, 24),
+                                         (8, 3072, 512, 96),
+                                         (3, 3072, 512, 3072)])
 def test_quant_gemv_matches_plain_on_card(card, dtype, tol, b, k, n, group):
-    """K6 against its plain version; N = 320 and 200 leave a ragged
-    column tile."""
+    """K6 against its plain version; N = 320, 200 and 1000 leave a ragged
+    column tile; groups 32 and 96 take the tensor cores in bf16 (in
+    batches of 2 and of 2 16-K tiles), 24 the CUDA cores, and one group
+    over the whole K (per-column scales) is cut into units."""
     g = torch.Generator(device=card).manual_seed(3)
     x = torch.randn((b, k), generator=g, device=card).to(dtype)
     w = torch.randn((k, n), generator=g, device=card) / k ** 0.5
@@ -252,14 +258,16 @@ def _all_bytes_weight(card, k, n, group):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("group", [64, 128, 256, 32, 24, 1024])
 @pytest.mark.parametrize("b", [1, 2, 5, 8])
 def test_quant_gemv_every_byte_value_exact_on_card(card, group, b, dtype):
     """One-hot x rows pick weight rows: the output is the dequantised
-    weight (rounded once to bf16 for bf16 x, on the tensor cores), bit
-    for bit, for every byte value of a packed row and every K row (each
-    split's partial of the other groups is an exact zero)."""
-    k, n = 1024, 256
+    weight (rounded once to bf16 for bf16 x), bit for bit, for every byte
+    value of a packed row and every K row (each split's partial of the
+    other groups is an exact zero) — on the tensor cores at groups that
+    are multiples of 16 in bf16, on the CUDA cores at group 24, with
+    group 1024 cut into units; K = 1008 at group 24."""
+    k, n = group * (1024 // group), 256
     packed, scales, w = _all_bytes_weight(card, k, n, group)
     for k0 in range(0, k, b):
         ks = [min(k0 + r, k - 1) for r in range(b)]
@@ -369,3 +377,36 @@ def test_paged_decode_wider_table_is_bitwise_contiguous_on_card(card, dtype,
     assert torch.equal(ops.paged_decode_attention(q, kp, vp, tab, lens,
                                                   extra_k=ek, extra_v=ev),
                        want)
+
+
+# (M, d) of K5's card tests: the W4 step's row, the qwen decode rows,
+# phi3's, the qwen prefill bucket, the widest row it takes, and the
+# narrowest float32 row of two vectors a thread (a ragged second slot)
+K5_SHAPES = [(1, 3072), (8, 1024), (8, 3072), (1024, 1024), (5, 8192),
+             (2, 4104)]
+K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,adt,hdt", [
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("m,d", K5_SHAPES)
+def test_add_rmsnorm_matches_plain_on_card(card, xdt, adt, hdt, m, d):
+    """K5 with the add: s is ``torch.equal`` to torch's x + a; h is
+    within tolerance of the plain version and ``torch.equal`` to the
+    kernel without the add run on s (the same reduction order)."""
+    g = torch.Generator(device=card).manual_seed(13)
+    x = torch.randn((m, d), generator=g, device=card).to(xdt)
+    a = torch.randn((m, d), generator=g, device=card).to(adt)
+    w = (1.0 + 0.1 * torch.randn(d, generator=g, device=card)).to(xdt)
+    s, h = ops.add_rmsnorm(x, a, w, out_dtype=hdt)
+    assert s.dtype == xdt and h.dtype == hdt
+    assert torch.equal(s, x + a)
+    want = ref.add_rmsnorm(x, a, w, out_dtype=hdt)[1]
+    torch.testing.assert_close(h.float(), want.float(), atol=K5_TOL[hdt],
+                               rtol=K5_TOL[hdt])
+    assert torch.equal(h, ops.add_rmsnorm(s, None, w, out_dtype=hdt)[1])
+    if hdt == xdt:
+        assert torch.equal(h, ops.rmsnorm(s, w))

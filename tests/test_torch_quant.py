@@ -51,9 +51,10 @@ def test_pack_and_unpack_int4_round_trip_against_reference():
 
 
 # tests/test_kernels.py's (b, k, n, group), plus an N that is not a
-# multiple of the Pallas column block and group 64
+# multiple of the Pallas column block, group 64 and group 32 (which K6
+# takes on the tensor cores in bf16)
 SHAPES = [(1, 256, 512, 128), (4, 512, 256, 128), (2, 1024, 1024, 256),
-          (3, 256, 320, 64)]
+          (3, 256, 320, 64), (2, 512, 256, 32)]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -91,6 +92,8 @@ def test_quant_gemv_wrapper_refuses_cpu_operands_before_building():
         kqg.quant_gemv(x, packed, scales, group=128)
     with pytest.raises(ValueError, match="group=96"):
         kqg.quant_gemv(x, packed, torch.ones((1, 256)), group=96)
+    with pytest.raises(ValueError, match="group=1 must be even"):
+        kqg.quant_gemv(x, packed, torch.ones((128, 256)), group=1)
     with pytest.raises(ValueError, match="shapes"):
         kqg.quant_gemv(x, packed[:32], scales, group=128)
 
@@ -99,44 +102,58 @@ def test_quant_gemv_wrapper_refuses_cpu_operands_before_building():
                                          (1, 8192, 3072, 128),
                                          (8, 3072, 8192, 128),
                                          (1, 3072, 3000, 64),
-                                         (3, 256, 320, 64)])
+                                         (3, 256, 320, 64),
+                                         (1, 3072, 8192, 32),
+                                         (2, 3072, 512, 24),
+                                         (8, 3072, 512, 96),
+                                         (8, 3072, 512, 3072)])
 def test_k_splits_cover_every_group_once(b, k, n, group):
-    """K6's launch plan: the K splits of whole groups (WARPS x
-    groups_per_warp each) cover every group once, none empty, and x for
-    a block's K range fits the staged maximum."""
+    """K6's launch plan: K is cut into units that each lie in one group
+    (the whole group where it fits), the K splits of whole units (WARPS
+    x units_per_warp each) cover every unit once, none empty, and x for
+    a block's K range fits the staged maximum — at every even group,
+    the whole K (per-column scales) included."""
     from repro_torch.kernels import quant_gemv as kqg
     p = kqg.launch_plan(b, k, n, group, torch.bfloat16)
-    gps, ns = kqg.WARPS * p.groups_per_warp, p.splits
-    ng = k // group
-    assert gps >= 1 and (ns - 1) * gps < ng <= ns * gps
-    assert p.rows * gps * group <= kqg.MAX_X_FLOATS
+    assert group % p.unit == 0 and p.unit % 2 == 0
+    assert p.unit == group or p.rows * kqg.WARPS * group > kqg.MAX_X_FLOATS
+    ups, ns = kqg.WARPS * p.units_per_warp, p.splits
+    nu = k // p.unit
+    assert ups >= 1 and (ns - 1) * ups < nu <= ns * ups
+    assert p.rows * ups * p.unit <= kqg.MAX_X_FLOATS
 
 
 PLAN_SHAPES = [(1, 3072, 8192, 128), (1, 8192, 3072, 128),
                (1, 3072, 3072, 128), (8, 3072, 8192, 128),
                (1, 3072, 8192, 64), (1, 3072, 3000, 128),
                (5, 256, 320, 64), (2, 1024, 200, 256), (8, 8192, 3072, 256),
-               (3, 512, 77, 64), (1, 64, 16, 64), (1, 1024, 1008, 128)]
+               (3, 512, 77, 64), (1, 64, 16, 64), (1, 1024, 1008, 128),
+               (1, 1024, 256, 32), (5, 1008, 256, 24), (2, 960, 320, 96),
+               (8, 1024, 256, 1024)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,k,n,group", PLAN_SHAPES)
 def test_launch_plan_covers_every_column_group_and_row_once(b, k, n, group,
                                                             dtype):
-    """Walk K6's grid as the source does: every (x row, column, group)
+    """Walk K6's grid as the source does: every (x row, column, K unit)
     falls to exactly one (block, warp, lane) — strips of 8 lanes x vec
-    columns masked at N, row tiles masked at B, warps of whole groups —
-    and every weight load is a whole vec-byte vector inside the row;
-    bf16 with 16-byte loads takes the tensor cores, 8 x rows a tile."""
+    columns masked at N, row tiles masked at B, warps of whole units,
+    each inside one group — and every weight load is a whole vec-byte
+    vector inside the row; bf16 with 16-byte loads and a group that is a
+    multiple of 16 takes the tensor cores, 8 x rows a tile, in units of
+    whole 16-row tiles."""
     from repro_torch.kernels import quant_gemv as kqg
     p = kqg.launch_plan(b, k, n, group, dtype)
     assert p.vec == (16 if n % 16 == 0 else 1)
     assert p.strip_cols == kqg.COL_LANES * p.vec
-    assert p.mma == (dtype == torch.bfloat16 and p.vec == 16)
+    assert p.mma == (dtype == torch.bfloat16 and p.vec == 16
+                     and group % 16 == 0)
     assert p.rows == (kqg.MMA_ROWS if p.mma else 1 if b == 1
                       else 2 if b == 2 else 4)
     assert p.row_tiles == -(-b // p.rows)
-    ng = k // group
+    assert group % p.unit == 0 and p.unit % (16 if p.mma else 2) == 0
+    ng = k // p.unit
     hits = np.zeros((b, n, ng), np.int64)
     for strip in range(p.strips):
         cols = [strip * p.strip_cols + cl * p.vec + c
@@ -145,9 +162,9 @@ def test_launch_plan_covers_every_column_group_and_row_once(b, k, n, group,
         assert all(c < n for c in cols)   # whole vectors only
         for split in range(p.splits):
             for warp in range(kqg.WARPS):
-                g0 = (split * kqg.WARPS + warp) * p.groups_per_warp
-                g1 = min(g0 + p.groups_per_warp,
-                         (split + 1) * kqg.WARPS * p.groups_per_warp, ng)
+                g0 = (split * kqg.WARPS + warp) * p.units_per_warp
+                g1 = min(g0 + p.units_per_warp,
+                         (split + 1) * kqg.WARPS * p.units_per_warp, ng)
                 for rt in range(p.row_tiles):
                     rows = range(rt * p.rows, min(rt * p.rows + p.rows, b))
                     for g in range(g0, g1):
@@ -161,5 +178,6 @@ def test_launch_plan_fills_the_card_at_the_w4_shapes():
     from repro_torch.kernels import quant_gemv as kqg
     for k, n in ((3072, 3072), (3072, 8192), (8192, 3072)):
         p = kqg.launch_plan(1, k, n, 128, torch.bfloat16)
-        assert p.groups_per_warp == 1 and p.vec == 16 and p.mma
+        assert p.units_per_warp == 1 and p.unit == 128
+        assert p.vec == 16 and p.mma
         assert p.strips * p.splits * kqg.WARPS >= 132 * 4
