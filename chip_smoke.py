@@ -43,7 +43,21 @@ Phases, one line each (any failure exits non-zero):
    teacher-forced W16 ``decode_step``s beside ``w4_decode_step``s
    (``examples/torch_w4_mobile_decode.py``): per-step fidelity and wall
    ms, the prefill's and every W4 step's logits held against runs
-   through the plain versions.
+   through the plain versions;
+6. request surface — full-width qwen1.5-0.5b again, float32 for the
+   stream gates: the overload trace replayed under FIFO and SLO on
+   both backends (SLO streams == FIFO streams, >= 1 preemption, chat
+   p99 TTFT <= 0.04 virtual s under SLO and > 0.04 under FIFO, tokens
+   per step >= 0.95x FIFO's); prefix caching on against off for 8
+   requests on a 512-token preamble, blocking and chunked, and the
+   sharedprefix trace (equal streams, hit tokens equal to the host's
+   block-aligned matches); the four fixed preemption plans with the
+   prefix index on; telemetry on against off (equal tokens, a valid
+   trace, every dispatch joined); then bf16: an export -> import round
+   trip (``torch.equal`` rows), seeded temperature sampling (same seed,
+   same stream, also under preemption; another seed, another stream)
+   and the device time of a cold against a warm admission. Every pool
+   must balance after its drain.
 
 Every engine run and every W4 step checks each kernel's launch count
 against what its path must launch.
@@ -894,6 +908,8 @@ def check_launches(phase, eng, counts) -> None:
     # the kernels this path must have launched at least once
     path = {"rmsnorm",
             "flash_attention" if s["prefills"] else "prefill_attention"}
+    if s["prefill_chunk_dispatches"]:   # chunks and warm prefix admissions
+        path.add("prefill_attention")
     if s["scheduler"] == "speculative":
         path |= {"decode_attention", "prefill_attention"}
     else:
@@ -1222,6 +1238,463 @@ def phase_w4(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the serving engine's request surface at full width
+# ---------------------------------------------------------------------------
+
+QUANTUM = 0.01          # virtual seconds per engine step (trace replay)
+CHAT_TTFT_SLO = 0.04    # the overload trace's chat TTFT target
+PREAMBLE = 512          # shared-prefix run: 32 blocks of 16
+BS = 16
+
+
+def counted(fn):
+    """(fn(), the kernel launches fn made), the counts reset just before
+    and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def _add(total: dict, counts: dict) -> None:
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
+
+
+def _engine(params, cfg, telemetry=None, **kw):
+    from repro_torch.serving import EngineConfig, ServingEngine
+    kw.setdefault("eos_token", -1)
+    return ServingEngine(params, cfg, EngineConfig(**kw),
+                         telemetry=telemetry)
+
+
+def _outputs(eng) -> dict:
+    return {r.rid: r.output for r in eng.finished}
+
+
+def _pool_balanced(what, kv) -> None:
+    """Every alias released, every block free or a resident shared one."""
+    if kv.name != "paged":
+        return
+    prefix = kv.prefix
+    shared = prefix.resident_blocks if prefix is not None else 0
+    refs = list(prefix._refs.values()) if prefix is not None else []
+    if (any(refs) or kv.allocator.allocated_blocks != shared
+            or kv.allocator.free_blocks + shared != kv.allocator.num_blocks
+            or kv._reserved.any()):
+        raise AssertionError(
+            f"{what}: pool unbalanced — free {kv.allocator.free_blocks} + "
+            f"shared {shared} vs {kv.allocator.num_blocks} blocks, "
+            f"allocated {kv.allocator.allocated_blocks}, refcounts "
+            f"{sorted(set(refs))}, reserved {int(kv._reserved.sum())}")
+
+
+def _shared_blocks(a, b, bs=BS) -> int:
+    """Leading 16-token blocks of ``a`` equal to ``b``'s, capped where
+    the prefix index caps a match of ``a`` against registered ``b``."""
+    n = min((len(a) - 1) // bs, len(b) // bs)
+    k = 0
+    while k < n and (a[k * bs:(k + 1) * bs] == b[k * bs:(k + 1) * bs]).all():
+        k += 1
+    return k
+
+
+def slo_runs(params, cfg, total) -> dict:
+    """The overload trace under FIFO (blocking) and SLO on both backends,
+    max_batch 4, capacity 96 (the reference test's engine)."""
+    from repro_torch.serving.workload import make_named_trace, replay
+    tr = make_named_trace("overload", vocab_size=cfg.vocab_size, seed=SEED)
+    reps = {}
+    for kv in ("paged", "contiguous"):
+        for sched in ("blocking", "slo"):
+            eng = _engine(params, cfg, max_batch=4, max_seq_len=96,
+                          max_new_tokens=16, scheduler=sched, kv_cache=kv)
+            rep, counts = counted(lambda: replay(eng, tr,
+                                                 step_quantum_s=QUANTUM))
+            check_launches(f"request_surface slo {kv}+{sched}", eng, counts)
+            _pool_balanced(f"overload {kv}+{sched}", eng.kv)
+            _add(total, counts)
+            reps[kv, sched] = rep
+            s = rep["summary"]
+            chat = s["by_tenant"]["chat"]
+            log("request_surface", run=f"overload {kv}+{sched}",
+                requests=len(tr), steps=rep["steps"], tokens=rep["tokens"],
+                preemptions=s["preemptions"],
+                preempted_kv_bytes=s["preempted_kv_bytes"],
+                chat_ttft_p99_s=f"{chat['ttft_p99_s']:.4f}",
+                chat_slo_attainment=f"{chat['slo_attainment']:.3f}",
+                tokens_per_step=f"{rep['tokens'] / rep['steps']:.4f}")
+    base = reps["contiguous", "blocking"]["outputs"]
+    for kv in ("paged", "contiguous"):
+        fifo, slo = reps[kv, "blocking"], reps[kv, "slo"]
+        ratio = ((slo["tokens"] / slo["steps"])
+                 / (fifo["tokens"] / fifo["steps"]))
+        p99 = (slo["summary"]["by_tenant"]["chat"]["ttft_p99_s"],
+               fifo["summary"]["by_tenant"]["chat"]["ttft_p99_s"])
+        log("request_surface", gate=f"slo {kv}",
+            slo_streams_equal_fifo=slo["outputs"] == fifo["outputs"],
+            equal_contiguous_fifo=fifo["outputs"] == base,
+            preemptions=slo["summary"]["preemptions"],
+            chat_p99_slo_fifo=f"{p99[0]:.4f},{p99[1]:.4f}",
+            throughput_ratio=f"{ratio:.4f}")
+        if not (slo["outputs"] == fifo["outputs"] == base
+                and slo["summary"]["preemptions"] >= 1
+                and len(slo["preemption_log"])
+                == slo["summary"]["preemptions"]
+                and p99[0] <= CHAT_TTFT_SLO < p99[1] and ratio >= 0.95):
+            raise AssertionError(f"SLO gate on {kv}: streams equal "
+                                 f"{slo['outputs'] == fifo['outputs']}, "
+                                 f"preemptions "
+                                 f"{slo['summary']['preemptions']}, chat "
+                                 f"p99 {p99}, throughput ratio {ratio}")
+    return reps
+
+
+def _drive_staged(eng, prompts):
+    """Prompt 0 alone until its prefill is done (its blocks registered
+    with prefix caching on), then the rest; run to the end."""
+    eng.submit(prompts[0])
+    while eng.waiting or eng.prefilling:
+        eng.step()
+    for p in prompts[1:]:
+        eng.submit(p)
+    eng.run()
+
+
+def prefix_runs(params, cfg, total) -> None:
+    """8 requests sharing a 512-token preamble with 32–256-token tails,
+    prefix caching on against off, blocking and chunked (256), and the
+    sharedprefix trace on a 6-block pool, on the paged backend."""
+    import numpy as np
+    from repro_torch.serving.workload import make_named_trace, replay
+    rng = np.random.default_rng(SEED + 6)
+    pre = rng.integers(0, cfg.vocab_size, size=PREAMBLE)
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size,
+                                                 size=n)]).astype(np.int32)
+               for n in rng.integers(32, 257, size=8)]
+    runs = {}
+    for sched, kw in (("blocking", {}), ("chunked", CHUNKED)):
+        for on in (False, True):
+            eng = _engine(params, cfg, max_batch=8, max_seq_len=2048,
+                          max_new_tokens=32, kv_cache="paged",
+                          kv_block_size=BS, prefix_cache=on,
+                          **{"scheduler": sched, **kw})
+            _, counts = counted(lambda: _drive_staged(eng, prompts))
+            check_launches(f"request_surface prefix {sched} on={on}", eng,
+                           counts)
+            _pool_balanced(f"prefix {sched} on={on}", eng.kv)
+            _add(total, counts)
+            runs[sched, on] = (eng.summary(), _outputs(eng), counts)
+        # the host's own block-aligned matches: blocking admits (and
+        # registers) one request after another; chunked binds requests
+        # 1..7 together, when only request 0's blocks are registered
+        earlier = (lambda i: range(i)) if sched == "blocking" else (
+            lambda i: range(min(i, 1)))
+        want = sum(max([_shared_blocks(prompts[i], prompts[j])
+                        for j in earlier(i)] or [0]) * BS
+                   for i in range(len(prompts)))
+        (off_s, off_o, off_c), (on_s, on_o, on_c) = (runs[sched, False],
+                                                     runs[sched, True])
+        log("request_surface", gate=f"prefix {sched}",
+            streams_equal=on_o == off_o, prefix_hits=on_s["prefix_hits"],
+            prefix_hit_tokens=on_s["prefix_hit_tokens"],
+            host_hit_tokens=want,
+            prefix_hit_rate=f"{on_s['prefix_hit_rate']:.4f}",
+            k3_prefills_off_on=f"{off_s['prefills']},{on_s['prefills']}",
+            chunk_dispatches_off_on=(f"{off_s['prefill_chunk_dispatches']},"
+                                     f"{on_s['prefill_chunk_dispatches']}"),
+            prefill_dispatches_saved=(
+                off_s["prefills"] + off_s["prefill_chunk_dispatches"]
+                - on_s["prefills"] - on_s["prefill_chunk_dispatches"]),
+            k4_launches_off_on=(f"{off_c['prefill_attention']},"
+                                f"{on_c['prefill_attention']}"),
+            resident_shared_kv_bytes=on_s["resident_shared_kv_bytes"])
+        if not (on_o == off_o and on_s["prefix_hit_tokens"] == want > 0):
+            raise AssertionError(f"prefix {sched}: streams equal "
+                                 f"{on_o == off_o}, hit tokens "
+                                 f"{on_s['prefix_hit_tokens']} != {want}")
+    if runs["chunked", True][1] != runs["blocking", True][1]:
+        raise AssertionError("prefix: chunked streams != blocking streams")
+    tr = make_named_trace("sharedprefix", vocab_size=cfg.vocab_size, seed=1)
+    outs = {}
+    for on in (False, True):
+        eng = _engine(params, cfg, max_batch=4, max_seq_len=96,
+                      max_new_tokens=16, kv_cache="paged", kv_block_size=BS,
+                      kv_blocks=6, prefix_cache=on)
+        rep, counts = counted(lambda: replay(eng, tr, step_quantum_s=QUANTUM))
+        check_launches(f"request_surface sharedprefix on={on}", eng, counts)
+        _pool_balanced(f"sharedprefix on={on}", eng.kv)
+        _add(total, counts)
+        outs[on] = rep["outputs"]
+        s = rep["summary"]
+        log("request_surface", run=f"sharedprefix on={on}", requests=len(tr),
+            steps=rep["steps"], prefix_hits=s["prefix_hits"],
+            prefix_hit_tokens=s["prefix_hit_tokens"],
+            prefix_evictions=s["prefix_evictions"],
+            ttft_p99_s=f"{s['ttft_p99_s']:.4f}")
+    if outs[True] != outs[False]:
+        raise AssertionError("sharedprefix: streams differ with prefix "
+                             "caching on")
+
+
+# the reference test's fixed preemption plans (an entry per engine step:
+# None, or the index among live slots of the victim)
+PLANS = ((), (0,) * 24, (None, 1, None, 0, 3, None, 2) * 3,
+         (None, None, None, 1, 1, 1, 1, 1))
+
+
+def _drive_plan(eng, prompts, plan):
+    for p in prompts:
+        eng.submit(p)
+    it = 0
+    while eng.has_work():
+        if it >= 500:
+            raise AssertionError("preemption interleaving did not drain")
+        live = [i for i, r in enumerate(eng.slot_req) if r is not None]
+        if live and it < len(plan) and plan[it] is not None:
+            eng.preempt_slot(live[plan[it] % len(live)])
+        eng.step()
+        it += 1
+
+
+def interleaving_runs(params, cfg, total) -> None:
+    """The four fixed preemption plans, paged with prefix caching on
+    (8-block pool, 2 slots): streams equal to a run with no preemption
+    and no prefix caching; no leak."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    pre = rng.integers(0, cfg.vocab_size, size=3 * BS)
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size, size=n)])
+               for n in (4, 7, 9, 12, 5)]
+    kw = dict(max_batch=2, max_seq_len=96, max_new_tokens=5,
+              kv_cache="paged", kv_block_size=BS)
+    ref = _engine(params, cfg, **kw)
+    _, counts = counted(lambda: _drive_plan(ref, prompts, ()))
+    _add(total, counts)
+    want = _outputs(ref)
+    for k, plan in enumerate(PLANS):
+        eng = _engine(params, cfg, prefix_cache=True, kv_blocks=8, **kw)
+        _, counts = counted(lambda: _drive_plan(eng, prompts, plan))
+        check_launches(f"request_surface plan {k}", eng, counts)
+        _pool_balanced(f"plan {k}", eng.kv)
+        _add(total, counts)
+        got = _outputs(eng)
+        log("request_surface", plan=k, preemptions=eng.preemptions,
+            streams_equal=got == want,
+            prefix_hits=eng.summary()["prefix_hits"])
+        if got != want:
+            raise AssertionError(f"plan {k}: {got} != {want}")
+
+
+def export_import_bf16(params, cfg) -> None:
+    """A bf16 ``export_slot`` -> ``import_slot`` into another slot gives
+    rows ``torch.equal`` to the originals, on both backends and across
+    them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 7)
+    prompt = rng.integers(0, cfg.vocab_size, size=300).astype(np.int32)
+    engines = {}
+    for kv in ("paged", "contiguous"):
+        eng = _engine(params, cfg, max_batch=4, max_seq_len=2048,
+                      max_new_tokens=64, kv_cache=kv)
+        eng.submit(prompt)
+        for _ in range(5):
+            eng.step()
+        engines[kv] = eng
+    for src, dst in (("paged", "paged"), ("contiguous", "contiguous"),
+                     ("paged", "contiguous"), ("contiguous", "paged")):
+        a, b = engines[src], engines[dst]
+        n = int(a.slot_pos[0])
+        pkt = a.kv.export_slot(0, n)
+        slot = 3 if dst == src else 2
+        b.kv.import_slot(pkt, slot, len(prompt), 64)
+        back = b.kv.export_slot(slot, n)
+        same = all(torch.equal(pkt[x][:, :, :n], back[x][:, :, :n])
+                   for x in ("k", "v"))
+        log("request_surface", export_import=f"{src}->{dst}",
+            dtype=str(pkt["k"].dtype), positions=n,
+            kv_bytes=pkt["kv_bytes"], rows_equal=same)
+        if not same or pkt["k"].dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 export {src} -> import {dst}: rows "
+                                 f"equal {same}, dtype {pkt['k'].dtype}")
+        b.kv.free(slot)
+
+
+def sampled(params, cfg, prompts, seed, plan=(), total=None):
+    eng = _engine(params, cfg, max_batch=4, max_seq_len=2048,
+                  max_new_tokens=16, kv_cache="paged", sample="temperature",
+                  temperature=0.8, top_k=50, seed=seed)
+    _, counts = counted(lambda: _drive_plan(eng, prompts, plan))
+    check_launches(f"request_surface sampled seed={seed}", eng, counts)
+    _add(total, counts)
+    return eng
+
+
+def cuda_kernels(fn) -> int:
+    """Device kernels one call of ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def sampling_runs(params, cfg, total) -> None:
+    """Temperature 0.8, top-k 50 on bf16 paged: the same seed twice, the
+    same seed under a preemption plan, another seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (40, 130, 260, 75, 500, 20)]
+    a = sampled(params, cfg, prompts, 7, total=total)
+    b = sampled(params, cfg, prompts, 7, total=total)
+    c = sampled(params, cfg, prompts, 7, plan=PLANS[2], total=total)
+    d = sampled(params, cfg, prompts, 8, total=total)
+    oa, ob, oc, od = (_outputs(e) for e in (a, b, c, d))
+    logits = torch.randn(4, cfg.vocab_size, device="cuda")
+    per_step = cuda_kernels(lambda: a._sample(
+        logits, a.slot_seed, a.slot_rid, a.slot_pos))
+    log("request_surface", sampling="temperature=0.8 top_k=50",
+        same_seed_equal=oa == ob, preempted_equal=oa == oc,
+        preemptions=c.preemptions, other_seed_differs=oa != od,
+        sampler_kernels_per_step=per_step,
+        sample_calls_per_decode_step=1)
+    if not (oa == ob == oc and oa != od and c.preemptions >= 1):
+        raise AssertionError(f"sampling: same seed {oa == ob}, preempted "
+                             f"{oa == oc} ({c.preemptions}), other seed "
+                             f"differs {oa != od}")
+
+
+def telemetry_runs(params, cfg, total) -> None:
+    """Greedy float32, paged + chunked: telemetry on gives the tokens of
+    the run with it off; the trace validates and every dispatch joins."""
+    import numpy as np
+    from repro_torch.serving import (Telemetry, join_coverage,
+                                     validate_trace_events)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (17, 200, 511, 1000)]
+    outs = []
+    for tel in (None, Telemetry()):
+        eng = _engine(params, cfg, telemetry=tel, max_batch=8,
+                      max_seq_len=2048, max_new_tokens=16, kv_cache="paged",
+                      **CHUNKED)
+        for p in prompts:
+            eng.submit(p)
+        _, counts = counted(eng.run)
+        check_launches(f"request_surface telemetry={tel is not None}", eng,
+                       counts)
+        _add(total, counts)
+        outs.append(_outputs(eng))
+    problems = [validate_trace_events(tel.tracer.trace_events(clock=c))
+                for c in ("wall", "virtual")]
+    joined = join_coverage(eng, tel)
+    slow = ", ".join(f"{sp.name}:{sp.wall_dur_s * 1e3:.2f}ms"
+                     for sp in tel.tracer.slowest(5))
+    log("request_surface", telemetry="on vs off",
+        tokens_equal=outs[0] == outs[1], trace_problems=sum(map(len, problems)),
+        join_coverage=f"{joined[0]}/{joined[1]}",
+        spans=len(tel.tracer.spans), slowest=f"'{slow}'")
+    if not (outs[0] == outs[1] and problems == [[], []]
+            and joined[0] == joined[1] > 0):
+        raise AssertionError(f"telemetry: tokens equal {outs[0] == outs[1]},"
+                             f" trace problems {problems}, join {joined}")
+
+
+def admission_device_ms(params, cfg) -> None:
+    """bf16 device time of one cold admission (512-token preamble + 64-
+    token tail: a 1024-bucket prefill, K3) against one warm admission of
+    the same preamble with another tail (a 64-token chunk over the 512
+    shared positions, K4), each admission alone under torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 9)
+    eng = _engine(params, cfg, max_batch=1, max_seq_len=2048,
+                  max_new_tokens=2, kv_cache="paged", prefix_cache=True)
+
+    def admit_ms(prompt):
+        """(device ms, the five kernels with the most device time)."""
+        eng.submit(prompt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.scheduler.admit(eng)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in rows)
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
+        eng.run()
+        return (us / 1e3 if us > 0 else None,
+                "; ".join(f"{e.key[:48]} x{e.count} "
+                          f"{e.self_device_time_total / 1e3:.4f}"
+                          for e in top))
+
+    cold, warm = [], []
+    for rep in range(4):          # rep 0 warms the allocator and cuBLAS
+        pre = rng.integers(0, cfg.vocab_size, size=PREAMBLE)
+        tails = rng.integers(0, cfg.vocab_size, size=(2, 64))
+        c = admit_ms(np.concatenate([pre, tails[0]]).astype(np.int32))
+        w = admit_ms(np.concatenate([pre, tails[1]]).astype(np.int32))
+        if rep:
+            cold.append(c)
+            warm.append(w)
+    s = eng.summary()
+    log("request_surface", admission="bf16 cold vs warm, 512 + 64 tokens",
+        cold_device_ms=",".join(f"{x:.4f}" if x else "none"
+                                for x, _ in cold),
+        warm_device_ms=",".join(f"{x:.4f}" if x else "none"
+                                for x, _ in warm),
+        prefix_hits=s["prefix_hits"], prefills=s["prefills"],
+        chunk_dispatches=s["prefill_chunk_dispatches"])
+    for what, runs in (("cold", cold), ("warm", warm)):
+        log("request_surface", admission_top_kernels=what,
+            ms=f"'{runs[-1][1]}'")
+    if s["prefix_hits"] != 4 or s["prefills"] != 4:
+        raise AssertionError(f"admission timing: {s['prefix_hits']} warm, "
+                             f"{s['prefills']} cold admissions of 4 each")
+
+
+def phase_request_surface(card: str) -> dict:
+    """Full-width qwen1.5-0.5b: SLO preemption, prefix caching,
+    preemption interleavings and telemetry in float32 (the conditions of
+    phase 3's gates); sampling, export/import and admission device time
+    in bf16. Returns the launch counts of its engine runs."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    t0 = time.perf_counter()
+    total: dict = {}
+    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    slo_runs(params, cfg, total)
+    prefix_runs(params, cfg, total)
+    interleaving_runs(params, cfg, total)
+    telemetry_runs(params, cfg, total)
+    del params
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(ARCH)
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    export_import_bf16(params, cfg)
+    sampling_runs(params, cfg, total)
+    admission_device_ms(params, cfg)
+    log("request_surface", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -1261,6 +1734,9 @@ def main() -> int:
     counts = phase_engine_bf16(card)
     torch.cuda.empty_cache()
     for name, c in phase_w4(card).items():
+        counts[name] += c
+    torch.cuda.empty_cache()
+    for name, c in phase_request_surface(card).items():
         counts[name] += c
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -13,10 +13,25 @@ the protocol the engine consumes, with two backends:
   Admission reserves each request's worst-case block count, so an
   admitted request can never deadlock mid-decode.
 
-Prefix caching and slot export/import are a later slice of the port.
+Prefix caching (``EngineConfig.prefix_cache``, paged only): full
+``block_size``-token prompt blocks are content-hashed (chained, so a
+block's identity covers everything before it) into a :class:`PrefixIndex`
+of immutable shared blocks with refcounts. Admission splices the longest
+cached block-aligned prefix into the slot's table and prefills only the
+suffix; the reservation charges only the uncached suffix. Only blocks
+wholly inside a prompt are shared, and every later write lands at a
+position ``>= n_prompt`` — a private block — so a shared block is never
+written. Refcount-zero shared blocks stay resident and are evicted
+LRU-first under pool pressure. The scratch block is never allocated, so
+it is never registered or shared.
+
+``export_slot`` / ``import_slot`` move one live slot's KV through the
+host (SLO preemption): the packet holds CPU tensors in the cache's own
+dtype (a bf16 round trip is bitwise) and is portable between backends.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Protocol, runtime_checkable
 
@@ -57,14 +72,17 @@ class KVCacheManager(Protocol):
 
     name: str
 
-    def can_admit(self, n_prompt: int, budget: int) -> bool:
+    def can_admit(self, n_prompt: int, budget: int, prompt=None) -> bool:
         """True if capacity exists for a request of this prompt length
-        and generation budget (worst case, no mid-decode failure)."""
+        and generation budget (worst case, no mid-decode failure).
+        ``prompt`` lets a prefix-caching backend charge only the
+        uncached suffix; other backends ignore it."""
         ...
 
     def splice(self, rows: dict, slot: int, n_prompt: int,
-               budget: int) -> None:
-        """Write a batch-1 prefill's KV rows into ``slot``."""
+               budget: int, prompt=None) -> None:
+        """Write a batch-1 prefill's KV rows into ``slot`` (``prompt``:
+        cold-miss accounting for a prefix-caching backend)."""
         ...
 
     def reserve(self, slot: int, n_prompt: int, budget: int) -> None:
@@ -109,6 +127,23 @@ class KVCacheManager(Protocol):
         """Release slot state at retirement."""
         ...
 
+    def export_slot(self, slot: int, n_valid: int, prompt=None,
+                    n_prompt=None) -> dict:
+        """Pack positions ``0 .. n_valid - 1`` of ``slot`` into a host
+        packet: ``{"n_valid", "k", "v", "kv_bytes"}`` (k/v (L, 1, span,
+        Hkv, Dh) CPU tensors, span padded to the export quantum or the
+        block size), plus ``"prefix"`` provenance when a prefix-caching
+        backend is given the prompt."""
+        ...
+
+    def import_slot(self, packet: dict, slot: int, n_prompt: int,
+                    budget: int) -> None:
+        """Land an :meth:`export_slot` packet in free slot ``slot``,
+        re-running the admission reservation for (``n_prompt``,
+        ``budget``); callers gate on :meth:`can_admit` first. Raises on
+        an occupied slot."""
+        ...
+
     def resident_kv_bytes(self) -> int:
         """Bytes of KV state currently resident."""
         ...
@@ -117,6 +152,137 @@ class KVCacheManager(Protocol):
     def peak_resident_kv_bytes(self) -> int:
         """High-water mark of :meth:`resident_kv_bytes` over the run."""
         ...
+
+
+def _chain_hash(prev: bytes, tokens: np.ndarray) -> bytes:
+    """One link of the block hash chain: the digest covers the previous
+    link, so equal hashes imply equal *prefixes*, not just equal blocks."""
+    data = prev + np.ascontiguousarray(tokens, np.int64).tobytes()
+    return hashlib.blake2b(data, digest_size=16).digest()
+
+
+class PrefixIndex:
+    """Content-hash registry of immutable shared KV blocks.
+
+    Each entry maps the chained hash of one full ``block_size``-token
+    prompt block to a pool block id plus a refcount — the number of slot
+    tables aliasing the block. Refcount-zero entries stay resident and
+    form an LRU queue; :meth:`evict_lru` unregisters the coldest one
+    when the pool needs its block back."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self._by_hash: dict[bytes, int] = {}
+        self._hash_of: dict[int, bytes] = {}
+        self._refs: dict[int, int] = {}
+        self._lru: dict[int, None] = {}   # insertion-ordered: oldest first
+        self.evictions = 0
+
+    # -- queries ----------------------------------------------------------
+    def keys_for(self, prompt, n_blocks: int) -> list[bytes]:
+        """Chained hash keys of the first ``n_blocks`` full blocks."""
+        bs = self.block_size
+        arr = np.asarray(prompt, np.int64)[:n_blocks * bs]
+        keys, key = [], b""
+        for k in range(n_blocks):
+            key = _chain_hash(key, arr[k * bs:(k + 1) * bs])
+            keys.append(key)
+        return keys
+
+    def match(self, prompt, n_prompt: int) -> list[int]:
+        """Block ids of the longest cached block-aligned prefix, capped
+        at ``(n_prompt - 1) // block_size`` blocks: at least one suffix
+        token must still run through prefill for the admission logits."""
+        bs = self.block_size
+        limit = max(0, (int(n_prompt) - 1) // bs)
+        ids: list[int] = []
+        if not limit:
+            return ids
+        arr = np.asarray(prompt, np.int64)[:limit * bs]
+        key = b""
+        for k in range(limit):
+            key = _chain_hash(key, arr[k * bs:(k + 1) * bs])
+            bid = self._by_hash.get(key)
+            if bid is None:
+                break
+            ids.append(bid)
+        return ids
+
+    def holds(self, bid: int) -> bool:
+        return bid in self._hash_of
+
+    def refcount(self, bid: int) -> int:
+        return self._refs.get(bid, 0)
+
+    @property
+    def resident_blocks(self) -> int:
+        return len(self._hash_of)
+
+    def evictable(self, excluding=()) -> int:
+        """Refcount-zero resident blocks the pool could reclaim, minus
+        any the caller is about to acquire."""
+        if not excluding:
+            return len(self._lru)
+        return len(self._lru) - len(set(excluding) & self._lru.keys())
+
+    # -- mutation ---------------------------------------------------------
+    def acquire(self, ids) -> None:
+        """Alias shared blocks into one more slot table (revives any
+        refcount-zero entry out of the LRU queue)."""
+        for bid in ids:
+            self._refs[bid] = self._refs.get(bid, 0) + 1
+            self._lru.pop(bid, None)
+
+    def release(self, bid: int) -> None:
+        """Drop one table's alias; at refcount zero the block joins the
+        LRU queue (still resident — that is the cache)."""
+        n = self._refs.get(bid, 0) - 1
+        if n < 0:
+            raise RuntimeError(f"refcount underflow on shared block {bid}")
+        self._refs[bid] = n
+        if n == 0:
+            self._lru[bid] = None
+
+    def register(self, key: bytes, bid: int) -> bool:
+        """Publish ``bid`` as the canonical block for ``key`` with one
+        reference (the registering slot's own table). False if the key
+        already has a canonical block — the caller keeps its copy."""
+        if key in self._by_hash:
+            return False
+        self._by_hash[key] = bid
+        self._hash_of[bid] = key
+        self._refs[bid] = 1
+        return True
+
+    def evict_lru(self):
+        """Unregister and return the coldest refcount-zero block id (the
+        caller returns it to the allocator), or None."""
+        if not self._lru:
+            return None
+        bid = next(iter(self._lru))
+        del self._lru[bid]
+        key = self._hash_of.pop(bid)
+        del self._by_hash[key]
+        del self._refs[bid]
+        self.evictions += 1
+        return bid
+
+
+EXPORT_QUANTUM = 16   # exported KV spans round up to this many positions
+
+
+def _export_span(n_valid: int) -> int:
+    """Positions an exported KV row carries for ``n_valid`` valid ones."""
+    n = max(int(n_valid), 1)
+    return math.ceil(n / EXPORT_QUANTUM) * EXPORT_QUANTUM
+
+
+def _host_packet(n_valid: int, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """A packet of host copies of ``k``/``v`` in their own dtype, and the
+    bytes that crossed the device boundary."""
+    k, v = k.to("cpu", copy=True), v.to("cpu", copy=True)
+    return {"n_valid": int(n_valid), "k": k, "v": v,
+            "kv_bytes": sum(t.numel() * t.element_size() for t in (k, v))}
 
 
 class ContiguousCache:
@@ -129,16 +295,22 @@ class ContiguousCache:
         B, C = ecfg.max_batch, ecfg.max_seq_len
         self._cache = MD.init_cache(cfg, B, C, device=device)
         self._footprint = contiguous_kv_bytes(cfg, B, C)
+        self.device = device
+        # slots holding a live stream (spliced, reserved or imported and
+        # not yet freed): the dense layout has no allocator to notice a
+        # double import, so track occupancy explicitly
+        self._occupied: set[int] = set()
 
-    def can_admit(self, n_prompt: int, budget: int) -> bool:
+    def can_admit(self, n_prompt: int, budget: int, prompt=None) -> bool:
         return True  # every slot already owns full capacity
 
     def splice(self, rows: dict, slot: int, n_prompt: int,
-               budget: int) -> None:
+               budget: int, prompt=None) -> None:
         """``rows["k"]``/``rows["v"]`` (L, 1, S, Hkv, Dh) land at
         positions ``0..S-1`` of ``slot``; the rest of the row is zeroed,
         so the slot holds exactly what the reference's full-capacity
         prefill cache would."""
+        self._occupied.add(slot)
         s = rows["k"].shape[2]
         for name in ("k", "v"):
             dst = self._cache[name][:, slot]
@@ -146,7 +318,7 @@ class ContiguousCache:
             dst[:, s:].zero_()
 
     def reserve(self, slot: int, n_prompt: int, budget: int) -> None:
-        pass  # capacity is pre-provisioned per slot
+        self._occupied.add(slot)  # capacity is pre-provisioned per slot
 
     def splice_partial(self, k_rows, v_rows, slot: int, offset: int,
                        n_valid: int) -> None:
@@ -172,7 +344,28 @@ class ContiguousCache:
         self._cache = new_cache
 
     def free(self, slot: int) -> None:
-        pass  # the rows are overwritten by the next admission
+        self._occupied.discard(slot)  # rows are overwritten by the next
+        # admission; only the occupancy mark is released
+
+    def export_slot(self, slot: int, n_valid: int, prompt=None,
+                    n_prompt=None) -> dict:
+        """The slot's rows up to ``n_valid`` rounded up to the export
+        quantum (capped at the capacity). Prefix provenance is accepted
+        for signature parity and ignored: the dense layout shares
+        nothing."""
+        p = min(_export_span(n_valid), self._cache["k"].shape[2])
+        return _host_packet(n_valid, self._cache["k"][:, slot:slot + 1, :p],
+                            self._cache["v"][:, slot:slot + 1, :p])
+
+    def import_slot(self, packet: dict, slot: int, n_prompt: int,
+                    budget: int) -> None:
+        if slot in self._occupied:
+            raise RuntimeError(
+                f"import_slot into occupied slot {slot}: a live stream's "
+                "KV would be silently clobbered — free the slot first "
+                "(preemption/requeue must never double-import)")
+        rows = {name: packet[name].to(self.device) for name in ("k", "v")}
+        self.splice(rows, slot, n_prompt, budget)
 
     def resident_kv_bytes(self) -> int:
         return self._footprint
@@ -242,10 +435,19 @@ class PagedCache:
         self._bytes_per_token = kv_bytes_per_token(cfg)
         self._pool_k, self._pool_v = MD.init_paged_pools(cfg, NB, bs,
                                                          device=device)
-        self.table = np.full((ecfg.max_batch, W), NB, np.int32)
+        B = ecfg.max_batch
+        self.table = np.full((B, W), NB, np.int32)
         self.allocator = BlockAllocator(NB)
-        self._reserved = np.zeros(ecfg.max_batch, np.int64)
+        self._reserved = np.zeros(B, np.int64)
         self._max_seq_len = C
+        # opt-in prefix caching: hash-chained shared blocks + refcounts
+        self.prefix = (PrefixIndex(bs)
+                       if getattr(ecfg, "prefix_cache", False) else None)
+        self._shared: list[set[int]] = [set() for _ in range(B)]
+        self.prefix_lookups = 0        # admissions that consulted the index
+        self.prefix_hits = 0           # admissions with a nonzero match
+        self.prefix_hit_tokens = 0     # prompt tokens served from cache
+        self.prefix_lookup_tokens = 0  # prompt tokens across lookups
 
     # -- accounting -------------------------------------------------------
     def _need_blocks(self, n_prompt: int, budget: int) -> int:
@@ -255,7 +457,7 @@ class PagedCache:
         n_pos = min(n_prompt + max(budget, 1) - 1, self._max_seq_len - 1)
         return math.ceil(max(n_pos, 1) / self.block_size)
 
-    def can_admit(self, n_prompt: int, budget: int) -> bool:
+    def can_admit(self, n_prompt: int, budget: int, prompt=None) -> bool:
         need = self._need_blocks(n_prompt, budget)
         if need > self.allocator.num_blocks:
             raise ValueError(
@@ -263,13 +465,57 @@ class PagedCache:
                 f"{self.allocator.num_blocks}; raise kv_blocks or lower "
                 "max_new_tokens")
         avail = self.allocator.free_blocks - int(self._reserved.sum())
+        if self.prefix is not None:
+            # a cached prefix charges nothing; refcount-zero resident
+            # blocks (minus the ones this match revives) are evictable on
+            # demand, so they count as available — also without a prompt
+            # (the resume gate), or a pool parked in the LRU queue would
+            # refuse a resume forever
+            ids = (self.prefix.match(prompt, n_prompt)
+                   if prompt is not None else [])
+            need -= len(ids)
+            avail += self.prefix.evictable(excluding=ids)
         return avail >= need
+
+    def prefix_match_tokens(self, prompt, n_prompt: int) -> int:
+        """Tokens of the longest cached block-aligned prefix (a pure
+        query: no counters, no refcounts)."""
+        if self.prefix is None:
+            return 0
+        return len(self.prefix.match(prompt, n_prompt)) * self.block_size
+
+    def _alloc_block(self) -> int:
+        """Allocate one pool block, evicting the LRU refcount-zero shared
+        block under pressure (the freed id is handed right back out)."""
+        if self.prefix is not None and self.allocator.free_blocks == 0:
+            bid = self.prefix.evict_lru()
+            if bid is not None:
+                self.allocator.free(bid)
+        return self.allocator.alloc()
+
+    def _free_block(self, blk: int) -> None:
+        """Return a privately held block to the allocator. Freeing a
+        block the prefix index still refcounts or holds would let another
+        table alias a recycled block — raise instead."""
+        if self.prefix is not None:
+            if self.prefix.refcount(blk) > 0:
+                raise RuntimeError(
+                    f"freeing shared block {blk} with refcount "
+                    f"{self.prefix.refcount(blk)}: another slot's table "
+                    "still aliases it — release via the prefix index, "
+                    "never the raw allocator")
+            if self.prefix.holds(blk):
+                raise RuntimeError(
+                    f"freeing registered shared block {blk} outside the "
+                    "eviction path: the index would map its hash to a "
+                    "recycled id")
+        self.allocator.free(blk)
 
     def _alloc_into(self, slot: int, b: int) -> None:
         """Give table entry ``b`` of ``slot`` a block if it has none,
         paying the slot's reservation down."""
         if self.table[slot, b] == self.num_blocks:
-            self.table[slot, b] = self.allocator.alloc()
+            self.table[slot, b] = self._alloc_block()
             self._reserved[slot] = max(0, int(self._reserved[slot]) - 1)
 
     def _write(self, k_rows, v_rows, slot: int, pos: np.ndarray) -> None:
@@ -285,16 +531,63 @@ class PagedCache:
 
     # -- protocol ---------------------------------------------------------
     def splice(self, rows: dict, slot: int, n_prompt: int,
-               budget: int) -> None:
+               budget: int, prompt=None) -> None:
         """A blocking prefill's rows (L, 1, S, H, Dh): allocate exactly the
         prompt's blocks and store the rows they cover (pad rows past the
         prompt that share its last block come along, masked by length)."""
         now = math.ceil(n_prompt / self.block_size)
         for b in range(now):
-            self.table[slot, b] = self.allocator.alloc()
+            self.table[slot, b] = self._alloc_block()
         self._reserved[slot] = self._need_blocks(n_prompt, budget) - now
         n = min(int(rows["k"].shape[2]), now * self.block_size)
         self._write(rows["k"], rows["v"], slot, np.arange(n))
+        if self.prefix is not None and prompt is not None:
+            # a cold full prefill under prefix mode: count the miss
+            self.prefix_lookups += 1
+            self.prefix_lookup_tokens += int(n_prompt)
+
+    def splice_prefix(self, slot: int, prompt, n_prompt: int,
+                      budget: int) -> int:
+        """Install the longest cached block-aligned prefix into the
+        slot's table (aliasing shared blocks, refcounts bumped) and set
+        the reservation to charge only the uncached suffix. Returns the
+        matched prefix length in tokens: the caller prefills only
+        ``prompt[h:]`` at history offset ``h``. With no match this is
+        :meth:`reserve` plus miss accounting."""
+        assert self.prefix is not None, "prefix caching is not enabled"
+        ids = self.prefix.match(prompt, n_prompt)
+        h = len(ids)
+        self.prefix.acquire(ids)
+        self._shared[slot] = set(ids)
+        if h:
+            self.table[slot, :h] = ids
+        self._reserved[slot] = self._need_blocks(n_prompt, budget) - h
+        self.prefix_lookups += 1
+        self.prefix_lookup_tokens += int(n_prompt)
+        if h:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += h * self.block_size
+        return h * self.block_size
+
+    def register_prefix(self, slot: int, prompt, n_prompt: int) -> None:
+        """Publish the slot's full prompt blocks as shared, once the
+        prompt's KV is resident. Only blocks wholly inside the prompt are
+        shareable — every later write lands at a position ``>=
+        n_prompt``, in a later private block — so published blocks are
+        immutable. A hash already mapped to another block is skipped:
+        the slot keeps its private copy."""
+        if self.prefix is None:
+            return
+        full = int(n_prompt) // self.block_size
+        if not full:
+            return
+        keys = self.prefix.keys_for(prompt, full)
+        for k in range(full):
+            blk = int(self.table[slot, k])
+            if blk in self._shared[slot]:
+                continue  # already aliased shared (a match hit)
+            if self.prefix.register(keys[k], blk):
+                self._shared[slot].add(blk)
 
     def reserve(self, slot: int, n_prompt: int, budget: int) -> None:
         self._reserved[slot] = self._need_blocks(n_prompt, budget)
@@ -340,7 +633,7 @@ class PagedCache:
             blk = int(self.table[slot, b])
             if blk == self.num_blocks:
                 break  # tables fill as a prefix: the first sentinel ends
-            self.allocator.free(blk)
+            self._free_block(blk)
             self.table[slot, b] = self.num_blocks
             self._reserved[slot] += 1
 
@@ -349,11 +642,85 @@ class PagedCache:
         self._pool_v = new_cache["v"]
 
     def free(self, slot: int) -> None:
+        shared = self._shared[slot]
         for blk in self.table[slot]:
-            if blk != self.num_blocks:
-                self.allocator.free(int(blk))
+            if blk == self.num_blocks:
+                continue
+            blk = int(blk)
+            if blk in shared:
+                # shared blocks are released, never raw-freed: at
+                # refcount zero they stay resident on the LRU queue
+                self.prefix.release(blk)
+            else:
+                self._free_block(blk)
         self.table[slot] = self.num_blocks
         self._reserved[slot] = 0
+        self._shared[slot] = set()
+
+    def export_slot(self, slot: int, n_valid: int, prompt=None,
+                    n_prompt=None) -> dict:
+        """Gather the slot's first ``ceil(n_valid / bs)`` blocks (lazy
+        allocation fills the table as a prefix) into dense rows — the
+        backend-portable format. With prefix caching on and the prompt
+        given, the packet carries its provenance, so a prefix-caching
+        importer re-matches it and aliases what it already holds."""
+        bs = self.block_size
+        nblk = max(1, math.ceil(max(int(n_valid), 1) / bs))
+        idx = torch.from_numpy(self.table[slot, :nblk].astype(np.int64))
+        idx = idx.to(self.device)
+        l, tail = self._pool_k.shape[0], self._pool_k.shape[3:]
+        packet = _host_packet(
+            n_valid, self._pool_k[:, idx].reshape(l, 1, nblk * bs, *tail),
+            self._pool_v[:, idx].reshape(l, 1, nblk * bs, *tail))
+        if (self.prefix is not None and prompt is not None
+                and n_prompt is not None):
+            packet["prefix"] = {
+                "tokens": np.asarray(prompt, np.int32).copy(),
+                "n_prompt": int(n_prompt),
+                "shared_blocks": len(self._shared[slot]),
+            }
+        return packet
+
+    def import_slot(self, packet: dict, slot: int, n_prompt: int,
+                    budget: int) -> None:
+        """Unpack into freshly allocated blocks (aliasing whatever prefix
+        this pool's index already holds) and re-run the reservation: the
+        request's worst case less the blocks held now stays reserved, so
+        an imported stream keeps the no-deadlock guarantee."""
+        if (self.table[slot] != self.num_blocks).any() or self._reserved[slot]:
+            raise RuntimeError(
+                f"import_slot into occupied slot {slot}: its block-table "
+                "row still holds allocated blocks (or a live "
+                "reservation) that would leak from the pool — free the "
+                "slot first (preemption/requeue must never double-import)")
+        bs = self.block_size
+        n_valid = int(packet["n_valid"])
+        now = max(1, math.ceil(max(n_valid, 1) / bs))
+        need = self._need_blocks(n_prompt, budget)
+        # h < now always: matches stop at (n_prompt - 1) // bs blocks and
+        # n_valid >= n_prompt
+        ids: list[int] = []
+        prov = packet.get("prefix")
+        if self.prefix is not None and prov is not None:
+            ids = self.prefix.match(prov["tokens"], int(prov["n_prompt"]))
+        h = len(ids)
+        if ids:
+            self.prefix.acquire(ids)
+        self._shared[slot] = set(ids)
+        if h:
+            self.table[slot, :h] = ids
+        for b in range(h, now):
+            self.table[slot, b] = self._alloc_block()
+        self._reserved[slot] = max(0, need - now)
+        span = now * bs
+        rows = []
+        for name in ("k", "v"):
+            r = packet[name][:, :, h * bs:span].to(self.device)
+            if r.shape[2] < span - h * bs:  # cross-backend: pad the span
+                r = torch.nn.functional.pad(
+                    r, (0, 0, 0, 0, 0, span - h * bs - r.shape[2]))
+            rows.append(r)
+        self._write(rows[0], rows[1], slot, np.arange(h * bs, span))
 
     def resident_kv_bytes(self) -> int:
         return (self.allocator.allocated_blocks * self.block_size
@@ -363,6 +730,22 @@ class PagedCache:
     def peak_resident_kv_bytes(self) -> int:
         return (self.allocator.peak_allocated * self.block_size
                 * self._bytes_per_token)
+
+    @property
+    def resident_shared_kv_bytes(self) -> int:
+        """Bytes held by blocks the prefix index has published (any
+        refcount, the refcount-zero LRU tail included)."""
+        if self.prefix is None:
+            return 0
+        return (self.prefix.resident_blocks * self.block_size
+                * self._bytes_per_token)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from the cache."""
+        if not self.prefix_lookup_tokens:
+            return 0.0
+        return self.prefix_hit_tokens / self.prefix_lookup_tokens
 
 
 def make_kv_cache(cfg, ecfg, device) -> KVCacheManager:

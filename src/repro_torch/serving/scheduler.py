@@ -13,16 +13,47 @@ step, and when a slot retires:
   ``chunk_tokens`` prefill chunk, shortest remaining prompt first;
 - :class:`SpeculativeScheduler`: blocking admission (target and draft),
   then every step drafts ``spec_gamma`` tokens per live slot and
-  verifies all slots' windows in one target dispatch.
+  verifies all slots' windows in one target dispatch;
+- :class:`SLOScheduler`: blocking admission in (priority, TTFT-deadline
+  slack, arrival) order; when every slot is busy a higher-priority
+  arrival preempts the lowest-priority live slot, whose stream is packed
+  to the host (``export_slot``) and later resumes from its exact
+  position, so no token is lost.
 
-The SLO policy (preemption) is a later slice of the port.
+Prefix caching sits under every policy at the admission seam: policies
+only feel it through ``can_admit`` (a cached prefix charges nothing).
 """
 from __future__ import annotations
 
+import math
 import warnings
 from dataclasses import dataclass
 
 import numpy as np
+
+
+@dataclass(frozen=True)
+class SLO:
+    """Per-request service-level objective: time-to-first-token and
+    inter-token-latency targets in seconds (``inf`` = no target)."""
+    ttft_s: float = float("inf")
+    itl_s: float = float("inf")
+
+
+def slo_sort_key(req, now: float):
+    """Admission order for the SLO policy: priority (desc) first, then
+    TTFT-deadline slack, then arrival, with rid as the deterministic
+    tiebreak."""
+    ttft = req.slo.ttft_s if req.slo is not None else float("inf")
+    slack = (req.t_submit + ttft - now) if math.isfinite(ttft) else float("inf")
+    return (-req.priority, slack, req.t_submit, req.rid)
+
+
+def preempt_victim_key(priority: int, remaining: int, slot: int):
+    """Victim choice among live slots: lowest priority first, then the
+    slot with the most remaining budget (evicting it wastes the least
+    imminent completion), then slot index."""
+    return (priority, -remaining, slot)
 
 
 @dataclass
@@ -32,7 +63,9 @@ class PrefillState:
     prompt: np.ndarray   # already truncated to capacity
     n_prompt: int        # prompt positions
     budget: int          # generation budget at admission
-    done: int = 0        # positions already cached
+    seed: int = 0        # sampling seed resolved at admission
+    done: int = 0        # positions already cached (from the matched
+                         # prefix on, with prefix caching)
 
     @property
     def remaining(self) -> int:
@@ -112,6 +145,62 @@ class ChunkedScheduler(Scheduler):
         return None if best is None else best[1]
 
 
+class SLOScheduler(BlockingScheduler):
+    """SLO-aware multi-tenant policy: deadline-slack-ordered admission
+    plus preempt-and-requeue of lower-priority live slots.
+
+    Each step re-sorts the waiting queue by :func:`slo_sort_key` and
+    runs the inherited blocking admission over free slots. If requests
+    are still waiting afterwards, a preemption pass evicts, for each
+    waiting request that strictly outranks some live slot, the victim
+    chosen by :func:`preempt_victim_key` (``ServingEngine.preempt_slot``
+    packs and requeues it), and the high-priority request prefills into
+    the freed slot this same step. Preemption never crosses equal
+    priorities, so it cannot livelock."""
+
+    name = "slo"
+
+    def admit(self, eng) -> None:
+        if len(eng.waiting) > 1:
+            now = eng._now()
+            ordered = sorted(eng.waiting, key=lambda r: slo_sort_key(r, now))
+            eng.waiting.clear()
+            eng.waiting.extend(ordered)
+        super().admit(eng)
+        self._preempt_pass(eng)
+
+    def _preempt_pass(self, eng) -> None:
+        # bounded: each iteration either preempts (at most max_batch
+        # victims can exist) or stops
+        for _ in range(2 * eng.ecfg.max_batch):
+            if not eng.waiting:
+                return
+            head = eng.waiting[0]
+            victim = self._pick_victim(eng, head.priority)
+            if victim is None:
+                return
+            eng.preempt_slot(victim)          # frees slot, requeues victim
+            req = eng.waiting.popleft()       # == head
+            if not self._admit_request(eng, victim, req):
+                eng.waiting.appendleft(req)   # cache deferral: retry next step
+                return
+
+    def _pick_victim(self, eng, priority: int) -> int | None:
+        """Live decode slot with strictly lower priority, preferring the
+        one ranked first by :func:`preempt_victim_key`."""
+        best = None
+        for slot, req in enumerate(eng.slot_req):
+            if req is None or slot in eng.prefilling:
+                continue
+            if req.priority >= priority:
+                continue
+            remaining = eng._budget(req) - int(eng.slot_len[slot])
+            key = preempt_victim_key(req.priority, remaining, slot)
+            if best is None or key < best[0]:
+                best = (key, slot)
+        return None if best is None else best[1]
+
+
 class SpeculativeScheduler(BlockingScheduler):
     """Blocking admission (the engine also prefills the draft's cache);
     the engine's step then drafts and verifies instead of decoding one
@@ -132,6 +221,8 @@ def make_scheduler(cfg, ecfg) -> Scheduler:
     kind = ecfg.scheduler
     if kind == "blocking":
         return BlockingScheduler()
+    if kind == "slo":
+        return SLOScheduler()  # blocking admission: every family
     if kind in ("chunked", "speculative"):
         if not policy_supported(cfg):
             warnings.warn(
@@ -142,8 +233,4 @@ def make_scheduler(cfg, ecfg) -> Scheduler:
         if kind == "chunked":
             return ChunkedScheduler(ecfg.chunk_tokens)
         return SpeculativeScheduler()
-    if kind == "slo":
-        raise NotImplementedError(
-            "scheduler='slo' (SLO admission with preemption through "
-            "export_slot/import_slot) is a later slice of the port")
     raise ValueError(f"unknown scheduler {kind!r}")

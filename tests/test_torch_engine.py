@@ -58,12 +58,21 @@ def test_engine_config_and_slices(setup):
     _, _, cfg, tp = setup
     with pytest.raises(ValueError, match="max_batch"):
         EngineConfig(max_batch=0)
-    # what this slice of the port still leaves to later ones
+    # the SLO policy and prefix caching are accepted as in the
+    # reference (the contiguous backend ignores prefix_cache) ...
+    eng = ServingEngine(tp, cfg, EngineConfig(scheduler="slo"), device="cpu")
+    assert eng.scheduler.name == "slo"
+    eng = ServingEngine(tp, cfg, EngineConfig(prefix_cache=True),
+                        device="cpu")
+    assert not eng._prefix_on
+    eng = ServingEngine(tp, cfg, EngineConfig(prefix_cache=True,
+                                              kv_cache="paged"),
+                        device="cpu")
+    assert eng._prefix_on and eng.kv.prefix is not None
+    # ... what this slice of the port still leaves to later ones raises
+    moe = registry.get_smoke_config("deepseek-moe-16b")
     with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(tp, cfg, EngineConfig(scheduler="slo"), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(tp, cfg, EngineConfig(prefix_cache=True),
-                      device="cpu")
+        ServingEngine(tp, moe, EngineConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown kv_cache"):
         ServingEngine(tp, cfg, EngineConfig(kv_cache="ring"), device="cpu")
     with pytest.raises(ValueError, match="engine runs on"):
