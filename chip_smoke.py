@@ -27,7 +27,9 @@ Phases, one line each (any failure exits non-zero):
    prefill over a cache (K4) to its second run and to a run over a
    block-table gather of the same rows from a larger pool; the int4
    GEMV (K6) at phi3-mini's projection shapes, K1 / K2 / K3 / K4 at its
-   head dim 96, K1 / K2 also at the W4 step's one-row call;
+   head dim 96, K1 / K2 also at the W4 step's one-row call; K1 / K2 /
+   K3 / K4 at phase 7's head dim 128 (GQA 48/8 and MHA 16/16), K3 also
+   after the vlm's 256-row image prefix;
 3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
    must equal the port's own batch-1 prefill + decode_step loop, and
@@ -57,7 +59,23 @@ Phases, one line each (any failure exits non-zero):
    trip (``torch.equal`` rows), seeded temperature sampling (same seed,
    same stream, also under preemption; another seed, another stream)
    and the device time of a cold against a warm admission. Every pool
-   must balance after its drain.
+   must balance after its drain;
+7. families — the MoE and vlm families at full width, random weights
+   from the seed, one model at a time: (a) float32, 4 layers deep,
+   deepseek-moe-16b (its dense layer 0 and 3 MoE layers) and
+   internvl2-26b through phase 3's gates, deepseek at capacity factor
+   E / k, where no dispatch can drop a routed slot; then deepseek at
+   its config's 1.25 on the same six configurations, the dropped slots
+   per dispatch kind printed, only paged == contiguous gated; (b) bf16
+   at full depth, both models: the first prefill's logits, whole and
+   chunked, against the plain versions (an MoE's plain run replays the
+   kernel run's experts; the tokens its own routing would move may be
+   at most twice those that one-ulp noise at every MoE input moves in
+   the plain path), phase 4's three serving runs, and one decode
+   step of 8 live slots traced by ``torch.profiler``; (c) dbrx-132b,
+   2 layers, LayerNorm: a 512-token prefill and 8 decode steps with
+   exact launches (no K5) and every step's logits against the plain
+   versions, its routing flips held as in (b). Each model's step ends the process past 420 s.
 
 Every engine run and every W4 step checks each kernel's launch count
 against what its path must launch.
@@ -794,6 +812,46 @@ def w4_path_cases(gen, dtype):
     return cases
 
 
+def families_cases(gen, dtype):
+    """Phase 7's attention shapes (its own generator): head dim 128,
+    GQA 48/8 (internvl2-26b, dbrx-132b: G 6) and MHA 16/16
+    (deepseek-moe-16b). K1 and K2 over 8 slots at capacity 2048; K4's
+    verify window (gamma 4), its 256-token chunk over a history and
+    internvl2's first chunk (256 image positions + 256 tokens, no
+    history); K3 at the vlm buckets after the 256-row image prefix
+    (S = 256 + 32, 256 + 1024), dbrx's 512-token prefill and
+    deepseek's 1024-token bucket."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    dh = 128
+    cases = []
+    for hq, hkv in ((48, 8), (16, 16)):
+        cases += decode_cases(gen, dtype, 8, 2048, hq, hkv, dh)
+    cases += prefill_cases(gen, dtype, dh, (
+        ("verify,g6", 8, 5, 48, 8, None),
+        ("verify,mha", 8, 5, 16, 16, None),
+        ("chunk,g6", 1, 256, 48, 8, 768),
+        ("chunk,g6,image_prefix", 1, 512, 48, 8, 0)))
+    for s, hq, hkv in ((288, 48, 8), (1280, 48, 8), (512, 48, 8),
+                       (1024, 16, 16)):
+        q = _rand(gen, (1, s, hq, dh), dtype)
+        k = _rand(gen, (1, s, hkv, dh), dtype)
+        v = _rand(gen, (1, s, hkv, dh), dtype)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+        cases.append((
+            "flash_attention", f"B=1,S={s},Hq={hq},Hkv={hkv},Dh={dh},causal",
+            lambda q=q, k=k, v=v: kfa.flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: ref.flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: sdpa(q, k, v),
+            nbytes, 4 * (s * (s + 1) // 2) * hq * dh, [],
+            {"cold": cold_of(nbytes, lambda q, k, v: (
+                lambda: kfa.flash_attention(q, k, v, causal=True),
+                lambda: sdpa(q, k, v)), q, k, v)}))
+    return cases
+
+
 def phase_kernels() -> dict:
     """Every kernel vs its plain version, both dtypes. Returns, per
     kernel, the bf16 numbers at its first (main-path) shape and the
@@ -801,11 +859,13 @@ def phase_kernels() -> dict:
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gen_w4 = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    gen_fam = torch.Generator(device="cuda").manual_seed(SEED + 18)
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
         for name, case, kfn, pfn, lfn, nbytes, flops, same, *opts in (
-                kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)):
+                kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)
+                + families_cases(gen_fam, dtype)):
             opts = opts[0] if opts else {}
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -865,12 +925,123 @@ def plain_kernels():
             setattr(ops, n, fn)
 
 
+@contextlib.contextmanager
+def routes(replay=None):
+    """The experts each MoE routing call picks, in call order: recorded
+    (``replay`` None; yields the list of (N, k) ids), or replayed from
+    ``replay`` — the weights are then this run's own router
+    probabilities at the recorded experts, renormalised, and the yielded
+    list counts, per call, the tokens whose expert set this run's own
+    routing would have changed. A bf16 comparison of kernels against
+    their plain versions replays the kernel run's routes: the plain
+    run's rounding moves a near-tie of the top-k to another expert now
+    and then, a discrete jump that says nothing of the kernels (this
+    script's comparison only)."""
+    import torch
+    from repro_torch.models import moe as M
+    route = M.route
+    seen = []
+
+    def recording(router_w, x, top_k):
+        w, ids = route(router_w, x, top_k)
+        seen.append(ids)
+        return w, ids
+
+    def replaying(router_w, x, top_k):
+        _, own = route(router_w, x, top_k)
+        ids = replay[len(seen)]
+        seen.append((own.sort(-1).values != ids.sort(-1).values)
+                    .any(-1).sum())
+        w = torch.softmax(x.float() @ router_w, dim=-1).gather(1, ids)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), ids
+
+    M.route = recording if replay is None else replaying
+    try:
+        yield seen
+    finally:
+        M.route = route
+
+
+def route_flips(seen) -> int:
+    return int(sum(int(n) for n in seen))
+
+
+@contextlib.contextmanager
+def nudged_moe_inputs(seed=SEED):
+    """Every MoE layer's input moved by one ulp of its dtype, away from
+    or toward zero at a seeded random choice per element (zeros stay):
+    rounding noise of the size a kernel's differs from its plain
+    version's, put in at every MoE layer (this script's measurement
+    only)."""
+    import torch
+    from repro_torch.models import moe as M
+    apply_moe = M.apply_moe
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+    def nudged(p, cfg, x):
+        up = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+        bits = x.contiguous().view(ints[x.dtype])
+        moved = (bits + torch.where(up, 1, -1).to(bits.dtype)).view(x.dtype)
+        return apply_moe(p, cfg, torch.where(x == 0, x, moved))
+
+    M.apply_moe = nudged
+    try:
+        yield
+    finally:
+        M.apply_moe = apply_moe
+
+
+# the kernels' routing flips against the plain versions' may be at most
+# this many times those of the plain path under one-ulp noise at every
+# MoE input (:func:`nudged_moe_inputs`)
+FLIP_WITNESS_FACTOR = 2
+
+
+def flip_gate(phase, picked, flips, run) -> None:
+    """``picked``: the kernel run's experts per routing call; ``flips``:
+    per call, the tokens whose experts the plain run's own routing moves
+    while it replays them. The witness: ``run()`` through the plain
+    versions, recording its experts, then again under one-ulp noise
+    (:func:`nudged_moe_inputs`) replaying them. Fails past
+    ``FLIP_WITNESS_FACTOR`` times the witness's flips."""
+    with plain_kernels(), routes() as base:
+        run()
+    with plain_kernels(), nudged_moe_inputs(), routes(replay=base) as seen:
+        run()
+    routed = sum(int(i.shape[0]) for i in picked)
+    flips, witness = route_flips(flips), route_flips(seen)
+    log(phase, routing_calls=len(picked), routed_tokens=routed,
+        route_flips_kernels_vs_plain=flips,
+        route_flips_plain_vs_plain_one_ulp=witness,
+        flip_share=f"{flips / routed:.4f}",
+        witness_share=f"{witness / routed:.4f}",
+        limit=f"{FLIP_WITNESS_FACTOR} x witness",
+        note="each plain run replays the first run's experts")
+    if flips > FLIP_WITNESS_FACTOR * witness:
+        raise AssertionError(
+            f"{phase}: the kernels move {flips} of {routed} routes against "
+            f"the plain versions, more than {FLIP_WITNESS_FACTOR} x the "
+            f"{witness} that one-ulp noise moves in the plain path")
+
+
+def model_batch(toks, images=None) -> dict:
+    batch = {"tokens": toks}
+    if images is not None:
+        batch["images"] = images
+    return batch
+
+
 def straight_line_generate(params, cfg, prompt, n_new, capacity):
-    """Batch-1 prefill + greedy decode_step loop (the engine's oracle)."""
+    """Batch-1 prefill + greedy decode_step loop (the engine's oracle),
+    after the engine's zero image prefix on a vlm."""
     import torch
     from repro_torch.models import model as MD
+    from repro_torch.serving.engine import stub_images
     toks = torch.as_tensor(prompt[None, :], device="cuda")
-    logits, cache = MD.prefill(params, cfg, {"tokens": toks}, capacity)
+    logits, cache = MD.prefill(params, cfg,
+                               model_batch(toks, stub_images(cfg, "cuda")),
+                               capacity)
     cur = torch.argmax(logits, -1)[:, None]
     out = [int(cur[0, 0])]
     for _ in range(n_new - 1):
@@ -970,27 +1141,26 @@ def _check_engine(phase, eng, counts, n_requests):
     return s
 
 
-def phase_engine_f32() -> None:
-    import numpy as np
+def stream_gates(phase, params, cfg, prompts, label_extra=None,
+                 total=None) -> None:
+    """contiguous + blocking == the batch-1 prefill + decode_step loop,
+    then every GATE_CONFIGS run == contiguous + blocking (16 new tokens
+    each); each engine run's launches go into ``total`` where given."""
     import torch
-    from repro_torch.configs import registry
-    from repro_torch.models import model as MD
-    cfg = registry.get_config(ARCH).replace(dtype="float32")
-    params = MD.init_params(cfg, seed=SEED, device="cuda")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in (17, 200, 511, 1000)]
+    extra = label_extra or {}
+    total = {} if total is None else total
     eng, counts = run_engine(params, cfg, prompts, 16)
-    s = _check_engine("engine_f32", eng, counts, len(prompts))
+    s = _check_engine(phase, eng, counts, len(prompts))
+    _add(total, counts)
     base = {r.rid: r.output for r in eng.finished}
     for i, p in enumerate(prompts):
         want = straight_line_generate(params, cfg, p, 16, 2048)
-        log("engine_f32", request=i, prompt_len=len(p),
+        log(phase, **extra, request=i, prompt_len=len(p),
             equal=base[i] == want, tokens=base[i][:8])
         if base[i] != want:
-            raise AssertionError(f"request {i}: engine {base[i]} != "
-                                 f"straight-line {want}")
-    log("engine_f32", config="contiguous+blocking", requests=s["requests"],
+            raise AssertionError(f"{phase} request {i}: engine {base[i]} "
+                                 f"!= straight-line {want}")
+    log(phase, **extra, config="contiguous+blocking", requests=s["requests"],
         tokens=s["tokens"], decode_dispatches=s["decode_dispatches"],
         decode_steps=s["decode_steps"], prefills=s["prefills"],
         streams_equal=True)
@@ -998,9 +1168,10 @@ def phase_engine_f32() -> None:
     for label, kw in GATE_CONFIGS.items():
         torch.cuda.empty_cache()
         eng, counts = run_engine(params, cfg, prompts, 16, **kw)
-        s = _check_engine(f"engine_f32 {label}", eng, counts, len(prompts))
+        s = _check_engine(f"{phase} {label}", eng, counts, len(prompts))
+        _add(total, counts)
         got = {r.rid: r.output for r in eng.finished}
-        log("engine_f32", config=label, streams_equal=got == base,
+        log(phase, **extra, config=label, streams_equal=got == base,
             decode_dispatches=s["decode_dispatches"],
             decode_steps=s["decode_steps"],
             chunk_dispatches=s["prefill_chunk_dispatches"],
@@ -1009,82 +1180,116 @@ def phase_engine_f32() -> None:
             peak_resident_kv_bytes=s["peak_resident_kv_bytes"],
             contiguous_kv_bytes=s["contiguous_kv_bytes"])
         if got != base:
-            raise AssertionError(f"{label}: streams {got} != contiguous "
-                                 f"blocking {base}")
+            raise AssertionError(f"{phase} {label}: streams {got} != "
+                                 f"contiguous blocking {base}")
         del eng
 
 
-def _first_logits(params, cfg, prompt, chunk):
+def gate_prompts(cfg):
+    """Phase 3's traffic: 4 seeded prompts of 17–1000 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in (17, 200, 511, 1000)]
+
+
+def phase_engine_f32() -> None:
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    stream_gates("engine_f32", params, cfg, gate_prompts(cfg))
+
+
+def _first_logits(params, cfg, prompt, chunk, images=None):
     """The prompt's logits through bucketed prefill and through chunked
-    prefill over a one-slot contiguous cache (the engine's route)."""
+    prefill over a one-slot contiguous cache (the engine's route); a
+    vlm's ``images`` go before the prompt, in the first chunk."""
     import numpy as np
     import torch
     from repro_torch.models import model as MD
     n = len(prompt)
+    pre = 0 if images is None else images.shape[1]
     nb = 16
     while nb < n:
         nb *= 2
     toks = np.zeros((1, nb), np.int32)
     toks[0, :n] = prompt
-    whole, _ = MD.prefill(params, cfg,
-                          {"tokens": torch.as_tensor(toks, device="cuda")},
-                          None, logit_index=n - 1)
+    whole, _ = MD.prefill(
+        params, cfg, model_batch(torch.as_tensor(toks, device="cuda"), images),
+        None, logit_index=pre + n - 1)
     cache = MD.init_cache(cfg, 1, 2048, device="cuda")
     done = 0
     while done < n:
         m = min(chunk, n - done)
         toks = np.zeros((1, chunk), np.int32)
         toks[0, :m] = prompt[done:done + m]
+        first = done == 0 and images is not None
+        at = done + (pre if done else 0)     # the chunk's first position
+        rows = m + (pre if first else 0)
         logits, ks, vs = MD.prefill_chunk(
-            params, cfg, {"tokens": torch.as_tensor(toks, device="cuda")},
-            cache["k"], cache["v"], done, logit_index=m - 1)
-        cache["k"][:, :, done:done + m] = ks[:, :, :m]
-        cache["v"][:, :, done:done + m] = vs[:, :, :m]
+            params, cfg,
+            model_batch(torch.as_tensor(toks, device="cuda"),
+                        images if first else None),
+            cache["k"], cache["v"], at, logit_index=rows - 1)
+        cache["k"][:, :, at:at + rows] = ks[:, :, :rows]
+        cache["v"][:, :, at:at + rows] = vs[:, :, :rows]
         done += m
     return whole, logits
 
 
-def phase_engine_bf16(card: str) -> dict:
-    import numpy as np
-    import torch
-    from repro_torch.configs import registry
-    from repro_torch.models import model as MD
-    cfg = registry.get_config(ARCH)
-    if cfg.dtype != "bfloat16":
-        raise AssertionError(f"{ARCH} serves in {cfg.dtype}, not bfloat16")
-    params = MD.init_params(cfg, seed=SEED, device="cuda")
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in rng.integers(32, 1025, size=16)]
+def logit_gates(phase, params, cfg, prompt, images=None) -> None:
+    """The first prefill's logits, whole and chunked, through the kernels
+    against the plain versions: normwise <= 3e-2, same argmax. An MoE
+    model's plain run takes the kernel run's routes (:func:`routes`),
+    and the tokens whose experts its own routing would have moved are
+    held to :func:`flip_gate`."""
+    def first():
+        return _first_logits(params, cfg, prompt, CHUNK_TOKENS, images)
 
-    # the first prefill, whole and chunked, through the kernels and
-    # through the plain versions
-    got = _first_logits(params, cfg, prompts[0], CHUNK_TOKENS)
-    with plain_kernels():
-        want = _first_logits(params, cfg, prompts[0], CHUNK_TOKENS)
+    with routes() as picked:
+        got = first()
+    with plain_kernels(), routes(replay=picked) as flips:
+        want = first()
     for what, g, w in (("prefill", got[0], want[0]),
                        ("chunked_prefill", got[1], want[1])):
-        rel = ((g - w).norm() / w.norm()).item()
-        log("engine_bf16", logits=what, prompt_len=len(prompts[0]),
-            chunk=CHUNK_TOKENS, max_abs_err=f"{(g - w).abs().max().item():.3e}",
-            rel_err=f"{rel:.3e}", tol=TOL["bfloat16"],
-            argmax_equal=bool((g.argmax(-1) == w.argmax(-1)).all()))
-        if not rel <= TOL["bfloat16"]:
-            raise AssertionError(f"bf16 {what} logits: relative error {rel}")
+        _logit_gate(f"{phase} {what}", g, w)
+        log(phase, logits=what, prompt_len=len(prompt),
+            image_prefix=0 if images is None else images.shape[1],
+            chunk=CHUNK_TOKENS,
+            max_abs_err=f"{(g - w).abs().max().item():.3e}",
+            rel_err=f"{((g - w).norm() / w.norm()).item():.3e}",
+            tol=TOL["bfloat16"], argmax_equal=True)
+    if picked:
+        flip_gate(phase, picked, flips, first)
 
+
+def serve_prompts(cfg):
+    """Phase 4's traffic: 16 seeded prompts of 32–1024 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in rng.integers(32, 1025, size=16)]
+
+
+def serve_bf16(phase, params, cfg, prompts, card, total) -> None:
+    """The 16 requests (64 new tokens each) on contiguous + blocking,
+    paged + chunked and paged + speculative, each checked (launches,
+    dispatches, requests, paged KV) and reported; adds the launches to
+    ``total``."""
+    import torch
     run_engine(params, cfg, prompts[:2], 4)  # warm-up (allocator, cuBLAS)
-    total: dict = {}
     for label in ("contiguous+blocking", "paged+chunked",
                   "paged+speculative"):
         kw = GATE_CONFIGS.get(label, {})
         torch.cuda.empty_cache()
         eng, counts = run_engine(params, cfg, prompts, 64, **kw)
-        s = _check_engine(f"engine_bf16 {label}", eng, counts, 16)
+        s = _check_engine(f"{phase} {label}", eng, counts, 16)
         for r in eng.finished:
             if len(r.output) != 64:
-                raise AssertionError(f"{label} request {r.rid}: "
+                raise AssertionError(f"{phase} {label} request {r.rid}: "
                                      f"{len(r.output)} tokens")
-        log("engine_bf16", config=label, requests=s["requests"],
+        log(phase, config=label, requests=s["requests"],
             tokens=s["tokens"], tok_per_s=f"{s['tokens_per_s']:.1f}",
             ttft_p50_ms=f"{s['ttft_p50_s'] * 1e3:.1f}",
             ttft_p99_ms=f"{s['ttft_p99_s'] * 1e3:.1f}",
@@ -1099,9 +1304,23 @@ def phase_engine_bf16(card: str) -> dict:
             draft_kv_bytes=s["draft_kv_bytes"],
             contiguous_kv_bytes=s["contiguous_kv_bytes"],
             launches=json.dumps(counts), card=f"'{card}'")
-        for name, c in counts.items():
-            total[name] = total.get(name, 0) + c
+        _add(total, counts)
         del eng
+
+
+def phase_engine_bf16(card: str) -> dict:
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    cfg = registry.get_config(ARCH)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{ARCH} serves in {cfg.dtype}, not bfloat16")
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    prompts = serve_prompts(cfg)
+    # the first prefill, whole and chunked, through the kernels and
+    # through the plain versions
+    logit_gates("engine_bf16", params, cfg, prompts[0])
+    total: dict = {}
+    serve_bf16("engine_bf16", params, cfg, prompts, card, total)
     return total
 
 
@@ -1695,6 +1914,243 @@ def phase_request_surface(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the MoE and vlm families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("deepseek-moe-16b", "internvl2-26b")
+GATE_LAYERS = 4        # 7a's depth: deepseek keeps its dense layer 0
+DBRX_LAYERS = 2        # 7c's depth
+STEP_SECONDS = 420     # each step of phase 7 ends the process past this
+
+
+@contextlib.contextmanager
+def step_deadline(seconds=STEP_SECONDS):
+    """SIGALRM's default action ends the process: a hung kernel costs
+    minutes, not the call."""
+    import signal
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+
+
+def dropless(cfg):
+    """``cfg`` at capacity factor E / k, where no dispatch can drop a
+    routed slot (every expert's capacity is the token count)."""
+    return cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.moe_top_k)
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Routed slots dropped past an expert's capacity, per dispatch kind,
+    while the engine runs: wrappers around the port's ``moe.apply_moe``
+    and the engine's ``_dispatch`` (this script's measurement only; the
+    outputs are the unwrapped ones). Yields {kind: [count tensors]}."""
+    from repro_torch.models import moe as M
+    from repro_torch.serving import engine as E
+    drops: dict = {}
+    kind = [None]
+    apply_moe, dispatch = M.apply_moe, E.ServingEngine._dispatch
+
+    def counted(p, cfg, x):
+        xf = x.reshape(-1, x.shape[-1])
+        _, ids = M.route(p["router"], xf, cfg.moe_top_k)
+        pos = M.slot_positions(ids, cfg.n_experts)
+        drops.setdefault(kind[0], []).append(
+            (pos >= M._capacity(xf.shape[0], cfg)).sum())
+        return apply_moe(p, cfg, x)
+
+    def tagged(self, k, *args):
+        kind[0] = k
+        return dispatch(self, k, *args)
+
+    M.apply_moe, E.ServingEngine._dispatch = counted, tagged
+    try:
+        yield drops
+    finally:
+        M.apply_moe, E.ServingEngine._dispatch = apply_moe, dispatch
+
+
+def drop_runs(params, cfg, prompts, total) -> None:
+    """7a at the config's capacity factor: every gate configuration with
+    its dropped slots per dispatch kind; only paged + blocking ==
+    contiguous + blocking is gated (the same dispatch shapes)."""
+    import torch
+    runs = {}
+    for label, kw in {"contiguous+blocking": {}, **GATE_CONFIGS}.items():
+        torch.cuda.empty_cache()
+        with counting_drops() as drops:
+            eng, counts = run_engine(params, cfg, prompts, 16, **kw)
+        _check_engine(f"families_f32 {label}", eng, counts, len(prompts))
+        _add(total, counts)
+        runs[label] = {r.rid: r.output for r in eng.finished}
+        log("families_f32", arch=cfg.name, depth=cfg.n_layers,
+            capacity_factor=cfg.moe_capacity_factor, config=label,
+            gated=label == "paged+blocking",
+            equal_to_blocking=runs[label] == runs["contiguous+blocking"],
+            dropped_slots=json.dumps({k: int(sum(v).item())
+                                      for k, v in drops.items()}),
+            moe_calls=json.dumps({k: len(v) for k, v in drops.items()}))
+        del eng
+    if runs["paged+blocking"] != runs["contiguous+blocking"]:
+        raise AssertionError(f"{cfg.name} at capacity factor "
+                             f"{cfg.moe_capacity_factor}: paged + blocking "
+                             "!= contiguous + blocking")
+
+
+def phase_families_f32() -> dict:
+    """7a: float32 stream gates at full width, 4 layers deep — for MoE at
+    capacity factor E / k, then the same runs at the config's."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    total: dict = {}
+    for arch in FAMILY_ARCHS:
+        with step_deadline():
+            cfg = registry.get_config(arch).replace(dtype="float32",
+                                                    n_layers=GATE_LAYERS)
+            params = MD.init_params(cfg, seed=SEED, device="cuda")
+            prompts = gate_prompts(cfg)
+            gate_cfg, extra = cfg, {"arch": arch, "depth": GATE_LAYERS}
+            if cfg.is_moe:
+                gate_cfg = dropless(cfg)
+                extra["capacity_factor"] = \
+                    f"{gate_cfg.moe_capacity_factor:.4g}"
+            with counting_drops() as drops:
+                stream_gates("families_f32", params, gate_cfg, prompts,
+                             extra, total)
+            if any(int(sum(v).item()) for v in drops.values()):
+                raise AssertionError(f"{arch}: a slot dropped at E / k")
+            if cfg.is_moe:
+                log("families_f32", arch=arch, note="capacity factor 1.25 "
+                    "runs below: streams other than paged + blocking are "
+                    "printed, not gated")
+                drop_runs(params, cfg, prompts, total)
+            del params
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_families_bf16(card: str) -> dict:
+    """7b: bf16 at full width and depth, one model at a time: logits
+    against the plain versions, phase 4's serving runs, and one decode
+    step of 8 live slots traced by ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    from repro_torch.serving import profile
+    total: dict = {}
+    for arch in FAMILY_ARCHS:
+        with step_deadline():
+            cfg = registry.get_config(arch)
+            t0 = time.perf_counter()
+            params = MD.init_params(cfg, seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            log("families_bf16", arch=arch, layers=cfg.n_layers,
+                params=cfg.param_count(),
+                weight_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+                init_s=f"{time.perf_counter() - t0:.1f}")
+            prompts = serve_prompts(cfg)
+            images = None
+            if cfg.family == "vlm":   # a seeded prefix, not the zero stub
+                gen = torch.Generator(device="cuda").manual_seed(SEED)
+                images = (torch.randn((1, cfg.n_image_tokens, cfg.d_model),
+                                      generator=gen, device="cuda")
+                          * 0.1).to(torch.bfloat16)
+            logit_gates(f"families_bf16 {arch}", params, cfg, prompts[0],
+                        images)
+            serve_bf16(f"families_bf16 {arch}", params, cfg, prompts, card,
+                       total)
+            eng = profile.live_engine(params, cfg,
+                                      np.random.default_rng(SEED))
+            profile.measure(f"{arch}_decode", 3, eng.step, top=14)
+            del eng, params
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_dbrx(card: str) -> dict:
+    """7c: dbrx-132b at full width, 2 layers (LayerNorm, 16 experts
+    top-4, GQA 48/8): a 512-token prefill and 8 greedy decode steps
+    with exact launches (no K5: LayerNorm has none), then the same
+    tokens and experts (:func:`routes`) through the plain versions:
+    every step's logits normwise <= 3e-2 with the same argmax, and the
+    routing flips held to :func:`flip_gate`."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+    cfg = registry.get_config("dbrx-132b").replace(n_layers=DBRX_LAYERS)
+    assert cfg.norm == "layernorm" and cfg.dtype == "bfloat16"
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 2)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 512)),
+                             dtype=torch.int32, device="cuda")
+    n_steps = 8
+
+    def run(feed=None):
+        logits, cache = MD.prefill(params, cfg, {"tokens": prompt}, 1024)
+        out, toks = [logits], []
+        for i in range(n_steps):
+            tok = (feed[i] if feed is not None
+                   else torch.argmax(out[-1], -1)[:, None].to(torch.int32))
+            toks.append(tok)
+            logits, cache = MD.decode_step(params, cfg, tok, cache)
+            out.append(logits)
+        return out, toks
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with routes() as picked:
+        got, toks = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n = cfg.n_layers
+    want = {"rmsnorm": 0, "flash_attention": n,
+            "decode_attention": n_steps * n, "paged_decode_attention": 0,
+            "prefill_attention": 0, "quant_gemv": 0}
+    log("families_dbrx", launches=json.dumps(counts),
+        expected=json.dumps(want),
+        note="LayerNorm model: K5 (RMSNorm) is not launched, by design")
+    if counts != want:
+        raise AssertionError(f"dbrx launches {counts} != {want}")
+    with plain_kernels(), routes(replay=picked) as flips:
+        ref_out, _ = run(feed=toks)
+    for i, (g, w) in enumerate(zip(got, ref_out)):
+        rel = _logit_gate(f"dbrx {'prefill' if i == 0 else f'step {i}'}",
+                          g, w)
+        log("families_dbrx", logits="prefill" if i == 0 else f"decode_{i}",
+            rel_err=f"{rel:.3e}",
+            max_abs_err=f"{(g - w).abs().max().item():.3e}",
+            tol=TOL["bfloat16"], argmax_equal=True)
+    flip_gate("families_dbrx", picked, flips, lambda: run(feed=toks))
+    log("families_dbrx", arch=cfg.name, layers=n, prompt_len=512,
+        decode_steps=n_steps, wall_s=f"{wall:.3f}",
+        weight_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+        card=f"'{card}'")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_families(card: str) -> dict:
+    t0 = time.perf_counter()
+    total = phase_families_f32()
+    _add(total, phase_families_bf16(card))
+    with step_deadline():
+        _add(total, phase_dbrx(card))
+    log("families", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -1737,6 +2193,9 @@ def main() -> int:
         counts[name] += c
     torch.cuda.empty_cache()
     for name, c in phase_request_surface(card).items():
+        counts[name] += c
+    torch.cuda.empty_cache()
+    for name, c in phase_families(card).items():
         counts[name] += c
     kernels = []
     for name, (src, replaces) in SOURCES.items():

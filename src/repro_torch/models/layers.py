@@ -1,4 +1,5 @@
-"""Shared building blocks on tensors: norms, MLP, RoPE, embeddings.
+"""Shared building blocks on tensors: inits, norms, MLPs, RoPE,
+embeddings.
 
 Counterpart of ``repro/models/layers.py``. Params are plain nested dicts
 of tensors; layer stacks carry a leading ``L`` dimension on every leaf.
@@ -23,46 +24,110 @@ def dtype_of(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def dense_init(gen, shape, dtype, device, fan_in: int | None = None):
+    """N(0, 1 / fan_in) in ``dtype`` (``fan_in`` defaults to
+    ``shape[0]``). A stacked leaf (L, ..., m, n) is drawn one trailing
+    (m, n) matrix at a time into the output, so no float32 copy of the
+    whole leaf is ever held (a full-width stack would need twice its
+    own size again)."""
     fan = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / max(1, fan) ** 0.5
-    return (torch.randn(shape, generator=gen, device=device) * scale
-            ).to(dtype)
+    return _fill_normal(gen, shape, dtype, device, scale)
 
 
 def embed_init(gen, shape, dtype, device):
-    return (torch.randn(shape, generator=gen, device=device) * 0.02
-            ).to(dtype)
+    return _fill_normal(gen, shape, dtype, device, 0.02)
+
+
+def _fill_normal(gen, shape, dtype, device, scale):
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if not out.numel():
+        return out
+    for m in out.view(-1, *shape[-2:]) if len(shape) > 2 else (out,):
+        m.copy_(torch.randn(m.shape, generator=gen, device=device)
+                .mul_(scale))
+    return out
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
-def add_norm(p, cfg, x, a=None, *, out_dtype=None):
-    """The residual add and the norm after it, in one pass (K5 on the
-    card): (s, h) with s = x + a as torch rounds it (x itself when a is
-    None) and h = RMSNorm(s) * w in ``out_dtype`` (default s's dtype)."""
+def init_norm(cfg, lead=(), device="cuda") -> dict:
+    """A norm's params with leading axes ``lead``: RMSNorm has ``w``
+    (ones), LayerNorm also ``b`` (zeros)."""
+    d, dt = cfg.d_model, dtype_of(cfg)
+    p = {"w": torch.ones((*lead, d), dtype=dt, device=device)}
     if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm={cfg.norm!r}: only rmsnorm is ported in this slice "
-            "(layernorm comes with the audio family)")
-    return ops.add_rmsnorm(x.contiguous(),
-                           None if a is None else a.contiguous(), p["w"],
-                           out_dtype=out_dtype)
+        p["b"] = torch.zeros((*lead, d), dtype=dt, device=device)
+    return p
+
+
+def layernorm(x, w, b, eps: float = 1e-5, *, out_dtype=None):
+    """LayerNorm over the last axis: statistics and affine in fp32, the
+    result cast to ``out_dtype`` (default x's dtype), as the reference
+    computes it. No Pallas kernel exists for it: plain torch is its
+    whole port."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
+    return y.to(out_dtype or x.dtype)
+
+
+def add_norm(p, cfg, x, a=None, *, out_dtype=None):
+    """The residual add and the norm after it: (s, h) with s = x + a as
+    torch rounds it (x itself when a is None) and h the norm of s in
+    ``out_dtype`` (default s's dtype). RMSNorm runs both in one pass
+    (K5 on the card); LayerNorm is the add, then :func:`layernorm`."""
+    if cfg.norm == "rmsnorm":
+        return ops.add_rmsnorm(x.contiguous(),
+                               None if a is None else a.contiguous(),
+                               p["w"], out_dtype=out_dtype)
+    if cfg.norm != "layernorm":
+        raise ValueError(f"unknown norm {cfg.norm!r}")
+    s = x if a is None else x + a
+    return s, layernorm(s, p["w"], p["b"], out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
+GATED = ("swiglu", "geglu")
+
+
+def init_mlp(gen, cfg, d_ff, lead=(), device="cuda") -> dict:
+    """An MLP's params with leading axes ``lead``: gate, up and down for
+    the gated activations, up and down for the others."""
+    d, dt = cfg.d_model, dtype_of(cfg)
+
+    def dense(*shape):
+        return dense_init(gen, (*lead, *shape), dt, device, fan_in=shape[0])
+
+    if cfg.activation in GATED:
+        return {"w_gate": dense(d, d_ff), "w_up": dense(d, d_ff),
+                "w_down": dense(d_ff, d)}
+    return {"w_up": dense(d, d_ff), "w_down": dense(d_ff, d)}
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's own
+    default, erf, is another function)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(p, cfg, x):
-    if cfg.activation != "swiglu":
-        raise NotImplementedError(
-            f"activation={cfg.activation!r}: only swiglu is ported in "
-            "this slice")
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    return (F.silu(g) * u) @ p["w_down"]
+    act = cfg.activation
+    if act in GATED:
+        g = x @ p["w_gate"]
+        h = (F.silu(g) if act == "swiglu" else gelu(g)) * (x @ p["w_up"])
+    else:
+        h = x @ p["w_up"]
+        if act == "gelu":
+            h = gelu(h)
+        elif act == "squared_relu":
+            r = F.relu(h)
+            h = r * r
+        else:
+            raise ValueError(f"unknown activation {act}")
+    return h @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------

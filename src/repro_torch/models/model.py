@@ -1,8 +1,13 @@
-"""Dense decoder (qwen/llama-style) on tensors: init, prefill, ragged
-decode on contiguous and paged caches, chunked prefill, speculative
-verify.
+"""Decoder-only transformers on tensors — the dense, MoE and vlm
+families: init, prefill, ragged decode on contiguous and paged caches,
+chunked prefill, speculative verify.
 
-Counterpart of ``repro/models/model.py`` for the dense family only:
+Counterpart of ``repro/models/model.py`` for its attention families
+(``TRANSFORMER_FAMILIES``): RMSNorm or LayerNorm, every MLP activation,
+MoE FFNs after ``first_dense_layers`` dense ones (``params
+["first_layers"]``, a list, then the stacked ``params["layers"]``), and
+the vlm's stub image prefix (``batch["images"]`` (B, n_img, d), placed
+before the tokens and counted in the positions):
 
 - ``init_params(cfg, seed=, device=)`` -> params dict (layer-stacked
   leaves with a leading ``L`` axis, the reference's nested keys)
@@ -19,7 +24,7 @@ The reference's ``lax.scan`` over the stacked layer axis is a Python
 loop over ``L`` here, and caches are written in place. Paged pools
 carry one scratch block past the ``NB`` allocatable ones (id ``NB``,
 the tables' sentinel): every dropped write lands there, so it can never
-race a real write. Other families (MoE, vlm, audio, recurrent) and
+race a real write. Other families (recurrent, hybrid, audio) and
 rolling sliding-window caches are later slices of the port and raise.
 """
 from __future__ import annotations
@@ -28,17 +33,22 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.attention import (attention, decode_attention,
                                           gather_kv_blocks,
                                           prefill_over_cache)
 
 
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+
+
 def check_supported(cfg) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in TRANSFORMER_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is a later slice of the port (MoE/vlm "
-            "and then the recurrent and audio families); only 'dense' runs")
+            f"family {cfg.family!r} is a later slice of the port (the "
+            "recurrent, hybrid and audio families); "
+            f"{', '.join(TRANSFORMER_FAMILIES)} run")
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             "sliding_window: rolling SWA caches are a later slice of the "
@@ -53,38 +63,54 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     """Random-init params from ``seed`` with an explicit generator.
     Shapes, dtypes and keys match ``repro.models.model.init_params``;
     the values do not (the JAX PRNG stream is not reproducible here —
-    load reference weights through :mod:`repro_torch.bridge`)."""
+    load reference weights through :mod:`repro_torch.bridge`). Stacked
+    leaves are drawn a matrix at a time (``layers.dense_init``), so a
+    full-width stack never has a float32 twin."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = L.dtype_of(cfg)
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-
-    def dense(shape, fan_in):
-        return L.dense_init(gen, (n, *shape), dt, dev, fan_in=fan_in)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
-    attn = {"wq": dense((d, hq * dh), d), "wk": dense((d, hkv * dh), d),
-            "wv": dense((d, hkv * dh), d),
-            "wo": dense((hq * dh, d), hq * dh)}
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(n, hq * dh), bk=zeros(n, hkv * dh),
-                    bv=zeros(n, hkv * dh))
-    p = {"embed": {"table": L.embed_init(gen, (cfg.vocab_size, d), dt, dev)},
-         "final_norm": {"w": ones(d)},
-         "layers": {"ln1": {"w": ones(n, d)}, "attn": attn,
-                    "ln2": {"w": ones(n, d)},
-                    "mlp": {"w_gate": dense((d, f), d),
-                            "w_up": dense((d, f), d),
-                            "w_down": dense((f, d), f)}}}
+    p = {"embed": {"table": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                         dt, dev)},
+         "final_norm": L.init_norm(cfg, device=dev)}
     if not cfg.tie_embeddings:
-        p["head"] = L.embed_init(gen, (cfg.vocab_size, d), dt, dev)
+        p["head"] = L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, dev)
+    n_first = n_first_layers(cfg)
+    if n_first:
+        p["first_layers"] = [
+            _init_block(gen, cfg, (), dev, cfg.d_ff_first_dense or cfg.d_ff,
+                        moe=False)
+            for _ in range(n_first)]
+    p["layers"] = _init_block(gen, cfg, (cfg.n_layers - n_first,), dev,
+                              cfg.d_ff, moe=cfg.is_moe)
+    return p
+
+
+def n_first_layers(cfg) -> int:
+    """Leading dense layers of an MoE config (kept apart, as a list)."""
+    return cfg.first_dense_layers if cfg.is_moe else 0
+
+
+def _init_block(gen, cfg, lead, dev, d_ff, *, moe) -> dict:
+    """One decoder block's params with leading axes ``lead``."""
+    dt = L.dtype_of(cfg)
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    def dense(*shape):
+        return L.dense_init(gen, (*lead, *shape), dt, dev, fan_in=shape[0])
+
+    attn = {"wq": dense(d, hq * dh), "wk": dense(d, hkv * dh),
+            "wv": dense(d, hkv * dh), "wo": dense(hq * dh, d)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+            attn[name] = torch.zeros((*lead, width), dtype=dt, device=dev)
+    p = {"ln1": L.init_norm(cfg, lead, dev), "attn": attn,
+         "ln2": L.init_norm(cfg, lead, dev)}
+    if moe:
+        p["moe"] = M.init_moe(gen, cfg, lead, dev)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, d_ff, lead, dev)
     return p
 
 
@@ -93,6 +119,15 @@ def layer_params(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def blocks(params, cfg) -> list:
+    """Every decoder block's params in layer order: the leading dense
+    ``first_layers``, then each layer of the stack — cache layer ``i``
+    belongs to block ``i``."""
+    first = list(params.get("first_layers", []))
+    return first + [layer_params(params["layers"], i)
+                    for i in range(cfg.n_layers - len(first))]
 
 
 def _head(params, cfg):
@@ -154,6 +189,12 @@ def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
 # decoder blocks
 # ---------------------------------------------------------------------------
 
+def _apply_ffn(p, cfg, h):
+    if "moe" in p:
+        return M.apply_moe(p["moe"], cfg, h)
+    return L.apply_mlp(p["mlp"], cfg, h)
+
+
 # A block's input is the residual ``x`` plus the previous block's MLP
 # output ``delta`` (None before the first block); its ``ln1`` adds them
 # as it normalises (K5 with the add), and its ``ln2`` adds the attention
@@ -167,7 +208,7 @@ def decoder_block(p, cfg, x, delta, *, positions, causal=True,
     a, (k, v) = attn_full(p["attn"], cfg, h, positions=positions,
                           causal=causal, window=window)
     x, h = L.add_norm(p["ln2"], cfg, x, a)
-    return (x, L.apply_mlp(p["mlp"], cfg, h)), (k, v)
+    return (x, _apply_ffn(p, cfg, h)), (k, v)
 
 
 def decoder_block_chunk(p, cfg, x, delta, k_hist, v_hist, hist_len, *,
@@ -178,7 +219,7 @@ def decoder_block_chunk(p, cfg, x, delta, k_hist, v_hist, hist_len, *,
     a, (k, v) = attn_chunk(p["attn"], cfg, h, k_hist, v_hist, hist_len,
                            positions=positions)
     x, h = L.add_norm(p["ln2"], cfg, x, a)
-    return (x, L.apply_mlp(p["mlp"], cfg, h)), (k, v)
+    return (x, _apply_ffn(p, cfg, h)), (k, v)
 
 
 def decoder_block_decode(p, cfg, x, delta, k_cache, v_cache, cache_len, *,
@@ -187,7 +228,7 @@ def decoder_block_decode(p, cfg, x, delta, k_cache, v_cache, cache_len, *,
     a, k1, v1 = attn_decode(p["attn"], cfg, h, k_cache, v_cache, cache_len,
                             block_tables=block_tables)
     x, h = L.add_norm(p["ln2"], cfg, x, a)
-    return (x, L.apply_mlp(p["mlp"], cfg, h)), k1, v1
+    return (x, _apply_ffn(p, cfg, h)), k1, v1
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +274,15 @@ def init_paged_pools(cfg, num_blocks, block_size, *, device="cuda"):
 # prefill
 # ---------------------------------------------------------------------------
 
+def _embed_inputs(params, cfg, batch) -> torch.Tensor:
+    """(B, S, d): the tokens' embeddings, after the vlm's image prefix
+    ``batch["images"]`` (B, n_img, d) where the batch carries one."""
+    x = L.embed_tokens(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "images" in batch:
+        x = torch.cat([batch["images"].to(x.dtype), x], dim=1)
+    return x
+
+
 def _read_rows(logit_index, *xs):
     """Each of ``xs`` (B,S,d) -> (B,1,d) at ``logit_index`` (scalar or
     (B,)), or the last position."""
@@ -255,19 +305,18 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None):
     per admission.
 
     ``logit_index`` (scalar or (B,)): position to read logits from
-    instead of the last — for right-padded (bucketed) prompts. Causal
+    instead of the last — for right-padded (bucketed) prompts; positions
+    count a vlm's image prefix (``batch["images"]``) first. Causal
     attention keeps pad positions out of every earlier row; their KV is
     masked at decode by the per-row cache length."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = L.embed_tokens(params["embed"], tokens)
-    b, s = tokens.shape
+    x = _embed_inputs(params, cfg, batch)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
     ks, vs = [], []
     delta = None
-    for i in range(cfg.n_layers):
-        (x, delta), (k, v) = decoder_block(layer_params(params["layers"], i),
-                                           cfg, x, delta,
+    for lp in blocks(params, cfg):
+        (x, delta), (k, v) = decoder_block(lp, cfg, x, delta,
                                            positions=positions)
         ks.append(k)
         vs.append(v)
@@ -387,10 +436,10 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
         index = _paged_write_index(btab, n, 1, pool.shape[1] - 1,
                                   pool.shape[2], live)
     delta = None
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(blocks(params, cfg)):
         (x, delta), k1, v1 = decoder_block_decode(
-            layer_params(params["layers"], i), cfg, x, delta, cache["k"][i],
-            cache["v"][i], n, block_tables=btab)
+            lp, cfg, x, delta, cache["k"][i], cache["v"][i], n,
+            block_tables=btab)
         # layer i's attention has read its cache; the token's KV lands
         # at its slot now (later layers never read layer i's rows)
         if btab is None:
@@ -414,11 +463,10 @@ def _layers_over_cache(params, cfg, x, hist, hist_len, positions, write):
     layer's own KV once its attention has read the history. Returns the
     last block's (residual, MLP output), un-added."""
     delta = None
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(blocks(params, cfg)):
         kh, vh = hist(i)
         (x, delta), (k, v) = decoder_block_chunk(
-            layer_params(params["layers"], i), cfg, x, delta, kh, vh,
-            hist_len, positions=positions)
+            lp, cfg, x, delta, kh, vh, hist_len, positions=positions)
         write(i, k, v)
     return x, delta
 
@@ -428,18 +476,19 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
     """One prompt chunk against cached history (chunked prefill).
 
     batch: ``{"tokens": (B, S)}`` — the chunk, right-padded; its first
-    token sits at ``hist_len`` (int or 0-d). ``k_hist``/``v_hist``
-    (L, B, C, Hkv, Dh): per-layer views of the slot's cache, valid to
-    ``hist_len``; or, with ``block_table`` (B, W), the paged pools
-    (L, NB + 1, bs, Hkv, Dh), gathered through the table layer by layer
-    as the reference's ``chunk_paged`` closure gathers them. Returns
+    position sits at ``hist_len`` (int or 0-d). The first chunk of a vlm
+    prompt also carries ``"images"``, which take its first positions.
+    ``k_hist``/``v_hist`` (L, B, C, Hkv, Dh): per-layer views of the
+    slot's cache, valid to ``hist_len``; or, with ``block_table``
+    (B, W), the paged pools (L, NB + 1, bs, Hkv, Dh), gathered through
+    the table layer by layer as the reference's ``chunk_paged`` closure
+    gathers them. Returns
     (logits (B, V) read at ``logit_index`` within the chunk — the last
     position when None — and ks, vs (L, B, S, Hkv, Dh)): the chunk's KV
     rows, to be written at offset ``hist_len``."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = L.embed_tokens(params["embed"], tokens)
-    s = tokens.shape[1]
+    x = _embed_inputs(params, cfg, batch)
+    s = x.shape[1]
     hl = torch.as_tensor(hist_len, dtype=torch.int32, device=x.device)
     positions = ((hl.reshape(-1, 1) if hl.ndim else hl)
                  + torch.arange(s, device=x.device))
@@ -511,19 +560,26 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
 
 def self_draft_params(params, cfg, n_draft_layers: int):
     """Self-draft for speculative decoding: the target's embeddings,
-    head and first ``k`` layers (``k`` clamped to ``[1, n_layers]``).
-    Returns ``(draft_params, draft_cfg)``; every leaf is a view of the
-    target's tensors, not a copy."""
+    head and first ``k`` layers (``k`` clamped to ``[1, n_layers]``) —
+    the leading dense ``first_layers`` first, then the stack. Returns
+    ``(draft_params, draft_cfg)``; every leaf is a view of the target's
+    tensors, not a copy."""
     check_supported(cfg)
     k = int(max(1, min(n_draft_layers, cfg.n_layers)))
+    first = params.get("first_layers", [])
+    n_stack = max(0, k - len(first))
 
     def head_of(tree):
         if isinstance(tree, dict):
             return {name: head_of(v) for name, v in tree.items()}
-        return tree[:k]
+        return tree[:n_stack]
 
     dp = {"embed": params["embed"], "final_norm": params["final_norm"],
           "layers": head_of(params["layers"])}
+    if first:
+        dp["first_layers"] = first[:min(k, len(first))]
     if "head" in params:
         dp["head"] = params["head"]
-    return dp, cfg.replace(n_layers=k)
+    return dp, cfg.replace(
+        n_layers=k, first_dense_layers=min(cfg.first_dense_layers, k)
+        if cfg.is_moe else cfg.first_dense_layers)

@@ -19,8 +19,10 @@ engine in the vLLM style that consumes its KV cache only through the
   verify of every slot's ``gamma + 1`` candidate window (K4) after
   ``gamma`` draft dispatches of the self-draft. Each live slot advances
   at its own absolute position; free slots are frozen by the live mask.
-  Prefill reaches the flash kernel (K3), every norm the RMSNorm kernel
-  (K5);
+  Prefill reaches the flash kernel (K3), every RMSNorm the RMSNorm
+  kernel (K5). The dense, MoE and vlm families run; a vlm prompt's
+  stub image prefix (zeros) takes the cache positions before its
+  tokens and is counted in its length;
 - sampling is a head outside the dispatch over the returned fp32
   logits (:func:`make_sampler`): ``"greedy"`` (argmax; the committed
   speculative stream is then the vanilla greedy stream) or
@@ -55,6 +57,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model as MD
+from repro_torch.models.layers import dtype_of
 from repro_torch.serving.kv_cache import (ContiguousCache,
                                           contiguous_kv_bytes, make_kv_cache)
 from repro_torch.serving.scheduler import PrefillState, make_scheduler
@@ -111,6 +114,15 @@ def build_closures(cfg):
 
 
 _M32 = 0xFFFFFFFF
+
+
+def stub_images(cfg, device) -> torch.Tensor | None:
+    """A vlm's stub image prefix: one row of zeros (1, n_image_tokens,
+    d_model) in the model's dtype; None for the other families."""
+    if cfg.family != "vlm":
+        return None
+    return torch.zeros((1, cfg.n_image_tokens, cfg.d_model),
+                       dtype=dtype_of(cfg), device=device)
 
 
 def _mulmod32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -428,13 +440,17 @@ class ServingEngine:
         # preemption events
         self.admission_log: list[int] = []
         self.preemption_log: list[tuple[int, int]] = []
+        # the vlm's stub image prefix: positions before the prompt's
+        # tokens in every cache, fed as a zero ``images`` operand
+        self._n_prefix = (cfg.n_image_tokens if cfg.family == "vlm"
+                          else 0)
         # prefix caching runs where the layout can alias blocks (paged,
         # with the index), positions map 1:1 to prompt tokens (no vlm
         # image prefix) and no second cache needs the whole prompt (the
         # speculative draft's contiguous shadow)
         self._prefix_on = (
             getattr(self.kv, "prefix", None) is not None
-            and not (cfg.family == "vlm" and cfg.n_image_tokens)
+            and not self._n_prefix
             and self.scheduler.name != "speculative")
         # dispatch accounting (the invariant: one target decode or verify
         # dispatch a step; chunk and draft dispatches counted apart)
@@ -488,6 +504,21 @@ class ServingEngine:
                 f"draft vocab {dcfg.vocab_size} != target vocab "
                 f"{cfg.vocab_size}: speculative acceptance compares "
                 "token ids, the models must share a tokenizer")
+        if dcfg.family != cfg.family:
+            raise ValueError(
+                f"draft family {dcfg.family!r} != target family "
+                f"{cfg.family!r}: prompt prefixes (e.g. vlm image "
+                "tokens) must occupy the same positions in both caches")
+        if cfg.family == "vlm" and (
+                dcfg.n_image_tokens != cfg.n_image_tokens
+                or dcfg.d_model != cfg.d_model):
+            raise ValueError(
+                f"vlm draft prefix mismatch (n_image_tokens "
+                f"{dcfg.n_image_tokens} vs {cfg.n_image_tokens}, "
+                f"d_model {dcfg.d_model} vs {cfg.d_model}): the image "
+                "prefix must occupy identical positions — and the shared "
+                "stub image batch identical feature width — in both "
+                "caches")
         MD.check_supported(dcfg)
         self.draft_params, self.draft_cfg = draft_params, dcfg
         self.draft_kv = ContiguousCache(dcfg, ecfg, self.device)
@@ -763,8 +794,17 @@ class ServingEngine:
                 else self.ecfg.max_new_tokens)
 
     def _prompt_cap(self) -> int:
-        """Max admissible prompt tokens: capacity less one decode slot."""
-        return self.ecfg.max_seq_len - 1
+        """Max admissible prompt tokens: capacity less one decode slot
+        and less the vlm's image prefix (it shares the cache)."""
+        return self.ecfg.max_seq_len - 1 - self._n_prefix
+
+    def _batch(self, toks: np.ndarray, images: bool) -> dict:
+        """A one-row model batch of ``toks``; with ``images``, the vlm's
+        zero stub image prefix in the cache dtype before them."""
+        batch = {"tokens": torch.from_numpy(toks[None, :]).to(self.device)}
+        if images and self._n_prefix:
+            batch["images"] = stub_images(self.cfg, self.device)
+        return batch
 
     def _bucket_len(self, n: int) -> int:
         """Smallest power-of-two bucket >= n (floor ``prefill_bucket_min``),
@@ -782,8 +822,9 @@ class ServingEngine:
 
     def _admit_prologue(self, slot: int, req: Request):
         """Zero-budget insta-finish, truncation, capacity check. Returns
-        ``(prompt, n_prompt, budget)`` to proceed, ``True`` when the
-        request was consumed, ``False`` to defer it."""
+        ``(prompt, n_prompt, budget)`` to proceed — ``n_prompt`` counts
+        the image prefix's positions too — ``True`` when the request was
+        consumed, ``False`` to defer it."""
         budget = self._budget(req)
         if budget <= 0:
             req.t_first = req.t_done = self._now()
@@ -798,7 +839,7 @@ class ServingEngine:
                 f"{req.truncated_from} to {cap} tokens "
                 f"(max_seq_len={self.ecfg.max_seq_len})", stacklevel=5)
             prompt = prompt[:cap]
-        n_prompt = int(prompt.shape[0])
+        n_prompt = int(prompt.shape[0]) + self._n_prefix
         if not self.kv.can_admit(n_prompt, budget,
                                  prompt=prompt if self._prefix_on
                                  else None):
@@ -826,9 +867,10 @@ class ServingEngine:
         if (self._prefix_on
                 and self.kv.prefix_match_tokens(prompt, n_prompt)):
             return self._admit_prefix(slot, req, prompt, n_prompt, budget)
-        toks = np.zeros(self._bucket_len(n_prompt), np.int32)
-        toks[:n_prompt] = prompt   # right-pad to the bucket length
-        batch = {"tokens": torch.from_numpy(toks[None, :]).to(self.device)}
+        n = int(prompt.shape[0])
+        toks = np.zeros(self._bucket_len(n), np.int32)
+        toks[:n] = prompt   # right-pad to the bucket length
+        batch = self._batch(toks, images=True)
         logits, rows = self._dispatch("prefill", self._prefill_one,
                                       self.params, batch, n_prompt - 1)
         self.prefills += 1
@@ -872,7 +914,7 @@ class ServingEngine:
         n_suf = n_prompt - h
         toks = np.zeros(self._bucket_len(n_suf), np.int32)
         toks[:n_suf] = prompt[h:]
-        batch = {"tokens": torch.from_numpy(toks[None, :]).to(self.device)}
+        batch = self._batch(toks, images=False)
         view = self.kv.chunk_view(slot)
         sel = view["slot"] if view["kind"] == "contiguous" else view["table"]
         logits, ks, vs = self._dispatch(
@@ -917,7 +959,8 @@ class ServingEngine:
         self.admission_log.append(req.rid)
         self.slot_req[slot] = req
         self.prefilling[slot] = PrefillState(
-            prompt=np.asarray(prompt, np.int32), n_prompt=n_prompt,
+            prompt=np.asarray(prompt, np.int32),
+            n_prefix=n_prompt - int(prompt.shape[0]), n_prompt=n_prompt,
             budget=budget, seed=self._seed(req), done=h)
         return True
 
@@ -925,15 +968,20 @@ class ServingEngine:
         """The next prefill chunk of ``slot``: one dispatch over (chunk
         tokens) x (cached history), the chunk's KV written at the running
         offset, and — on the final chunk — the first token sampled and
-        the slot handed to the decode phase."""
+        the slot handed to the decode phase. The first chunk of a vlm
+        prompt also carries the image prefix, so it spans ``n_prefix +
+        chunk_tokens`` positions and shifts every later boundary."""
         st = self.prefilling[slot]
         req = self.slot_req[slot]
         ct = self.ecfg.chunk_tokens
-        n_tok = min(ct, st.n_prompt - st.done)
+        first = st.done == 0
+        tok_start = max(0, st.done - st.n_prefix)
+        n_tok = min(ct, int(st.prompt.shape[0]) - tok_start)
         toks = np.zeros(ct, np.int32)
-        toks[:n_tok] = st.prompt[st.done:st.done + n_tok]
-        batch = {"tokens": torch.from_numpy(toks[None, :]).to(self.device)}
-        final = st.done + n_tok >= st.n_prompt
+        toks[:n_tok] = st.prompt[tok_start:tok_start + n_tok]
+        batch = self._batch(toks, images=first)
+        n_valid = n_tok + (st.n_prefix if first else 0)
+        final = st.done + n_valid >= st.n_prompt
         # logits at the prompt's last position, chunk-local index
         # n_prompt - 1 - done (only read on the final chunk)
         logit_idx = st.n_prompt - 1 - st.done if final else 0
@@ -944,10 +992,10 @@ class ServingEngine:
             self.params, batch, view["k"], view["v"], sel, st.done,
             logit_idx)
         with self._span("kv_splice", cat="kv"):
-            self.kv.splice_partial(ks, vs, slot, st.done, n_tok)
+            self.kv.splice_partial(ks, vs, slot, st.done, n_valid)
         self.prefill_chunk_dispatches += 1
         req.prefill_chunks += 1
-        st.done += n_tok
+        st.done += n_valid
         if not final:
             return
         del self.prefilling[slot]

@@ -27,7 +27,7 @@ from repro_torch.models import model as MD
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 
 
-def _report(window: str, prof, wall_s: float, n: int, top: int) -> None:
+def report(window: str, prof, wall_s: float, n: int, top: int) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
@@ -47,17 +47,43 @@ DECODE_STEPS = 10   # steps in the decode window
 TOP = 12            # kernels listed per window
 
 
+def live_engine(params, cfg, rng) -> ServingEngine:
+    """An engine (8 slots, capacity 2048) with all 8 slots admitted from
+    prompts of 256–1023 tokens and every shape warm: its ``step`` is one
+    ragged decode dispatch over 8 live slots."""
+    eng = ServingEngine(params, cfg, EngineConfig(
+        max_batch=8, max_seq_len=2048, max_new_tokens=10_000))
+    for n in rng.integers(256, 1024, size=8):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=n))
+    for _ in range(3):
+        eng.step()
+    return eng
+
+
+def measure(window: str, n: int, fn, top: int = 12) -> None:
+    """Warm ``fn``, time ``n`` calls with the profiler off (wall), then
+    trace ``n`` more and :func:`report` them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    report(window, prof, wall, n, top)
+
+
 def serving_windows() -> dict:
     """The qwen1.5-0.5b engine's prefill and 8-slot decode windows."""
     cfg = registry.get_config("qwen1.5-0.5b")
     params = MD.init_params(cfg, seed=0)
     rng = np.random.default_rng(0)
-    eng = ServingEngine(params, cfg, EngineConfig(
-        max_batch=8, max_seq_len=2048, max_new_tokens=10_000))
-    for n in rng.integers(256, 1024, size=8):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=n))
-    for _ in range(3):          # admit all 8 slots, warm every shape
-        eng.step()
+    eng = live_engine(params, cfg, rng)
 
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 1024)),
                            device="cuda")
@@ -107,19 +133,7 @@ def main(argv=None) -> None:
     print(f"[profile] card='{card}' torch={torch.__version__}", flush=True)
     windows = w4_windows() if args.w4 else serving_windows()
     for name, (n, fn) in windows.items():
-        fn()                                  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()              # wall, profiler off
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        _report(name, prof, wall, n, TOP)
+        measure(name, n, fn, TOP)
 
 
 if __name__ == "__main__":

@@ -61,7 +61,8 @@ class PrefillState:
     """Host-side progress of one chunked prefill occupying a slot (the
     chunked policy's state; the blocking policy never creates one)."""
     prompt: np.ndarray   # already truncated to capacity
-    n_prompt: int        # prompt positions
+    n_prefix: int        # non-token prefix positions (vlm image tokens)
+    n_prompt: int        # total sequence positions incl. the prefix
     budget: int          # generation budget at admission
     seed: int = 0        # sampling seed resolved at admission
     done: int = 0        # positions already cached (from the matched

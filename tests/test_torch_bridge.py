@@ -17,6 +17,9 @@ def _leaves(tree, path=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
     else:
         yield path, tree
 
@@ -50,3 +53,29 @@ def test_bridge_rejects_wrong_layer_axis():
         "qwen1.5-0.5b").replace(dtype="float32")))
     with pytest.raises(ValueError, match="n_layers"):
         bridge.params_from_jax(jp, cfg.replace(n_layers=3), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+def test_moe_params_round_trip_bf16(arch):
+    """An MoE tree — deepseek's leading dense ``first_layers`` (a list)
+    and its stack of n_layers - 1 — both ways, bf16 bit for bit."""
+    jcfg = jreg.get_smoke_config(arch).replace(dtype="bfloat16")
+    cfg = registry.get_smoke_config(arch).replace(dtype="bfloat16")
+    jp = jax.device_get(JMD.init_params(jax.random.PRNGKey(7), jcfg))
+    tp = bridge.params_from_jax(jp, cfg, device="cpu")
+    assert isinstance(tp.get("first_layers", []), list)
+    n_first = len(jp.get("first_layers", []))
+    assert n_first == cfg.first_dense_layers
+    assert tp["layers"]["moe"]["w_gate"].shape[0] == cfg.n_layers - n_first
+    want = dict(_leaves(jp))
+    got = dict(_leaves(bridge.params_to_numpy(tp)))
+    assert got.keys() == want.keys()
+    for path, t in _leaves(tp):
+        # the router stays float32, every other leaf is bf16
+        assert t.dtype == (torch.float32 if path.endswith("/router")
+                           else torch.bfloat16), path
+        np.testing.assert_array_equal(
+            got[path], np.asarray(want[path]).astype(np.float32), path)
+    with pytest.raises(ValueError, match="first dense layers"):
+        bridge.params_from_jax(jp, cfg.replace(n_layers=cfg.n_layers + 1),
+                               device="cpu")

@@ -410,3 +410,84 @@ def test_add_rmsnorm_matches_plain_on_card(card, xdt, adt, hdt, m, d):
     assert torch.equal(h, ops.add_rmsnorm(s, None, w, out_dtype=hdt)[1])
     if hdt == xdt:
         assert torch.equal(h, ops.rmsnorm(s, w))
+
+
+# ---------------------------------------------------------------------------
+# the MoE and vlm families' shapes: internvl2 / dbrx (GQA 48/8, G 6, Dh
+# 128) and deepseek-moe (MHA, 16 heads of 128)
+# ---------------------------------------------------------------------------
+
+FAMILY_HEADS = [(48, 8), (16, 16)]   # (Hq, Hkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("hq,hkv", FAMILY_HEADS)
+def test_decode_attention_family_shapes_on_card(card, dtype, tol, hq, hkv):
+    """K1 at G 6 and at MHA 16 x 128 against its plain version over 8
+    ragged rows (as the engine's 8 slots), and K2 on scattered pool
+    blocks bitwise K1 on the same rows."""
+    gen = torch.Generator(device=card).manual_seed(21)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    b, cap, bs, dh = 8, 512, 16, 128
+    lens = torch.tensor([512, 300, 257, 129, 128, 17, 1, 0],
+                        dtype=torch.int32, device=card)
+    q, kc, vc = rnd(b, 1, hq, dh), rnd(b, cap, hkv, dh), rnd(b, cap, hkv, dh)
+    ek, ev = rnd(b, 1, hkv, dh), rnd(b, 1, hkv, dh)
+    got = ops.decode_attention(q, kc, vc, lens, extra_k=ek, extra_v=ev)
+    want = ref.decode_attention(q, kc, vc, lens, extra_k=ek, extra_v=ev)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    kp, tab = _scatter_to_pool(kc, bs, 300, lens.tolist(),
+                               torch.Generator().manual_seed(21))
+    vp, _ = _scatter_to_pool(vc, bs, 300, lens.tolist(),
+                             torch.Generator().manual_seed(21))
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, tab, lens,
+                                                  extra_k=ek, extra_v=ev),
+                       got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("hq,hkv", FAMILY_HEADS)
+@pytest.mark.parametrize("s", [256 + 16, 256 + 32, 256 + 1024])
+def test_flash_attention_image_prefix_on_card(card, dtype, tol, hq, hkv, s):
+    """K3 over a vlm prompt: the 256-position image prefix before a
+    bucket, so S is no power of two."""
+    gen = torch.Generator(device=card).manual_seed(22)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    q, k, v = rnd(1, s, hq, 128), rnd(1, s, hkv, 128), rnd(1, s, hkv, 128)
+    torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                               ref.flash_attention(q, k, v).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("hq,hkv", FAMILY_HEADS)
+@pytest.mark.parametrize("s", [5, 256 + 256, 256])
+def test_prefill_attention_family_shapes_on_card(card, dtype, tol, hq, hkv,
+                                                 s):
+    """K4 at the families' shapes: the verify window of gamma 4 (S 5, so
+    G * S = 30 rows of one KV head at G 6), a vlm's first chunk (its
+    256-row image prefix plus a 256-token chunk, over an empty history)
+    and a later chunk over ragged histories; two runs are the same
+    bits."""
+    q, kh, vh, hl, ks, vs = _k4_inputs(card, dtype, s, 128, seed=23,
+                                       c=2048, hq=hq, hkv=hkv)
+    for hist_len in (hl, 0 if s == 512 else 300):
+        got = ops.prefill_attention(q, kh, vh, hist_len, ks, vs)
+        want = ref.prefill_attention(q, kh, vh, hist_len, ks, vs)
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=tol, rtol=tol,
+            msg=lambda m: f"hist_len={hist_len}: {m}")
+        assert torch.equal(got, ops.prefill_attention(q, kh, vh, hist_len,
+                                                      ks, vs))

@@ -70,9 +70,9 @@ def test_engine_config_and_slices(setup):
                         device="cpu")
     assert eng._prefix_on and eng.kv.prefix is not None
     # ... what this slice of the port still leaves to later ones raises
-    moe = registry.get_smoke_config("deepseek-moe-16b")
+    ssm = registry.get_smoke_config("xlstm-350m")
     with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(tp, moe, EngineConfig(), device="cpu")
+        ServingEngine(tp, ssm, EngineConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown kv_cache"):
         ServingEngine(tp, cfg, EngineConfig(kv_cache="ring"), device="cpu")
     with pytest.raises(ValueError, match="engine runs on"):

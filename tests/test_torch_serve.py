@@ -31,3 +31,14 @@ def test_serve_refuses_ckpt_dir_and_says_why(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--help"])
     assert "--ckpt-dir" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-26b"])
+def test_serve_main_runs_moe_and_vlm(capsys, arch):
+    """The launcher serves the MoE and vlm smoke models from the
+    registry, as the reference's does."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+            "--prompt-len", "9", "--max-new", "4", "--slots", "2",
+            "--capacity", "32", "--kv-cache", "paged"]
+    assert serve.main(argv) == 0
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
