@@ -29,7 +29,12 @@ Phases, one line each (any failure exits non-zero):
    GEMV (K6) at phi3-mini's projection shapes, K1 / K2 / K3 / K4 at its
    head dim 96, K1 / K2 also at the W4 step's one-row call; K1 / K2 /
    K3 / K4 at phase 7's head dim 128 (GQA 48/8 and MHA 16/16), K3 also
-   after the vlm's 256-row image prefix;
+   after the vlm's 256-row image prefix; phase 8's shapes: K1 over the
+   rolling 4096-slot cache (GQA 32/8 at Dh 128 and Dh 80, lengths on both
+   sides of the window), K1 as whisper's cross-attention decode (1500
+   rows, 20 heads of 64, no self partial), K3 at Dh 80 over 6000 tokens
+   with the 4096 window, and non-causal over whisper's 1500 encoder
+   positions (self, and cross from a 256-token bucket);
 3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
    must equal the port's own batch-1 prefill + decode_step loop, and
@@ -75,7 +80,23 @@ Phases, one line each (any failure exits non-zero):
    step of 8 live slots traced by ``torch.profiler``; (c) dbrx-132b,
    2 layers, LayerNorm: a 512-token prefill and 8 decode steps with
    exact launches (no K5) and every step's logits against the plain
-   versions, its routing flips held as in (b). Each model's step ends the process past 420 s.
+   versions, its routing flips held as in (b). Each model's step ends the process past 420 s;
+8. window — the rolling sliding window and whisper at full width,
+   random weights from the seed, one model at a time (h2o-danube-1.8b,
+   mistral-7b, whisper-large-v3): (a) float32, 4 layers deep (whisper 4
+   + 4), 4 requests of 16 new tokens over a capacity of 8192 (SWA
+   prompts of 600, 4090, 4500 and 6000 tokens at the 4096 window: two
+   roll in prefill, one fills the window while it decodes; whisper's of
+   17–200): contiguous + blocking equal to the batch-1 loop, the
+   requested paged, chunked and speculative runs each warning as the
+   reference does and giving the same streams, the overload trace under
+   FIFO and SLO (>= 1 preemption, equal streams), export -> import of
+   every live slot ``torch.equal`` (past the window; with the cross
+   K/V); (b) bf16 at full depth: the first prefill's logits and a
+   rolling one's with 8 decode steps past the window (whisper: a
+   200-token prompt over seeded frames) against the plain versions, 8
+   requests of 64 new tokens on contiguous + blocking, and one decode
+   step of 8 live slots traced by ``torch.profiler``.
 
 Every engine run and every W4 step checks each kernel's launch count
 against what its path must launch.
@@ -852,6 +873,144 @@ def families_cases(gen, dtype):
     return cases
 
 
+def rolling_decode_case(gen, dtype, b, cap, hq, hkv, dh, lens, label):
+    """K1 over a rolling cache of ``cap`` == window slots, with the self
+    partial: a row is valid to min(len, C), and a full row's slot
+    len % C — the position one window back — is masked; two runs are
+    the same bits. Library yardstick: SDPA over cache ++ self with that
+    mask, built here, outside the timed call. Bytes: the rows the masks
+    keep, read once."""
+    import torch
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    q = _rand(gen, (b, 1, hq, dh), dtype)
+    kc = _rand(gen, (b, cap, hkv, dh), dtype)
+    vc = _rand(gen, (b, cap, hkv, dh), dtype)
+    ek = _rand(gen, (b, 1, hkv, dh), dtype)
+    ev = _rand(gen, (b, 1, hkv, dh), dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    slot = torch.arange(cap, device="cuda")[None, :]
+    keep = (slot < ln.clamp(max=cap)[:, None]) & ~(
+        (ln[:, None] >= cap) & (slot == (ln % cap)[:, None]))
+    mask = torch.cat([keep, torch.ones((b, 1), dtype=torch.bool,
+                                       device="cuda")], 1)[:, None, None, :]
+    rows = int(keep.sum().item())
+    nbytes = (2 * rows * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh) * elt \
+        + 4 * b
+    k_cat, v_cat = torch.cat([kc, ek], 1), torch.cat([vc, ev], 1)
+
+    def kern(kc=kc, vc=vc):
+        return kdec.decode_attention(q, kc, vc, ln, extra_k=ek, extra_v=ev,
+                                     window=cap)
+
+    def cold():
+        caches = [(kc.clone(), vc.clone())
+                  for _ in range(cold_copies(nbytes))]
+        cats = [(torch.cat([k, ek], 1), torch.cat([v, ev], 1))
+                for k, v in caches]
+        return ([lambda k=k, v=v: kern(k, v) for k, v in caches],
+                [lambda k=k, v=v: sdpa(q, k, v, mask) for k, v in cats])
+
+    return ("decode_attention",
+            f"{label},rolling,B={b},C=window={cap},Hq={hq},Hkv={hkv},"
+            f"Dh={dh},lens={'/'.join(map(str, lens))},rows={rows},self",
+            kern,
+            lambda: ref.decode_attention(q, kc, vc, ln, extra_k=ek,
+                                         extra_v=ev, window=cap),
+            lambda: sdpa(q, k_cat, v_cat, mask), nbytes,
+            4 * (rows + b) * hq * dh, [("second_run", kern)],
+            {"cold": cold})
+
+
+def flash_case(gen, dtype, label, sq, skv, hq, hkv, dh, *, causal,
+               window=None):
+    """K3 at (sq, skv): causal with an optional window, or non-causal
+    (whisper's encoder and cross-attention). Library: SDPA with the same
+    mask (a boolean one for a window, built outside the timed call).
+    Operations: the (query, key) pairs the masks keep."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    q = _rand(gen, (1, sq, hq, dh), dtype)
+    k = _rand(gen, (1, skv, hkv, dh), dtype)
+    v = _rand(gen, (1, skv, hkv, dh), dtype)
+    kw = dict(causal=causal, window=window)
+    mask = None
+    if window is not None:
+        qp = torch.arange(sq, device="cuda")[:, None]
+        kp = torch.arange(skv, device="cuda")[None, :]
+        mask = (kp <= qp) & (kp > qp - window)
+        pairs = int(mask.sum().item())
+    elif causal:
+        pairs = sq * (sq + 1) // 2
+    else:
+        pairs = sq * skv
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+
+    def lib(q=q, k=k, v=v):
+        return sdpa(q, k, v, mask, causal=causal)
+
+    return ("flash_attention",
+            f"{label},B=1,Sq={sq},Skv={skv},Hq={hq},Hkv={hkv},Dh={dh},"
+            + ("causal" if causal else "non_causal")
+            + (f",window={window}" if window else ""),
+            lambda: kfa.flash_attention(q, k, v, **kw),
+            lambda: ref.flash_attention(q, k, v, **kw), lib,
+            nbytes, 4 * pairs * hq * dh, [],
+            {"cold": cold_of(nbytes, lambda q, k, v: (
+                lambda: kfa.flash_attention(q, k, v, **kw),
+                lambda: lib(q, k, v)), q, k, v)})
+
+
+# phase 8's rolling decode rows: both sides of the 4096-position window
+ROLLING_LENS = (600, 4090, 4095, 4096, 4097, 4500, 6000, 8191)
+
+
+def window_audio_cases(gen, dtype):
+    """Phase 8's attention shapes (their own generator): K1 over the
+    rolling 4096-slot cache at GQA 32/8, Dh 128 (mistral-7b) and Dh 80
+    (h2o-danube-1.8b); K1 as whisper's cross-attention decode (8 rows
+    over the fixed 1500-row encoder cache, 20 heads of 64, no self
+    partial); K3 at Dh 80 over a 6000-token prompt with the 4096 window,
+    and non-causal over whisper's 1500 encoder positions, self (the
+    encoder) and cross (a 256-token bucket against them)."""
+    import torch
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    cases = [rolling_decode_case(gen, dtype, 8, 4096, 32, 8, dh,
+                                 ROLLING_LENS, name)
+             for name, dh in (("mistral", 128), ("danube", 80))]
+    b, t, h, dh = 8, 1500, 20, 64
+    q = _rand(gen, (b, 1, h, dh), dtype)
+    kc, vc = _rand(gen, (b, t, h, dh), dtype), _rand(gen, (b, t, h, dh),
+                                                       dtype)
+    nbytes = (2 * kc.numel() + 2 * q.numel()) * elt + 4 * b
+
+    def cross(kc=kc, vc=vc):
+        return kdec.decode_attention(q, kc, vc, t)
+
+    cases.append((
+        "decode_attention",
+        f"whisper_cross,B={b},C={t},Hq={h},Hkv={h},Dh={dh},len={t},"
+        f"splits={kdec.launch_plan(b, h, t).splits},no_self",
+        cross, lambda: ref.decode_attention(q, kc, vc, t),
+        lambda: sdpa(q, kc, vc, causal=False), nbytes, 4 * b * t * h * dh,
+        [("second_run", cross)],
+        {"cold": cold_of(nbytes, lambda kc, vc: (
+            lambda: cross(kc, vc),
+            lambda: sdpa(q, kc, vc, causal=False)), kc, vc)}))
+    cases.append(flash_case(gen, dtype, "danube_window", 6000, 6000, 32, 8,
+                            80, causal=True, window=4096))
+    cases.append(flash_case(gen, dtype, "whisper_encoder", 1500, 1500, 20,
+                            20, 64, causal=False))
+    cases.append(flash_case(gen, dtype, "whisper_cross", 256, 1500, 20, 20,
+                            64, causal=False))
+    return cases
+
+
 def phase_kernels() -> dict:
     """Every kernel vs its plain version, both dtypes. Returns, per
     kernel, the bf16 numbers at its first (main-path) shape and the
@@ -860,12 +1019,14 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gen_w4 = torch.Generator(device="cuda").manual_seed(SEED + 13)
     gen_fam = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    gen_win = torch.Generator(device="cuda").manual_seed(SEED + 19)
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
         for name, case, kfn, pfn, lfn, nbytes, flops, same, *opts in (
                 kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)
-                + families_cases(gen_fam, dtype)):
+                + families_cases(gen_fam, dtype)
+                + window_audio_cases(gen_win, dtype)):
             opts = opts[0] if opts else {}
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -1034,14 +1195,16 @@ def model_batch(toks, images=None) -> dict:
 
 def straight_line_generate(params, cfg, prompt, n_new, capacity):
     """Batch-1 prefill + greedy decode_step loop (the engine's oracle),
-    after the engine's zero image prefix on a vlm."""
+    after the engine's zero image prefix on a vlm, over its zero frames
+    on whisper."""
     import torch
     from repro_torch.models import model as MD
-    from repro_torch.serving.engine import stub_images
+    from repro_torch.serving.engine import stub_frames, stub_images
     toks = torch.as_tensor(prompt[None, :], device="cuda")
-    logits, cache = MD.prefill(params, cfg,
-                               model_batch(toks, stub_images(cfg, "cuda")),
-                               capacity)
+    batch = model_batch(toks, stub_images(cfg, "cuda"))
+    if cfg.family == "audio":
+        batch["frames"] = stub_frames(cfg, "cuda")
+    logits, cache = MD.prefill(params, cfg, batch, capacity)
     cur = torch.argmax(logits, -1)[:, None]
     out = [int(cur[0, 0])]
     for _ in range(n_new - 1):
@@ -1053,32 +1216,41 @@ def straight_line_generate(params, cfg, prompt, n_new, capacity):
 
 def check_launches(phase, eng, counts) -> None:
     """Every kernel of the path ran, exactly as often as the path says.
-    Target model (L layers): 2L + 1 RMSNorms per dispatch, L flash
-    prefills per blocking prefill, L split-KV decodes (contiguous) or L
-    paged decodes per decode step, L prefill-over-cache launches per
-    chunk and per verify dispatch. Draft (k layers): 2k + 1 RMSNorms per
-    dispatch, k flash prefills per draft prefill, k split-KV decodes per
-    draft decode (its shadow cache is contiguous)."""
+    Target model (L layers): 2L + 1 RMSNorms per dispatch (none on a
+    LayerNorm model), L flash prefills per blocking prefill, L split-KV
+    decodes (contiguous) or L paged decodes per decode step, L
+    prefill-over-cache launches per chunk and per verify dispatch; on
+    whisper (E encoder layers) each prefill is 2L + E flash launches
+    (self, cross, encoder) and each decode step 2L split-KV decodes
+    (self, cross). Draft (k layers): 2k + 1 RMSNorms per dispatch, k
+    flash prefills per draft prefill, k split-KV decodes per draft
+    decode (its shadow cache is contiguous)."""
     s = eng.summary()
-    n = eng.cfg.n_layers
+    cfg = eng.cfg
+    n = cfg.n_layers
+    audio = cfg.family == "audio"
+    norms = 2 * n + 1 if cfg.norm == "rmsnorm" else 0
     k = eng.draft_cfg.n_layers if eng.draft_cfg is not None else 0
     decodes = s["decode_dispatches"] - s["verify_dispatches"]
     draft_decodes = s["draft_dispatches"] - s["draft_prefills"]
     over_cache = s["prefill_chunk_dispatches"] + s["verify_dispatches"]
     paged = s["kv_cache"] == "paged"
     want = {
-        "rmsnorm": ((2 * n + 1) * (s["prefills"] + s["decode_dispatches"]
-                                   + s["prefill_chunk_dispatches"])
+        "rmsnorm": (norms * (s["prefills"] + s["decode_dispatches"]
+                             + s["prefill_chunk_dispatches"])
                     + (2 * k + 1) * s["draft_dispatches"]),
-        "flash_attention": n * s["prefills"] + k * s["draft_prefills"],
-        "decode_attention": (0 if paged else n * decodes) + k * draft_decodes,
+        "flash_attention": ((2 * n + cfg.n_encoder_layers if audio else n)
+                            * s["prefills"] + k * s["draft_prefills"]),
+        "decode_attention": ((0 if paged else (2 if audio else 1) * n
+                              * decodes) + k * draft_decodes),
         "paged_decode_attention": n * decodes if paged else 0,
         "prefill_attention": n * over_cache,
         "quant_gemv": 0,
     }
     # the kernels this path must have launched at least once
-    path = {"rmsnorm",
-            "flash_attention" if s["prefills"] else "prefill_attention"}
+    path = {"flash_attention" if s["prefills"] else "prefill_attention"}
+    if norms:
+        path.add("rmsnorm")
     if s["prefill_chunk_dispatches"]:   # chunks and warm prefix admissions
         path.add("prefill_attention")
     if s["scheduler"] == "speculative":
@@ -1093,13 +1265,15 @@ def check_launches(phase, eng, counts) -> None:
 
 
 def run_engine(params, cfg, prompts, max_new, **ecfg):
-    """Serve ``prompts`` on a fresh engine; returns (engine, counts) with
-    the launch counts of exactly this run."""
+    """Serve ``prompts`` on a fresh engine (8 slots, capacity 2048 unless
+    ``ecfg`` says otherwise); returns (engine, counts) with the launch
+    counts of exactly this run."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving import EngineConfig, ServingEngine
     eng = ServingEngine(params, cfg, EngineConfig(
-        max_batch=8, max_seq_len=2048, max_new_tokens=max_new, **ecfg))
+        **{"max_batch": 8, "max_seq_len": 2048, **ecfg},
+        max_new_tokens=max_new))
     for p in prompts:
         eng.submit(p)
     torch.cuda.synchronize()
@@ -2150,6 +2324,303 @@ def phase_families(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the rolling sliding window and whisper at full width
+# ---------------------------------------------------------------------------
+
+WINDOW_ARCHS = ("h2o-danube-1.8b", "mistral-7b", "whisper-large-v3")
+WINDOW_LAYERS = 4      # 8a's depth (whisper: 4 encoder + 4 decoder layers)
+WINDOW_CAPACITY = 8192
+# 8a's SWA prompts at the 4096 window: two roll in prefill, 4090 + 16
+# new tokens fills the window while it decodes, 600 stays inside it
+SWA_GATE_LENS = (600, 4090, 4500, 6000)
+SWA_SERVE_LENS = SWA_GATE_LENS + (1000, 2048, 4096, 5000)
+AUDIO_GATE_LENS = (17, 60, 120, 200)
+AUDIO_SERVE_LENS = AUDIO_GATE_LENS + (33, 90, 150, 180)
+FALLBACK_WARNINGS = {
+    "paged+blocking": ({"kv_cache": "paged"},
+                       "paged KV cache unsupported for family="),
+    "contiguous+chunked": (CHUNKED, "chunked scheduling unsupported for "
+                           "family="),
+    "contiguous+speculative": (SPECULATIVE, "speculative scheduling "
+                               "unsupported for family="),
+}
+
+
+def window_prompts(cfg, lens, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in lens]
+
+
+def window_fallbacks(phase, params, cfg, prompts, base, total) -> None:
+    """Each requested paged / chunked / speculative run warns as the
+    reference does, runs contiguous + blocking, and gives ``base``."""
+    import warnings
+    for label, (kw, msg) in FALLBACK_WARNINGS.items():
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            eng, counts = run_engine(params, cfg, prompts, 16,
+                                     max_seq_len=WINDOW_CAPACITY, **kw)
+        said = [str(w.message) for w in seen if msg in str(w.message)]
+        _check_engine(f"{phase} {label}", eng, counts, len(prompts))
+        _add(total, counts)
+        got = {r.rid: r.output for r in eng.finished}
+        log(phase, arch=cfg.name, requested=label, warned=bool(said),
+            ran=f"{eng.kv.name}+{eng.scheduler.name}",
+            streams_equal=got == base)
+        if not said or got != base or eng.kv.name != "contiguous" \
+                or eng.scheduler.name != "blocking":
+            raise AssertionError(f"{phase} {cfg.name} {label}: warned "
+                                 f"{said}, ran {eng.kv.name}+"
+                                 f"{eng.scheduler.name}, streams equal "
+                                 f"{got == base}")
+        del eng
+
+
+def window_slo(phase, params, cfg, total) -> None:
+    """The overload trace (phase 6's engine: 4 slots, capacity 96) under
+    FIFO and SLO: at least one preemption, SLO streams == FIFO's."""
+    from repro_torch.serving.workload import make_named_trace, replay
+    tr = make_named_trace("overload", vocab_size=cfg.vocab_size, seed=SEED)
+    reps = {}
+    for sched in ("blocking", "slo"):
+        eng = _engine(params, cfg, max_batch=4, max_seq_len=96,
+                      max_new_tokens=16, scheduler=sched)
+        reps[sched], counts = counted(
+            lambda: replay(eng, tr, step_quantum_s=QUANTUM))
+        check_launches(f"{phase} slo {sched}", eng, counts)
+        _add(total, counts)
+    fifo, slo = reps["blocking"], reps["slo"]
+    n = slo["summary"]["preemptions"]
+    log(phase, arch=cfg.name, run="overload fifo vs slo", preemptions=n,
+        preempted_kv_bytes=slo["summary"]["preempted_kv_bytes"],
+        slo_streams_equal_fifo=slo["outputs"] == fifo["outputs"])
+    if n < 1 or slo["outputs"] != fifo["outputs"]:
+        raise AssertionError(f"{phase} {cfg.name}: SLO preemptions {n}, "
+                             "streams equal "
+                             f"{slo['outputs'] == fifo['outputs']}")
+
+
+def window_export_import(phase, params, cfg, prompts) -> None:
+    """Every live slot exported and imported into a free one gives its
+    packet back ``torch.equal``, leaf by leaf — past the window on a
+    rolling cache (the 4090-token prompt's slot crosses it during the
+    steps), with the cross K/V on whisper."""
+    import torch
+    eng = _engine(params, cfg, max_batch=8, max_seq_len=WINDOW_CAPACITY,
+                  max_new_tokens=64)
+    for p in prompts:
+        eng.submit(p)
+    for _ in range(10):
+        eng.step()
+    cap = eng.kv._cache["k"].shape[2]
+    for slot in range(len(prompts)):
+        n = int(eng.slot_pos[slot])
+        pkt = eng.kv.export_slot(slot, n)
+        dst = len(prompts) + slot
+        eng.kv.import_slot(pkt, dst, len(prompts[slot]), 64)
+        back = eng.kv.export_slot(dst, n)
+        leaves = sorted(k for k in pkt if k not in ("n_valid", "kv_bytes"))
+        same = all(torch.equal(pkt[x], back[x]) for x in leaves)
+        log(phase, arch=cfg.name, export_import=f"slot {slot}->{dst}",
+            positions=n, capacity=cap, rolled=n >= cap,
+            leaves=",".join(leaves), kv_bytes=pkt["kv_bytes"],
+            rows_equal=same)
+        if not same:
+            raise AssertionError(f"{phase} {cfg.name} slot {slot}: "
+                                 "export -> import rows differ")
+        eng.kv.free(dst)
+
+
+def phase_window_f32() -> dict:
+    """8a: float32 at full width, 4 layers deep: contiguous + blocking
+    against the batch-1 loop, the three requested fallbacks, the SLO
+    replay and export / import."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    total: dict = {}
+    for arch in WINDOW_ARCHS:
+        with step_deadline():
+            t0 = time.perf_counter()
+            cfg = registry.get_config(arch).replace(
+                dtype="float32", n_layers=WINDOW_LAYERS)
+            if cfg.family == "audio":
+                cfg = cfg.replace(n_encoder_layers=WINDOW_LAYERS)
+            params = MD.init_params(cfg, seed=SEED, device="cuda")
+            lens = (AUDIO_GATE_LENS if cfg.family == "audio"
+                    else SWA_GATE_LENS)
+            prompts = window_prompts(cfg, lens, SEED)
+            eng, counts = run_engine(params, cfg, prompts, 16,
+                                     max_seq_len=WINDOW_CAPACITY)
+            s = _check_engine("window_f32", eng, counts, len(prompts))
+            _add(total, counts)
+            base = {r.rid: r.output for r in eng.finished}
+            del eng
+            for i, p in enumerate(prompts):
+                want = straight_line_generate(params, cfg, p, 16,
+                                              WINDOW_CAPACITY)
+                log("window_f32", arch=arch, request=i, prompt_len=len(p),
+                    equal=base[i] == want, tokens=base[i][:8])
+                if base[i] != want:
+                    raise AssertionError(f"window_f32 {arch} request {i}: "
+                                         f"engine {base[i]} != "
+                                         f"straight-line {want}")
+            log("window_f32", arch=arch, depth=WINDOW_LAYERS,
+                window=cfg.sliding_window, config="contiguous+blocking",
+                requests=s["requests"], decode_steps=s["decode_steps"],
+                launches=json.dumps(counts), streams_equal=True)
+            window_fallbacks("window_f32", params, cfg, prompts, base, total)
+            window_slo("window_f32", params, cfg, total)
+            window_export_import("window_f32", params, cfg, prompts)
+            log("window_f32", arch=arch,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            del params
+            torch.cuda.empty_cache()
+    return total
+
+
+WINDOW_STEPS = 8       # 8b's decode steps past the window
+
+
+def _tie_gate(what, got, want) -> tuple:
+    """Normwise relative error of ``got`` against ``want`` within the
+    bf16 tolerance, and the same argmax in every row — or, where the
+    argmax differs, a tie at rounding level: the plain run's logits of
+    the two tokens closer than the two runs differ anywhere in that row,
+    so their order is inside the rounding the comparison allows. Returns
+    (error, [(row, plain margin, row's max |got - want|)] of the ties)."""
+    rel = ((got - want).norm() / want.norm()).item()
+    ga, wa = got.argmax(-1), want.argmax(-1)
+    ties = []
+    for r in (ga != wa).nonzero().flatten().tolist():
+        margin = (want[r, wa[r]] - want[r, ga[r]]).item()
+        noise = (got[r] - want[r]).abs().max().item()
+        ties.append((r, margin, noise))
+        if margin > noise:
+            raise AssertionError(f"{what} row {r}: argmax {int(ga[r])} "
+                                 f"against {int(wa[r])}, plain margin "
+                                 f"{margin:.3e} > the row's max error "
+                                 f"{noise:.3e}")
+    if rel > TOL["bfloat16"]:
+        raise AssertionError(f"{what}: relative error {rel:.3e} (tolerance "
+                             f"{TOL['bfloat16']})")
+    return rel, ties
+
+
+def window_logits(phase, params, cfg, prompt) -> None:
+    """8b: a prefill (whisper's over seeded frames) and ``WINDOW_STEPS``
+    greedy decode steps through the kernels, then the same tokens
+    through the plain versions: every step's logits normwise <= 3e-2,
+    the same argmax but for ties at rounding level (:func:`_tie_gate`;
+    each is printed with its margin)."""
+    import torch
+    from repro_torch.models import model as MD
+    toks = torch.as_tensor(prompt[None, :], device="cuda")
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch["frames"] = (torch.randn((1, cfg.encoder_len, cfg.d_model),
+                                       generator=gen, device="cuda")
+                           * 0.1).to(torch.bfloat16)
+
+    def run(feed=None):
+        logits, cache = MD.prefill(params, cfg, batch, WINDOW_CAPACITY)
+        out, fed = [logits], []
+        for i in range(WINDOW_STEPS):
+            tok = (feed[i] if feed is not None
+                   else torch.argmax(out[-1], -1)[:, None].to(torch.int32))
+            fed.append(tok)
+            logits, cache = MD.decode_step(params, cfg, tok, cache)
+            out.append(logits)
+        return out, fed
+
+    got, fed = run()
+    with plain_kernels():
+        want, _ = run(feed=fed)
+    rels, ties = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel, tied = _tie_gate(f"{phase} {cfg.name} logits {i}", g, w)
+        rels.append(rel)
+        ties += [f"{i}:{m:.3e}<{n:.3e}" for _, m, n in tied]
+    log(phase, arch=cfg.name, prompt_len=len(prompt),
+        rolled=cfg.sliding_window is not None
+        and len(prompt) >= cfg.sliding_window,
+        decode_steps=WINDOW_STEPS,
+        rel_err_prefill=f"{rels[0]:.3e}",
+        rel_err_steps_max=f"{max(rels[1:]):.3e}", tol=TOL["bfloat16"],
+        argmax_flips=len(ties),
+        ties="none" if not ties else ",".join(ties))
+
+
+def phase_window_bf16(card: str) -> dict:
+    """8b: bf16 at full width and depth, one model at a time: logits of
+    the first prefill and of a rolling one with 8 steps past the window
+    (whisper: a 200-token prompt over seeded frames) against the plain
+    versions, 8 requests of 64 new tokens on contiguous + blocking, and
+    one decode step of 8 live slots traced by ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    from repro_torch.serving import profile
+    total: dict = {}
+    for arch in WINDOW_ARCHS:
+        with step_deadline():
+            t0 = time.perf_counter()
+            cfg = registry.get_config(arch)
+            params = MD.init_params(cfg, seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            log("window_bf16", arch=arch, layers=cfg.n_layers,
+                params=cfg.param_count(),
+                weight_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+                init_s=f"{time.perf_counter() - t0:.1f}")
+            audio = cfg.family == "audio"
+            lens = AUDIO_SERVE_LENS if audio else SWA_SERVE_LENS
+            prompts = window_prompts(cfg, lens, SEED + 1)
+            # the first prefill, and one that rolls (6000 tokens) with
+            # its steps past the window; whisper's 200-token prompt
+            for i in ((3,) if audio else (0, 3)):
+                window_logits("window_bf16", params, cfg, prompts[i])
+            torch.cuda.empty_cache()
+            eng, counts = run_engine(params, cfg, prompts, 64,
+                                     max_seq_len=WINDOW_CAPACITY)
+            s = _check_engine(f"window_bf16 {arch}", eng, counts, 8)
+            _add(total, counts)
+            log("window_bf16", arch=arch, config="contiguous+blocking",
+                requests=s["requests"], tokens=s["tokens"],
+                tok_per_s=f"{s['tokens_per_s']:.1f}",
+                ttft_p50_ms=f"{s['ttft_p50_s'] * 1e3:.1f}",
+                ttft_p99_ms=f"{s['ttft_p99_s'] * 1e3:.1f}",
+                itl_p50_ms=f"{s['itl_p50_s'] * 1e3:.2f}",
+                itl_p99_ms=f"{s['itl_p99_s'] * 1e3:.2f}",
+                decode_steps=s["decode_steps"], prefills=s["prefills"],
+                contiguous_kv_bytes=s["contiguous_kv_bytes"],
+                launches=json.dumps(counts), card=f"'{card}'")
+            del eng
+            torch.cuda.empty_cache()
+            eng = profile.live_engine(params, cfg,
+                                      np.random.default_rng(SEED),
+                                      lens=lens,
+                                      max_seq_len=WINDOW_CAPACITY)
+            profile.measure(f"{arch}_decode", 3, eng.step, top=14)
+            log("window_bf16", arch=arch,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            del eng, params
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_window(card: str) -> dict:
+    t0 = time.perf_counter()
+    total = phase_window_f32()
+    _add(total, phase_window_bf16(card))
+    log("window", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
 
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2196,6 +2667,9 @@ def main() -> int:
         counts[name] += c
     torch.cuda.empty_cache()
     for name, c in phase_families(card).items():
+        counts[name] += c
+    torch.cuda.empty_cache()
+    for name, c in phase_window(card).items():
         counts[name] += c
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -4,8 +4,11 @@ The JAX params (``repro.models.model.init_params``) travel as nested
 dicts of numpy arrays (``jax.device_get``); the port keeps the same
 nested keys and the leading ``L`` layer axis on stacked leaves, so each
 leaf maps one to one; a list (an MoE config's leading dense
-``first_layers``, unstacked) stays a list. bfloat16 arrays
-(``ml_dtypes.bfloat16`` in numpy) are carried bit for bit. A Python
+``first_layers``, unstacked) stays a list. Whisper's tree adds the
+stacked encoder ``enc_layers`` (leading axis ``n_encoder_layers``),
+``enc_norm``, and each decoder layer's ``ln_x`` and ``xattn``.
+bfloat16 arrays (``ml_dtypes.bfloat16`` in numpy) are carried bit for
+bit. A Python
 bool leaf — the ``"__w4__"`` marker of a quantized projection
 (``{"__w4__": True, "packed": (L, K//2, N) uint8, "scales": (L,
 K//group, N) f32}``, ``examples/w4_mobile_decode.py``) — stays a bool
@@ -48,6 +51,10 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
             raise ValueError(f"{path}: leading axis {t.shape[0]} != "
                              f"n_layers={cfg.n_layers} less "
                              f"{n_first_layers(cfg)} first dense layers")
+        if path.startswith("/enc_layers/") \
+                and t.shape[0] != cfg.n_encoder_layers:
+            raise ValueError(f"{path}: leading axis {t.shape[0]} != "
+                             f"n_encoder_layers={cfg.n_encoder_layers}")
         return t
 
     return conv(np_tree, "")

@@ -14,6 +14,11 @@
 // combine pass, not by writing the token's KV into the cache first and
 // attending len + 1 — the cache write then stays outside attention, as in
 // the reference, and the masks match the reference slot for slot.
+// K1 also takes the rolling sliding-window cache of the reference's
+// decode_attention(window=) (src/repro/models/attention.py:288-296): a
+// cache of cap == window slots holds position p at slot p % cap, every
+// slot is valid once the row is full, and slot len % cap — the position
+// exactly ``window`` back from the token being decoded — is masked.
 //
 // Bound on the H100: bytes. Decode reads every valid K and V element
 // once per token (~2 * sum(len) * Hkv * Dh * bytes per layer; K2 also
@@ -35,17 +40,20 @@
 //   (src-size 0) and masked. K2 differs only in the row address: one
 //   block-table lookup per copied chunk, sentinels clamped.
 // - Q K^T. Lane = position of the tile, warp = a quarter of Dh: each
-//   thread forms a Dh / 4-long partial dot per query head from 16-byte
+//   thread forms a partial dot over a quarter of Dh's 16-byte chunks (at
+//   Dh 80 in bf16, ten chunks: 2, 3, 2, 3) per query head from 16-byte
 //   shared loads against q in shared memory (scaled once); the four
 //   partials are added in warp order. All 128 threads are busy at Dh 64,
-//   96 and 128.
+//   80, 96 and 128.
 // - Online softmax per block, computed by every warp alike (warp max
 //   and sum by shuffles), so no barrier per query head.
-// - P V. Thread t owns Dh / 32 (dim, quarter of the tile) items — every
-//   thread busy at every Dh — and takes each position's probability by a
-//   shuffle from the lane that holds it. At the end the quarters are
-//   added in order through shared memory and the unnormalised partial
-//   (o, m, l) is written in fp32.
+// - P V. Thread t owns ceil(Dh / 32) (dim, quarter of the tile) items —
+//   every thread busy at every Dh; at Dh 80 the 320 items leave the last
+//   round half full — and takes each position's probability by a shuffle
+//   from the lane that holds it (lanes of one warp may read different
+//   quarters there: each lane names its own source lane). At the end the
+//   quarters are added in order through shared memory and the
+//   unnormalised partial (o, m, l) is written in fp32.
 // Pass 2 runs one block per (batch row, query head): it computes the
 // self score and the splits' weights (threads across splits), then
 // merges the valid splits' partials and the self partial in split order
@@ -101,15 +109,24 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ o_part,
                           float* __restrict__ m_part,
                           float* __restrict__ l_part, int cap, int hkv,
-                          int g, int ns, int psplit, float scale) {
+                          int g, int ns, int psplit, float scale,
+                          int window) {
   constexpr int NE = port::Vec<T>::N;   // elements per 16 bytes
   constexpr int LD = DH + NE;           // shared row stride, 16 B padded
   constexpr int CH = DH / NE;           // 16-byte chunks per row
-  constexpr int DQ = DH / kWarps;       // dims of a warp's QK partial
-  constexpr int NIT = DH / 32;          // P V items per thread
-  static_assert(DQ % NE == 0, "a warp's dims are whole 16-byte chunks");
+  constexpr int CW = (CH + kWarps - 1) / kWarps;  // most chunks of a warp
+  constexpr int NI = kWarps * DH;       // P V items: (quarter, dim)
+  constexpr int NIT = (NI + kThreads - 1) / kThreads;  // items per thread
+  static_assert(DH % NE == 0, "rows are whole 16-byte chunks");
+  static_assert(2 * kTile * CH % kThreads == 0, "staging rounds are whole");
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int len = min(lens[b], cap);
+  // a full rolling cache (cap == window): slot lens[b] % cap holds the
+  // position ``window`` back, outside the decoded token's window
+  const int stale = window == cap && lens[b] >= cap ? lens[b] % cap : -1;
+  // this warp's 16-byte chunks of Dh in the QK product
+  const int c_lo = (threadIdx.x >> 5) * CH / kWarps;
+  const int c_hi = ((threadIdx.x >> 5) + 1) * CH / kWarps;
   const int start = split * psplit;
   if (start >= len) return;  // pass 2 never reads this split
   const int n_here = min(psplit, len - start);
@@ -167,21 +184,25 @@ __global__ void __launch_bounds__(kThreads)
     const T* ks = ring + (t & 1) * 2 * kTile * LD;
     const T* vs = ks + kTile * LD;
 
-    {  // this warp's quarter of Dh for position ``lane``
+    {  // this warp's chunks of Dh for position ``lane``
       float acc[GM];
 #pragma unroll
       for (int gi = 0; gi < GM; ++gi) acc[gi] = 0.f;
-      const T* kr = ks + lane * LD + warp * DQ;
+      const T* kr = ks + lane * LD;
 #pragma unroll
-      for (int c = 0; c < DQ; c += NE) {
-        float kf[NE];
-        port::load_vec(kr + c, kf);
+      for (int j = 0; j < CW; ++j) {
+        const int c = (c_lo + j) * NE;
+        if (CH % kWarps == 0 || c_lo + j < c_hi) {
+          float kf[NE];
+          port::load_vec(kr + c, kf);
 #pragma unroll
-        for (int gi = 0; gi < GM; ++gi) {
-          if (gi < g) {
-            const float* qr = qs + gi * DH + warp * DQ + c;
+          for (int gi = 0; gi < GM; ++gi) {
+            if (gi < g) {
+              const float* qr = qs + gi * DH + c;
 #pragma unroll
-            for (int e = 0; e < NE; ++e) acc[gi] = fmaf(qr[e], kf[e], acc[gi]);
+              for (int e = 0; e < NE; ++e)
+                acc[gi] = fmaf(qr[e], kf[e], acc[gi]);
+            }
           }
         }
       }
@@ -191,7 +212,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    const bool valid = lane < n_here - t * kTile;
+    const bool valid = lane < n_here - t * kTile &&
+                       start + t * kTile + lane != stale;
     float p[GM];
 #pragma unroll
     for (int gi = 0; gi < GM; ++gi) {
@@ -211,12 +233,13 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // P V: item i = tid + 128 it is (quarter i / DH, dim i % DH); the 32
-    // items of a warp share a quarter, so one shuffle lane per position
+    // P V: item i = tid + 128 it is (quarter i / DH, dim i % DH); past
+    // the NI items (Dh 80) a thread repeats item 0 and never stores it
 #pragma unroll
     for (int it = 0; it < NIT; ++it) {
       const int i = tid + kThreads * it;
-      const int qr = i / DH, d = i % DH;
+      const int ic = NI % kThreads == 0 || i < NI ? i : 0;
+      const int qr = ic / DH, d = ic % DH;
 #pragma unroll
       for (int e = 0; e < kTile / kWarps; ++e) {
         const int pos = qr * (kTile / kWarps) + e;
@@ -234,6 +257,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int it = 0; it < NIT; ++it) {
     const int i = tid + kThreads * it;
+    if (NI % kThreads != 0 && i >= NI) continue;
     const int qr = i / DH, d = i % DH;
 #pragma unroll
     for (int gi = 0; gi < GM; ++gi)
@@ -315,7 +339,7 @@ cudaError_t launch_dh(const void* q, const void* kc, const void* vc,
                       const void* ek, const void* ev, const int* lens,
                       Rows rows, float* o_part, float* m_part,
                       float* l_part, void* out, int b, int cap, int hkv,
-                      int g, int ns, int psplit, float scale,
+                      int g, int ns, int psplit, float scale, int window,
                       cudaStream_t stream) {
   const size_t smem = partial_smem<T, DH>(g, psplit);
   // register arrays sized for one query head (MHA) or for up to kMaxG
@@ -326,10 +350,10 @@ cudaError_t launch_dh(const void* q, const void* kc, const void* vc,
   kernel<<<dim3(ns, hkv, b), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), lens, rows, o_part, m_part, l_part, cap,
-      hkv, g, ns, psplit, scale);
+      hkv, g, ns, psplit, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int threads = DH < 32 ? 32 : DH;
+  const int threads = (DH + 31) / 32 * 32;  // whole warps (Dh 80: 96)
   decode_combine_kernel<T, DH>
       <<<dim3(hkv * g, b), threads, 2 * ns * sizeof(float), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(ek),
@@ -343,20 +367,24 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* ek, const void* ev, const int* lens,
                    Rows rows, float* o_part, float* m_part, float* l_part,
                    void* out, int b, int cap, int hkv, int g, int dh, int ns,
-                   int psplit, float scale, cudaStream_t s) {
+                   int psplit, float scale, int window, cudaStream_t s) {
   switch (dh) {
     case 64:
       return launch_dh<T, 64>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
                               l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              s);
+                              window, s);
+    case 80:
+      return launch_dh<T, 80>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
+                              l_part, out, b, cap, hkv, g, ns, psplit, scale,
+                              window, s);
     case 96:
       return launch_dh<T, 96>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
                               l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              s);
+                              window, s);
     case 128:
       return launch_dh<T, 128>(q, kc, vc, ek, ev, lens, rows, o_part,
                                m_part, l_part, out, b, cap, hkv, g, ns,
-                               psplit, scale, s);
+                               psplit, scale, window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -367,7 +395,7 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
                  const void* ek, const void* ev, const void* lens, Rows rows,
                  void* o_part, void* m_part, void* l_part, void* out, int b,
                  int cap, int hkv, int g, int dh, int ns, int psplit,
-                 float scale, int dtype, void* stream) {
+                 float scale, int window, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
   float* op = static_cast<float*>(o_part);
@@ -375,15 +403,15 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
   float* lp = static_cast<float*>(l_part);
   if (g < 1 || g > kMaxG || cap < 1 ||
       (psplit != 32 && psplit != 128) ||
-      ns != (cap + psplit - 1) / psplit)
+      ns != (cap + psplit - 1) / psplit || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::DT_F32)
     return launch<float>(q, kc, vc, ek, ev, ln, rows, op, mp, lp, out, b,
-                         cap, hkv, g, dh, ns, psplit, scale, s);
+                         cap, hkv, g, dh, ns, psplit, scale, window, s);
   if (dtype == port::DT_BF16)
     return launch<__nv_bfloat16>(q, kc, vc, ek, ev, ln, rows, op, mp, lp,
                                  out, b, cap, hkv, g, dh, ns, psplit, scale,
-                                 s);
+                                 window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -394,21 +422,24 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
 // ``psplit`` positions per split (32 or 128: decode_attention.py::
 // launch_plan), ns = ceil(cap / psplit). o_part (b, hkv, g, ns, dh),
 // m_part / l_part (b, hkv, g, ns): fp32 scratch from the caller. g <= 8,
-// dh in {64, 96, 128}; pointers 16-byte aligned.
+// dh in {64, 80, 96, 128}; pointers 16-byte aligned. window: the
+// rolling cache's sliding window (0: none); when it equals cap, a full
+// row's slot lens[b] % cap is masked.
 KERNEL_EXPORT int decode_attention_launch(
     const void* q, const void* kc, const void* vc, const void* ek,
     const void* ev, const void* lens, void* o_part, void* m_part,
     void* l_part, void* out, int b, int cap, int hkv, int g, int dh, int ns,
-    int psplit, float scale, int dtype, void* stream) {
+    int psplit, float scale, int window, int dtype, void* stream) {
   return launch_dtype(q, kc, vc, ek, ev, lens, ContiguousRows{cap}, o_part,
                       m_part, l_part, out, b, cap, hkv, g, dh, ns, psplit,
-                      scale, dtype, stream);
+                      scale, window, dtype, stream);
 }
 
 // K2. kp, vp: pools (nb, bs, hkv, dh); tab: (b, w) int32 block ids on
 // the device (ids >= nb are sentinels, clamped to nb - 1 and masked by
 // the length). The logical capacity is w * bs; ns = ceil(w * bs /
-// psplit). Everything else as decode_attention_launch.
+// psplit). No window: a paged cache never rolls. Everything else as
+// decode_attention_launch.
 KERNEL_EXPORT int paged_decode_attention_launch(
     const void* q, const void* kp, const void* vp, const void* ek,
     const void* ev, const void* lens, const void* tab, void* o_part,
@@ -419,6 +450,6 @@ KERNEL_EXPORT int paged_decode_attention_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const PagedRows rows{static_cast<const int*>(tab), w, bs, nb};
   return launch_dtype(q, kp, vp, ek, ev, lens, rows, o_part, m_part, l_part,
-                      out, b, w * bs, hkv, g, dh, ns, psplit, scale, dtype,
+                      out, b, w * bs, hkv, g, dh, ns, psplit, scale, 0, dtype,
                       stream);
 }

@@ -10,6 +10,11 @@
 // TPU wrapper does: the same function with fewer bytes. Layouts are the
 // model's own: q, out (B, Sq, Hq, Dh); k, v (B, Skv, Hkv, Dh).
 //
+// Non-causal calls (whisper's encoder, Sq == Skv == 1500, and its
+// decoder's cross-attention, Sq = the prompt bucket against Skv = 1500)
+// walk every KV tile; the last tile is zero-filled past Skv and masked by
+// the key-pad mask, which runs on every tile that reaches past Skv.
+//
 // Bound on the H100: at the main path's shapes (causal, S = 512..1024,
 // Dh = 64, bf16) the work is ~S/4 flops per byte of q, k, v and out —
 // 128..256, under the card's ~295 bf16 tensor-core flops per byte — so
@@ -244,7 +249,7 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out,
   const int n_qt = (sq + kBQ - 1) / kBQ;
   if constexpr (std::is_same<T, float>::value) {
     // the CUDA-core body: K and V tiles of BK x DH fp32 in static shared
-    // memory (48 KiB at most): 64 keys at DH 64, 32 from DH 96 on
+    // memory (48 KiB at most): 64 keys at DH 64, 32 from DH 80 on
     constexpr int BK = DH > 64 ? 32 : 64;
     flash_fwd_kernel<float, DH, BK>
         <<<dim3(n_qt, b * hq), kThreads, 0, stream>>>(
@@ -273,6 +278,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch_dh<T, 64>(q, k, v, out, b, sq, skv, hq, hkv, causal,
                               window, q_offset, scale, s);
+    case 80:
+      return launch_dh<T, 80>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                              window, q_offset, scale, s);
     case 96:
       return launch_dh<T, 96>(q, k, v, out, b, sq, skv, hq, hkv, causal,
                               window, q_offset, scale, s);
@@ -287,7 +295,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q, out: (b, sq, hq, dh); k, v: (b, skv, hkv, dh); all contiguous, one
-// dtype. window <= 0 means no window. dh in {64, 96, 128}.
+// dtype. window <= 0 means no window. dh in {64, 80, 96, 128}.
 KERNEL_EXPORT int flash_attention_launch(const void* q, const void* k,
                                          const void* v, void* out, int b,
                                          int sq, int skv, int hq, int hkv,

@@ -3,7 +3,8 @@ card (``csrc/decode_attention.cu``).
 
 Replaces ``repro/kernels/decode_attention.py::decode_attention_bhgd``
 and also merges the current token's K/V as the always-valid self
-partial of ``repro/models/attention.py::decode_attention``. One wrapper
+partial of ``repro/models/attention.py::decode_attention``, with that
+function's rolling sliding-window mask (``window=``). One wrapper
 call is two launches (split partials, then the fixed-order combine) and
 counts once in ``launches``. :func:`launch_plan` sizes the splits; K2
 (``paged_decode_attention.py``) takes the same plan.
@@ -23,14 +24,14 @@ launches = 0
 SPLITS = (32, 128)   # positions per pass-1 block the source takes
 TILE = 32                # positions per staged tile (kTile)
 MAX_G = 8     # query heads per KV head (kMaxG)
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # both exports of csrc/decode_attention.cu (K1 here, K2 in
 # paged_decode_attention.py): one library, one signature table
 SIG = {"decode_attention_launch":
        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
        "paged_decode_attention_launch":
        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
@@ -110,10 +111,14 @@ def split_scratch(q: torch.Tensor, hkv: int, cap: int):
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      extra_k: torch.Tensor | None = None,
-                     extra_v: torch.Tensor | None = None) -> torch.Tensor:
+                     extra_v: torch.Tensor | None = None,
+                     window: int | None = None) -> torch.Tensor:
     """q (B,1,Hq,Dh); caches (B,C,Hkv,Dh); ``cache_len`` scalar or (B,)
     valid slots per row; ``extra_k``/``extra_v`` (B,1,Hkv,Dh), the
-    current token's KV, or both None. Returns (B,1,Hq,Dh)."""
+    current token's KV, or both None. ``window``: the cache rolls (slot
+    ``p % C`` holds position p); rows are valid to ``min(len, C)``, and
+    when ``C == window`` a full row's slot ``len % C`` — the position
+    ``window`` back — is masked. Returns (B,1,Hq,Dh)."""
     global launches
     b, _, hq, dh = q.shape
     _, cap, hkv, _ = k_cache.shape
@@ -122,6 +127,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"k {tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
     extras = check_operands("decode_attention", q, tuple(k_cache.shape),
                             extra_k, extra_v)
+    if window is not None and window < 1:
+        raise ValueError(f"decode_attention: window={window} must be >= 1")
     code = _build.launch_dtype("decode_attention", q, k_cache, v_cache,
                                *extras)
     lens = row_lengths(cache_len, b, q.device)
@@ -136,8 +143,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         extra_v.data_ptr() if extras else None,
         lens.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
         l_part.data_ptr(), out.data_ptr(), b, cap, hkv, hq // hkv, dh,
-        plan.splits, plan.split, 1.0 / math.sqrt(dh), code,
-        _build.stream_handle(q))
+        plan.splits, plan.split, 1.0 / math.sqrt(dh), int(window or 0),
+        code, _build.stream_handle(q))
     _build.check(lib, err, "decode_attention")
     launches += 1
     return out

@@ -1,4 +1,4 @@
-"""K3 — causal / sliding-window flash prefill on the card
+"""K3 — causal / sliding-window / non-causal flash prefill on the card
 (``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_bhsd``
@@ -20,7 +20,7 @@ launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {"flash_attention_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

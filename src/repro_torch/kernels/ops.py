@@ -48,7 +48,8 @@ def rmsnorm(x, w, *, eps=1e-6):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
-    """Causal / windowed prefill attention at absolute positions (K3)."""
+    """Causal / windowed / non-causal prefill attention at absolute
+    positions (K3); ``k``/``v`` may be longer or shorter than ``q``."""
     if _on_card(q):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
@@ -57,13 +58,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
-                     extra_v=None):
-    """Ragged split-KV decode attention with the self partial (K1)."""
+                     extra_v=None, window=None):
+    """Ragged split-KV decode attention with the self partial (K1), over
+    a rolling sliding-window cache when ``window`` is given."""
     if _on_card(q):
         return _dec.decode_attention(q, k_cache, v_cache, cache_len,
-                                     extra_k=extra_k, extra_v=extra_v)
+                                     extra_k=extra_k, extra_v=extra_v,
+                                     window=window)
     return ref.decode_attention(q, k_cache, v_cache, cache_len,
-                                extra_k=extra_k, extra_v=extra_v)
+                                extra_k=extra_k, extra_v=extra_v,
+                                window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,

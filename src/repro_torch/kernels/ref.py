@@ -55,19 +55,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      extra_k: torch.Tensor | None = None,
-                     extra_v: torch.Tensor | None = None) -> torch.Tensor:
+                     extra_v: torch.Tensor | None = None,
+                     window: int | None = None) -> torch.Tensor:
     """q (B,1,Hq,Dh); caches (B,C,Hkv,Dh) valid to ``cache_len`` (scalar
     or (B,)); optional current-token ``extra_k``/``extra_v``
     (B,1,Hkv,Dh) merged as one always-valid self partial, exactly as
-    ``repro.models.attention.decode_attention`` does."""
+    ``repro.models.attention.decode_attention`` does — with its rolling
+    mask under ``window``: slots valid to ``min(len, C)``, and when
+    ``C == window`` a full row's slot ``len % C`` (the position
+    ``window`` back) masked."""
     b, _, hq, dh = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.float().reshape(b, hkv, hq // hkv, dh)
     scores = torch.einsum("bhgd,bkhd->bhgk", qg,
                           k_cache.float()) / math.sqrt(dh)
     clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
-    valid = torch.broadcast_to(
-        torch.arange(smax, device=q.device)[None, :] < clen, (b, smax))
+    slot = torch.arange(smax, device=q.device)[None, :]
+    if window is None:
+        valid = slot < clen
+    else:
+        valid = slot < torch.clamp(clen, max=smax)
+        if smax == window:
+            valid = valid & ((clen < smax) | (slot != clen % smax))
+    valid = torch.broadcast_to(valid, (b, smax))
     valid = valid[:, None, None, :]
     scores = torch.where(valid, scores, NEG_INF)
     m1 = torch.clamp(scores.amax(-1), min=NEG_INF)

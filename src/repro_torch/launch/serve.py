@@ -23,7 +23,10 @@ def main(argv=None):
         description=__doc__.split("\n\n")[0],
         epilog="--ckpt-dir (serving weights from a training checkpoint) "
                "is not available yet: the port has no checkpoint module.")
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    help="registry model id: the dense, MoE and vlm "
+                    "decoders (rolling sliding windows too, e.g. "
+                    "h2o-danube-1.8b, mistral-7b) and whisper-large-v3")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,6 +1,7 @@
-"""Attention for the dense decoder: prefill (K3), ragged decode over a
-contiguous (K1) or paged (K2) cache, and prefill over a cache (K4) for
-chunked prefill and speculative verify.
+"""Attention for the decoder families: prefill (K3: causal, windowed or
+non-causal, self- or cross-attention), ragged decode over a contiguous
+— possibly rolling — (K1) or paged (K2) cache, and prefill over a cache
+(K4) for chunked prefill and speculative verify.
 
 Counterpart of ``repro/models/attention.py``. Shapes: q (B, Sq, Hq, Dh);
 k, v (B, Skv, Hkv, Dh); Hq % Hkv == 0. ``q_offset`` is the absolute
@@ -66,22 +67,29 @@ def prefill_over_cache(q, k_hist, v_hist, hist_len, k_self, v_self):
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
                      extra_k=None, extra_v=None, block_tables=None):
-    """Single-token attention against a contiguous or paged KV cache.
+    """Single-token attention against a contiguous (possibly rolling) or
+    paged KV cache.
 
     q: (B, 1, Hq, Dh); k_cache/v_cache: (B, C, Hkv, Dh); ``cache_len``
     valid slots — a scalar, or a per-row (B,) vector for fully ragged
-    continuous batching. With ``block_tables`` (B, W) the caches are
-    shared block pools (NB, bs, Hkv, Dh) read through the tables (no
-    dense gather on the card). ``extra_k``/``extra_v`` (B, 1, Hkv, Dh):
-    the current token's KV, one more always-valid slot, so the cache
-    write stays outside attention. Runs the split-KV decode kernel (K1,
-    contiguous) or its paged form (K2) on the card."""
-    if window is not None:
-        raise NotImplementedError(
-            "rolling sliding-window decode is not ported yet (SWA slice)")
+    continuous batching. With ``window`` the cache is a rolling buffer
+    (slot ``p % C`` holds position p): every slot is valid once
+    ``cache_len >= C``, and when ``C == window`` slot ``cache_len % C``,
+    the position ``window`` back, is masked. With ``block_tables``
+    (B, W) the caches are shared block pools (NB, bs, Hkv, Dh) read
+    through the tables (no dense gather on the card); a paged cache
+    never rolls. ``extra_k``/``extra_v`` (B, 1, Hkv, Dh): the current
+    token's KV, one more always-valid slot, so the cache write stays
+    outside attention; both None for cross-attention over a fixed
+    encoder cache. Runs the split-KV decode kernel (K1, contiguous) or
+    its paged form (K2) on the card."""
     if block_tables is not None:
+        if window is not None:
+            raise ValueError("a paged KV cache never rolls: sliding-window "
+                             "decode needs a contiguous cache")
         return ops.paged_decode_attention(q.contiguous(), k_cache, v_cache,
                                           block_tables, cache_len,
                                           extra_k=extra_k, extra_v=extra_v)
     return ops.decode_attention(q.contiguous(), k_cache, v_cache, cache_len,
-                                extra_k=extra_k, extra_v=extra_v)
+                                extra_k=extra_k, extra_v=extra_v,
+                                window=window)

@@ -1,10 +1,12 @@
 """Shared building blocks on tensors: inits, norms, MLPs, RoPE,
-embeddings.
+sinusoidal positions, embeddings.
 
 Counterpart of ``repro/models/layers.py``. Params are plain nested dicts
 of tensors; layer stacks carry a leading ``L`` dimension on every leaf.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -150,6 +152,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int
+                         ) -> torch.Tensor:
+    """The classic transformer sinusoid (whisper's positions):
+    (..., d_model) float32, the sines of ``positions * freqs`` before
+    the cosines, ``freqs = exp(-ln(10000) * i / half)``."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,20 @@
-"""Decoder-only transformers on tensors — the dense, MoE and vlm
-families: init, prefill, ragged decode on contiguous and paged caches,
-chunked prefill, speculative verify.
+"""Transformers on tensors — the dense, MoE and vlm decoders and the
+audio encoder–decoder: init, prefill, ragged decode on contiguous and
+paged caches, chunked prefill, speculative verify.
 
 Counterpart of ``repro/models/model.py`` for its attention families
-(``TRANSFORMER_FAMILIES``): RMSNorm or LayerNorm, every MLP activation,
-MoE FFNs after ``first_dense_layers`` dense ones (``params
-["first_layers"]``, a list, then the stacked ``params["layers"]``), and
-the vlm's stub image prefix (``batch["images"]`` (B, n_img, d), placed
-before the tokens and counted in the positions):
+(``TRANSFORMER_FAMILIES``) and its audio family: RMSNorm or LayerNorm,
+every MLP activation, MoE FFNs after ``first_dense_layers`` dense ones
+(``params["first_layers"]``, a list, then the stacked
+``params["layers"]``), the vlm's stub image prefix (``batch["images"]``
+(B, n_img, d), placed before the tokens and counted in the positions),
+rolling sliding-window caches (``cfg.sliding_window``: the cache holds
+``min(capacity, window)`` slots and position p lives at slot ``p % C``)
+and whisper's encoder–decoder (``batch["frames"]`` (B, encoder_len, d)
+through ``params["enc_layers"]`` and ``"enc_norm"``; each decoder layer
+adds cross-attention, ``"ln_x"`` and ``"xattn"``, over the encoder
+output, whose per-layer K/V the cache keeps as ``cross_k``/``cross_v``;
+sinusoidal positions, no RoPE):
 
 - ``init_params(cfg, seed=, device=)`` -> params dict (layer-stacked
   leaves with a leading ``L`` axis, the reference's nested keys)
@@ -24,8 +31,9 @@ The reference's ``lax.scan`` over the stacked layer axis is a Python
 loop over ``L`` here, and caches are written in place. Paged pools
 carry one scratch block past the ``NB`` allocatable ones (id ``NB``,
 the tables' sentinel): every dropped write lands there, so it can never
-race a real write. Other families (recurrent, hybrid, audio) and
-rolling sliding-window caches are later slices of the port and raise.
+race a real write. Chunked prefill and speculative verify take the
+attention families without a rolling window only, as in the reference;
+the recurrent and hybrid families are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -40,19 +48,31 @@ from repro_torch.models.attention import (attention, decode_attention,
 
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+PORTED_FAMILIES = TRANSFORMER_FAMILIES + ("audio",)
 
 
 def check_supported(cfg) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    if cfg.family not in TRANSFORMER_FAMILIES:
+    """Raise for a family the port does not run yet (the recurrent and
+    hybrid ones)."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is a later slice of the port (the "
-            "recurrent, hybrid and audio families); "
-            f"{', '.join(TRANSFORMER_FAMILIES)} run")
+            f"recurrent and hybrid families); "
+            f"{', '.join(PORTED_FAMILIES)} run")
+
+
+def _use_rope(cfg) -> bool:
+    """RoPE on q/k (the decoders); whisper adds sinusoids to its inputs
+    instead."""
+    return cfg.family in ("dense", "moe", "vlm", "hybrid")
+
+
+def _kv_capacity(cfg, capacity: int) -> int:
+    """Slots of a self-attention cache: a rolling sliding-window cache
+    holds at most ``window`` of them."""
     if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding_window: rolling SWA caches are a later slice of the "
-            "port")
+        return min(capacity, cfg.sliding_window)
+    return capacity
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +95,13 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
          "final_norm": L.init_norm(cfg, device=dev)}
     if not cfg.tie_embeddings:
         p["head"] = L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, dev)
+    if cfg.family == "audio":
+        p["enc_layers"] = _init_block(gen, cfg, (cfg.n_encoder_layers,), dev,
+                                      cfg.d_ff, moe=False)
+        p["enc_norm"] = L.init_norm(cfg, device=dev)
+        p["layers"] = _init_block(gen, cfg, (cfg.n_layers,), dev, cfg.d_ff,
+                                  moe=False, cross=True)
+        return p
     n_first = n_first_layers(cfg)
     if n_first:
         p["first_layers"] = [
@@ -91,8 +118,8 @@ def n_first_layers(cfg) -> int:
     return cfg.first_dense_layers if cfg.is_moe else 0
 
 
-def _init_block(gen, cfg, lead, dev, d_ff, *, moe) -> dict:
-    """One decoder block's params with leading axes ``lead``."""
+def _init_attn(gen, cfg, lead, dev) -> dict:
+    """One attention's projections with leading axes ``lead``."""
     dt = L.dtype_of(cfg)
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
@@ -105,12 +132,22 @@ def _init_block(gen, cfg, lead, dev, d_ff, *, moe) -> dict:
         for name, width in (("bq", hq * dh), ("bk", hkv * dh),
                             ("bv", hkv * dh)):
             attn[name] = torch.zeros((*lead, width), dtype=dt, device=dev)
-    p = {"ln1": L.init_norm(cfg, lead, dev), "attn": attn,
+    return attn
+
+
+def _init_block(gen, cfg, lead, dev, d_ff, *, moe, cross=False) -> dict:
+    """One decoder block's params with leading axes ``lead``; ``cross``
+    adds whisper's cross-attention (``ln_x``, ``xattn``)."""
+    p = {"ln1": L.init_norm(cfg, lead, dev),
+         "attn": _init_attn(gen, cfg, lead, dev),
          "ln2": L.init_norm(cfg, lead, dev)}
     if moe:
         p["moe"] = M.init_moe(gen, cfg, lead, dev)
     else:
         p["mlp"] = L.init_mlp(gen, cfg, d_ff, lead, dev)
+    if cross:
+        p["ln_x"] = L.init_norm(cfg, lead, dev)
+        p["xattn"] = _init_attn(gen, cfg, lead, dev)
     return p
 
 
@@ -138,39 +175,65 @@ def _head(params, cfg):
 # attention block
 # ---------------------------------------------------------------------------
 
-def _proj_qkv(p, cfg, x):
-    """x: (B,S,d). Returns q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh)."""
-    b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+def _proj_q(p, cfg, x):
+    """x: (B,S,d) -> q (B,S,Hq,Dh)."""
+    q = x @ p["wq"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, cfg.n_heads, cfg.d_head),
-            k.reshape(b, s, cfg.n_kv_heads, cfg.d_head),
-            v.reshape(b, s, cfg.n_kv_heads, cfg.d_head))
+        q = q + p["bq"]
+    return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.d_head)
 
 
-def attn_full(p, cfg, x, *, positions, causal=True, window=None):
-    """Full-sequence attention. Returns (out (B,S,d), (k, v))."""
-    q, k, v = _proj_qkv(p, cfg, x)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+def _proj_qkv(p, cfg, x, kv_x=None):
+    """x: (B,S,d); ``kv_x`` (B,Skv,d), the keys' and values' input for
+    cross-attention (x itself when None). Returns q (B,S,Hq,Dh), k/v
+    (B,Skv,Hkv,Dh)."""
+    kv_x = x if kv_x is None else kv_x
+    b, skv, _ = kv_x.shape
+    k, v = kv_x @ p["wk"], kv_x @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (_proj_q(p, cfg, x),
+            k.reshape(b, skv, cfg.n_kv_heads, cfg.d_head),
+            v.reshape(b, skv, cfg.n_kv_heads, cfg.d_head))
+
+
+def attn_full(p, cfg, x, *, positions, causal=True, window=None,
+              kv_x=None):
+    """Full-sequence attention, or cross-attention over ``kv_x``
+    (non-causal: every query sees every key). Returns (out (B,S,d),
+    (k, v))."""
+    q, k, v = _proj_qkv(p, cfg, x, kv_x)
+    if _use_rope(cfg):
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, causal=causal, window=window, q_offset=0)
     return o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"], (k, v)
 
 
-def attn_decode(p, cfg, x, k_cache, v_cache, cache_len, *,
+def attn_decode(p, cfg, x, k_cache, v_cache, cache_len, *, window=None,
                 block_tables=None):
     """Single-token attention. x: (B,1,d); ``cache_len`` an int32
     tensor, 0-d or per-row (B,) — each row rotates and masks at its own
-    absolute position. With ``block_tables`` (B, W) the caches are paged
-    pools. Returns (out, k1, v1), the token's own KV."""
+    absolute position; ``window`` masks a rolling cache as the reference
+    does. With ``block_tables`` (B, W) the caches are paged pools.
+    Returns (out, k1, v1), the token's own KV."""
     q, k1, v1 = _proj_qkv(p, cfg, x)
-    pos = cache_len.reshape(-1, 1)
-    q = L.apply_rope(q, pos, cfg.rope_theta)
-    k1 = L.apply_rope(k1, pos, cfg.rope_theta)
-    o = decode_attention(q, k_cache, v_cache, cache_len, extra_k=k1,
-                         extra_v=v1, block_tables=block_tables)
+    if _use_rope(cfg):
+        pos = cache_len.reshape(-1, 1)
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k1 = L.apply_rope(k1, pos, cfg.rope_theta)
+    o = decode_attention(q, k_cache, v_cache, cache_len, window=window,
+                         extra_k=k1, extra_v=v1, block_tables=block_tables)
     return o.reshape(x.shape[0], 1, -1) @ p["wo"], k1, v1
+
+
+def attn_cross_decode(p, cfg, x, cross_k, cross_v, cross_len):
+    """One token's cross-attention over the fixed encoder cache
+    ``cross_k``/``cross_v`` (B, T, Hkv, Dh): all ``cross_len`` (T, as
+    an int32 tensor on the cache's device) slots valid, no self partial
+    (K1 without extras)."""
+    o = decode_attention(_proj_q(p, cfg, x), cross_k, cross_v, cross_len)
+    return o.reshape(x.shape[0], 1, -1) @ p["wo"]
 
 
 def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
@@ -203,12 +266,21 @@ def _apply_ffn(p, cfg, h):
 # adds, in its order, each fused into the norm that follows it.
 
 def decoder_block(p, cfg, x, delta, *, positions, causal=True,
-                  window=None):
+                  window=None, enc_out=None):
+    """One block over a whole sequence. Returns ((residual, MLP output),
+    kv): kv is the block's (k, v), and with ``enc_out`` (whisper's
+    decoder) also its cross-attention's (k, v) over the encoder output,
+    (k, v, xk, xv)."""
     x, h = L.add_norm(p["ln1"], cfg, x, delta)
-    a, (k, v) = attn_full(p["attn"], cfg, h, positions=positions,
-                          causal=causal, window=window)
+    a, kv = attn_full(p["attn"], cfg, h, positions=positions,
+                      causal=causal, window=window)
+    if enc_out is not None:
+        x, h = L.add_norm(p["ln_x"], cfg, x, a)
+        a, xkv = attn_full(p["xattn"], cfg, h, positions=positions,
+                           causal=False, kv_x=enc_out)
+        kv = kv + xkv
     x, h = L.add_norm(p["ln2"], cfg, x, a)
-    return (x, _apply_ffn(p, cfg, h)), (k, v)
+    return (x, _apply_ffn(p, cfg, h)), kv
 
 
 def decoder_block_chunk(p, cfg, x, delta, k_hist, v_hist, hist_len, *,
@@ -223,10 +295,15 @@ def decoder_block_chunk(p, cfg, x, delta, k_hist, v_hist, hist_len, *,
 
 
 def decoder_block_decode(p, cfg, x, delta, k_cache, v_cache, cache_len, *,
-                         block_tables=None):
+                         window=None, cross_k=None, cross_v=None,
+                         cross_len=None, block_tables=None):
     x, h = L.add_norm(p["ln1"], cfg, x, delta)
     a, k1, v1 = attn_decode(p["attn"], cfg, h, k_cache, v_cache, cache_len,
-                            block_tables=block_tables)
+                            window=window, block_tables=block_tables)
+    if cross_k is not None:
+        x, h = L.add_norm(p["ln_x"], cfg, x, a)
+        a = attn_cross_decode(p["xattn"], cfg, h, cross_k, cross_v,
+                              cross_len)
     x, h = L.add_norm(p["ln2"], cfg, x, a)
     return (x, _apply_ffn(p, cfg, h)), k1, v1
 
@@ -236,12 +313,45 @@ def decoder_block_decode(p, cfg, x, delta, k_cache, v_cache, cache_len, *,
 # ---------------------------------------------------------------------------
 
 def cache_struct(cfg, batch_size, capacity, dtype=None) -> dict:
-    """Shape/dtype of each decode-cache leaf."""
+    """Shape/dtype of each decode-cache leaf: ``k``/``v`` hold
+    ``_kv_capacity`` slots (the window for a rolling cache); whisper's
+    also ``cross_k``/``cross_v`` (L, B, encoder_len, Hkv, Dh)."""
     check_supported(cfg)
     dt = dtype or L.dtype_of(cfg)
-    kshape = (cfg.n_layers, batch_size, capacity, cfg.n_kv_heads,
-              cfg.d_head)
-    return {"len": ((), torch.int32), "k": (kshape, dt), "v": (kshape, dt)}
+    kshape = (cfg.n_layers, batch_size, _kv_capacity(cfg, capacity),
+              cfg.n_kv_heads, cfg.d_head)
+    out = {"len": ((), torch.int32), "k": (kshape, dt), "v": (kshape, dt)}
+    if cfg.family == "audio":
+        xshape = (cfg.n_layers, batch_size, cfg.encoder_len,
+                  cfg.n_kv_heads, cfg.d_head)
+        out["cross_k"] = (xshape, dt)
+        out["cross_v"] = (xshape, dt)
+    return out
+
+
+def cache_batch_axes(cache: dict) -> dict:
+    """The batch axis of each cache leaf (None for the position
+    counter): what a slot splice or export takes from each."""
+    axes = {}
+    for name in cache:
+        if name == "len":
+            axes[name] = None
+        elif name in ("k", "v", "cross_k", "cross_v"):
+            axes[name] = 1        # (L, B, C, H, Dh)
+        else:
+            raise KeyError(f"unknown cache leaf {name}")
+    return axes
+
+
+def roll_window(rows: torch.Tensor, capacity: int) -> torch.Tensor:
+    """A rolling cache's slots after a prompt: ``rows`` (L, B, S, H, Dh)
+    with ``S >= capacity`` -> the window tail (positions ``S - C .. S -
+    1``) rotated by ``S % C``, so position p sits at slot ``p % C`` (the
+    reference's prefill, ``model.py:597-611``)."""
+    s = rows.shape[2]
+    tail = rows[:, :, s - capacity:]
+    shift = s % capacity
+    return torch.roll(tail, shift, dims=2) if shift else tail
 
 
 def init_cache(cfg, batch_size, capacity, *, device="cuda") -> dict:
@@ -257,6 +367,10 @@ def paged_pool_struct(cfg, num_blocks, block_size, dtype=None) -> dict:
     positions plus one scratch block, id ``num_blocks`` — the tables'
     sentinel — that is never allocated and takes every dropped write."""
     check_supported(cfg)
+    if (cfg.family not in TRANSFORMER_FAMILIES
+            or cfg.sliding_window is not None):
+        raise ValueError("paged pools hold attention families without a "
+                         "rolling SWA cache")
     dt = dtype or L.dtype_of(cfg)
     shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads,
              cfg.d_head)
@@ -276,11 +390,30 @@ def init_paged_pools(cfg, num_blocks, block_size, *, device="cuda"):
 
 def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     """(B, S, d): the tokens' embeddings, after the vlm's image prefix
-    ``batch["images"]`` (B, n_img, d) where the batch carries one."""
+    ``batch["images"]`` (B, n_img, d) where the batch carries one; plus
+    the sinusoid of each position on whisper's decoder."""
     x = L.embed_tokens(params["embed"], batch["tokens"])
     if cfg.family == "vlm" and "images" in batch:
         x = torch.cat([batch["images"].to(x.dtype), x], dim=1)
+    if cfg.family == "audio":
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + L.sinusoidal_positions(pos, cfg.d_model)[None].to(x.dtype)
     return x
+
+
+def _encode_audio(params, cfg, frames) -> torch.Tensor:
+    """Whisper's encoder over the frame embeddings (B, T, d): sinusoidal
+    positions, non-causal blocks (K3 without a mask), then ``enc_norm``.
+    Returns (B, T, d) in the frames' dtype."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + L.sinusoidal_positions(pos, cfg.d_model)[None].to(
+        frames.dtype)
+    delta = None
+    enc = params["enc_layers"]
+    for i in range(cfg.n_encoder_layers):
+        (x, delta), _ = decoder_block(layer_params(enc, i), cfg, x, delta,
+                                      positions=pos, causal=False)
+    return L.add_norm(params["enc_norm"], cfg, x, delta)[1]
 
 
 def _read_rows(logit_index, *xs):
@@ -308,28 +441,46 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None):
     instead of the last — for right-padded (bucketed) prompts; positions
     count a vlm's image prefix (``batch["images"]``) first. Causal
     attention keeps pad positions out of every earlier row; their KV is
-    masked at decode by the per-row cache length."""
+    masked at decode by the per-row cache length.
+
+    Sliding-window configs attend within the window (K3's window mask);
+    their cache rolls once the prompt fills it (:func:`roll_window`),
+    and ``capacity=None`` returns all S rows for the caller to roll.
+    Whisper (``batch["frames"]`` (B, encoder_len, d)) runs the encoder
+    first; every decoder layer's cross-attention K/V over its output
+    comes back as ``cross_k``/``cross_v`` (L, B, encoder_len, Hkv, Dh)."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
-    ks, vs = [], []
+    enc = (_encode_audio(params, cfg, batch["frames"])
+           if cfg.family == "audio" else None)
+    kvs = []
     delta = None
     for lp in blocks(params, cfg):
-        (x, delta), (k, v) = decoder_block(lp, cfg, x, delta,
-                                           positions=positions)
-        ks.append(k)
-        vs.append(v)
-    k_all, v_all = torch.stack(ks), torch.stack(vs)
+        (x, delta), kv = decoder_block(lp, cfg, x, delta,
+                                       positions=positions,
+                                       window=cfg.sliding_window,
+                                       enc_out=enc)
+        kvs.append(kv)
+    rows = dict(zip(("k", "v", "cross_k", "cross_v"),
+                    (torch.stack(t) for t in zip(*kvs))))
     if capacity is None:
-        cache = {"k": k_all, "v": v_all}
+        cache = rows
     else:
-        if s > capacity:
-            raise ValueError(f"prompt of {s} positions exceeds the cache "
-                             f"capacity {capacity}")
         cache = init_cache(cfg, b, capacity, device=x.device)
-        cache["k"][:, :, :s] = k_all
-        cache["v"][:, :, :s] = v_all
+        c = cache["k"].shape[2]
+        for name in ("k", "v"):
+            if cfg.sliding_window is not None and s >= c:
+                cache[name].copy_(roll_window(rows[name], c))
+            elif s > c:
+                raise ValueError(f"prompt of {s} positions exceeds the "
+                                 f"cache capacity {c}")
+            else:
+                cache[name][:, :, :s] = rows[name]
+        for name in ("cross_k", "cross_v"):
+            if name in rows:
+                cache[name].copy_(rows[name])
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     _, h = L.add_norm(params["final_norm"], cfg,
                       *_read_rows(logit_index, x, delta))
@@ -425,26 +576,46 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
     Paged caches carry ``block_tab`` (B, W): ``k``/``v`` are then the
     pools (L, NB + 1, bs, H, Dh), attention reads them through the
     tables (K2) and the token's KV lands in block ``tab[b, pos // bs]``
-    at offset ``pos % bs``."""
+    at offset ``pos % bs``. A rolling sliding-window cache writes at
+    slot ``pos % C`` and masks the slot one window back (K1's window);
+    whisper's decoder also attends its ``cross_k``/``cross_v`` (K1
+    without a self partial) and adds the sinusoid of each position."""
     check_supported(cfg)
     x = L.embed_tokens(params["embed"], tokens)
     n = torch.as_tensor(cache["len"], dtype=torch.int32, device=x.device)
     btab = cache.get("block_tab")
+    window = cfg.sliding_window
+    if btab is not None and (cfg.family not in TRANSFORMER_FAMILIES
+                             or window is not None):
+        raise ValueError("paged cache requires an attention family "
+                         "without a rolling SWA cache")
+    slot = n if window is None else n % cache["k"].shape[2]
+    if cfg.family == "audio":
+        x = x + L.sinusoidal_positions(n.reshape(-1, 1), cfg.d_model).to(
+            x.dtype)
     index = None
     if btab is not None:
         pool = cache["k"]
         index = _paged_write_index(btab, n, 1, pool.shape[1] - 1,
                                   pool.shape[2], live)
+    cross = cache.get("cross_k"), cache.get("cross_v")
+    # the encoder length, made on the device once a step (a host scalar
+    # per layer would be a copy to the card each time)
+    cross_len = (None if cross[0] is None else torch.full(
+        (), cross[0].shape[2], dtype=torch.int32, device=x.device))
     delta = None
     for i, lp in enumerate(blocks(params, cfg)):
         (x, delta), k1, v1 = decoder_block_decode(
             lp, cfg, x, delta, cache["k"][i], cache["v"][i], n,
-            block_tables=btab)
+            window=window,
+            cross_k=None if cross[0] is None else cross[0][i],
+            cross_v=None if cross[1] is None else cross[1][i],
+            cross_len=cross_len, block_tables=btab)
         # layer i's attention has read its cache; the token's KV lands
         # at its slot now (later layers never read layer i's rows)
         if btab is None:
-            _write_token_kv(cache["k"][i], k1, n, live)
-            _write_token_kv(cache["v"][i], v1, n, live)
+            _write_token_kv(cache["k"][i], k1, slot, live)
+            _write_token_kv(cache["v"][i], v1, slot, live)
         else:
             _write_paged(cache["k"][i], k1, index)
             _write_paged(cache["v"][i], v1, index)
@@ -456,6 +627,17 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
 # ---------------------------------------------------------------------------
 # chunked prefill and speculative verify (prefill over a cache, K4)
 # ---------------------------------------------------------------------------
+
+def _check_over_cache(cfg, what: str) -> None:
+    """Chunked prefill and verify resume attention from a KV view: the
+    attention families without a rolling window only (the reference's
+    refusals, ``model.py:708-714``, ``:1014-1020``)."""
+    check_supported(cfg)
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise ValueError(f"{what} unsupported for family {cfg.family!r}")
+    if cfg.sliding_window is not None:
+        raise ValueError(f"{what} does not support rolling SWA caches")
+
 
 def _layers_over_cache(params, cfg, x, hist, hist_len, positions, write):
     """Run every layer over ``x`` against layer ``i``'s history
@@ -486,7 +668,7 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
     (logits (B, V) read at ``logit_index`` within the chunk — the last
     position when None — and ks, vs (L, B, S, Hkv, Dh)): the chunk's KV
     rows, to be written at offset ``hist_len``."""
-    check_supported(cfg)
+    _check_over_cache(cfg, "chunked prefill")
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     hl = torch.as_tensor(hist_len, dtype=torch.int32, device=x.device)
@@ -520,7 +702,7 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
     past the capacity, and on a paged cache past the rows' allocated
     blocks, are dropped). Returns (logits (B, S, V) fp32 — position i is
     the next-token distribution after candidate i — and the cache)."""
-    check_supported(cfg)
+    _check_over_cache(cfg, "speculative verify")
     x = L.embed_tokens(params["embed"], tokens)
     b, s = tokens.shape
     dev = x.device
@@ -565,6 +747,9 @@ def self_draft_params(params, cfg, n_draft_layers: int):
     ``(draft_params, draft_cfg)``; every leaf is a view of the target's
     tensors, not a copy."""
     check_supported(cfg)
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise ValueError(f"self-draft unsupported for family "
+                         f"{cfg.family!r}")
     k = int(max(1, min(n_draft_layers, cfg.n_layers)))
     first = params.get("first_layers", [])
     n_stack = max(0, k - len(first))

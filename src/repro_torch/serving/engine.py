@@ -8,8 +8,10 @@ engine in the vLLM style that consumes its KV cache only through the
 - blocking admission runs a request's whole prompt in one bucketed
   prefill (right-padded to a power of two from ``prefill_bucket_min``;
   logits are read at the prompt's last real position, pad KV is masked
-  by the per-slot length), and retires it at once when the first token
-  already ends it (budget, EOS, capacity);
+  by the per-slot length — except on a rolling sliding-window cache,
+  whose prompts run at their exact length, since pads would roll into
+  the window), and retires it at once when the first token already ends
+  it (budget, EOS, capacity);
 - chunked admission only binds a slot; each step then runs at most one
   ``chunk_tokens`` prefill chunk over the slot's cached history
   (prefill over cache, K4), and the final chunk samples the first token;
@@ -20,9 +22,15 @@ engine in the vLLM style that consumes its KV cache only through the
   ``gamma`` draft dispatches of the self-draft. Each live slot advances
   at its own absolute position; free slots are frozen by the live mask.
   Prefill reaches the flash kernel (K3), every RMSNorm the RMSNorm
-  kernel (K5). The dense, MoE and vlm families run; a vlm prompt's
+  kernel (K5). The dense, MoE and vlm families run, with or without a
+  rolling sliding window, and whisper's encoder–decoder; a vlm prompt's
   stub image prefix (zeros) takes the cache positions before its
-  tokens and is counted in its length;
+  tokens and is counted in its length, and a whisper prompt's stub
+  frames (zeros, ``encoder_len`` of them) feed the encoder at its
+  admission. Where the paged layout or a policy cannot express the
+  model (whisper, a rolling window), the engine falls back to the
+  contiguous cache and to blocking admission, warning as the reference
+  does;
 - sampling is a head outside the dispatch over the returned fp32
   logits (:func:`make_sampler`): ``"greedy"`` (argmax; the committed
   speculative stream is then the vanilla greedy stream) or
@@ -114,6 +122,16 @@ def build_closures(cfg):
 
 
 _M32 = 0xFFFFFFFF
+
+
+def stub_frames(cfg, device) -> torch.Tensor | None:
+    """Whisper's stub encoder input: one row of zero frame embeddings
+    (1, encoder_len, d_model) in the model's dtype, as the reference
+    engine feeds it; None for the other families."""
+    if cfg.family != "audio":
+        return None
+    return torch.zeros((1, cfg.encoder_len, cfg.d_model),
+                       dtype=dtype_of(cfg), device=device)
 
 
 def stub_images(cfg, device) -> torch.Tensor | None:
@@ -465,7 +483,11 @@ class ServingEngine:
         self.spec_drafted = 0        # candidate tokens proposed
         self.spec_committed = 0      # tokens committed by verify steps
         self.spec_draft_accepted = 0  # committed tokens that were drafted
-        self._bucketed = ecfg.prefill_bucket_min > 0
+        # bucketed prefill where right-padding is harmless (causal
+        # attention masks pad KV per row); a rolling window stays
+        # exact-length: its cache would roll the pads in
+        self._bucketed = (ecfg.prefill_bucket_min > 0
+                          and cfg.sliding_window is None)
         # dispatch audit trail: (step, kind, operand specs) per dispatch
         self.dispatch_log: list[dict] = []
         self.step_index = 0
@@ -799,11 +821,14 @@ class ServingEngine:
         return self.ecfg.max_seq_len - 1 - self._n_prefix
 
     def _batch(self, toks: np.ndarray, images: bool) -> dict:
-        """A one-row model batch of ``toks``; with ``images``, the vlm's
-        zero stub image prefix in the cache dtype before them."""
+        """A one-row model batch of ``toks``; with ``images`` (the
+        prompt's first dispatch), the vlm's zero stub image prefix in the
+        cache dtype before them, or whisper's zero stub frames."""
         batch = {"tokens": torch.from_numpy(toks[None, :]).to(self.device)}
         if images and self._n_prefix:
             batch["images"] = stub_images(self.cfg, self.device)
+        if images and self.cfg.family == "audio":
+            batch["frames"] = stub_frames(self.cfg, self.device)
         return batch
 
     def _bucket_len(self, n: int) -> int:

@@ -4,7 +4,9 @@ Counterpart of ``repro/serving/kv_cache.py``. :class:`KVCacheManager` is
 the protocol the engine consumes, with two backends:
 
 - :class:`ContiguousCache` — every slot owns ``max_seq_len`` positions
-  of a ``(L, B, C, Hkv, Dh)`` cache on the device;
+  of a ``(L, B, C, Hkv, Dh)`` cache on the device (``C`` the window for a
+  rolling sliding-window cache), and whisper's slots also their fixed
+  cross-attention K/V (``cross_k``/``cross_v``);
 - :class:`PagedCache` — one shared pool of fixed-size KV blocks
   ``(L, NB + 1, bs, Hkv, Dh)`` (the last block is a never-allocated
   scratch block that takes dropped writes), a host-side per-slot block
@@ -28,11 +30,16 @@ it is never registered or shared.
 ``export_slot`` / ``import_slot`` move one live slot's KV through the
 host (SLO preemption): the packet holds CPU tensors in the cache's own
 dtype (a bf16 round trip is bitwise) and is portable between backends.
+
+:func:`make_kv_cache` falls back to contiguous, with the reference's
+warning, for what the paged layout cannot express: families other than
+the attention decoders, and rolling sliding-window caches.
 """
 from __future__ import annotations
 
 import hashlib
 import math
+import warnings
 from typing import Protocol, runtime_checkable
 
 import numpy as np
@@ -46,9 +53,11 @@ def _nbytes(shape, dtype) -> int:
 
 
 def kv_bytes_per_token(cfg) -> int:
-    """Bytes of KV state one cached position occupies across all layers."""
+    """Bytes of self-attention KV state one cached position occupies
+    across all layers (a whisper slot's cross K/V is per slot, not per
+    position: :func:`contiguous_kv_bytes` counts it)."""
     st = MD.cache_struct(cfg, 1, 1)
-    return sum(_nbytes(*st[name]) for name in ("k", "v"))
+    return sum(_nbytes(*st[name]) for name in ("k", "v") if name in st)
 
 
 def contiguous_kv_bytes(cfg, batch: int, capacity: int) -> int:
@@ -277,23 +286,31 @@ def _export_span(n_valid: int) -> int:
     return math.ceil(n / EXPORT_QUANTUM) * EXPORT_QUANTUM
 
 
-def _host_packet(n_valid: int, k: torch.Tensor, v: torch.Tensor) -> dict:
-    """A packet of host copies of ``k``/``v`` in their own dtype, and the
-    bytes that crossed the device boundary."""
-    k, v = k.to("cpu", copy=True), v.to("cpu", copy=True)
-    return {"n_valid": int(n_valid), "k": k, "v": v,
-            "kv_bytes": sum(t.numel() * t.element_size() for t in (k, v))}
+def _host_packet(n_valid: int, **rows: torch.Tensor) -> dict:
+    """A packet of host copies of ``rows`` (``k``, ``v`` and any other
+    batched cache leaf) in their own dtype, and the bytes that crossed
+    the device boundary."""
+    host = {name: t.to("cpu", copy=True) for name, t in rows.items()}
+    return {"n_valid": int(n_valid), **host,
+            "kv_bytes": sum(t.numel() * t.element_size()
+                            for t in host.values())}
 
 
 class ContiguousCache:
-    """Dense per-slot cache: every slot owns ``max_seq_len`` positions,
-    spliced and overwritten in place on the device."""
+    """Dense per-slot cache: every slot owns ``max_seq_len`` positions
+    (at most the window, for a rolling cache), spliced and overwritten
+    in place on the device. Every batched leaf is a slot's: ``k``/``v``,
+    and whisper's ``cross_k``/``cross_v``."""
 
     name = "contiguous"
 
     def __init__(self, cfg, ecfg, device):
         B, C = ecfg.max_batch, ecfg.max_seq_len
         self._cache = MD.init_cache(cfg, B, C, device=device)
+        self._leaves = [name for name, ax in
+                        MD.cache_batch_axes(self._cache).items()
+                        if ax is not None]
+        self._rolling = cfg.sliding_window is not None
         self._footprint = contiguous_kv_bytes(cfg, B, C)
         self.device = device
         # slots holding a live stream (spliced, reserved or imported and
@@ -307,15 +324,23 @@ class ContiguousCache:
     def splice(self, rows: dict, slot: int, n_prompt: int,
                budget: int, prompt=None) -> None:
         """``rows["k"]``/``rows["v"]`` (L, 1, S, Hkv, Dh) land at
-        positions ``0..S-1`` of ``slot``; the rest of the row is zeroed,
-        so the slot holds exactly what the reference's full-capacity
-        prefill cache would."""
+        positions ``0..S-1`` of ``slot`` and the rest of the row is
+        zeroed — or, on a rolling cache that ``S`` fills, the window
+        tail lands rolled (:func:`~repro_torch.models.model.roll_window`)
+        — so the slot holds exactly what the reference's full-capacity
+        prefill cache would; the other leaves (whisper's cross K/V) land
+        whole."""
         self._occupied.add(slot)
-        s = rows["k"].shape[2]
-        for name in ("k", "v"):
-            dst = self._cache[name][:, slot]
-            dst[:, :s] = rows[name][:, 0]
-            dst[:, s:].zero_()
+        for name in self._leaves:
+            dst, src = self._cache[name][:, slot], rows[name]
+            s, c = src.shape[2], dst.shape[1]
+            if name not in ("k", "v"):
+                dst.copy_(src[:, 0])
+            elif self._rolling and s >= c:
+                dst.copy_(MD.roll_window(src, c)[:, 0])
+            else:
+                dst[:, :s] = src[:, 0]
+                dst[:, s:].zero_()
 
     def reserve(self, slot: int, n_prompt: int, budget: int) -> None:
         self._occupied.add(slot)  # capacity is pre-provisioned per slot
@@ -349,13 +374,16 @@ class ContiguousCache:
 
     def export_slot(self, slot: int, n_valid: int, prompt=None,
                     n_prompt=None) -> dict:
-        """The slot's rows up to ``n_valid`` rounded up to the export
-        quantum (capped at the capacity). Prefix provenance is accepted
-        for signature parity and ignored: the dense layout shares
-        nothing."""
+        """The slot's row of every batched leaf: ``k``/``v`` up to
+        ``n_valid`` rounded up to the export quantum (capped at the
+        capacity — a rolling cache past its window exports every slot),
+        whisper's cross K/V whole. Prefix provenance is accepted for
+        signature parity and ignored: the dense layout shares nothing."""
         p = min(_export_span(n_valid), self._cache["k"].shape[2])
-        return _host_packet(n_valid, self._cache["k"][:, slot:slot + 1, :p],
-                            self._cache["v"][:, slot:slot + 1, :p])
+        return _host_packet(n_valid, **{
+            name: self._cache[name][:, slot:slot + 1,
+                                    :p if name in ("k", "v") else None]
+            for name in self._leaves})
 
     def import_slot(self, packet: dict, slot: int, n_prompt: int,
                     budget: int) -> None:
@@ -364,7 +392,7 @@ class ContiguousCache:
                 f"import_slot into occupied slot {slot}: a live stream's "
                 "KV would be silently clobbered — free the slot first "
                 "(preemption/requeue must never double-import)")
-        rows = {name: packet[name].to(self.device) for name in ("k", "v")}
+        rows = {name: packet[name].to(self.device) for name in self._leaves}
         self.splice(rows, slot, n_prompt, budget)
 
     def resident_kv_bytes(self) -> int:
@@ -422,6 +450,12 @@ class PagedCache:
     name = "paged"
 
     def __init__(self, cfg, ecfg, device):
+        if cfg.family not in MD.TRANSFORMER_FAMILIES:
+            raise ValueError(f"paged cache does not support family "
+                             f"{cfg.family!r}")
+        if cfg.sliding_window is not None:
+            raise ValueError("paged cache does not support rolling SWA "
+                             "caches (already capacity-bounded)")
         bs, C = ecfg.kv_block_size, ecfg.max_seq_len
         if bs <= 0 or C % bs:
             raise ValueError(
@@ -670,8 +704,8 @@ class PagedCache:
         idx = idx.to(self.device)
         l, tail = self._pool_k.shape[0], self._pool_k.shape[3:]
         packet = _host_packet(
-            n_valid, self._pool_k[:, idx].reshape(l, 1, nblk * bs, *tail),
-            self._pool_v[:, idx].reshape(l, 1, nblk * bs, *tail))
+            n_valid, k=self._pool_k[:, idx].reshape(l, 1, nblk * bs, *tail),
+            v=self._pool_v[:, idx].reshape(l, 1, nblk * bs, *tail))
         if (self.prefix is not None and prompt is not None
                 and n_prompt is not None):
             packet["prefix"] = {
@@ -749,9 +783,19 @@ class PagedCache:
 
 
 def make_kv_cache(cfg, ecfg, device) -> KVCacheManager:
+    """Build the configured backend; families the paged layout cannot
+    express (whisper's cross-attention cache, rolling SWA) fall back to
+    contiguous with the reference's warning."""
     kind = ecfg.kv_cache
     if kind == "contiguous":
         return ContiguousCache(cfg, ecfg, device)
     if kind == "paged":
+        if (cfg.family not in MD.TRANSFORMER_FAMILIES
+                or cfg.sliding_window is not None):
+            warnings.warn(
+                f"paged KV cache unsupported for family={cfg.family!r} "
+                f"sliding_window={cfg.sliding_window}; falling back to "
+                "contiguous", stacklevel=2)
+            return ContiguousCache(cfg, ecfg, device)
         return PagedCache(cfg, ecfg, device)
     raise ValueError(f"unknown kv_cache {kind!r}")

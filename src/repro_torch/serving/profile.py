@@ -1,11 +1,14 @@
 """Where a serving step's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.serving.profile [--w4]
+    PYTHONPATH=src python -m repro_torch.serving.profile [--arch ID] [--w4]
 
-Builds the full-width bf16 qwen1.5-0.5b engine (random weights from a
-seed), fills its 8 slots, then traces with ``torch.profiler`` (CPU and
-CUDA activities) one bucketed 1024-token prefill and a window of decode
-steps. With ``--w4`` it traces instead a window of batch-1 W16
+Builds the full-width bf16 engine of ``--arch`` (default qwen1.5-0.5b;
+also h2o-danube-1.8b, mistral-7b or whisper-large-v3 — any registry
+model the port serves that fits the card; random weights from a seed),
+fills its 8 slots, then traces with ``torch.profiler`` (CPU and CUDA
+activities) one 1024-token prefill (whisper's with its stub frames) and
+a window of decode steps. With ``--w4`` it traces instead a window of
+batch-1 W16
 ``decode_step``s and one of W4A16 ``w4_decode_step``s (group 128) of
 full-width bf16 phi3-mini-3.8b over a 512-token cache. For each window
 it prints the wall time, the summed device time of the kernels, the
@@ -24,7 +27,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import registry
 from repro_torch.models import model as MD
-from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.serving.engine import (EngineConfig, ServingEngine,
+                                        stub_frames)
 
 
 def report(window: str, prof, wall_s: float, n: int, top: int) -> None:
@@ -47,14 +51,18 @@ DECODE_STEPS = 10   # steps in the decode window
 TOP = 12            # kernels listed per window
 
 
-def live_engine(params, cfg, rng) -> ServingEngine:
-    """An engine (8 slots, capacity 2048) with all 8 slots admitted from
-    prompts of 256–1023 tokens and every shape warm: its ``step`` is one
-    ragged decode dispatch over 8 live slots."""
+def live_engine(params, cfg, rng, lens=None,
+                max_seq_len: int = 2048) -> ServingEngine:
+    """An engine (8 slots, capacity ``max_seq_len``) with all 8 slots
+    admitted from prompts of ``lens`` tokens (default: 256–1023, seeded)
+    and every shape warm: its ``step`` is one ragged decode dispatch
+    over 8 live slots."""
     eng = ServingEngine(params, cfg, EngineConfig(
-        max_batch=8, max_seq_len=2048, max_new_tokens=10_000))
-    for n in rng.integers(256, 1024, size=8):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=n))
+        max_batch=8, max_seq_len=max_seq_len, max_new_tokens=10_000))
+    if lens is None:
+        lens = rng.integers(256, 1024, size=8)
+    for n in lens:
+        eng.submit(rng.integers(0, cfg.vocab_size, size=int(n)))
     for _ in range(3):
         eng.step()
     return eng
@@ -78,18 +86,20 @@ def measure(window: str, n: int, fn, top: int = 12) -> None:
     report(window, prof, wall, n, top)
 
 
-def serving_windows() -> dict:
-    """The qwen1.5-0.5b engine's prefill and 8-slot decode windows."""
-    cfg = registry.get_config("qwen1.5-0.5b")
+def serving_windows(arch: str = "qwen1.5-0.5b") -> dict:
+    """The ``arch`` engine's prefill and 8-slot decode windows."""
+    cfg = registry.get_config(arch)
     params = MD.init_params(cfg, seed=0)
     rng = np.random.default_rng(0)
     eng = live_engine(params, cfg, rng)
 
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 1024)),
                            device="cuda")
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["frames"] = stub_frames(cfg, "cuda")
     return {
-        "prefill": (1, lambda: eng._prefill_one(params, {"tokens": toks},
-                                                1000)),
+        "prefill": (1, lambda: eng._prefill_one(params, batch, 1000)),
         # one ragged decode dispatch over 8 live slots per step
         "decode": (DECODE_STEPS, eng.step),
     }
@@ -122,16 +132,18 @@ def w4_windows() -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    help="registry model of the serving windows")
     ap.add_argument("--w4", action="store_true",
                     help="phi3-mini-3.8b W16 vs W4A16 decode steps instead "
-                    "of the qwen1.5-0.5b serving windows")
+                    "of the serving windows")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(f"[profile] card='{card}' torch={torch.__version__}", flush=True)
-    windows = w4_windows() if args.w4 else serving_windows()
+    windows = w4_windows() if args.w4 else serving_windows(args.arch)
     for name, (n, fn) in windows.items():
         measure(name, n, fn, TOP)
 

@@ -79,3 +79,31 @@ def test_moe_params_round_trip_bf16(arch):
     with pytest.raises(ValueError, match="first dense layers"):
         bridge.params_from_jax(jp, cfg.replace(n_layers=cfg.n_layers + 1),
                                device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_params_round_trip(dtype):
+    """Whisper's tree — the stacked encoder ``enc_layers``, ``enc_norm``
+    and each decoder layer's ``ln_x`` / ``xattn`` — both ways, bit for
+    bit, with the keys, shapes and dtypes of the port's own init; a
+    wrong encoder depth is refused."""
+    jcfg = jreg.get_smoke_config("whisper-large-v3").replace(dtype=dtype)
+    cfg = registry.get_smoke_config("whisper-large-v3").replace(dtype=dtype)
+    jp = jax.device_get(JMD.init_params(jax.random.PRNGKey(7), jcfg))
+    tp = bridge.params_from_jax(jp, cfg, device="cpu")
+    want = dict(_leaves(jp))
+    got = dict(_leaves(bridge.params_to_numpy(tp)))
+    own = dict(_leaves(MD.init_params(cfg, seed=0, device="cpu")))
+    assert got.keys() == want.keys() == own.keys()
+    assert {"/enc_norm/w", "/enc_norm/b", "/layers/ln_x/w",
+            "/layers/xattn/wq"} <= want.keys()
+    for path, t in _leaves(tp):
+        assert tuple(t.shape) == tuple(own[path].shape) == want[path].shape
+        assert t.dtype == own[path].dtype == getattr(torch, dtype), path
+        np.testing.assert_array_equal(
+            got[path], np.asarray(want[path]).astype(np.float32), path)
+    assert tp["enc_layers"]["attn"]["wq"].shape[0] == cfg.n_encoder_layers
+    with pytest.raises(ValueError, match="n_encoder_layers"):
+        bridge.params_from_jax(
+            jp, cfg.replace(n_encoder_layers=cfg.n_encoder_layers + 1),
+            device="cpu")

@@ -199,7 +199,7 @@ def _k3_cases():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("dh", [64, 96, 128])
+@pytest.mark.parametrize("dh", [64, 80, 96, 128])
 def test_flash_attention_tiles_match_plain_on_card(card, dtype, tol, dh):
     """K3 against its plain version at every head dim it takes, over
     tile-edge lengths and every mask it applies."""
@@ -314,7 +314,7 @@ def _k1_lens(split, cap):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("dh", [64, 96, 128])
+@pytest.mark.parametrize("dh", [64, 80, 96, 128])
 @pytest.mark.parametrize("g", [1, 2, 8])
 @pytest.mark.parametrize("hkv", [2, 8, 16])
 @pytest.mark.parametrize("self_kv", [True, False])
@@ -491,3 +491,135 @@ def test_prefill_attention_family_shapes_on_card(card, dtype, tol, hq, hkv,
             msg=lambda m: f"hist_len={hist_len}: {m}")
         assert torch.equal(got, ops.prefill_attention(q, kh, vh, hist_len,
                                                       ks, vs))
+
+
+# the rolling sliding-window cache (h2o-danube-1.8b, mistral-7b: GQA
+# 32/8 at Dh 80 and 128) and whisper's cross-attention and encoder
+# (MHA 20 x 64)
+SWA_HEADS = [(80, 32, 8), (128, 32, 8)]   # (Dh, Hq, Hkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("dh,hq,hkv", SWA_HEADS)
+@pytest.mark.parametrize("cap_is_window", [True, False])
+def test_decode_attention_rolling_window_on_card(card, dtype, tol, dh, hq,
+                                                 hkv, cap_is_window):
+    """K1's rolling mask against its plain version: 8 rows with lengths
+    on both sides of the window (a full row masks slot len % C, the
+    position one window back), the cache as wide as the window or
+    narrower (no slot masked then); two runs are the same bits, and a
+    window no row fills gives K1's bits without one."""
+    gen = torch.Generator(device=card).manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    cap = 256
+    window = cap if cap_is_window else 4 * cap
+    b = 8
+    lens = torch.tensor([1, 100, 255, 256, 257, 300, 511, 1000],
+                        dtype=torch.int32, device=card)
+    q, kc, vc = rnd(b, 1, hq, dh), rnd(b, cap, hkv, dh), rnd(b, cap, hkv, dh)
+    kw = dict(extra_k=rnd(b, 1, hkv, dh), extra_v=rnd(b, 1, hkv, dh))
+    got = ops.decode_attention(q, kc, vc, lens, window=window, **kw)
+    want = ref.decode_attention(q, kc, vc, lens, window=window, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, ops.decode_attention(q, kc, vc, lens,
+                                                 window=window, **kw))
+    short = lens.clamp(max=cap - 1)
+    assert torch.equal(
+        ops.decode_attention(q, kc, vc, short, window=window, **kw),
+        ops.decode_attention(q, kc, vc, short, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_decode_attention_cross_cache_on_card(card, dtype, tol):
+    """K1 as whisper's cross-attention decode: 8 rows over the fixed
+    1500-row encoder cache, 20 heads of 64, no self partial (12 splits
+    of 128, the last partial); two runs are the same bits."""
+    gen = torch.Generator(device=card).manual_seed(32)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    b, t, h, dh = 8, 1500, 20, 64
+    q, kc, vc = rnd(b, 1, h, dh), rnd(b, t, h, dh), rnd(b, t, h, dh)
+    got = ops.decode_attention(q, kc, vc, t)
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention(q, kc, vc, t).float(), atol=tol,
+        rtol=tol)
+    assert torch.equal(got, ops.decode_attention(q, kc, vc, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("sq", [1500, 256, 17])
+def test_flash_attention_non_causal_encoder_on_card(card, dtype, tol, sq):
+    """K3 non-causal over whisper's 1500 encoder positions (23 tiles of
+    64 and 28 keys): the encoder (Sq = 1500) and the decoder's cross-
+    attention (Sq = a bucket). The keys score far below zero, so keys
+    past 1500 — the zero-filled rows of the last tile, which would score
+    0 — would take nearly all the weight if they were not masked."""
+    gen = torch.Generator(device=card).manual_seed(33)
+    skv, h, dh = 1500, 20, 64
+    q = torch.rand((1, sq, h, dh), generator=gen, device=card).to(dtype)
+    k = (-1.0 - torch.rand((1, skv, h, dh), generator=gen, device=card)
+         ).to(dtype)
+    v = torch.randn((1, skv, h, dh), generator=gen, device=card).to(dtype)
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_window_past_it_on_card(card, dtype, tol):
+    """K3 at h2o-danube's head dim 80, GQA 32/8, windowed over a prompt
+    past the window (S = 600 > window 256, so tiles wholly before a
+    query block's window are skipped)."""
+    gen = torch.Generator(device=card).manual_seed(34)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    q, k, v = rnd(1, 600, 32, 80), rnd(1, 600, 8, 80), rnd(1, 600, 8, 80)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, window=256).float(),
+        ref.flash_attention(q, k, v, window=256).float(), atol=tol,
+        rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_bits_at_the_kernel_phase_shape_on_card(card, dtype):
+    """K2 at the kernel phase's first decode shape (B 8, C 2048, MHA 16 x
+    64, ragged lengths, self partial) on scattered pool blocks is K1's
+    bits on the same rows, and K1 with a window no row fills is K1
+    without one: the rolling mask moves no bit of a row it spares."""
+    gen = torch.Generator(device=card).manual_seed(35)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    b, cap, bs, h, dh = 8, 2048, 16, 16, 64
+    q, kc, vc = rnd(b, 1, h, dh), rnd(b, cap, h, dh), rnd(b, cap, h, dh)
+    ek, ev = rnd(b, 1, h, dh), rnd(b, 1, h, dh)
+    lens = torch.randint(1, cap + 1, (b,), generator=gen, device=card,
+                         dtype=torch.int32)
+    lens[0] = cap - 1
+    kp, tab = _scatter_to_pool(kc, bs, b * cap // bs, lens.tolist(),
+                               torch.Generator().manual_seed(35))
+    vp, _ = _scatter_to_pool(vc, bs, b * cap // bs, lens.tolist(),
+                             torch.Generator().manual_seed(35))
+    k1 = ops.decode_attention(q, kc, vc, lens, extra_k=ek, extra_v=ev)
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, tab, lens,
+                                                  extra_k=ek, extra_v=ev),
+                       k1)
+    assert torch.equal(ops.decode_attention(q, kc, vc, lens, extra_k=ek,
+                                            extra_v=ev, window=cap), k1)

@@ -60,6 +60,28 @@ def test_flash_attention_plain_matches_pallas(case, sq, sk, hq, hkv, window):
         causal=True, window=window, q_offset=q_off), model)
 
 
+@pytest.mark.parametrize("case,sq,sk,hq,hkv,dh,causal,window", [
+    ("window_dh80", 48, 48, 4, 2, 80, True, 16),   # h2o-danube's head dim
+    ("encoder", 40, 40, 2, 2, 16, False, None),    # whisper's encoder
+    ("cross", 16, 40, 2, 2, 16, False, None),      # its cross-attention
+])
+def test_flash_attention_plain_matches_pallas_window_and_audio(
+        case, sq, sk, hq, hkv, dh, causal, window):
+    """The rolling-window and whisper slice's K3 calls: head dim 80 with a
+    window, and non-causal with Skv == Sq and Skv != Sq."""
+    q, k, v = _inputs(2, (1, sq, hq, dh), (1, sk, hkv, dh), (1, sk, hkv, dh))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              window=window)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, window=window,
+                                block_q=16, block_k=16)
+    _close(got, want)
+    _close(got, jattn.reference_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+
+
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 def test_decode_attention_plain_matches_pallas_and_model(hq, hkv):
     b, cap, dh = 3, 40, 16

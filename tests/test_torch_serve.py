@@ -42,3 +42,18 @@ def test_serve_main_runs_moe_and_vlm(capsys, arch):
             "--capacity", "32", "--kv-cache", "paged"]
     assert serve.main(argv) == 0
     assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mistral-7b",
+                                  "whisper-large-v3"])
+def test_serve_main_runs_window_and_audio(capsys, arch):
+    """The launcher serves the rolling-window smoke models (prompts past
+    the window) and whisper's; a requested paged cache falls back to
+    contiguous with the reference's warning."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+            "--prompt-len", "40", "--max-new", "4", "--slots", "2",
+            "--capacity", "64", "--kv-cache", "paged"]
+    with pytest.warns(UserWarning, match="falling back to contiguous"):
+        assert serve.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out and "kv=contiguous" in out
