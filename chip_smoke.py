@@ -34,7 +34,11 @@ Phases, one line each (any failure exits non-zero):
    sides of the window), K1 as whisper's cross-attention decode (1500
    rows, 20 heads of 64, no self partial), K3 at Dh 80 over 6000 tokens
    with the 4096 window, and non-causal over whisper's 1500 encoder
-   positions (self, and cross from a 256-token bucket);
+   positions (self, and cross from a 256-token bucket); phase 9's
+   shapes: K1 and K3 at zamba2-2.7b's shared block, MHA 32 x Dh 80 (K1
+   over 8 ragged slots at capacity 2048 with the self partial, K3
+   causal over a 1024-token bucket), K5 at its gated norm's (8, 5120)
+   without the add and its layer norm's (8, 2560) with it;
 3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
    must equal the port's own batch-1 prefill + decode_step loop, and
@@ -96,7 +100,26 @@ Phases, one line each (any failure exits non-zero):
    rolling one's with 8 decode steps past the window (whisper: a
    200-token prompt over seeded frames) against the plain versions, 8
    requests of 64 new tokens on contiguous + blocking, and one decode
-   step of 8 live slots traced by ``torch.profiler``.
+   step of 8 live slots traced by ``torch.profiler``;
+9. recurrent — zamba2-2.7b (Mamba2 and the shared attention block) and
+   xlstm-350m (mLSTM / sLSTM) at full width, random weights from the
+   seed, one model at a time: (a) float32, zamba2 12 layers deep (2
+   groups of 6, two shared-block applications), xlstm at full depth, 4
+   requests of 17, 300, 700 and 1000 tokens, 16 new each, over 8 slots
+   at capacity 2048: contiguous + blocking equal to the batch-1 loop;
+   admission bucketed from 16 against exact-length, the same streams and
+   every leaf each admission splices ``torch.equal``; the requested
+   paged, chunked and speculative runs each warning as the reference
+   does and giving the same streams; the overload trace under FIFO and
+   SLO (>= 1 preemption, equal streams); export -> import of every live
+   slot ``torch.equal`` leaf by leaf; (b) bf16 at full depth: the first
+   prefill and 8 decode steps, every K1 / K3 / K5 call held to its
+   plain version on its own inputs and the logits to the plain
+   versions' within the larger of 3e-2 and twice what one-ulp noise at
+   the plain path's kernel outputs moves them, 8
+   requests of 256–1023 tokens (64 new each) on contiguous + blocking,
+   one decode step of 8 live slots and one 1024-token prefill traced by
+   ``torch.profiler``. Each model's step ends the process past 420 s.
 
 Every engine run and every W4 step checks each kernel's launch count
 against what its path must launch.
@@ -598,7 +621,7 @@ def cold_of(nbytes, make, *tensors):
     return cold
 
 
-def add_rmsnorm_case(gen, m, d, xdt, adt, hdt):
+def add_rmsnorm_case(gen, m, d, xdt, adt, hdt, label=""):
     """K5 with the residual add at (m, d), (x, a, h) dtypes: (s, h)
     against the plain version; bitwise, torch's ``x + a`` and the kernel
     without the add on it; library: ``x + a`` then ``F.rms_norm`` (cast
@@ -624,7 +647,7 @@ def add_rmsnorm_case(gen, m, d, xdt, adt, hdt):
 
     names = ",".join(str(t).removeprefix("torch.") for t in (xdt, adt, hdt))
     return (
-        "add_rmsnorm", f"M={m},d={d},x+a->h={names}", kern,
+        "add_rmsnorm", f"{label}M={m},d={d},x+a->h={names}", kern,
         lambda: ref.add_rmsnorm(x, a, w, out_dtype=hdt), lib,
         nbytes, 5 * m * d,
         [("x_plus_a_then_the_kernel_without_a",
@@ -635,6 +658,27 @@ def add_rmsnorm_case(gen, m, d, xdt, adt, hdt):
          "floor": lambda: x + a})
 
 
+def rmsnorm_case(gen, m, d, dtype, label=""):
+    """K5 without the add at (m, d) against the plain version; library:
+    ``F.rms_norm``; cold: copies of x and w. Bytes: x read, h written,
+    w once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as krn
+    elt = torch.tensor([], dtype=dtype).element_size()
+    x = _rand(gen, (m, d), dtype)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    nbytes = (2 * m * d + d) * elt
+    return (
+        "rmsnorm", f"{label}M={m},d={d}",
+        lambda: krn.rmsnorm(x, w), lambda: ref.rmsnorm(x, w),
+        lambda: F.rms_norm(x, (d,), w, eps=1e-6), nbytes, 4 * m * d, [],
+        {"cold": cold_of(nbytes, lambda x, w: (
+            lambda: krn.rmsnorm(x, w),
+            lambda: F.rms_norm(x, (d,), w, eps=1e-6)), x, w)})
+
+
 def kernel_cases(gen, dtype):
     """(name, case, kernel_fn, plain_fn, library_fn|None, bytes, flops,
     same[, opts]) at the paths' shapes for one dtype; ``same`` lists
@@ -643,27 +687,11 @@ def kernel_cases(gen, dtype):
     and library calls on copies beyond the L2), ``floor`` (the lone
     elementwise op a fused kernel absorbs)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
-    from repro_torch.kernels import rmsnorm as krn
     elt = torch.tensor([], dtype=dtype).element_size()
-    cases = []
     d = 1024
-    for m in (8, 512):
-        x = _rand(gen, (m, d), dtype)
-        w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-             ).to(dtype)
-        nbytes = (2 * m * d + d) * elt
-        cases.append((
-            "rmsnorm", f"M={m},d={d}",
-            lambda x=x, w=w: krn.rmsnorm(x, w),
-            lambda x=x, w=w: ref.rmsnorm(x, w),
-            lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps=1e-6),
-            nbytes, 4 * m * d, [],
-            {"cold": cold_of(nbytes, lambda x, w, d=d: (
-                lambda: krn.rmsnorm(x, w),
-                lambda: F.rms_norm(x, (d,), w, eps=1e-6)), x, w)}))
+    cases = [rmsnorm_case(gen, m, d, dtype) for m in (8, 512)]
     # the fused add: qwen's decode rows and its prefill bucket, in the
     # serving dtype (the float32 gates' in float32)
     for m in (8, 1024):
@@ -1011,6 +1039,22 @@ def window_audio_cases(gen, dtype):
     return cases
 
 
+def recurrent_cases(gen, dtype):
+    """Phase 9's kernel shapes (their own generator): zamba2-2.7b's
+    shared attention block, MHA 32 x Dh 80 — K1 over 8 slots at capacity
+    2048 (ragged lengths, the self partial) and K3 causal over a
+    1024-token bucket, no window — and K5 at its Mamba2 widths: the
+    gated norm at d_in 5120 (no add) and the layer norm at d 2560 with
+    the residual add, 8 rows each."""
+    cases = decode_cases(gen, dtype, 8, 2048, 32, 32, 80)[:1]   # K1 only
+    cases.append(flash_case(gen, dtype, "zamba2", 1024, 1024, 32, 32, 80,
+                            causal=True))
+    cases.append(rmsnorm_case(gen, 8, 5120, dtype, "zamba2_gated,"))
+    cases.append(add_rmsnorm_case(gen, 8, 2560, dtype, dtype, dtype,
+                                  "zamba2_ln,"))
+    return cases
+
+
 def phase_kernels() -> dict:
     """Every kernel vs its plain version, both dtypes. Returns, per
     kernel, the bf16 numbers at its first (main-path) shape and the
@@ -1020,13 +1064,15 @@ def phase_kernels() -> dict:
     gen_w4 = torch.Generator(device="cuda").manual_seed(SEED + 13)
     gen_fam = torch.Generator(device="cuda").manual_seed(SEED + 18)
     gen_win = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    gen_rec = torch.Generator(device="cuda").manual_seed(SEED + 20)
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
         for name, case, kfn, pfn, lfn, nbytes, flops, same, *opts in (
                 kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)
                 + families_cases(gen_fam, dtype)
-                + window_audio_cases(gen_win, dtype)):
+                + window_audio_cases(gen_win, dtype)
+                + recurrent_cases(gen_rec, dtype)):
             opts = opts[0] if opts else {}
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -1214,22 +1260,43 @@ def straight_line_generate(params, cfg, prompt, n_new, capacity):
     return out
 
 
+def path_shape(cfg) -> tuple[int, int]:
+    """(K5 launches per dispatch, attention layers) of ``cfg``'s path.
+    A decoder of L layers: 2L + 1 RMSNorms (none on a LayerNorm model),
+    L attention layers. Zamba2 (L Mamba2 layers in G groups): each
+    layer's ``ln`` and gated norm, the shared block's two norms per
+    group and the final norm, 2L + 2G + 1; G attention layers (the
+    shared block's applications). xLSTM (n blocks): each block's two
+    RMSNorms (an mLSTM's ``norm`` and ``out_norm``, an sLSTM's ``norm``
+    and ``ff_norm``), 2n — its final norm is LayerNorm, in plain torch
+    — and no attention."""
+    from repro_torch.models import model as MD
+    rms_final = 1 if cfg.norm == "rmsnorm" else 0
+    if cfg.family == "hybrid":
+        g = MD.n_groups(cfg)
+        return 2 * cfg.n_layers + 2 * g + rms_final, g
+    if cfg.family == "ssm":
+        n_super, n_inner = MD.xlstm_dims(cfg)
+        blocks = n_super * (n_inner + (1 if cfg.slstm_every else 0))
+        return 2 * blocks + rms_final, 0
+    return (2 * cfg.n_layers + 1 if rms_final else 0), cfg.n_layers
+
+
 def check_launches(phase, eng, counts) -> None:
     """Every kernel of the path ran, exactly as often as the path says.
-    Target model (L layers): 2L + 1 RMSNorms per dispatch (none on a
-    LayerNorm model), L flash prefills per blocking prefill, L split-KV
-    decodes (contiguous) or L paged decodes per decode step, L
-    prefill-over-cache launches per chunk and per verify dispatch; on
-    whisper (E encoder layers) each prefill is 2L + E flash launches
-    (self, cross, encoder) and each decode step 2L split-KV decodes
-    (self, cross). Draft (k layers): 2k + 1 RMSNorms per dispatch, k
-    flash prefills per draft prefill, k split-KV decodes per draft
-    decode (its shadow cache is contiguous)."""
+    Target model (:func:`path_shape`: R RMSNorms per dispatch, L
+    attention layers): R RMSNorms per dispatch, L flash prefills per
+    blocking prefill, L split-KV decodes (contiguous) or L paged decodes
+    per decode step, L prefill-over-cache launches per chunk and per
+    verify dispatch; on whisper (E encoder layers) each prefill is
+    2L + E flash launches (self, cross, encoder) and each decode step 2L
+    split-KV decodes (self, cross). Draft (k layers): 2k + 1 RMSNorms
+    per dispatch, k flash prefills per draft prefill, k split-KV decodes
+    per draft decode (its shadow cache is contiguous)."""
     s = eng.summary()
     cfg = eng.cfg
-    n = cfg.n_layers
+    norms, n = path_shape(cfg)
     audio = cfg.family == "audio"
-    norms = 2 * n + 1 if cfg.norm == "rmsnorm" else 0
     k = eng.draft_cfg.n_layers if eng.draft_cfg is not None else 0
     decodes = s["decode_dispatches"] - s["verify_dispatches"]
     draft_decodes = s["draft_dispatches"] - s["draft_prefills"]
@@ -1248,14 +1315,16 @@ def check_launches(phase, eng, counts) -> None:
         "quant_gemv": 0,
     }
     # the kernels this path must have launched at least once
-    path = {"flash_attention" if s["prefills"] else "prefill_attention"}
+    path = set()
+    if n:
+        path.add("flash_attention" if s["prefills"] else "prefill_attention")
     if norms:
         path.add("rmsnorm")
     if s["prefill_chunk_dispatches"]:   # chunks and warm prefix admissions
         path.add("prefill_attention")
     if s["scheduler"] == "speculative":
         path |= {"decode_attention", "prefill_attention"}
-    else:
+    elif n:
         path.add("paged_decode_attention" if paged else "decode_attention")
     log(phase, launches=json.dumps(counts), expected=json.dumps(want),
         path=",".join(sorted(path)))
@@ -2354,15 +2423,17 @@ def window_prompts(cfg, lens, seed):
             for n in lens]
 
 
-def window_fallbacks(phase, params, cfg, prompts, base, total) -> None:
+def window_fallbacks(phase, params, cfg, prompts, base, total,
+                     capacity=WINDOW_CAPACITY) -> None:
     """Each requested paged / chunked / speculative run warns as the
-    reference does, runs contiguous + blocking, and gives ``base``."""
+    reference does, runs contiguous + blocking (and builds no draft),
+    and gives ``base``."""
     import warnings
     for label, (kw, msg) in FALLBACK_WARNINGS.items():
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
             eng, counts = run_engine(params, cfg, prompts, 16,
-                                     max_seq_len=WINDOW_CAPACITY, **kw)
+                                     max_seq_len=capacity, **kw)
         said = [str(w.message) for w in seen if msg in str(w.message)]
         _check_engine(f"{phase} {label}", eng, counts, len(prompts))
         _add(total, counts)
@@ -2371,7 +2442,8 @@ def window_fallbacks(phase, params, cfg, prompts, base, total) -> None:
             ran=f"{eng.kv.name}+{eng.scheduler.name}",
             streams_equal=got == base)
         if not said or got != base or eng.kv.name != "contiguous" \
-                or eng.scheduler.name != "blocking":
+                or eng.scheduler.name != "blocking" \
+                or eng.draft_kv is not None:
             raise AssertionError(f"{phase} {cfg.name} {label}: warned "
                                  f"{said}, ran {eng.kv.name}+"
                                  f"{eng.scheduler.name}, streams equal "
@@ -2403,19 +2475,21 @@ def window_slo(phase, params, cfg, total) -> None:
                              f"{slo['outputs'] == fifo['outputs']}")
 
 
-def window_export_import(phase, params, cfg, prompts) -> None:
+def window_export_import(phase, params, cfg, prompts,
+                         capacity=WINDOW_CAPACITY) -> None:
     """Every live slot exported and imported into a free one gives its
     packet back ``torch.equal``, leaf by leaf — past the window on a
     rolling cache (the 4090-token prompt's slot crosses it during the
-    steps), with the cross K/V on whisper."""
+    steps), with the cross K/V on whisper, with every state leaf on a
+    recurrent model."""
     import torch
-    eng = _engine(params, cfg, max_batch=8, max_seq_len=WINDOW_CAPACITY,
+    eng = _engine(params, cfg, max_batch=8, max_seq_len=capacity,
                   max_new_tokens=64)
     for p in prompts:
         eng.submit(p)
     for _ in range(10):
         eng.step()
-    cap = eng.kv._cache["k"].shape[2]
+    cap = eng.kv._cache["k"].shape[2] if "k" in eng.kv._cache else 0
     for slot in range(len(prompts)):
         n = int(eng.slot_pos[slot])
         pkt = eng.kv.export_slot(slot, n)
@@ -2425,7 +2499,7 @@ def window_export_import(phase, params, cfg, prompts) -> None:
         leaves = sorted(k for k in pkt if k not in ("n_valid", "kv_bytes"))
         same = all(torch.equal(pkt[x], back[x]) for x in leaves)
         log(phase, arch=cfg.name, export_import=f"slot {slot}->{dst}",
-            positions=n, capacity=cap, rolled=n >= cap,
+            positions=n, capacity=cap, rolled=bool(cap) and n >= cap,
             leaves=",".join(leaves), kv_bytes=pkt["kv_bytes"],
             rows_equal=same)
         if not same:
@@ -2485,9 +2559,10 @@ def phase_window_f32() -> dict:
 WINDOW_STEPS = 8       # 8b's decode steps past the window
 
 
-def _tie_gate(what, got, want) -> tuple:
-    """Normwise relative error of ``got`` against ``want`` within the
-    bf16 tolerance, and the same argmax in every row — or, where the
+def _tie_gate(what, got, want, tol=TOL["bfloat16"]) -> tuple:
+    """Normwise relative error of ``got`` against ``want`` within
+    ``tol`` (the bf16 tolerance), and the same argmax in every row — or,
+    where the
     argmax differs, a tie at rounding level: the plain run's logits of
     the two tokens closer than the two runs differ anywhere in that row,
     so their order is inside the rounding the comparison allows. Returns
@@ -2504,18 +2579,100 @@ def _tie_gate(what, got, want) -> tuple:
                                  f"against {int(wa[r])}, plain margin "
                                  f"{margin:.3e} > the row's max error "
                                  f"{noise:.3e}")
-    if rel > TOL["bfloat16"]:
+    if rel > tol:
         raise AssertionError(f"{what}: relative error {rel:.3e} (tolerance "
-                             f"{TOL['bfloat16']})")
+                             f"{tol:.3e})")
     return rel, ties
 
 
-def window_logits(phase, params, cfg, prompt) -> None:
+@contextlib.contextmanager
+def ulp_noise(seed=SEED):
+    """Inside :func:`plain_kernels`: every bf16 output of the kernel ops
+    a model path runs — K1's, K3's and K5's normalised ``h`` (its ``s``
+    is ``x + a`` bitwise on both routes) — moved by one ulp, a seeded
+    random sign per nonzero element: the rounding a kernel may differ by
+    from its plain version. This script's witness only."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nudge(t):
+        if t.dtype != torch.bfloat16:
+            return t
+        step = torch.randint(0, 2, t.shape, generator=gen, device="cuda",
+                             dtype=torch.int16) * 2 - 1
+        bits = t.view(torch.int16)
+        return torch.where(t != 0, bits + step, bits).view(torch.bfloat16)
+
+    saved = {n: getattr(ops, n) for n in ("add_rmsnorm", "flash_attention",
+                                          "decode_attention")}
+    ops.add_rmsnorm = lambda *a, **k: (
+        lambda s, h: (s, nudge(h)))(*saved["add_rmsnorm"](*a, **k))
+    ops.flash_attention = lambda *a, **k: nudge(
+        saved["flash_attention"](*a, **k))
+    ops.decode_attention = lambda *a, **k: nudge(
+        saved["decode_attention"](*a, **k))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+@contextlib.contextmanager
+def checked_kernels(errs: dict):
+    """Every call of the kernel ops a model path runs (K1, K3, K5) also
+    runs its plain version on the same inputs and must agree within
+    phase 2's bf16 tolerance; ``errs`` collects, per op, (calls, largest
+    |kernel - plain|). Holds each launch of a full-depth run to its
+    plain version where the run's logits cannot be held tightly (this
+    script's check only; the plain versions launch no kernel)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    saved = {n: getattr(ops, n) for n in ("add_rmsnorm", "flash_attention",
+                                          "decode_attention")}
+
+    def checked(name, pick):
+        def call(*a, **k):
+            got = saved[name](*a, **k)
+            g = pick(got).float()
+            w = pick(getattr(ref, name)(*a, **k)).float()
+            err = (g - w).abs().max().item() if g.numel() else 0.0
+            n, worst = errs.get(name, (0, 0.0))
+            errs[name] = (n + 1, max(worst, err))
+            tol = TOL["bfloat16"]
+            if not torch.allclose(g, w, atol=tol, rtol=tol):
+                raise AssertionError(f"{name} call {n}: max |kernel - "
+                                     f"plain| {err:.3e} exceeds {tol}")
+            return got
+        return call
+
+    ops.add_rmsnorm = checked("add_rmsnorm", lambda out: out[1])
+    ops.flash_attention = checked("flash_attention", lambda out: out)
+    ops.decode_attention = checked("decode_attention", lambda out: out)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def window_logits(phase, params, cfg, prompt, capacity=WINDOW_CAPACITY,
+                  witness=False) -> None:
     """8b: a prefill (whisper's over seeded frames) and ``WINDOW_STEPS``
     greedy decode steps through the kernels, then the same tokens
     through the plain versions: every step's logits normwise <= 3e-2,
     the same argmax but for ties at rounding level (:func:`_tie_gate`;
-    each is printed with its margin)."""
+    each is printed with its margin).
+
+    With ``witness`` (9b), every kernel call of the kernel run is also
+    held to its plain version on its own inputs (:func:`checked_kernels`),
+    the plain versions run the same tokens a second time under one-ulp
+    noise at every kernel op's output (:func:`ulp_noise`), and each
+    step's limit is the larger of 3e-2 and ``FLIP_WITNESS_FACTOR`` times
+    the witness's own error: on a model whose logits move further than
+    3e-2 under rounding-level noise of the plain path itself, the bound
+    is what that noise moves, as phase 7 gates the routing flips."""
     import torch
     from repro_torch.models import model as MD
     toks = torch.as_tensor(prompt[None, :], device="cuda")
@@ -2527,7 +2684,7 @@ def window_logits(phase, params, cfg, prompt) -> None:
                            * 0.1).to(torch.bfloat16)
 
     def run(feed=None):
-        logits, cache = MD.prefill(params, cfg, batch, WINDOW_CAPACITY)
+        logits, cache = MD.prefill(params, cfg, batch, capacity)
         out, fed = [logits], []
         for i in range(WINDOW_STEPS):
             tok = (feed[i] if feed is not None
@@ -2537,21 +2694,42 @@ def window_logits(phase, params, cfg, prompt) -> None:
             out.append(logits)
         return out, fed
 
-    got, fed = run()
+    calls: dict = {}
+    with (checked_kernels(calls) if witness else contextlib.nullcontext()):
+        got, fed = run()
     with plain_kernels():
         want, _ = run(feed=fed)
-    rels, ties = [], []
+        if witness:
+            with ulp_noise():
+                noisy, _ = run(feed=fed)
+    wit = ([((n - w).norm() / w.norm()).item() for n, w in zip(noisy, want)]
+           if witness else [0.0] * len(want))
+    rels, ties, tols = [], [], []
     for i, (g, w) in enumerate(zip(got, want)):
-        rel, tied = _tie_gate(f"{phase} {cfg.name} logits {i}", g, w)
+        tols.append(max(TOL["bfloat16"], FLIP_WITNESS_FACTOR * wit[i]))
+        rel, tied = _tie_gate(f"{phase} {cfg.name} logits {i}", g, w,
+                              tols[-1])
         rels.append(rel)
         ties += [f"{i}:{m:.3e}<{n:.3e}" for _, m, n in tied]
+    extra = {}
+    if witness:
+        extra = dict(
+            checked_calls=",".join(f"{n}:{c}" for n, (c, _) in
+                                   sorted(calls.items())),
+            checked_max_abs_err=",".join(f"{n}:{e:.3e}" for n, (_, e) in
+                                         sorted(calls.items())),
+            witness_rel_prefill=f"{wit[0]:.3e}",
+            witness_rel_steps_max=f"{max(wit[1:]):.3e}",
+            limit_prefill=f"{tols[0]:.3e}",
+            limit_steps_min=f"{min(tols[1:]):.3e}",
+            within_3e_2=max(rels) <= TOL["bfloat16"])
     log(phase, arch=cfg.name, prompt_len=len(prompt),
         rolled=cfg.sliding_window is not None
         and len(prompt) >= cfg.sliding_window,
         decode_steps=WINDOW_STEPS,
         rel_err_prefill=f"{rels[0]:.3e}",
         rel_err_steps_max=f"{max(rels[1:]):.3e}", tol=TOL["bfloat16"],
-        argmax_flips=len(ties),
+        **extra, argmax_flips=len(ties),
         ties="none" if not ties else ",".join(ties))
 
 
@@ -2622,6 +2800,185 @@ def phase_window(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-350m")
+ZAMBA_GATE_LAYERS = 12    # 9a's zamba2 depth: 2 groups of 6 Mamba2 layers
+RECURRENT_CAPACITY = 2048
+RECURRENT_GATE_LENS = (17, 300, 700, 1000)
+
+
+def recurrent_gate_cfg(arch):
+    """9a's float32 config: zamba2 at 12 of its 54 layers (2 shared-block
+    applications), xlstm-350m at full depth."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config(arch).replace(dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_layers=ZAMBA_GATE_LAYERS)
+    return cfg
+
+
+def bucket_gate(phase, params, cfg, prompts, base, total) -> None:
+    """Admission bucketed from 16 and at the exact length: both give
+    ``base``, and every leaf each admission splices is ``torch.equal``
+    between the two — the state leaves whole, zamba2's shared-block K/V
+    rows up to the prompt (a bucket's pad rows past it are masked by the
+    slot's length)."""
+    import torch
+    spliced = {}
+    for bucket in (16, 0):
+        eng = _engine(params, cfg, max_batch=8,
+                      max_seq_len=RECURRENT_CAPACITY, max_new_tokens=16,
+                      prefill_bucket_min=bucket)
+        seen, splice = [], eng.kv.splice
+
+        def recording(rows, *args, _seen=seen, _splice=splice, **kw):
+            _seen.append({k: v.clone() for k, v in rows.items()
+                          if k != "len"})
+            return _splice(rows, *args, **kw)
+
+        eng.kv.splice = recording
+        for p in prompts:
+            eng.submit(p)
+        _, counts = counted(eng.run)
+        del eng.kv.splice    # the class's again: no cycle keeps the cache
+        _check_engine(f"{phase} bucket {bucket}", eng, counts, len(prompts))
+        _add(total, counts)
+        if _outputs(eng) != base:
+            raise AssertionError(f"{phase} {cfg.name} bucket {bucket}: "
+                                 f"streams {_outputs(eng)} != {base}")
+        spliced[bucket] = seen
+        del eng
+    for i, (a, b) in enumerate(zip(spliced[0], spliced[16])):
+        n = len(prompts[i])
+        same = {}
+        for name, x in a.items():
+            y = b[name]
+            if name in ("k", "v"):
+                y = y[:, :, :n]
+            same[name] = x.shape == y.shape and bool(torch.equal(x, y))
+        log(phase, arch=cfg.name, bucketed_vs_exact=f"request {i}",
+            prompt_len=n, leaves=",".join(sorted(same)),
+            leaves_equal=all(same.values()))
+        if not all(same.values()) or len(spliced[0]) != len(prompts):
+            raise AssertionError(f"{phase} {cfg.name} request {i}: "
+                                 f"bucketed != exact leaves {same}")
+
+
+def phase_recurrent_f32() -> dict:
+    """9a: float32 at full width (zamba2 12 layers deep, xlstm full
+    depth): contiguous + blocking against the batch-1 loop, bucketed ==
+    exact, the three requested fallbacks, the SLO replay and export /
+    import."""
+    import torch
+    from repro_torch.models import model as MD
+    total: dict = {}
+    for arch in RECURRENT_ARCHS:
+        with step_deadline():
+            t0 = time.perf_counter()
+            cfg = recurrent_gate_cfg(arch)
+            params = MD.init_params(cfg, seed=SEED, device="cuda")
+            prompts = window_prompts(cfg, RECURRENT_GATE_LENS, SEED)
+            eng, counts = run_engine(params, cfg, prompts, 16)
+            s = _check_engine("recurrent_f32", eng, counts, len(prompts))
+            _add(total, counts)
+            base = _outputs(eng)
+            del eng
+            for i, p in enumerate(prompts):
+                want = straight_line_generate(params, cfg, p, 16,
+                                              RECURRENT_CAPACITY)
+                log("recurrent_f32", arch=arch, request=i,
+                    prompt_len=len(p), equal=base[i] == want,
+                    tokens=base[i][:8])
+                if base[i] != want:
+                    raise AssertionError(f"recurrent_f32 {arch} request "
+                                         f"{i}: engine {base[i]} != "
+                                         f"straight-line {want}")
+            log("recurrent_f32", arch=arch, layers=cfg.n_layers,
+                config="contiguous+blocking", requests=s["requests"],
+                decode_steps=s["decode_steps"], prefills=s["prefills"],
+                launches=json.dumps(counts), streams_equal=True)
+            bucket_gate("recurrent_f32", params, cfg, prompts, base, total)
+            window_fallbacks("recurrent_f32", params, cfg, prompts, base,
+                             total, capacity=RECURRENT_CAPACITY)
+            window_slo("recurrent_f32", params, cfg, total)
+            window_export_import("recurrent_f32", params, cfg, prompts,
+                                 capacity=RECURRENT_CAPACITY)
+            log("recurrent_f32", arch=arch,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            del params
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_recurrent_bf16(card: str) -> dict:
+    """9b: bf16 at full width and depth, one model at a time: logits of
+    the first prefill and 8 decode steps against the plain versions, 8
+    requests of 256–1023 tokens (64 new each) on contiguous + blocking,
+    one decode step of 8 live slots and one 1024-token prefill traced by
+    ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    from repro_torch.serving import profile
+    total: dict = {}
+    for arch in RECURRENT_ARCHS:
+        with step_deadline():
+            t0 = time.perf_counter()
+            cfg = registry.get_config(arch)
+            params = MD.init_params(cfg, seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            log("recurrent_bf16", arch=arch, layers=cfg.n_layers,
+                params=cfg.param_count(),
+                weight_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+                init_s=f"{time.perf_counter() - t0:.1f}")
+            lens = np.random.default_rng(SEED).integers(256, 1024, size=8)
+            prompts = window_prompts(cfg, lens, SEED + 1)
+            window_logits("recurrent_bf16", params, cfg, prompts[0],
+                          capacity=RECURRENT_CAPACITY, witness=True)
+            torch.cuda.empty_cache()
+            eng, counts = run_engine(params, cfg, prompts, 64)
+            s = _check_engine(f"recurrent_bf16 {arch}", eng, counts, 8)
+            _add(total, counts)
+            log("recurrent_bf16", arch=arch, config="contiguous+blocking",
+                requests=s["requests"], tokens=s["tokens"],
+                tok_per_s=f"{s['tokens_per_s']:.1f}",
+                ttft_p50_ms=f"{s['ttft_p50_s'] * 1e3:.1f}",
+                ttft_p99_ms=f"{s['ttft_p99_s'] * 1e3:.1f}",
+                itl_p50_ms=f"{s['itl_p50_s'] * 1e3:.2f}",
+                itl_p99_ms=f"{s['itl_p99_s'] * 1e3:.2f}",
+                decode_steps=s["decode_steps"], prefills=s["prefills"],
+                contiguous_kv_bytes=s["contiguous_kv_bytes"],
+                launches=json.dumps(counts), card=f"'{card}'")
+            del eng
+            torch.cuda.empty_cache()
+            rng = np.random.default_rng(SEED)
+            eng = profile.live_engine(params, cfg, rng)
+            profile.measure(f"{arch}_decode", 3, eng.step, top=14)
+            toks = torch.as_tensor(
+                rng.integers(0, cfg.vocab_size, size=(1, 1024)),
+                device="cuda")
+            profile.measure(f"{arch}_prefill", 1, lambda: eng._prefill_one(
+                params, {"tokens": toks}, 1023, 1024), top=14)
+            log("recurrent_bf16", arch=arch,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            del eng, params
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_recurrent(card: str) -> dict:
+    t0 = time.perf_counter()
+    total = phase_recurrent_f32()
+    _add(total, phase_recurrent_bf16(card))
+    log("recurrent", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -2670,6 +3027,9 @@ def main() -> int:
         counts[name] += c
     torch.cuda.empty_cache()
     for name, c in phase_window(card).items():
+        counts[name] += c
+    torch.cuda.empty_cache()
+    for name, c in phase_recurrent(card).items():
         counts[name] += c
     kernels = []
     for name, (src, replaces) in SOURCES.items():

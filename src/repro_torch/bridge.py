@@ -6,7 +6,10 @@ nested keys and the leading ``L`` layer axis on stacked leaves, so each
 leaf maps one to one; a list (an MoE config's leading dense
 ``first_layers``, unstacked) stays a list. Whisper's tree adds the
 stacked encoder ``enc_layers`` (leading axis ``n_encoder_layers``),
-``enc_norm``, and each decoder layer's ``ln_x`` and ``xattn``.
+``enc_norm``, and each decoder layer's ``ln_x`` and ``xattn``. An
+xLSTM's ``mlstm`` leaves lead with (n_super, n_m_inner) and its
+``slstm`` leaves with n_super; Zamba2's ``mamba`` leaves with
+(n_groups, attn_every), and its one ``shared`` block is unstacked.
 bfloat16 arrays (``ml_dtypes.bfloat16`` in numpy) are carried bit for
 bit. A Python
 bool leaf — the ``"__w4__"`` marker of a quantized projection
@@ -20,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_supported, n_first_layers
+from repro_torch.models.model import (check_supported, n_first_layers,
+                                      n_groups, xlstm_dims)
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
@@ -38,6 +42,13 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
     check_supported(cfg)
     dev = resolve_device(device)
     n_stack = cfg.n_layers - n_first_layers(cfg)
+    # the leading axes of each stacked recurrent subtree
+    lead = {}
+    if cfg.family == "ssm":
+        lead["mlstm"] = xlstm_dims(cfg)
+        lead["slstm"] = xlstm_dims(cfg)[:1]
+    if cfg.family == "hybrid":
+        lead["mamba"] = (n_groups(cfg), cfg.attn_every)
 
     def conv(node, path):
         if isinstance(node, dict):
@@ -55,6 +66,11 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
                 and t.shape[0] != cfg.n_encoder_layers:
             raise ValueError(f"{path}: leading axis {t.shape[0]} != "
                              f"n_encoder_layers={cfg.n_encoder_layers}")
+        want = lead.get(path.split("/")[1])
+        if want is not None and tuple(t.shape[:len(want)]) != want:
+            raise ValueError(f"{path}: leading axes "
+                             f"{tuple(t.shape[:len(want)])} != {want} "
+                             f"for {cfg.name}")
         return t
 
     return conv(np_tree, "")

@@ -26,7 +26,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen1.5-0.5b",
                     help="registry model id: the dense, MoE and vlm "
                     "decoders (rolling sliding windows too, e.g. "
-                    "h2o-danube-1.8b, mistral-7b) and whisper-large-v3")
+                    "h2o-danube-1.8b, mistral-7b), whisper-large-v3 and "
+                    "the recurrent zamba2-2.7b and xlstm-350m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -73,15 +73,28 @@ def layernorm(x, w, b, eps: float = 1e-5, *, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
+def add_rmsnorm(x, a, w, *, out_dtype=None):
+    """(s, h): s = x + a as torch rounds it (x itself when a is None),
+    h = RMSNorm(s) * w in ``out_dtype`` (default s's dtype), in one pass
+    (K5 on the card) — whatever norm the config names: the recurrent
+    blocks normalise by RMSNorm inside, as the reference's do."""
+    return ops.add_rmsnorm(x.contiguous(),
+                           None if a is None else a.contiguous(), w,
+                           out_dtype=out_dtype)
+
+
+def rmsnorm(x, w):
+    """RMSNorm of ``x`` by ``w`` in x's dtype (K5 without the add)."""
+    return add_rmsnorm(x, None, w)[1]
+
+
 def add_norm(p, cfg, x, a=None, *, out_dtype=None):
     """The residual add and the norm after it: (s, h) with s = x + a as
     torch rounds it (x itself when a is None) and h the norm of s in
     ``out_dtype`` (default s's dtype). RMSNorm runs both in one pass
     (K5 on the card); LayerNorm is the add, then :func:`layernorm`."""
     if cfg.norm == "rmsnorm":
-        return ops.add_rmsnorm(x.contiguous(),
-                               None if a is None else a.contiguous(),
-                               p["w"], out_dtype=out_dtype)
+        return add_rmsnorm(x, a, p["w"], out_dtype=out_dtype)
     if cfg.norm != "layernorm":
         raise ValueError(f"unknown norm {cfg.norm!r}")
     s = x if a is None else x + a
@@ -115,13 +128,15 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(p, cfg, x):
+def apply_mlp(p, cfg, x, mm=torch.matmul):
+    """The MLP of ``cfg.activation``; ``mm`` computes each product (the
+    recurrent prefill passes :func:`row_tiled`)."""
     act = cfg.activation
     if act in GATED:
-        g = x @ p["w_gate"]
-        h = (F.silu(g) if act == "swiglu" else gelu(g)) * (x @ p["w_up"])
+        g = mm(x, p["w_gate"])
+        h = (F.silu(g) if act == "swiglu" else gelu(g)) * mm(x, p["w_up"])
     else:
-        h = x @ p["w_up"]
+        h = mm(x, p["w_up"])
         if act == "gelu":
             h = gelu(h)
         elif act == "squared_relu":
@@ -129,7 +144,28 @@ def apply_mlp(p, cfg, x):
             h = r * r
         else:
             raise ValueError(f"unknown activation {act}")
-    return h @ p["w_down"]
+    return mm(h, p["w_down"])
+
+
+def row_tiled(tile: int):
+    """A product ``x (..., K) @ w (K, N)`` computed in blocks of ``tile``
+    rows of x, the last one zero-padded, so every product the card (or
+    the host's BLAS) runs has the same shape, whatever the row count. A
+    library picks its algorithm, and with it the order of each row's
+    sum, by the shape of the call: with a fixed shape a row's result
+    depends on that row alone, and a prompt's rows come out bitwise the
+    same at its exact length as inside a longer, padded bucket."""
+    def mm(x, w):
+        lead, k = x.shape[:-1], x.shape[-1]
+        rows = x.reshape(-1, k)
+        m = rows.shape[0]
+        pad = -m % tile
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros((pad, k))])
+        out = torch.cat([rows[i:i + tile] @ w
+                         for i in range(0, m + pad, tile)])
+        return out[:m].reshape(*lead, w.shape[-1])
+    return mm
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Transformers on tensors — the dense, MoE and vlm decoders and the
-audio encoder–decoder: init, prefill, ragged decode on contiguous and
-paged caches, chunked prefill, speculative verify.
+"""Every model family of the registry on tensors — the dense, MoE and
+vlm decoders, the audio encoder–decoder and the recurrent families:
+init, prefill, ragged decode on contiguous and paged caches, chunked
+prefill, speculative verify.
 
-Counterpart of ``repro/models/model.py`` for its attention families
-(``TRANSFORMER_FAMILIES``) and its audio family: RMSNorm or LayerNorm,
+Counterpart of ``repro/models/model.py``: its attention families
+(``TRANSFORMER_FAMILIES``), its audio family and its recurrent ones
+(``RECURRENT_FAMILIES``). RMSNorm or LayerNorm,
 every MLP activation, MoE FFNs after ``first_dense_layers`` dense ones
 (``params["first_layers"]``, a list, then the stacked
 ``params["layers"]``), the vlm's stub image prefix (``batch["images"]``
@@ -14,7 +16,18 @@ and whisper's encoder–decoder (``batch["frames"]`` (B, encoder_len, d)
 through ``params["enc_layers"]`` and ``"enc_norm"``; each decoder layer
 adds cross-attention, ``"ln_x"`` and ``"xattn"``, over the encoder
 output, whose per-layer K/V the cache keeps as ``cross_k``/``cross_v``;
-sinusoidal positions, no RoPE):
+sinusoidal positions, no RoPE); xLSTM (family ``ssm``: ``n_super``
+super-blocks of ``slstm_every - 1`` mLSTMs, ``params["mlstm"]`` stacked
+(n_super, n_m_inner, ...), then one sLSTM, ``params["slstm"]`` stacked
+(n_super, ...)) and Zamba2 (family ``hybrid``: ``n_groups`` groups of
+``attn_every`` Mamba2 layers, ``params["mamba"]`` stacked (n_groups,
+attn_every, ...) with a ``ln`` and a ``mamba`` per layer, each group
+followed by the one unstacked ``params["shared"]`` decoder block, whose
+K/V the cache keeps per application). Their caches hold O(1) state per
+slot — ``ssm``, ``conv``, ``mlstm``, ``slstm_c/n/h`` — beside any
+``k``/``v``, and their prefill takes the reference's ``length=``: a
+right-padded prompt's pads get decay 1 and zero input, so its state is
+bitwise the exact-length prompt's.
 
 - ``init_params(cfg, seed=, device=)`` -> params dict (layer-stacked
   leaves with a leading ``L`` axis, the reference's nested keys)
@@ -31,34 +44,51 @@ The reference's ``lax.scan`` over the stacked layer axis is a Python
 loop over ``L`` here, and caches are written in place. Paged pools
 carry one scratch block past the ``NB`` allocatable ones (id ``NB``,
 the tables' sentinel): every dropped write lands there, so it can never
-race a real write. Chunked prefill and speculative verify take the
-attention families without a rolling window only, as in the reference;
-the recurrent and hybrid families are not ported yet and raise.
+race a real write. Chunked prefill, speculative verify, paged pools and
+the self-draft take the attention families without a rolling window
+only, as in the reference.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.models.attention import (attention, decode_attention,
                                           gather_kv_blocks,
                                           prefill_over_cache)
 
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
-PORTED_FAMILIES = TRANSFORMER_FAMILIES + ("audio",)
+RECURRENT_FAMILIES = ("ssm", "hybrid")   # O(1)-state decode; prefill
+# length-masked over a right-padded bucket
+PORTED_FAMILIES = TRANSFORMER_FAMILIES + ("audio",) + RECURRENT_FAMILIES
+SLSTM_LEAVES = ("slstm_c", "slstm_n", "slstm_h")
 
 
 def check_supported(cfg) -> None:
-    """Raise for a family the port does not run yet (the recurrent and
-    hybrid ones)."""
+    """Raise for a family the port does not know."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is a later slice of the port (the "
-            f"recurrent and hybrid families); "
-            f"{', '.join(PORTED_FAMILIES)} run")
+        raise ValueError(f"unknown family {cfg.family!r}; "
+                         f"{', '.join(PORTED_FAMILIES)} run")
+
+
+def xlstm_dims(cfg) -> tuple[int, int]:
+    """(n_super, n_m_inner) of an xLSTM: super-blocks of ``slstm_every
+    - 1`` mLSTMs and one sLSTM, or one block of ``n_layers`` mLSTMs."""
+    every = cfg.slstm_every or (cfg.n_layers + 1)
+    n_super = max(1, cfg.n_layers // every)
+    return n_super, (every - 1 if cfg.slstm_every else cfg.n_layers)
+
+
+def n_groups(cfg) -> int:
+    """Zamba2's groups: ``attn_every`` Mamba2 layers, then the shared
+    block."""
+    return cfg.n_layers // cfg.attn_every
 
 
 def _use_rope(cfg) -> bool:
@@ -95,6 +125,18 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
          "final_norm": L.init_norm(cfg, device=dev)}
     if not cfg.tie_embeddings:
         p["head"] = L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, dev)
+    if cfg.family == "ssm":
+        n_super, n_inner = xlstm_dims(cfg)
+        p["mlstm"] = X.init_mlstm(gen, cfg, (n_super, n_inner), dev)
+        if cfg.slstm_every:
+            p["slstm"] = X.init_slstm(gen, cfg, (n_super,), dev)
+        return p
+    if cfg.family == "hybrid":
+        lead = (n_groups(cfg), cfg.attn_every)
+        p["mamba"] = {"ln": L.init_norm(cfg, lead, dev),
+                      "mamba": S.init_mamba2(gen, cfg, lead, dev)}
+        p["shared"] = _init_block(gen, cfg, (), dev, cfg.d_ff, moe=False)
+        return p
     if cfg.family == "audio":
         p["enc_layers"] = _init_block(gen, cfg, (cfg.n_encoder_layers,), dev,
                                       cfg.d_ff, moe=False)
@@ -175,39 +217,39 @@ def _head(params, cfg):
 # attention block
 # ---------------------------------------------------------------------------
 
-def _proj_q(p, cfg, x):
-    """x: (B,S,d) -> q (B,S,Hq,Dh)."""
-    q = x @ p["wq"]
+def _proj_q(p, cfg, x, mm=torch.matmul):
+    """x: (B,S,d) -> q (B,S,Hq,Dh); ``mm`` computes the product."""
+    q = mm(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.d_head)
 
 
-def _proj_qkv(p, cfg, x, kv_x=None):
+def _proj_qkv(p, cfg, x, kv_x=None, mm=torch.matmul):
     """x: (B,S,d); ``kv_x`` (B,Skv,d), the keys' and values' input for
     cross-attention (x itself when None). Returns q (B,S,Hq,Dh), k/v
     (B,Skv,Hkv,Dh)."""
     kv_x = x if kv_x is None else kv_x
     b, skv, _ = kv_x.shape
-    k, v = kv_x @ p["wk"], kv_x @ p["wv"]
+    k, v = mm(kv_x, p["wk"]), mm(kv_x, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return (_proj_q(p, cfg, x),
+    return (_proj_q(p, cfg, x, mm),
             k.reshape(b, skv, cfg.n_kv_heads, cfg.d_head),
             v.reshape(b, skv, cfg.n_kv_heads, cfg.d_head))
 
 
 def attn_full(p, cfg, x, *, positions, causal=True, window=None,
-              kv_x=None):
+              kv_x=None, mm=torch.matmul):
     """Full-sequence attention, or cross-attention over ``kv_x``
     (non-causal: every query sees every key). Returns (out (B,S,d),
     (k, v))."""
-    q, k, v = _proj_qkv(p, cfg, x, kv_x)
+    q, k, v = _proj_qkv(p, cfg, x, kv_x, mm)
     if _use_rope(cfg):
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, causal=causal, window=window, q_offset=0)
-    return o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"], (k, v)
+    return mm(o.reshape(x.shape[0], x.shape[1], -1), p["wo"]), (k, v)
 
 
 def attn_decode(p, cfg, x, k_cache, v_cache, cache_len, *, window=None,
@@ -252,10 +294,10 @@ def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
 # decoder blocks
 # ---------------------------------------------------------------------------
 
-def _apply_ffn(p, cfg, h):
+def _apply_ffn(p, cfg, h, mm=torch.matmul):
     if "moe" in p:
         return M.apply_moe(p["moe"], cfg, h)
-    return L.apply_mlp(p["mlp"], cfg, h)
+    return L.apply_mlp(p["mlp"], cfg, h, mm)
 
 
 # A block's input is the residual ``x`` plus the previous block's MLP
@@ -266,21 +308,22 @@ def _apply_ffn(p, cfg, h):
 # adds, in its order, each fused into the norm that follows it.
 
 def decoder_block(p, cfg, x, delta, *, positions, causal=True,
-                  window=None, enc_out=None):
+                  window=None, enc_out=None, mm=torch.matmul):
     """One block over a whole sequence. Returns ((residual, MLP output),
     kv): kv is the block's (k, v), and with ``enc_out`` (whisper's
     decoder) also its cross-attention's (k, v) over the encoder output,
-    (k, v, xk, xv)."""
+    (k, v, xk, xv). ``mm`` computes the dense products (the recurrent
+    prefill's :func:`~repro_torch.models.layers.row_tiled`)."""
     x, h = L.add_norm(p["ln1"], cfg, x, delta)
     a, kv = attn_full(p["attn"], cfg, h, positions=positions,
-                      causal=causal, window=window)
+                      causal=causal, window=window, mm=mm)
     if enc_out is not None:
         x, h = L.add_norm(p["ln_x"], cfg, x, a)
         a, xkv = attn_full(p["xattn"], cfg, h, positions=positions,
                            causal=False, kv_x=enc_out)
         kv = kv + xkv
     x, h = L.add_norm(p["ln2"], cfg, x, a)
-    return (x, _apply_ffn(p, cfg, h)), kv
+    return (x, _apply_ffn(p, cfg, h, mm)), kv
 
 
 def decoder_block_chunk(p, cfg, x, delta, k_hist, v_hist, hist_len, *,
@@ -313,14 +356,38 @@ def decoder_block_decode(p, cfg, x, delta, k_cache, v_cache, cache_len, *,
 # ---------------------------------------------------------------------------
 
 def cache_struct(cfg, batch_size, capacity, dtype=None) -> dict:
-    """Shape/dtype of each decode-cache leaf: ``k``/``v`` hold
-    ``_kv_capacity`` slots (the window for a rolling cache); whisper's
-    also ``cross_k``/``cross_v`` (L, B, encoder_len, Hkv, Dh)."""
+    """Shape/dtype of each decode-cache leaf, in the reference's order:
+    ``k``/``v`` hold ``_kv_capacity`` slots (the window for a rolling
+    cache); whisper's also ``cross_k``/``cross_v`` (L, B, encoder_len,
+    Hkv, Dh). An xLSTM holds fp32 state only: ``mlstm`` (n_super,
+    n_m_inner, B, H, P + 1, N) and ``slstm_c/n/h`` (n_super, B, H, ph);
+    Zamba2 the fp32 ``ssm`` (G, attn_every, B, H, P, N), the rolling
+    ``conv`` (G, attn_every, B, k - 1, d_in + 2N) and the shared block's
+    ``k``/``v`` (G, B, C, Hkv, Dh), one per application."""
     check_supported(cfg)
     dt = dtype or L.dtype_of(cfg)
-    kshape = (cfg.n_layers, batch_size, _kv_capacity(cfg, capacity),
+    out = {"len": ((), torch.int32)}
+    if cfg.family == "ssm":
+        n_super, n_inner = xlstm_dims(cfg)
+        out["mlstm"] = ((n_super, n_inner)
+                        + X.mlstm_state_shape(cfg, batch_size), torch.float32)
+        if cfg.slstm_every:
+            for name in SLSTM_LEAVES:
+                out[name] = ((n_super,) + X.slstm_state_shape(cfg, batch_size),
+                             torch.float32)
+        return out
+    n_kv = cfg.n_layers
+    if cfg.family == "hybrid":
+        n_kv = n_groups(cfg)
+        d_in = cfg.ssm_expand * cfg.d_model
+        lead = (n_kv, cfg.attn_every, batch_size)
+        out["ssm"] = (lead + (d_in // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                              cfg.ssm_state), torch.float32)
+        out["conv"] = (lead + (cfg.ssm_conv - 1, d_in + 2 * cfg.ssm_state),
+                       dt)
+    kshape = (n_kv, batch_size, _kv_capacity(cfg, capacity),
               cfg.n_kv_heads, cfg.d_head)
-    out = {"len": ((), torch.int32), "k": (kshape, dt), "v": (kshape, dt)}
+    out["k"], out["v"] = (kshape, dt), (kshape, dt)
     if cfg.family == "audio":
         xshape = (cfg.n_layers, batch_size, cfg.encoder_len,
                   cfg.n_kv_heads, cfg.d_head)
@@ -337,7 +404,11 @@ def cache_batch_axes(cache: dict) -> dict:
         if name == "len":
             axes[name] = None
         elif name in ("k", "v", "cross_k", "cross_v"):
-            axes[name] = 1        # (L, B, C, H, Dh)
+            axes[name] = 1        # (L|G, B, C, H, Dh)
+        elif name in ("ssm", "conv", "mlstm"):
+            axes[name] = 2        # (outer, inner, B, ...)
+        elif name in SLSTM_LEAVES:
+            axes[name] = 1        # (outer, B, ...)
         else:
             raise KeyError(f"unknown cache leaf {name}")
     return axes
@@ -428,7 +499,67 @@ def _read_rows(logit_index, *xs):
     return [x[rows, idx][:, None] for x in xs]
 
 
-def prefill(params, cfg, batch, capacity, *, logit_index=None):
+def _prefill_recurrent(params, cfg, x, n_valid):
+    """The recurrent families' prefill layers over x (B, S, d), of which
+    the first ``n_valid`` positions are the prompt's.
+
+    The layers run over whole chunks of ``chunk_len`` rows: x is padded
+    to a multiple of the chunk, the pads are masked as a bucket's are,
+    and every dense product runs one chunk of rows at a time
+    (:func:`~repro_torch.models.layers.row_tiled`), as the SSD does. So
+    every operation sees the same shapes and layouts, chunk for chunk,
+    whatever the bucket, and each row's result depends on that row
+    alone: a right-padded bucket gives the exact-length prompt's state
+    and rows bit for bit. Returns (residual, last output) at the S input
+    positions, and the state leaves and the shared block's ``k``/``v``
+    rows (S of them)."""
+    s = x.shape[1]
+    x = F.pad(x, (0, 0, 0, -s % cfg.chunk_len))
+    positions = torch.arange(x.shape[1], device=x.device)
+    mm = L.row_tiled(cfg.chunk_len)
+    delta = None
+    if cfg.family == "ssm":
+        n_super, n_inner = xlstm_dims(cfg)
+        m_states, s_states = [], []
+        for i in range(n_super):
+            sup = layer_params(params["mlstm"], i)
+            for j in range(n_inner):
+                (x, delta), st = X.apply_mlstm(
+                    layer_params(sup, j), cfg, x, delta, n_valid=n_valid,
+                    mm=mm)
+                m_states.append(st)
+            if "slstm" in params:
+                (x, delta), st = X.apply_slstm(
+                    layer_params(params["slstm"], i), cfg, x, delta,
+                    n_valid=n_valid, mm=mm)
+                s_states.append(st)
+        rows = {"mlstm": torch.stack(m_states).unflatten(
+            0, (n_super, n_inner))}
+        for name, leaf in zip(SLSTM_LEAVES, zip(*s_states)):
+            rows[name] = torch.stack(leaf)
+        return x[:, :s], delta[:, :s], rows
+    sts, cvs, kvs = [], [], []
+    for g in range(n_groups(cfg)):
+        grp = layer_params(params["mamba"], g)
+        for j in range(cfg.attn_every):
+            lp = layer_params(grp, j)
+            x, h = L.add_norm(lp["ln"], cfg, x, delta)
+            delta, (st, cv) = S.apply_mamba2(lp["mamba"], cfg, h,
+                                             n_valid=n_valid, mm=mm)
+            sts.append(st)
+            cvs.append(cv)
+        (x, delta), kv = decoder_block(params["shared"], cfg, x, delta,
+                                       positions=positions, mm=mm)
+        kvs.append(kv)
+    lead = (n_groups(cfg), cfg.attn_every)
+    rows = {"ssm": torch.stack(sts).unflatten(0, lead),
+            "conv": torch.stack(cvs).unflatten(0, lead)}
+    rows["k"], rows["v"] = (torch.stack(t)[:, :, :s] for t in zip(*kvs))
+    return x[:, :s], delta[:, :s], rows
+
+
+def prefill(params, cfg, batch, capacity, *, logit_index=None,
+            length=None):
     """Process the prompt. Returns (logits (B, V) fp32, cache).
 
     ``capacity``: the cache holds that many positions, the prompt's KV
@@ -448,39 +579,50 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None):
     and ``capacity=None`` returns all S rows for the caller to roll.
     Whisper (``batch["frames"]`` (B, encoder_len, d)) runs the encoder
     first; every decoder layer's cross-attention K/V over its output
-    comes back as ``cross_k``/``cross_v`` (L, B, encoder_len, Hkv, Dh)."""
+    comes back as ``cross_k``/``cross_v`` (L, B, encoder_len, Hkv, Dh).
+
+    ``length`` (an int or 0-d tensor): the prompt's true length when a
+    recurrent family's batch is right-padded. Pad steps get decay 1 and
+    zero input (the values the SSD engine pads its own chunks with) and
+    the sLSTM's carry stays frozen, so every state leaf is bitwise the
+    exact-length prompt's. Attention families ignore it: their causal
+    mask already keeps pads out. ``capacity=None`` returns the state
+    leaves whole beside the ``k``/``v`` rows."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
     b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)
-    enc = (_encode_audio(params, cfg, batch["frames"])
-           if cfg.family == "audio" else None)
-    kvs = []
-    delta = None
-    for lp in blocks(params, cfg):
-        (x, delta), kv = decoder_block(lp, cfg, x, delta,
-                                       positions=positions,
-                                       window=cfg.sliding_window,
-                                       enc_out=enc)
-        kvs.append(kv)
-    rows = dict(zip(("k", "v", "cross_k", "cross_v"),
-                    (torch.stack(t) for t in zip(*kvs))))
+    if cfg.family in RECURRENT_FAMILIES:
+        x, delta, rows = _prefill_recurrent(
+            params, cfg, x, s if length is None else int(length))
+    else:
+        positions = torch.arange(s, device=x.device)
+        enc = (_encode_audio(params, cfg, batch["frames"])
+               if cfg.family == "audio" else None)
+        kvs = []
+        delta = None
+        for lp in blocks(params, cfg):
+            (x, delta), kv = decoder_block(lp, cfg, x, delta,
+                                           positions=positions,
+                                           window=cfg.sliding_window,
+                                           enc_out=enc)
+            kvs.append(kv)
+        rows = dict(zip(("k", "v", "cross_k", "cross_v"),
+                        (torch.stack(t) for t in zip(*kvs))))
     if capacity is None:
         cache = rows
     else:
         cache = init_cache(cfg, b, capacity, device=x.device)
-        c = cache["k"].shape[2]
-        for name in ("k", "v"):
-            if cfg.sliding_window is not None and s >= c:
-                cache[name].copy_(roll_window(rows[name], c))
+        for name, r in rows.items():
+            c = cache[name].shape[2]
+            if name not in ("k", "v"):
+                cache[name].copy_(r)
+            elif cfg.sliding_window is not None and s >= c:
+                cache[name].copy_(roll_window(r, c))
             elif s > c:
                 raise ValueError(f"prompt of {s} positions exceeds the "
                                  f"cache capacity {c}")
             else:
-                cache[name][:, :, :s] = rows[name]
-        for name in ("cross_k", "cross_v"):
-            if name in rows:
-                cache[name].copy_(rows[name])
+                cache[name][:, :, :s] = r
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     _, h = L.add_norm(params["final_norm"], cfg,
                       *_read_rows(logit_index, x, delta))
@@ -564,6 +706,53 @@ def _write_paged(pool, kv, index):
     pool[index[0], index[1]] = kv.to(pool.dtype)
 
 
+def _merge_rows(dst, new, live):
+    """``dst`` (B, ...) <- ``new`` in place, only in the ``live`` rows
+    (every row when None): a non-live row's state keeps its bits, as the
+    reference's ``_merge_rows`` leaves it."""
+    new = new.to(dst.dtype)
+    if live is not None:
+        new = torch.where(live.reshape(-1, *[1] * (new.dim() - 1)), new, dst)
+    dst.copy_(new)
+
+
+def _decode_recurrent(params, cfg, x, cache, n, slot, live):
+    """The recurrent families' decode layers over x (B, 1, d); every
+    state leaf of ``cache`` merged in place under ``live``, and Zamba2's
+    shared block writes its K/V per group at the row's position (K1
+    reads the group's cache first). Returns (residual, last output)."""
+    delta = None
+    if cfg.family == "ssm":
+        n_super, n_inner = xlstm_dims(cfg)
+        for i in range(n_super):
+            sup = layer_params(params["mlstm"], i)
+            for j in range(n_inner):
+                (x, delta), st = X.mlstm_decode_step(
+                    layer_params(sup, j), cfg, x, delta, cache["mlstm"][i, j])
+                _merge_rows(cache["mlstm"][i, j], st, live)
+            if "slstm" in params:
+                (x, delta), carry = X.slstm_decode_step(
+                    layer_params(params["slstm"], i), cfg, x, delta,
+                    tuple(cache[name][i] for name in SLSTM_LEAVES))
+                for name, st in zip(SLSTM_LEAVES, carry):
+                    _merge_rows(cache[name][i], st, live)
+        return x, delta
+    for g in range(n_groups(cfg)):
+        grp = layer_params(params["mamba"], g)
+        for j in range(cfg.attn_every):
+            lp = layer_params(grp, j)
+            x, h = L.add_norm(lp["ln"], cfg, x, delta)
+            delta, (st, cv) = S.mamba2_decode_step(
+                lp["mamba"], cfg, h, cache["ssm"][g, j], cache["conv"][g, j])
+            _merge_rows(cache["ssm"][g, j], st, live)
+            _merge_rows(cache["conv"][g, j], cv, live)
+        (x, delta), k1, v1 = decoder_block_decode(
+            params["shared"], cfg, x, delta, cache["k"][g], cache["v"][g], n)
+        _write_token_kv(cache["k"][g], k1, slot, live)
+        _write_token_kv(cache["v"][g], v1, slot, live)
+    return x, delta
+
+
 def decode_step(params, cfg, tokens, cache, *, live=None):
     """tokens: (B, 1) int. Returns (logits (B, V) fp32, cache).
 
@@ -579,7 +768,9 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
     at offset ``pos % bs``. A rolling sliding-window cache writes at
     slot ``pos % C`` and masks the slot one window back (K1's window);
     whisper's decoder also attends its ``cross_k``/``cross_v`` (K1
-    without a self partial) and adds the sinusoid of each position."""
+    without a self partial) and adds the sinusoid of each position. The
+    recurrent families update their state leaves in place too; a
+    non-live row's keep their bits."""
     check_supported(cfg)
     x = L.embed_tokens(params["embed"], tokens)
     n = torch.as_tensor(cache["len"], dtype=torch.int32, device=x.device)
@@ -590,6 +781,11 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
         raise ValueError("paged cache requires an attention family "
                          "without a rolling SWA cache")
     slot = n if window is None else n % cache["k"].shape[2]
+    if cfg.family in RECURRENT_FAMILIES:
+        x, delta = _decode_recurrent(params, cfg, x, cache, n, slot, live)
+        cache["len"] = n + 1 if live is None else n + live.to(torch.int32)
+        _, h = L.add_norm(params["final_norm"], cfg, x, delta)
+        return L.logits_from_hidden(_head(params, cfg), h)[:, 0], cache
     if cfg.family == "audio":
         x = x + L.sinusoidal_positions(n.reshape(-1, 1), cfg.d_model).to(
             x.dtype)

@@ -23,14 +23,17 @@ engine in the vLLM style that consumes its KV cache only through the
   at its own absolute position; free slots are frozen by the live mask.
   Prefill reaches the flash kernel (K3), every RMSNorm the RMSNorm
   kernel (K5). The dense, MoE and vlm families run, with or without a
-  rolling sliding window, and whisper's encoder–decoder; a vlm prompt's
+  rolling sliding window, whisper's encoder–decoder, and the recurrent
+  families (xLSTM; Zamba2, whose shared attention block reaches K3 and
+  K1), whose state a length-masked prefill keeps exact under
+  bucketing; a vlm prompt's
   stub image prefix (zeros) takes the cache positions before its
   tokens and is counted in its length, and a whisper prompt's stub
   frames (zeros, ``encoder_len`` of them) feed the encoder at its
   admission. Where the paged layout or a policy cannot express the
-  model (whisper, a rolling window), the engine falls back to the
-  contiguous cache and to blocking admission, warning as the reference
-  does;
+  model (whisper, a rolling window, recurrent state), the engine falls
+  back to the contiguous cache and to blocking admission, warning as
+  the reference does;
 - sampling is a head outside the dispatch over the returned fp32
   logits (:func:`make_sampler`): ``"greedy"`` (argmax; the committed
   speculative stream is then the vanilla greedy stream) or
@@ -76,10 +79,15 @@ def build_closures(cfg):
     """The engine's dispatch functions of ``(params, *operands)``, keyed
     by dispatch kind."""
 
-    def prefill(params, batch, last_idx):
+    masked = cfg.family in MD.RECURRENT_FAMILIES
+
+    def prefill(params, batch, last_idx, n_valid):
         """One bucketed whole-prompt prefill; returns (logits, rows) —
-        the prompt's KV rows only, for the cache to splice."""
-        return MD.prefill(params, cfg, batch, None, logit_index=last_idx)
+        the prompt's KV rows only, and a recurrent family's state, for
+        the cache to splice. A recurrent family's scan is length-masked
+        at ``n_valid``: pad steps leave its state as they found it."""
+        return MD.prefill(params, cfg, batch, None, logit_index=last_idx,
+                          length=n_valid if masked else None)
 
     def decode(params, toks, cache, pos, live):
         """One fully ragged dispatch: every live slot advances at its own
@@ -483,9 +491,12 @@ class ServingEngine:
         self.spec_drafted = 0        # candidate tokens proposed
         self.spec_committed = 0      # tokens committed by verify steps
         self.spec_draft_accepted = 0  # committed tokens that were drafted
-        # bucketed prefill where right-padding is harmless (causal
-        # attention masks pad KV per row); a rolling window stays
-        # exact-length: its cache would roll the pads in
+        # bucketed prefill where right-padding is harmless: causal
+        # attention masks pad KV per row, and the recurrent families run
+        # a length-masked scan (pad steps get decay 1 and zero input, so
+        # the state handed to decode is bitwise the exact-length one); a
+        # rolling window stays exact-length: its cache would roll the
+        # pads in
         self._bucketed = (ecfg.prefill_bucket_min > 0
                           and cfg.sliding_window is None)
         # dispatch audit trail: (step, kind, operand specs) per dispatch
@@ -897,7 +908,8 @@ class ServingEngine:
         toks[:n] = prompt   # right-pad to the bucket length
         batch = self._batch(toks, images=True)
         logits, rows = self._dispatch("prefill", self._prefill_one,
-                                      self.params, batch, n_prompt - 1)
+                                      self.params, batch, n_prompt - 1,
+                                      n_prompt)
         self.prefills += 1
         self.admission_log.append(req.rid)
         req.prefill_chunks = 1
@@ -918,7 +930,8 @@ class ServingEngine:
             # the draft shadows the committed sequence: prefill its cache
             # over the same bucketed batch
             _, drows = self._dispatch("draft_prefill", self._draft_prefill,
-                                      self.draft_params, batch, n_prompt - 1)
+                                      self.draft_params, batch, n_prompt - 1,
+                                      n_prompt)
             self.draft_kv.splice(drows, slot, n_prompt, budget)
             self.draft_prefills += 1
             self.draft_dispatches += 1

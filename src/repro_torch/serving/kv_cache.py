@@ -5,8 +5,11 @@ the protocol the engine consumes, with two backends:
 
 - :class:`ContiguousCache` — every slot owns ``max_seq_len`` positions
   of a ``(L, B, C, Hkv, Dh)`` cache on the device (``C`` the window for a
-  rolling sliding-window cache), and whisper's slots also their fixed
-  cross-attention K/V (``cross_k``/``cross_v``);
+  rolling sliding-window cache), whisper's slots also their fixed
+  cross-attention K/V (``cross_k``/``cross_v``), and a recurrent
+  family's slots their O(1) state (``ssm``/``conv``/``mlstm`` on batch
+  axis 2, ``slstm_c/n/h`` on axis 1; Zamba2 also its shared block's
+  ``k``/``v``);
 - :class:`PagedCache` — one shared pool of fixed-size KV blocks
   ``(L, NB + 1, bs, Hkv, Dh)`` (the last block is a never-allocated
   scratch block that takes dropped writes), a host-side per-slot block
@@ -54,8 +57,9 @@ def _nbytes(shape, dtype) -> int:
 
 def kv_bytes_per_token(cfg) -> int:
     """Bytes of self-attention KV state one cached position occupies
-    across all layers (a whisper slot's cross K/V is per slot, not per
-    position: :func:`contiguous_kv_bytes` counts it)."""
+    across all layers (0 for an xLSTM; a whisper slot's cross K/V and a
+    recurrent slot's state are per slot, not per position:
+    :func:`contiguous_kv_bytes` counts them)."""
     st = MD.cache_struct(cfg, 1, 1)
     return sum(_nbytes(*st[name]) for name in ("k", "v") if name in st)
 
@@ -299,17 +303,19 @@ def _host_packet(n_valid: int, **rows: torch.Tensor) -> dict:
 class ContiguousCache:
     """Dense per-slot cache: every slot owns ``max_seq_len`` positions
     (at most the window, for a rolling cache), spliced and overwritten
-    in place on the device. Every batched leaf is a slot's: ``k``/``v``,
-    and whisper's ``cross_k``/``cross_v``."""
+    in place on the device. Every batched leaf is a slot's, each on its
+    own batch axis (:func:`~repro_torch.models.model.cache_batch_axes`):
+    ``k``/``v``, whisper's ``cross_k``/``cross_v`` and a recurrent
+    family's state leaves."""
 
     name = "contiguous"
 
     def __init__(self, cfg, ecfg, device):
         B, C = ecfg.max_batch, ecfg.max_seq_len
         self._cache = MD.init_cache(cfg, B, C, device=device)
-        self._leaves = [name for name, ax in
-                        MD.cache_batch_axes(self._cache).items()
-                        if ax is not None]
+        self._axes = {name: ax for name, ax in
+                      MD.cache_batch_axes(self._cache).items()
+                      if ax is not None}
         self._rolling = cfg.sliding_window is not None
         self._footprint = contiguous_kv_bytes(cfg, B, C)
         self.device = device
@@ -328,18 +334,20 @@ class ContiguousCache:
         zeroed — or, on a rolling cache that ``S`` fills, the window
         tail lands rolled (:func:`~repro_torch.models.model.roll_window`)
         — so the slot holds exactly what the reference's full-capacity
-        prefill cache would; the other leaves (whisper's cross K/V) land
-        whole."""
+        prefill cache would; the other leaves (whisper's cross K/V, a
+        recurrent slot's state) land whole on their batch axis."""
         self._occupied.add(slot)
-        for name in self._leaves:
-            dst, src = self._cache[name][:, slot], rows[name]
-            s, c = src.shape[2], dst.shape[1]
+        for name, ax in self._axes.items():
+            dst = self._cache[name].select(ax, slot)
+            src = rows[name].select(ax, 0)
             if name not in ("k", "v"):
-                dst.copy_(src[:, 0])
-            elif self._rolling and s >= c:
-                dst.copy_(MD.roll_window(src, c)[:, 0])
+                dst.copy_(src)
+                continue
+            s, c = src.shape[1], dst.shape[1]
+            if self._rolling and s >= c:
+                dst.copy_(MD.roll_window(rows[name], c)[:, 0])
             else:
-                dst[:, :s] = src[:, 0]
+                dst[:, :s] = src
                 dst[:, s:].zero_()
 
     def reserve(self, slot: int, n_prompt: int, budget: int) -> None:
@@ -374,16 +382,19 @@ class ContiguousCache:
 
     def export_slot(self, slot: int, n_valid: int, prompt=None,
                     n_prompt=None) -> dict:
-        """The slot's row of every batched leaf: ``k``/``v`` up to
-        ``n_valid`` rounded up to the export quantum (capped at the
-        capacity — a rolling cache past its window exports every slot),
-        whisper's cross K/V whole. Prefix provenance is accepted for
-        signature parity and ignored: the dense layout shares nothing."""
-        p = min(_export_span(n_valid), self._cache["k"].shape[2])
-        return _host_packet(n_valid, **{
-            name: self._cache[name][:, slot:slot + 1,
-                                    :p if name in ("k", "v") else None]
-            for name in self._leaves})
+        """The slot's row of every batched leaf, on its batch axis:
+        ``k``/``v`` up to ``n_valid`` rounded up to the export quantum
+        (capped at the capacity — a rolling cache past its window exports
+        every slot), whisper's cross K/V and a recurrent slot's state
+        whole. Prefix provenance is accepted for signature parity and
+        ignored: the dense layout shares nothing."""
+        rows = {}
+        for name, ax in self._axes.items():
+            row = self._cache[name].narrow(ax, slot, 1)
+            if name in ("k", "v"):
+                row = row[:, :, :min(_export_span(n_valid), row.shape[2])]
+            rows[name] = row
+        return _host_packet(n_valid, **rows)
 
     def import_slot(self, packet: dict, slot: int, n_prompt: int,
                     budget: int) -> None:
@@ -392,7 +403,7 @@ class ContiguousCache:
                 f"import_slot into occupied slot {slot}: a live stream's "
                 "KV would be silently clobbered — free the slot first "
                 "(preemption/requeue must never double-import)")
-        rows = {name: packet[name].to(self.device) for name in self._leaves}
+        rows = {name: packet[name].to(self.device) for name in self._axes}
         self.splice(rows, slot, n_prompt, budget)
 
     def resident_kv_bytes(self) -> int:

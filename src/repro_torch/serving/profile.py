@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.serving.profile [--arch ID] [--w4]
 
 Builds the full-width bf16 engine of ``--arch`` (default qwen1.5-0.5b;
-also h2o-danube-1.8b, mistral-7b or whisper-large-v3 — any registry
-model the port serves that fits the card; random weights from a seed),
+also h2o-danube-1.8b, mistral-7b, whisper-large-v3, zamba2-2.7b or
+xlstm-350m — any registry model the port serves that fits the card;
+random weights from a seed),
 fills its 8 slots, then traces with ``torch.profiler`` (CPU and CUDA
 activities) one 1024-token prefill (whisper's with its stub frames) and
 a window of decode steps. With ``--w4`` it traces instead a window of
@@ -99,7 +100,7 @@ def serving_windows(arch: str = "qwen1.5-0.5b") -> dict:
     if cfg.family == "audio":
         batch["frames"] = stub_frames(cfg, "cuda")
     return {
-        "prefill": (1, lambda: eng._prefill_one(params, batch, 1000)),
+        "prefill": (1, lambda: eng._prefill_one(params, batch, 1000, 1001)),
         # one ragged decode dispatch over 8 live slots per step
         "decode": (DECODE_STEPS, eng.step),
     }

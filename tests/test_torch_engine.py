@@ -13,6 +13,7 @@ from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch import bridge
 from repro_torch.configs import registry
+from repro_torch.models import model as MD
 from repro_torch.serving import EngineConfig, ServingEngine
 
 
@@ -69,10 +70,16 @@ def test_engine_config_and_slices(setup):
                                               kv_cache="paged"),
                         device="cpu")
     assert eng._prefix_on and eng.kv.prefix is not None
-    # ... what this slice of the port still leaves to later ones raises
+    # ... every family of the registry serves (the recurrent ones
+    # bucketed, through the length-masked prefill); a family the port
+    # does not know raises
     ssm = registry.get_smoke_config("xlstm-350m")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(tp, ssm, EngineConfig(), device="cpu")
+    eng = ServingEngine(MD.init_params(ssm, device="cpu"), ssm,
+                        EngineConfig(), device="cpu")
+    assert eng._bucketed and eng.kv.name == "contiguous"
+    with pytest.raises(ValueError, match="unknown family"):
+        ServingEngine(tp, cfg.replace(family="rnn"), EngineConfig(),
+                      device="cpu")
     with pytest.raises(ValueError, match="unknown kv_cache"):
         ServingEngine(tp, cfg, EngineConfig(kv_cache="ring"), device="cpu")
     with pytest.raises(ValueError, match="engine runs on"):

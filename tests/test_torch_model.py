@@ -165,13 +165,22 @@ def test_self_draft_params_are_views(setup):
 
 
 def test_later_slices_raise(setup):
-    """The recurrent and hybrid families are still later slices; the
-    rolling window and whisper run, and a paged pool refuses the window
-    as the reference's paged cache does."""
+    """No family of the registry is left to a later slice: the recurrent
+    and hybrid families init (their state leaves in the cache), as do
+    the rolling window and whisper; a family the port does not know
+    raises, and a paged pool refuses the window and the recurrent
+    families as the reference's paged cache does."""
     _, _, cfg, tp = setup
-    for arch in ("xlstm-350m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            MD.init_params(registry.get_smoke_config(arch), device="cpu")
+    for arch, leaves in (("xlstm-350m", {"len", "mlstm", "slstm_c",
+                                         "slstm_n", "slstm_h"}),
+                         ("zamba2-2.7b", {"len", "ssm", "conv", "k", "v"})):
+        rc = registry.get_smoke_config(arch)
+        MD.init_params(rc, device="cpu")
+        assert set(MD.init_cache(rc, 2, 64, device="cpu")) == leaves
+        with pytest.raises(ValueError, match="paged pools hold"):
+            MD.paged_pool_struct(rc, 4, 8)
+    with pytest.raises(ValueError, match="unknown family"):
+        MD.init_params(cfg.replace(family="rnn"), device="cpu")
     MD.init_params(registry.get_smoke_config("whisper-large-v3"),
                    device="cpu")
     swa = registry.get_smoke_config("h2o-danube-1.8b")

@@ -57,3 +57,19 @@ def test_serve_main_runs_window_and_audio(capsys, arch):
         assert serve.main(argv) == 0
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out and "kv=contiguous" in out
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])
+@pytest.mark.parametrize("sample", [[], ["--sample", "temperature",
+                                         "--top-k", "20"]])
+def test_serve_main_runs_recurrent(capsys, arch, sample):
+    """The launcher serves the recurrent smoke models, greedy and
+    sampled, through the length-masked bucketed prefill; a requested
+    paged cache falls back to contiguous with the reference's warning."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+            "--prompt-len", "21", "--max-new", "4", "--slots", "2",
+            "--capacity", "48", "--kv-cache", "paged"] + sample
+    with pytest.warns(UserWarning, match="falling back to contiguous"):
+        assert serve.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out and "kv=contiguous" in out

@@ -262,19 +262,19 @@ def overload_tenants(mod):
                            window=(0.0, 0.8)))
 
 
-def slo_replay_check(setup):
-    """The SLO replay through both engines: equal streams, admission
-    orders and preemption logs, at least one preemption, and the port's
-    SLO streams equal to its FIFO streams."""
+def slo_replay_check(setup, horizon_s=4.0):
+    """The SLO replay of a ``horizon_s`` trace through both engines:
+    equal streams, admission orders and preemption logs, at least one
+    preemption, and the port's SLO streams equal to its FIFO streams."""
     jcfg, jp, cfg, tp, _ = setup
     kw = dict(max_batch=4, max_seq_len=96, max_new_tokens=16, eos_token=-1)
     trace = dict(vocab_size=cfg.vocab_size, seed=0, len_step=8, name="slo")
     want = JW.replay(JServingEngine(jp, jcfg, JEngineConfig(
-        scheduler="slo", **kw)), JW.make_trace(overload_tenants(JW), 4.0,
-                                               **trace), step_quantum_s=0.01)
+        scheduler="slo", **kw)), JW.make_trace(
+            overload_tenants(JW), horizon_s, **trace), step_quantum_s=0.01)
     runs = {s: W.replay(ServingEngine(tp, cfg, EngineConfig(
         scheduler=s, **kw), device="cpu"), W.make_trace(
-            overload_tenants(W), 4.0, **trace), step_quantum_s=0.01)
+            overload_tenants(W), horizon_s, **trace), step_quantum_s=0.01)
         for s in ("slo", "blocking")}
     got = runs["slo"]
     for key in ("outputs", "admission_order", "preemption_log", "tokens"):
