@@ -119,10 +119,36 @@ Phases, one line each (any failure exits non-zero):
    the plain path's kernel outputs moves them, 8
    requests of 256–1023 tokens (64 new each) on contiguous + blocking,
    one decode step of 8 live slots and one 1024-token prefill traced by
-   ``torch.profiler``. Each model's step ends the process past 420 s.
+   ``torch.profiler``. Each model's step ends the process past 420 s;
+10. cluster — the disaggregated prefill/decode cluster
+   (``serving/cluster.py``) with every worker on the one card (the
+   round-robin warning asserted; the weights held once, the cluster's
+   allocation no more than its workers' caches): (a) float32, qwen1.5-
+   0.5b at full width and depth on phase 3's traffic through 1 prefill
+   + 2 decode workers on both backends, decode worker 0 killed after
+   step 2, and through 1 + 3 with a drain and then a kill (two hops),
+   its streams equal to phase 3's; deepseek-moe-16b (4 layers, capacity
+   factor E / k) and internvl2-26b (4 layers; its packets carry the 256
+   image positions) on the paged cache with a kill, zamba2-2.7b (12
+   layers), xlstm-350m, whisper-large-v3 (4 + 4) and h2o-danube-1.8b (4
+   layers; its 4500-token slot migrates rolled) requesting it, warned
+   onto the contiguous fallback, with a drain — each against its own
+   single blocking engine; every run's ``kv_transfer_bytes`` equal to
+   its packets' bytes, one decode dispatch per worker step, every pool
+   balanced; (b) bf16 qwen at full depth: phase 4's traffic through
+   1 + 2 paged workers against the single paged engine (equal streams;
+   each handoff's bytes, export and import ms and GB/s; TTFT, ITL and
+   tok/s side by side; a decode worker's step against the single
+   engine's by device time), phase 6's shared-preamble requests through
+   2 + 2 workers with prefix caching (routed by affinity, equal to the
+   single engine with prefix caching), the mixshift trace autoscaling
+   both ways (equal to the single engine's replay), the overload trace
+   SLO-aware against FIFO (equal streams) and a short trace replayed
+   twice with auto-drain under the virtual clock (identical schedules,
+   no drain). Each step ends the process past 420 s.
 
-Every engine run and every W4 step checks each kernel's launch count
-against what its path must launch.
+Every engine and cluster run and every W4 step checks each kernel's
+launch count against what its path must launch.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. It needs CUDA and the repository's
@@ -1282,17 +1308,18 @@ def path_shape(cfg) -> tuple[int, int]:
     return (2 * cfg.n_layers + 1 if rms_final else 0), cfg.n_layers
 
 
-def check_launches(phase, eng, counts) -> None:
-    """Every kernel of the path ran, exactly as often as the path says.
-    Target model (:func:`path_shape`: R RMSNorms per dispatch, L
-    attention layers): R RMSNorms per dispatch, L flash prefills per
-    blocking prefill, L split-KV decodes (contiguous) or L paged decodes
-    per decode step, L prefill-over-cache launches per chunk and per
-    verify dispatch; on whisper (E encoder layers) each prefill is
-    2L + E flash launches (self, cross, encoder) and each decode step 2L
-    split-KV decodes (self, cross). Draft (k layers): 2k + 1 RMSNorms
-    per dispatch, k flash prefills per draft prefill, k split-KV decodes
-    per draft decode (its shadow cache is contiguous)."""
+def expected_launches(eng) -> tuple[dict, set]:
+    """(launches per kernel, the kernels that must have run) of every
+    run ``eng`` has made. Target model (:func:`path_shape`: R RMSNorms
+    per dispatch, L attention layers): R RMSNorms per dispatch, L flash
+    prefills per blocking prefill, L split-KV decodes (contiguous) or L
+    paged decodes per decode step, L prefill-over-cache launches per
+    chunk and per verify dispatch; on whisper (E encoder layers) each
+    prefill is 2L + E flash launches (self, cross, encoder) and each
+    decode step 2L split-KV decodes (self, cross). Draft (k layers):
+    2k + 1 RMSNorms per dispatch, k flash prefills per draft prefill, k
+    split-KV decodes per draft decode (its shadow cache is
+    contiguous)."""
     s = eng.summary()
     cfg = eng.cfg
     norms, n = path_shape(cfg)
@@ -1326,11 +1353,21 @@ def check_launches(phase, eng, counts) -> None:
         path |= {"decode_attention", "prefill_attention"}
     elif n:
         path.add("paged_decode_attention" if paged else "decode_attention")
+    return want, path
+
+
+def _launch_gate(phase, counts, want, path) -> None:
     log(phase, launches=json.dumps(counts), expected=json.dumps(want),
         path=",".join(sorted(path)))
     if counts != want or not all(counts[name] for name in path):
         raise AssertionError(f"{phase}: kernel launches {counts} != {want} "
                              f"or a kernel of {sorted(path)} never ran")
+
+
+def check_launches(phase, eng, counts) -> None:
+    """Every kernel of the path ran, exactly as often as the path says
+    (:func:`expected_launches`)."""
+    _launch_gate(phase, counts, *expected_launches(eng))
 
 
 def run_engine(params, cfg, prompts, max_new, **ecfg):
@@ -1385,10 +1422,11 @@ def _check_engine(phase, eng, counts, n_requests):
 
 
 def stream_gates(phase, params, cfg, prompts, label_extra=None,
-                 total=None) -> None:
+                 total=None) -> dict:
     """contiguous + blocking == the batch-1 prefill + decode_step loop,
     then every GATE_CONFIGS run == contiguous + blocking (16 new tokens
-    each); each engine run's launches go into ``total`` where given."""
+    each); each engine run's launches go into ``total`` where given.
+    Returns the streams they all gave (rid -> tokens)."""
     import torch
     extra = label_extra or {}
     total = {} if total is None else total
@@ -1426,6 +1464,7 @@ def stream_gates(phase, params, cfg, prompts, label_extra=None,
             raise AssertionError(f"{phase} {label}: streams {got} != "
                                  f"contiguous blocking {base}")
         del eng
+    return base
 
 
 def gate_prompts(cfg):
@@ -1436,12 +1475,14 @@ def gate_prompts(cfg):
             for n in (17, 200, 511, 1000)]
 
 
-def phase_engine_f32() -> None:
+def phase_engine_f32() -> dict:
+    """Phase 3; returns the gated streams (phase 10 holds the cluster to
+    them)."""
     from repro_torch.configs import registry
     from repro_torch.models import model as MD
     cfg = registry.get_config(ARCH).replace(dtype="float32")
     params = MD.init_params(cfg, seed=SEED, device="cuda")
-    stream_gates("engine_f32", params, cfg, gate_prompts(cfg))
+    return stream_gates("engine_f32", params, cfg, gate_prompts(cfg))
 
 
 def _first_logits(params, cfg, prompt, chunk, images=None):
@@ -2979,6 +3020,588 @@ def phase_recurrent(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the disaggregated prefill/decode cluster at full width
+# ---------------------------------------------------------------------------
+
+CARD = "cuda:0"    # the one card: every worker goes on it, round-robin
+ROUND_ROBIN = "workers share devices round-robin"
+PAGED_FALLBACK = FALLBACK_WARNINGS["paged+blocking"][1]
+# 10a's other families: (arch, depth cut or None, capacity, prompt
+# lengths or None for phase 3's, fault on decode worker 0 after step 2).
+# Each requests the paged cache; the recurrent, audio and window models
+# take the reference's contiguous fallback. Danube's 4500-token prompt
+# comes first, so it lands on decode worker 0 and migrates rolled.
+# the leaves a packet of each family carries, each a slot's row of the
+# cache leaf on that leaf's own batch axis
+PACKET_LEAVES = {"hybrid": {"k", "v", "ssm", "conv"},
+                 "ssm": {"mlstm", "slstm_c", "slstm_n", "slstm_h"},
+                 "audio": {"k", "v", "cross_k", "cross_v"}}
+CLUSTER_FAMILIES = (
+    ("deepseek-moe-16b", GATE_LAYERS, 2048, None, "kill"),
+    ("internvl2-26b", GATE_LAYERS, 2048, None, "kill"),
+    ("zamba2-2.7b", ZAMBA_GATE_LAYERS, RECURRENT_CAPACITY,
+     RECURRENT_GATE_LENS, "drain"),
+    ("xlstm-350m", None, RECURRENT_CAPACITY, RECURRENT_GATE_LENS, "drain"),
+    ("whisper-large-v3", WINDOW_LAYERS, WINDOW_CAPACITY, AUDIO_GATE_LENS,
+     "drain"),
+    ("h2o-danube-1.8b", WINDOW_LAYERS, WINDOW_CAPACITY,
+     (4500, 600, 1000, 2048), "drain"),
+)
+
+
+def make_cluster(params, cfg, *, n_prefill=1, n_decode=2, ccfg=None,
+                 **ecfg):
+    """A cluster on the card (8 slots, capacity 2048 unless ``ecfg`` says
+    otherwise) whose construction issued the round-robin warning (one
+    card, three or more workers); returns (cluster, the messages of every
+    warning its construction issued)."""
+    import warnings
+    from repro_torch.serving import ClusterConfig, ClusterEngine, EngineConfig
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        clu = ClusterEngine(
+            params, cfg,
+            EngineConfig(**{"max_batch": 8, "max_seq_len": 2048, **ecfg}),
+            ClusterConfig(n_prefill=n_prefill, n_decode=n_decode,
+                          devices=(CARD,), **(ccfg or {})))
+    said = [str(w.message) for w in seen]
+    if not any(ROUND_ROBIN in m for m in said):
+        raise AssertionError(f"cluster of {n_prefill} + {n_decode} workers "
+                             f"on one card: no round-robin warning in {said}")
+    return clu, said
+
+
+def _workers(clu):
+    return clu.prefill_workers + clu.decode_workers
+
+
+def record_packets(clu, timed=False):
+    """Wrap every worker engine's ``_pack_slot`` / ``_unpack_slot`` (this
+    script's measurement only) to record each packet: the request, its
+    prompt length, ``n_valid``, ``kv_bytes`` and its leaves' shapes and —
+    ``timed`` — the export and import wall ms, the card synchronised
+    around each.
+    Returns (records, restore), ``restore()`` unwrapping them."""
+    import torch
+    records = []
+
+    def sync():
+        if timed:
+            torch.cuda.synchronize()
+
+    for w in _workers(clu):
+        eng = w.eng
+        pack, unpack = eng._pack_slot, eng._unpack_slot
+
+        def packing(slot, _pack=pack):
+            sync()
+            t0 = time.perf_counter()
+            pkt = _pack(slot)
+            sync()
+            records.append({
+                "id": id(pkt), "rid": pkt.req.rid,
+                "prompt_len": len(pkt.req.prompt),
+                "n_valid": pkt.kv["n_valid"], "kv_bytes": pkt.kv["kv_bytes"],
+                "shapes": {k: tuple(v.shape) for k, v in pkt.kv.items()
+                           if isinstance(v, torch.Tensor)},
+                "export_ms": (time.perf_counter() - t0) * 1e3})
+            return pkt
+
+        def unpacking(pkt, slot, _unpack=unpack):
+            sync()
+            t0 = time.perf_counter()
+            _unpack(pkt, slot)
+            sync()
+            rec = next(r for r in reversed(records) if r["id"] == id(pkt))
+            rec["import_ms"] = (time.perf_counter() - t0) * 1e3
+
+        eng._pack_slot, eng._unpack_slot = packing, unpacking
+
+    def restore():
+        for w in _workers(clu):
+            del w.eng._pack_slot, w.eng._unpack_slot
+
+    return records, restore
+
+
+def check_cluster_launches(phase, clu, counts) -> None:
+    """The cluster's launches are its worker engines' summed
+    (:func:`expected_launches` of each), and every kernel of its path
+    ran: K3 where a prompt was prefilled whole, K4 where one was
+    admitted warm, the decode kernel of its cache, K5 on an RMSNorm
+    model."""
+    want: dict = {}
+    for w in _workers(clu):
+        _add(want, expected_launches(w.eng)[0])
+    norms, n = path_shape(clu.cfg)
+    s = clu.summary()
+    path = {"rmsnorm"} if norms else set()
+    if n:
+        path.add("paged_decode_attention" if s["kv_cache"] == "paged"
+                 else "decode_attention")
+        if s["prefills"]:
+            path.add("flash_attention")
+        if any(w.eng.prefill_chunk_dispatches for w in _workers(clu)):
+            path.add("prefill_attention")
+    _launch_gate(phase, counts, want, path)
+
+
+def serve_cluster(phase, clu, drive, total, timed=False):
+    """``drive()`` the cluster with its packets recorded; the launches
+    are checked and added to ``total``. Returns (drive's result, the
+    packet records)."""
+    records, restore = record_packets(clu, timed)
+    try:
+        out, counts = counted(drive)
+    finally:
+        restore()
+    check_cluster_launches(phase, clu, counts)
+    _add(total, counts)
+    return out, records
+
+
+def cluster_gates(phase, clu, records, want, n_requests, **extra) -> dict:
+    """The cluster's streams are ``want``; every request finished; one
+    decode dispatch per worker step; ``kv_transfer_bytes`` is the sum of
+    the packets' ``kv_bytes`` and every packet was counted as a handoff
+    or a migration; every paged pool balances after the drain."""
+    s = clu.summary()
+    got = _outputs(clu)
+    sent = sum(r["kv_bytes"] for r in records)
+    log(phase, **extra, streams_equal=got == want, requests=s["requests"],
+        handoffs=s["handoffs"], migrations=s["migrations"],
+        max_migration_hops=s["max_migration_hops"],
+        kv_transfer_bytes=s["kv_transfer_bytes"], packet_bytes=sent,
+        dispatches_per_step=s["dispatches_per_step"],
+        decode_steps=s["decode_steps"], workers_alive=s["workers_alive"],
+        kv_cache=s["kv_cache"])
+    if not (got == want and s["requests"] == n_requests
+            and s["dispatches_per_step"] == 1.0
+            and s["kv_transfer_bytes"] == sent > 0
+            and s["handoffs"] + s["migrations"] == len(records)):
+        raise AssertionError(
+            f"{phase} {extra}: streams equal {got == want}, requests "
+            f"{s['requests']} of {n_requests}, dispatches per step "
+            f"{s['dispatches_per_step']}, transfer bytes "
+            f"{s['kv_transfer_bytes']} against packets {sent}, "
+            f"{s['handoffs']} + {s['migrations']} of {len(records)} packets")
+    for w in _workers(clu):
+        _pool_balanced(f"{phase} {w.role}{w.idx}", w.eng.kv)
+    return s
+
+
+def fault_after(kind, moved=None):
+    """A drive: two cluster steps, then ``kind`` ("kill" or "drain")
+    decode worker 0 — the positions of its live slots appended to
+    ``moved`` — then run to the end."""
+    def drive(clu):
+        for _ in range(2):
+            clu.step()
+        w = clu.decode_workers[0]
+        if moved is not None:
+            moved.extend(int(w.eng.slot_pos[i]) for i in w.live_slots())
+        getattr(clu, f"{kind}_worker")(0)
+        clu.run()
+    return drive
+
+
+def drain_then_kill(clu):
+    """Hops to 2: drain a loaded decode worker after one step, place its
+    packets, then kill a worker holding one of the moved streams."""
+    clu.step()
+    clu.drain_worker(next(i for i, w in enumerate(clu.decode_workers)
+                          if w.live_slots()))
+    clu.step()
+    moved = {rid for rid, h in clu._req_hops.items() if h == 1}
+    clu.kill_worker(next(
+        i for i, w in enumerate(clu.decode_workers)
+        if w.alive and not w.draining
+        and any(w.eng.slot_req[j].rid in moved for j in w.live_slots())))
+    clu.run()
+
+
+def cluster_qwen_f32(base, total) -> None:
+    """10a on qwen1.5-0.5b, float32, full width and depth, phase 3's
+    traffic: 1 + 2 workers on both backends with decode worker 0 killed
+    after step 2, then 1 + 3 with a drain and a kill (two hops); streams
+    against phase 3's. The cluster's construction may allocate the
+    workers' caches, not more copies of the weights."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    from repro_torch.serving.kv_cache import contiguous_kv_bytes
+    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    before = torch.cuda.memory_allocated()
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    weights = torch.cuda.memory_allocated() - before
+    prompts = gate_prompts(cfg)
+    cache = contiguous_kv_bytes(cfg, 8, 2048)
+    for label, kw in (("1+2 kill", {"kv_cache": "contiguous"}),
+                      ("1+2 kill", {"kv_cache": "paged"}),
+                      ("1+3 drain+kill", {"kv_cache": "paged",
+                                          "n_decode": 3})):
+        before = torch.cuda.memory_allocated()
+        clu, _ = make_cluster(params, cfg, max_new_tokens=16, **kw)
+        grew = torch.cuda.memory_allocated() - before
+        n_workers = len(_workers(clu))
+        for p in prompts:
+            clu.submit(p)
+        drive = drain_then_kill if "drain" in label else fault_after("kill")
+        _, records = serve_cluster("cluster_f32", clu, lambda: drive(clu),
+                                   total)
+        s = cluster_gates("cluster_f32", clu, records, base, len(prompts),
+                          arch=ARCH, run=f"'{label}'",
+                          backend=kw["kv_cache"])
+        log("cluster_f32", arch=ARCH, run=f"'{label}'", workers=n_workers,
+            allocated_by_cluster=grew, worker_caches=n_workers * cache,
+            weight_bytes=weights,
+            devices=",".join(w["device"] for w in s["per_worker"]))
+        hops = 2 if "drain" in label else 1
+        if not (s["migrations"] >= 1 and s["max_migration_hops"] == hops
+                and grew < n_workers * cache * 1.01 + weights / 2):
+            raise AssertionError(
+                f"cluster_f32 {label}: migrations {s['migrations']}, hops "
+                f"{s['max_migration_hops']} (want {hops}), the cluster "
+                f"allocated {grew} B for {n_workers} caches of {cache} B "
+                f"beside {weights} B of weights")
+        del clu
+        gc_empty()
+    del params
+    gc_empty()
+
+
+def gc_empty() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cluster_families_f32(total) -> None:
+    """10a's other families, float32 at their phases' depth cuts, 4
+    prompts of 8 new tokens: each cluster (1 + 2, paged requested, a
+    fault on decode worker 0 after step 2) against the model's own
+    single blocking engine; the fallback's warning asserted where the
+    paged cache cannot hold the model; every packet carries the family's
+    leaves (the recurrent state, whisper's cross K/V), each a slot's row
+    on its own batch axis; a vlm packet carries its 256 image positions;
+    danube's rolled slot migrates."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    from repro_torch.models.model import TRANSFORMER_FAMILIES
+    for arch, depth, cap, lens, fault in CLUSTER_FAMILIES:
+        with step_deadline():
+            t0 = time.perf_counter()
+            cfg = registry.get_config(arch).replace(dtype="float32")
+            if depth:
+                cfg = cfg.replace(n_layers=depth)
+            if cfg.family == "audio":
+                cfg = cfg.replace(n_encoder_layers=depth)
+            params = MD.init_params(cfg, seed=SEED, device="cuda")
+            if cfg.is_moe:
+                cfg = dropless(cfg)
+            prompts = (window_prompts(cfg, lens, SEED) if lens
+                       else gate_prompts(cfg))
+            pageable = (cfg.family in TRANSFORMER_FAMILIES
+                        and cfg.sliding_window is None)
+            backend = "paged" if pageable else "contiguous"
+            eng, counts = run_engine(params, cfg, prompts, 8,
+                                     max_seq_len=cap, kv_cache=backend)
+            _check_engine(f"cluster_f32 {arch} single", eng, counts,
+                          len(prompts))
+            _add(total, counts)
+            want = _outputs(eng)
+            del eng
+            clu, said = make_cluster(params, cfg, max_seq_len=cap,
+                                     max_new_tokens=8, kv_cache="paged")
+            warned = any(PAGED_FALLBACK in m for m in said)
+            for p in prompts:
+                clu.submit(p)
+            moved: list = []
+            _, records = serve_cluster(
+                "cluster_f32", clu,
+                lambda: fault_after(fault, moved)(clu), total)
+            s = cluster_gates("cluster_f32", clu, records, want,
+                              len(prompts), arch=arch, depth=cfg.n_layers,
+                              fault=fault, fallback_warned=warned)
+            prefix = cfg.n_image_tokens if cfg.family == "vlm" else 0
+            leaves = PACKET_LEAVES.get(cfg.family, {"k", "v"})
+            rows_ok = all(set(r["shapes"]) == leaves for r in records)
+            if backend == "contiguous":   # each leaf's own batch axis
+                cache = clu.decode_workers[-1].eng.kv._cache
+                axes = MD.cache_batch_axes(cache)
+                for r in records:
+                    for name, shape in r["shapes"].items():
+                        want = list(cache[name].shape)
+                        want[axes[name]] = 1
+                        if name in ("k", "v"):
+                            shape = shape[:2] + shape[3:]
+                            del want[2]
+                        rows_ok &= list(shape) == want
+            log("cluster_f32", arch=arch, moved_positions=moved,
+                window=cfg.sliding_window,
+                packet_n_valid=[r["n_valid"] for r in records],
+                image_positions=prefix,
+                packet_leaves=",".join(sorted(records[0]["shapes"])),
+                leaves_on_their_batch_axes=rows_ok,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            if not (s["migrations"] >= 1 and moved and rows_ok
+                    and s["kv_cache"] == backend and warned != pageable
+                    and all(r["n_valid"] >= prefix + r["prompt_len"]
+                            for r in records)
+                    and (not cfg.sliding_window
+                         or max(moved) > cfg.sliding_window)):
+                raise AssertionError(
+                    f"cluster_f32 {arch}: migrations {s['migrations']}, "
+                    f"moved {moved}, cache {s['kv_cache']} (fallback warned "
+                    f"{warned}), packets {records}")
+            del clu, params
+            gc_empty()
+
+
+def handoff_lines(phase, records, card) -> None:
+    """Each recorded packet's bytes, export and import wall ms and the
+    GB/s they imply, then their medians."""
+    import numpy as np
+    for r in records:
+        log(phase, handoff=r["rid"], n_valid=r["n_valid"],
+            kv_bytes=r["kv_bytes"], export_ms=f"{r['export_ms']:.3f}",
+            import_ms=f"{r['import_ms']:.3f}",
+            export_gb_s=f"{r['kv_bytes'] / r['export_ms'] / 1e6:.2f}",
+            import_gb_s=f"{r['kv_bytes'] / r['import_ms'] / 1e6:.2f}")
+    med = {k: float(np.median([r[k] for r in records]))
+           for k in ("kv_bytes", "export_ms", "import_ms")}
+    log(phase, handoffs=len(records),
+        kv_bytes_total=sum(r["kv_bytes"] for r in records),
+        kv_bytes_median=int(med["kv_bytes"]),
+        export_ms_median=f"{med['export_ms']:.3f}",
+        import_ms_median=f"{med['import_ms']:.3f}",
+        export_ms_total=f"{sum(r['export_ms'] for r in records):.3f}",
+        import_ms_total=f"{sum(r['import_ms'] for r in records):.3f}",
+        card=f"'{card}'")
+
+
+def latency_fields(s) -> dict:
+    """tok/s, TTFT p50 / p99 and ITL p50 of an engine's or a cluster's
+    summary (the cluster's ITL percentiles are its tenants')."""
+    itl = s["by_tenant"]["default"]["itl_p50_s"]
+    return {"tok_per_s": f"{s['tokens_per_s']:.1f}",
+            "ttft_p50_ms": f"{s['ttft_p50_s'] * 1e3:.1f}",
+            "ttft_p99_ms": f"{s['ttft_p99_s'] * 1e3:.1f}",
+            "itl_p50_ms": f"{itl * 1e3:.2f}"}
+
+
+def cluster_serve_bf16(params, cfg, card, total) -> None:
+    """Phase 4's traffic (16 requests, 64 new) through 1 + 2 workers on
+    the paged cache against the single paged engine: equal streams, the
+    handoffs timed, TTFT / ITL / tok/s side by side; then a decode
+    worker's step against the single engine's on the same prompts, by
+    device time."""
+    import numpy as np
+    from repro_torch.serving import EngineConfig, ServingEngine, profile
+    prompts = serve_prompts(cfg)
+    eng, counts = run_engine(params, cfg, prompts, 64, kv_cache="paged")
+    single = _check_engine("cluster_bf16 single", eng, counts, 16)
+    _add(total, counts)
+    want = _outputs(eng)
+    del eng
+    clu, _ = make_cluster(params, cfg, max_new_tokens=64, kv_cache="paged")
+    for p in prompts:
+        clu.submit(p)
+    _, records = serve_cluster("cluster_bf16", clu, clu.run, total,
+                               timed=True)
+    s = cluster_gates("cluster_bf16", clu, records, want, 16, arch=ARCH,
+                      run="'phase 4 traffic 1+2'")
+    handoff_lines("cluster_bf16", records, card)
+    for who, summ in (("single", single), ("cluster", s)):
+        log("cluster_bf16", serving=who, **latency_fields(summ),
+            requests=summ["requests"], decode_steps=summ["decode_steps"],
+            card=f"'{card}'")
+    del clu
+    gc_empty()
+    # a decode worker's step (8 live slots) against the single engine's
+    # over the same 8 prompts, traced by torch.profiler
+    clu, _ = make_cluster(params, cfg, max_new_tokens=10_000,
+                          kv_cache="paged")
+    for p in prompts:
+        clu.submit(p)
+    clu.step()
+    eng = ServingEngine(params, cfg, EngineConfig(
+        max_batch=8, max_seq_len=2048, max_new_tokens=10_000,
+        kv_cache="paged"))
+    for p in prompts[::2]:       # decode worker 0's requests
+        eng.submit(p)
+    eng.step()
+    w = clu.decode_workers[0]
+    held = sorted(w.eng.slot_req[i].rid for i in w.live_slots())
+    if held != list(range(0, 16, 2)):
+        raise AssertionError(f"decode worker 0 holds {held}")
+    with w.ctx():
+        profile.measure("cluster_decode_worker", 3, w.eng.step, top=6)
+    profile.measure("single_engine_decode", 3, eng.step, top=6)
+    del clu, eng
+    gc_empty()
+
+
+def cluster_prefix_bf16(params, cfg, total) -> None:
+    """Phase 6's 8 requests on a 512-token preamble through 2 prefill +
+    2 decode workers with prefix caching: the router sends the warm
+    prompts to the worker holding the preamble, each of them admitted
+    through one chunk over the cached blocks (K4), exactly as the single
+    engine with prefix caching admits them — whose streams the cluster's
+    must equal; against the cold single engine the streams are printed
+    (bf16 K4 over cached blocks and K3 over the whole prompt round
+    alike only up to bf16). Every alias released after the drain."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 6)
+    pre = rng.integers(0, cfg.vocab_size, size=PREAMBLE)
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size,
+                                                 size=n)]).astype(np.int32)
+               for n in rng.integers(32, 257, size=8)]
+    outs = {}
+    for on in (False, True):
+        eng, counts = run_engine(params, cfg, prompts, 32, kv_cache="paged",
+                                 kv_block_size=BS, prefix_cache=on)
+        _check_engine(f"cluster_bf16 prefix single on={on}", eng, counts, 8)
+        _add(total, counts)
+        outs[on] = _outputs(eng)
+        del eng
+    clu, _ = make_cluster(params, cfg, n_prefill=2, max_new_tokens=32,
+                          kv_cache="paged", kv_block_size=BS,
+                          prefix_cache=True)
+    for p in prompts:
+        clu.submit(p)
+    _, records = serve_cluster("cluster_bf16", clu, clu.run, total)
+    s = cluster_gates("cluster_bf16", clu, records, outs[True], 8,
+                      arch=ARCH, run="'prefix affinity 2+2'")
+    log("cluster_bf16", prefix_routed=s["prefix_routed"],
+        prefix_hits=s["prefix_hits"],
+        prefix_hit_tokens=s["prefix_hit_tokens"],
+        equal_warm_single=_outputs(clu) == outs[True],
+        equal_cold_single=_outputs(clu) == outs[False],
+        warm_single_equal_cold=outs[True] == outs[False])
+    if not (s["prefix_routed"] >= 1 and s["prefix_hits"] >= 1):
+        raise AssertionError(f"prefix affinity: routed "
+                             f"{s['prefix_routed']}, hits {s['prefix_hits']}")
+    del clu
+    gc_empty()
+
+
+def cluster_traces_bf16(params, cfg, total) -> None:
+    """The reference tests' traces on bf16 qwen: mixshift autoscaling
+    (paged, 6-block pools, 1 + 3 workers, interval 4, prefill rate 2)
+    against the single engine's replay; the overload trace through the
+    SLO-aware router against the FIFO one; a short trace replayed twice
+    with every step a straggler candidate (factor 1.0, auto-drain on)
+    under the virtual clock."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.workload import (SLO, TenantSpec, make_trace,
+                                              make_named_trace, replay)
+    tr = make_named_trace("mixshift", vocab_size=cfg.vocab_size, seed=SEED)
+    clu, _ = make_cluster(params, cfg, n_decode=3, max_batch=4,
+                          max_seq_len=96, max_new_tokens=16,
+                          kv_cache="paged", kv_block_size=BS, kv_blocks=6,
+                          eos_token=-1,
+                          ccfg=dict(autoscale=True, autoscale_interval=4,
+                                    prefill_rate=2))
+    rep, records = serve_cluster(
+        "cluster_bf16", clu,
+        lambda: replay(clu, tr, step_quantum_s=QUANTUM), total)
+    eng = ServingEngine(params, cfg, EngineConfig(
+        max_batch=4, max_seq_len=96, max_new_tokens=16, eos_token=-1))
+    ref, counts = counted(lambda: replay(eng, tr, step_quantum_s=QUANTUM))
+    check_launches("cluster_bf16 mixshift single", eng, counts)
+    _add(total, counts)
+    cluster_gates("cluster_bf16", clu, records, ref["outputs"],
+                  len(tr.requests), arch=ARCH, run="'mixshift autoscale'")
+    dirs = {d for _, d in clu.rescale_log}
+    n_workers = len(_workers(clu))
+    log("cluster_bf16", trace="mixshift", requests=len(tr.requests),
+        steps=rep["steps"], rescale_log=json.dumps(clu.rescale_log),
+        handoffs=clu.handoffs, workers=n_workers,
+        streams_equal_single=rep["outputs"] == ref["outputs"])
+    if not (dirs == {"to_prefill", "to_decode"} and n_workers == 4
+            and all(st % 4 == 0 for st, _ in clu.rescale_log)
+            and clu.handoffs >= len(tr.requests)
+            and rep["outputs"] == ref["outputs"]):
+        raise AssertionError(f"mixshift: rescales {clu.rescale_log}, "
+                             f"{n_workers} workers, {clu.handoffs} "
+                             f"handoffs for {len(tr.requests)} requests")
+    del clu, eng
+    tr = make_named_trace("overload", vocab_size=cfg.vocab_size, seed=SEED)
+    reps = {}
+    for slo in (False, True):
+        clu, _ = make_cluster(params, cfg, max_batch=4, max_seq_len=96,
+                              max_new_tokens=16, kv_cache="paged",
+                              ccfg=dict(slo_aware=slo))
+        reps[slo], _ = serve_cluster(
+            "cluster_bf16", clu,
+            lambda: replay(clu, tr, step_quantum_s=QUANTUM), total)
+        chat = reps[slo]["summary"]["by_tenant"]["chat"]
+        log("cluster_bf16", trace="overload", slo_aware=slo,
+            steps=reps[slo]["steps"], tokens=reps[slo]["tokens"],
+            chat_ttft_p99_s=f"{chat['ttft_p99_s']:.4f}",
+            chat_slo_attainment=f"{chat['slo_attainment']:.3f}")
+        del clu
+    if reps[True]["outputs"] != reps[False]["outputs"]:
+        raise AssertionError("overload: SLO-aware cluster streams != FIFO")
+    tr = make_trace(
+        (TenantSpec("t", rate_rps=25.0, prompt_len=(6, 10),
+                    new_tokens=(3, 3), priority=0,
+                    slo=SLO(ttft_s=float("inf"))),),
+        0.3, vocab_size=cfg.vocab_size, seed=4)
+    runs = []
+    for _ in range(2):
+        clu, _ = make_cluster(params, cfg, max_batch=2, max_seq_len=64,
+                              max_new_tokens=4, eos_token=-1,
+                              ccfg=dict(straggler_factor=1.0,
+                                        auto_drain_stragglers=True))
+        rep, _ = serve_cluster(
+            "cluster_bf16", clu,
+            lambda: replay(clu, tr, step_quantum_s=QUANTUM), total)
+        runs.append((rep["outputs"], rep["steps"],
+                     {r: q.ttft_s for r, q in rep["requests"].items()},
+                     sum(len(w.monitor.events) for w in clu.decode_workers),
+                     sum(w.draining for w in clu.decode_workers)))
+        del clu
+    log("cluster_bf16", trace="auto-drain under the virtual clock",
+        requests=len(tr.requests), steps=runs[0][1],
+        schedules_equal=runs[0] == runs[1],
+        straggler_events=runs[0][3], drained=runs[0][4])
+    if not (runs[0] == runs[1] and runs[0][0] and runs[0][3:] == (0, 0)):
+        raise AssertionError(f"auto-drain replay: {runs}")
+    gc_empty()
+
+
+def phase_cluster(base, card: str) -> dict:
+    """10a: float32 stream gates of the cluster (qwen against phase 3's
+    streams, the other families against their own single engines); 10b:
+    bf16 full-depth qwen — serving, prefix affinity, autoscaling, SLO
+    ordering and auto-drain. Returns the launch counts of its runs."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    t0 = time.perf_counter()
+    total: dict = {}
+    with step_deadline():
+        cluster_qwen_f32(base, total)
+    cluster_families_f32(total)
+    t1 = time.perf_counter()
+    with step_deadline():
+        cfg = registry.get_config(ARCH)
+        params = MD.init_params(cfg, seed=SEED, device="cuda")
+        cluster_serve_bf16(params, cfg, card, total)
+        cluster_prefix_bf16(params, cfg, total)
+        cluster_traces_bf16(params, cfg, total)
+        del params
+        gc_empty()
+    log("cluster", seconds=f"{time.perf_counter() - t0:.1f}",
+        seconds_f32=f"{t1 - t0:.1f}",
+        seconds_bf16=f"{time.perf_counter() - t1:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -3013,7 +3636,7 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
     rows = phase_kernels()
-    phase_engine_f32()
+    base = phase_engine_f32()
     torch.cuda.empty_cache()
     counts = phase_engine_bf16(card)
     torch.cuda.empty_cache()
@@ -3030,6 +3653,9 @@ def main() -> int:
         counts[name] += c
     torch.cuda.empty_cache()
     for name, c in phase_recurrent(card).items():
+        counts[name] += c
+    torch.cuda.empty_cache()
+    for name, c in phase_cluster(base, card).items():
         counts[name] += c
     kernels = []
     for name, (src, replaces) in SOURCES.items():

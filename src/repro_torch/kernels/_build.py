@@ -103,20 +103,47 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
+def launch(lib: ctypes.CDLL, fn: str, what: str, device: torch.device,
+           *args) -> None:
+    """Call ``lib.<fn>(*args)`` with ``device`` the current CUDA device —
+    the runtime launches there and sets a kernel's shared-memory limit
+    per device — and raise if it returned a CUDA error. The stream among
+    ``args`` is already ``device``'s (:func:`stream_handle`). When
+    ``device`` is current already, no context is entered: entering one
+    costs each launch a few microseconds of host time."""
+    if device.index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*args)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn)(*args)
+    check(lib, err, what)
+
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def same_device(what: str, *tensors: torch.Tensor) -> torch.device:
+    """The one device every operand of a launch lies on; raises naming
+    both devices where two differ."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{what}: operands on {dev} and {t.device}; "
+                             "one launch takes operands of one device")
+    return dev
 
 
 def check_operand(what: str, t: torch.Tensor, dtype: torch.dtype, *,
                   align: int = 16) -> None:
-    """Validate one kernel operand: ``dtype``, on CUDA device 0 (the
-    libraries' runtime targets the first card), contiguous, ``align``-
-    byte aligned (16 for the kernels' vector loads)."""
+    """Validate one kernel operand: ``dtype``, on a CUDA device,
+    contiguous, ``align``-byte aligned (16 for the kernels' vector
+    loads)."""
     if t.dtype != dtype:
         raise TypeError(f"{what}: operand dtype {t.dtype}, the kernel "
                         f"takes {dtype}")
-    if t.device.type != "cuda" or (t.device.index or 0) != 0:
+    if t.device.type != "cuda":
         raise ValueError(f"{what}: operand on {t.device}, the kernel "
-                         "runs on cuda:0")
+                         "runs on a CUDA device")
     if not t.is_contiguous():
         raise ValueError(f"{what}: operand of shape {tuple(t.shape)} "
                          "is not contiguous")
@@ -125,8 +152,9 @@ def check_operand(what: str, t: torch.Tensor, dtype: torch.dtype, *,
 
 
 def launch_dtype(what: str, *tensors: torch.Tensor) -> int:
-    """Validate kernel operands of one element type the kernels take
-    (each as :func:`check_operand`) and return that type's code."""
+    """Validate kernel operands of one element type the kernels take, on
+    one device (:func:`same_device`, then each as
+    :func:`check_operand`), and return that type's code."""
     dt = tensors[0].dtype
     if dt not in DTYPE_CODES:
         raise TypeError(f"{what}: dtype {dt} unsupported "
@@ -134,6 +162,8 @@ def launch_dtype(what: str, *tensors: torch.Tensor) -> int:
     for t in tensors:
         if t.dtype != dt:
             raise TypeError(f"{what}: mixed dtypes {dt} and {t.dtype}")
+    same_device(what, *tensors)
+    for t in tensors:
         check_operand(what, t, dt)
     return DTYPE_CODES[dt]
 

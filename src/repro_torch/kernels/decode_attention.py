@@ -137,7 +137,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return out
     o_part, m_part, l_part, plan = split_scratch(q, hkv, cap)
     lib = _build.load("decode_attention", SIG)
-    err = lib.decode_attention_launch(
+    _build.launch(
+        lib, "decode_attention_launch", "decode_attention", q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         extra_k.data_ptr() if extras else None,
         extra_v.data_ptr() if extras else None,
@@ -145,6 +146,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         l_part.data_ptr(), out.data_ptr(), b, cap, hkv, hq // hkv, dh,
         plan.splits, plan.split, 1.0 / math.sqrt(dh), int(window or 0),
         code, _build.stream_handle(q))
-    _build.check(lib, err, "decode_attention")
     launches += 1
     return out

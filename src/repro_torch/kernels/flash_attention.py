@@ -49,10 +49,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = _build.load("flash_attention", _SIG)
-    err = lib.flash_attention_launch(
+    _build.launch(
+        lib, "flash_attention_launch", "flash_attention", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
         hq, hkv, dh, int(causal), int(window or 0), int(q_offset),
         1.0 / math.sqrt(dh), code, _build.stream_handle(q))
-    _build.check(lib, err, "flash_attention")
     launches += 1
     return out

@@ -55,14 +55,14 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     o_part, m_part, l_part, plan = split_scratch(q, hkv, w * bs)
     lib = _build.load("decode_attention", SIG)
-    err = lib.paged_decode_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    _build.launch(
+        lib, "paged_decode_attention_launch", "paged_decode_attention",
+        q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         extra_k.data_ptr() if extras else None,
         extra_v.data_ptr() if extras else None,
         lens.data_ptr(), tab.data_ptr(), o_part.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, w, bs, nb,
         hkv, hq // hkv, dh, plan.splits, plan.split, 1.0 / math.sqrt(dh),
         code, _build.stream_handle(q))
-    _build.check(lib, err, "paged_decode_attention")
     launches += 1
     return out

@@ -97,11 +97,11 @@ def prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
         base = scratch.data_ptr()
         parts = [base, base + 4 * n_o, base + 4 * (n_o + n_ml)]
     lib = _build.load("prefill_attention", _SIG)
-    err = lib.prefill_attention_launch(
+    _build.launch(
+        lib, "prefill_attention_launch", "prefill_attention", q.device,
         q.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
         k_self.data_ptr(), v_self.data_ptr(), lens.data_ptr(), *parts,
         out.data_ptr(), b, s, c, hq, hkv, dh, plan.ns, 1.0 / math.sqrt(dh),
         code, _build.stream_handle(q))
-    _build.check(lib, err, "prefill_attention")
     launches += 1
     return out

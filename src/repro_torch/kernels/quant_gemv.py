@@ -118,6 +118,7 @@ def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
                          f"{tuple(w_packed.shape)} scales "
                          f"{tuple(scales.shape)} at group {group}")
     code = _build.launch_dtype("quant_gemv", x)
+    _build.same_device("quant_gemv", x, w_packed, scales)
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or k == 0:
         return out.zero_()
@@ -136,12 +137,12 @@ def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
         tickets = _ticket_counters(x.device, stream,
                                    plan.strips * plan.row_tiles)
     lib = _build.load("quant_gemv", _SIG)
-    err = lib.quant_gemv_launch(
-        x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+    _build.launch(
+        lib, "quant_gemv_launch", "quant_gemv", x.device, x.data_ptr(),
+        w_packed.data_ptr(), scales.data_ptr(),
         None if part is None else part.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
         out.data_ptr(), b, k, n, group, plan.unit, plan.vec, plan.rows,
         plan.units_per_warp, plan.splits, code, stream)
-    _build.check(lib, err, "quant_gemv")
     launches += 1
     return out

@@ -85,15 +85,17 @@ def _launch_args(d: int, xdt: torch.dtype, adt: torch.dtype | None,
             *launch_plan(d, xdt.itemsize))
 
 
-def _pointer(what: str, t: torch.Tensor, align: int = 16) -> int:
+def _pointer(what: str, t: torch.Tensor, card: int, align: int = 16) -> int:
     """t's address, after :func:`_build.check_operand`'s checks of
-    device, layout and alignment (its dtype is checked by the caller)."""
-    if t.is_cuda and t.get_device() == 0 and t.is_contiguous():
+    device, layout and alignment (its dtype is checked by the caller) and
+    a check that it lies on CUDA device ``card``, x's."""
+    if t.is_cuda and t.get_device() == card and t.is_contiguous():
         p = t.data_ptr()
         if p % align == 0:
             return p
     _build.check_operand(what, t, t.dtype, align=align)
-    raise AssertionError("unreachable")
+    raise ValueError(f"{what}: operands on cuda:{card} and {t.device}; "
+                     "one launch takes operands of one device")
 
 
 def add_rmsnorm(x: torch.Tensor, a: torch.Tensor | None, w: torch.Tensor,
@@ -105,10 +107,11 @@ def add_rmsnorm(x: torch.Tensor, a: torch.Tensor | None, w: torch.Tensor,
     written), h = RMSNorm(s) * w in ``out_dtype`` (default x's)."""
     global launches
     hdt = check_shapes(x, a, w, out_dtype)
-    xp, wp = _pointer("rmsnorm x", x), _pointer("rmsnorm w", w)
+    card = x.get_device()
+    xp, wp = _pointer("rmsnorm x", x, card), _pointer("rmsnorm w", w, card)
     # a aligned to its share of a 16-byte x vector
     ap = None if a is None else _pointer(
-        "add_rmsnorm a", a, 16 * a.element_size() // x.element_size())
+        "add_rmsnorm a", a, card, 16 * a.element_size() // x.element_size())
     # fresh, contiguous, on x's card: aligned for the vector stores
     s = x if a is None else torch.empty_like(x)
     h = torch.empty_like(x, dtype=hdt)
@@ -119,10 +122,10 @@ def add_rmsnorm(x: torch.Tensor, a: torch.Tensor | None, w: torch.Tensor,
     xt, at, ht, threads, vecs = _launch_args(
         d, x.dtype, None if a is None else a.dtype, hdt)
     lib = _build.load("rmsnorm", _SIG)
-    err = lib.add_rmsnorm_launch(
-        xp, ap, wp, None if a is None else s.data_ptr(), h.data_ptr(), m, d,
-        float(eps), xt, at, ht, threads, vecs, _build.stream_handle(x))
-    _build.check(lib, err, "add_rmsnorm")
+    _build.launch(
+        lib, "add_rmsnorm_launch", "add_rmsnorm", x.device, xp, ap, wp,
+        None if a is None else s.data_ptr(), h.data_ptr(), m, d, float(eps),
+        xt, at, ht, threads, vecs, _build.stream_handle(x))
     launches += 1
     return s, h
 

@@ -1,5 +1,5 @@
 """Serving layer of the port: KV-cache managers, schedulers, the engine,
-workload traces and telemetry."""
+the disaggregated cluster, workload traces and telemetry."""
 from repro_torch.serving.engine import (  # noqa: F401
     EngineConfig,
     Request,
@@ -8,6 +8,11 @@ from repro_torch.serving.engine import (  # noqa: F401
     build_closures,
     make_sampler,
     request_breakdowns,
+)
+from repro_torch.serving.cluster import (  # noqa: F401
+    ClusterConfig,
+    ClusterEngine,
+    Worker,
 )
 from repro_torch.serving.kv_cache import (  # noqa: F401
     BlockAllocator,

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/serving/workload.py`` (a copy: the module has no
 framework dependency, and the same seed gives the same trace in both
-packages). The cluster and the analytical simulator named below are the
-reference's; the port has neither yet, and :func:`replay` drives its
-``ServingEngine``.
+packages). :func:`replay` drives the port's ``ServingEngine`` or its
+``ClusterEngine`` (:mod:`repro_torch.serving.cluster`); the analytical
+simulator named below is the reference's, and the port does not have
+it yet.
 
 The paper's cloud argument is TCO-per-QPS under sustained heavy
 traffic (§1.2), but a fixed request list exercises none of it: no

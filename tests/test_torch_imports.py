@@ -1,5 +1,5 @@
-"""The port, its chip smoke script and its examples import neither JAX
-nor anything of the JAX package (``repro``), and the port's entry
+"""The port, its chip smoke script, its examples and its scripts import
+neither JAX nor anything of the JAX package (``repro``), and the port's entry
 points refuse a CUDA device that is absent instead of carrying on on
 the CPU."""
 from __future__ import annotations
@@ -12,8 +12,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_w4_mobile_decode.py"]
+FILES = [*sorted(ROOT.glob("src/repro_torch/**/*.py")),
+         *sorted(ROOT.glob("examples/torch_*.py")),
+         *sorted(ROOT.glob("scripts/torch_*.py")), ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
