@@ -16,7 +16,9 @@ Phases, one line each (any failure exits non-zero):
    events, host launch cost included), its device time per call
    (``torch.profiler``), the plain version's time, one PyTorch library
    call's where one computes the same function (both times), and the
-   bound the card's roofline allows; for every kernel also both times
+   bound the card's roofline allows for the work the kernel's
+   ``cost()`` counts at the case's real lengths; for every kernel also
+   both times
    cold in L2, kernel and library, round-robin over copies of its
    operands that exceed the L2; K5 with the residual add fused
    (``add_rmsnorm``) at the decode, prefill and W4 rows, its ``s``
@@ -145,7 +147,26 @@ Phases, one line each (any failure exits non-zero):
    both ways (equal to the single engine's replay), the overload trace
    SLO-aware against FIFO (equal streams) and a short trace replayed
    twice with auto-drain under the virtual clock (identical schedules,
-   no drain). Each step ends the process past 420 s.
+   no drain). Each step ends the process past 420 s;
+11. cost model — (a) every family the port serves, at its phase's
+   config, priced at full width on meta tensors (nothing
+   allocated; ``repro_torch.core.costmodel``): a 1024-position
+   prefill, the ragged decode of 8 rows at 2048 positions on both
+   backends, a 256-token chunk over a 2048-position history and the
+   gamma-4 verify where the family has them — FLOPs, bytes, weight
+   bytes and KV bytes per position printed; no "other" op above 4096
+   B, no kernel priced at zero FLOPs, the decode's weight bytes equal
+   to the params leaves it reads and its KV bytes per position 8 x
+   ``kv_bytes_per_token`` (plus the block tables on the paged cache);
+   (b) ``audit_engine`` / ``assert_no_drift`` over the dispatch logs of
+   the engines of phases 3, 4 and 6 (blocking, chunked and speculative
+   on both backends, SLO, prefix caching): every dispatch priced, one
+   target dispatch a step; (c) phase 4's traffic on bf16 qwen, paged +
+   chunked 256, with telemetry on: ``dispatch_calibration`` against one
+   card (``DGX_H100`` / 8: 989.5 TFLOP/s, 3350 GB/s), every kind's
+   measured / predicted finite and >= 0.95; then one decode step of 8
+   live slots traced by ``torch.profiler``, no kernel's device time
+   under 1 / 1.05 of the bound of its ``cost()`` at the step's lengths.
 
 Every engine and cluster run and every W4 step checks each kernel's
 launch count against what its path must launch.
@@ -471,7 +492,6 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import paged_decode_attention as kpdec
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     nb, w = b * cap // bs, cap // bs
     q = _rand(gen, (b, 1, hq, dh), dtype)
     kc = _rand(gen, (b, cap, hkv, dh), dtype)
@@ -482,8 +502,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
                          device="cuda", dtype=torch.int32)
     lens[0] = cap if first_len is None else first_len
     tot = int(lens.sum().item())
-    dec_bytes = ((2 * tot * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh)
-                 * elt + 4 * b)
+    dec_flops, dec_bytes = kdec.cost(q.shape, kc.shape, dtype, lens)
     pos = torch.arange(cap + 1, device="cuda")
     mask = ((pos[None, :] < lens[:, None]) | (pos[None, :] == cap)
             )[:, None, None, :]                     # (B, 1, 1, C + 1)
@@ -507,7 +526,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
         lambda: ref.decode_attention(q, kc, vc, lens, extra_k=ek,
                                      extra_v=ev),
         lambda: sdpa(q, k_cat, v_cat, mask),
-        dec_bytes, 4 * (tot + b) * hq * dh, [], {"cold": k1_cold})]
+        dec_bytes, dec_flops, [], {"cold": k1_cold})]
     # K2: the same rows in a pool of NB blocks, at a seeded random
     # permutation of block ids; entries past each row's length are
     # sentinels (NB)
@@ -521,6 +540,8 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
     tab[torch.arange(w, device="cuda")[None, :] >= n_blk[:, None]] = nb
     kg = torch.cat([ref.gather_kv_blocks(kp, tab), ek], 1)
     vg = torch.cat([ref.gather_kv_blocks(vp, tab), ev], 1)
+    k2_flops, k2_bytes = kpdec.cost(q.shape, kp.shape, tab.shape, dtype,
+                                    lens)
 
     def k2_cold():
         pools = [(kp.clone(), vp.clone())
@@ -540,7 +561,7 @@ def decode_cases(gen, dtype, b, cap, hq, hkv, dh, bs=16, first_len=None):
         lambda: ref.paged_decode_attention(q, kp, vp, tab, lens,
                                            extra_k=ek, extra_v=ev),
         lambda: sdpa(q, kg, vg, mask),
-        dec_bytes + 4 * tab.numel(), 4 * (tot + b) * hq * dh,
+        k2_bytes, k2_flops,
         # K1 on the dense copy of the same rows: bitwise equal
         [("K1_on_the_same_rows",
           lambda: kdec.decode_attention(q, kc, vc, lens, extra_k=ek,
@@ -579,7 +600,6 @@ def prefill_cases(gen, dtype, dh, specs, cap=2048):
     import torch
     from repro_torch.kernels import prefill_attention as kpre
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     cases = []
     for case, bq, s, hq, hkv, hist in specs:
         q = _rand(gen, (bq, s, hq, dh), dtype)
@@ -594,7 +614,6 @@ def prefill_cases(gen, dtype, dh, specs, cap=2048):
         else:
             hl = torch.tensor([hist], dtype=torch.int32, device="cuda")
         tot = int(hl.sum().item())
-        pairs = tot * s + bq * s * (s + 1) // 2
         k_cat, v_cat = torch.cat([kh, ks], 1), torch.cat([vh, vs], 1)
         pos = torch.arange(cap + s, device="cuda")
         rel = torch.arange(s, device="cuda")
@@ -606,8 +625,7 @@ def prefill_cases(gen, dtype, dh, specs, cap=2048):
         shape = "tiles"  # the launch shape; for splits, how many are read
         if kpre.launch_plan(bq, s, cap, hq, dh, dtype).splits:
             shape = f"splits={sum(kpre.live_splits(hl, bq, cap))}"
-        nbytes = ((2 * q.numel() + (2 * tot + 2 * bq * s) * hkv * dh) * elt
-                  + 4 * bq)
+        flops, nbytes = kpre.cost(q.shape, kh.shape, dtype, hl)
 
         def make(q, kh, vh, ks, vs, hl=hl, m=mask):
             kc, vc = torch.cat([kh, ks], 1), torch.cat([vh, vs], 1)
@@ -624,7 +642,7 @@ def prefill_cases(gen, dtype, dh, specs, cap=2048):
             lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
                 ref.prefill_attention(q, kh, vh, hl, ks, vs),
             lambda q=q, k=k_cat, v=v_cat, m=mask: sdpa(q, k, v, m),
-            nbytes, 4 * pairs * hq * dh,
+            nbytes, flops,
             [("second_run",
               lambda q=q, kh=kh, vh=vh, hl=hl, ks=ks, vs=vs:
                   kpre.prefill_attention(q, kh, vh, hl, ks, vs)),
@@ -660,9 +678,7 @@ def add_rmsnorm_case(gen, m, d, xdt, adt, hdt, label=""):
     from repro_torch.kernels import rmsnorm as krn
     x, a = _rand(gen, (m, d), xdt), _rand(gen, (m, d), adt)
     w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(xdt)
-    ex, ea, eh = (torch.tensor([], dtype=t).element_size()
-                  for t in (xdt, adt, hdt))
-    nbytes = m * d * (2 * ex + ea + eh) + d * ex
+    flops, nbytes = krn.cost(x.shape, xdt, add_dtype=adt, out_dtype=hdt)
 
     def kern(x=x, a=a, w=w):
         return krn.add_rmsnorm(x, a, w, out_dtype=hdt)
@@ -675,7 +691,7 @@ def add_rmsnorm_case(gen, m, d, xdt, adt, hdt, label=""):
     return (
         "add_rmsnorm", f"{label}M={m},d={d},x+a->h={names}", kern,
         lambda: ref.add_rmsnorm(x, a, w, out_dtype=hdt), lib,
-        nbytes, 5 * m * d,
+        nbytes, flops,
         [("x_plus_a_then_the_kernel_without_a",
           lambda: (x + a, krn.add_rmsnorm(x + a, None, w,
                                           out_dtype=hdt)[1]))],
@@ -692,14 +708,13 @@ def rmsnorm_case(gen, m, d, dtype, label=""):
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as krn
-    elt = torch.tensor([], dtype=dtype).element_size()
     x = _rand(gen, (m, d), dtype)
     w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
-    nbytes = (2 * m * d + d) * elt
+    flops, nbytes = krn.cost(x.shape, dtype)
     return (
         "rmsnorm", f"{label}M={m},d={d}",
         lambda: krn.rmsnorm(x, w), lambda: ref.rmsnorm(x, w),
-        lambda: F.rms_norm(x, (d,), w, eps=1e-6), nbytes, 4 * m * d, [],
+        lambda: F.rms_norm(x, (d,), w, eps=1e-6), nbytes, flops, [],
         {"cold": cold_of(nbytes, lambda x, w: (
             lambda: krn.rmsnorm(x, w),
             lambda: F.rms_norm(x, (d,), w, eps=1e-6)), x, w)})
@@ -715,7 +730,6 @@ def kernel_cases(gen, dtype):
     import torch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     d = 1024
     cases = [rmsnorm_case(gen, m, d, dtype) for m in (8, 512)]
     # the fused add: qwen's decode rows and its prefill bucket, in the
@@ -734,9 +748,9 @@ def kernel_cases(gen, dtype):
         ok = pos[None, :] <= pos[:, None]
         if window is not None:
             ok &= pos[None, :] > pos[:, None] - window
-        pairs = int(ok.sum().item())
         mask = ok if window is not None else None
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+        flops, nbytes = kfa.cost(q.shape, k.shape, dtype, causal=True,
+                                 window=window)
         cases.append((
             "flash_attention",
             f"B=1,S={s},Hq={hq},Hkv={hkv},Dh={dh},{case}",
@@ -745,7 +759,7 @@ def kernel_cases(gen, dtype):
             lambda q=q, k=k, v=v, w=window: ref.flash_attention(
                 q, k, v, causal=True, window=w),
             lambda q=q, k=k, v=v, m=mask: sdpa(q, k, v, m),
-            nbytes, 4 * pairs * hq * dh, [],
+            nbytes, flops, [],
             {"cold": cold_of(nbytes, lambda q, k, v, w=window, m=mask: (
                 lambda: kfa.flash_attention(q, k, v, causal=True, window=w),
                 lambda: sdpa(q, k, v, m)), q, k, v)}))
@@ -762,13 +776,14 @@ def kernel_cases(gen, dtype):
                                             ("verify,gqa", 8, 5, 8, 2, None)))
     s, hq = 1024, 16
     q, k, v = (_rand(gen, (1, s, hq, dh), dtype) for _ in range(3))
+    flops, nbytes = kfa.cost(q.shape, k.shape, dtype)
     cases.append((
         "flash_attention", f"B=1,S={s},Hq={hq},Hkv={hq},Dh={dh},causal",
         lambda: kfa.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention(q, k, v, causal=True),
         lambda: sdpa(q, k, v),
-        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * hq * dh, [],
-        {"cold": cold_of(4 * q.numel() * elt, lambda q, k, v: (
+        nbytes, flops, [],
+        {"cold": cold_of(nbytes, lambda q, k, v: (
             lambda: kfa.flash_attention(q, k, v, causal=True),
             lambda: sdpa(q, k, v)), q, k, v)}))
     return cases
@@ -822,7 +837,6 @@ def w4_path_cases(gen, dtype):
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import quant_gemv as kqg
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     dname = str(dtype).removeprefix("torch.")
     cases = []
     for label, b, k, n, group in QUANT_SHAPES:
@@ -839,7 +853,7 @@ def w4_path_cases(gen, dtype):
                 library="aten._weight_int4pack_mm", library_note=note,
                 w16_matmul_ms=f"{time_ms(lambda: x @ w_deq):.4f}")
             del w_deq
-        nbytes = k * n // 2 + 4 * (k // group) * n + (b * k + b * n) * elt
+        flops, nbytes = kqg.cost(x.shape, packed.shape, dtype, group=group)
 
         def cold(x=x, packed=packed, scales=scales, group=group,
                  nbytes=nbytes, lib=lib):
@@ -858,19 +872,20 @@ def w4_path_cases(gen, dtype):
                 x, p, s, group=g),
             lambda x=x, p=packed, s=scales, g=group: ref.quant_gemv(
                 x, p, s, group=g),
-            lib, nbytes, 2 * b * k * n, [], {"cold": cold}))
+            lib, nbytes, flops, [], {"cold": cold}))
 
     s, h, dh = 512, 32, 96
     q = _rand(gen, (1, s, h, dh), dtype)
     k = _rand(gen, (1, s, h, dh), dtype)
     v = _rand(gen, (1, s, h, dh), dtype)
+    flops, nbytes = kfa.cost(q.shape, k.shape, dtype)
     cases.append((
         "flash_attention", f"B=1,S={s},Hq={h},Hkv={h},Dh={dh},causal",
         lambda: kfa.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention(q, k, v, causal=True),
         lambda: sdpa(q, k, v),
-        4 * q.numel() * elt, 4 * (s * (s + 1) // 2) * h * dh, [],
-        {"cold": cold_of(4 * q.numel() * elt, lambda q, k, v: (
+        nbytes, flops, [],
+        {"cold": cold_of(nbytes, lambda q, k, v: (
             lambda: kfa.flash_attention(q, k, v, causal=True),
             lambda: sdpa(q, k, v)), q, k, v)}))
     if dtype == torch.float32:
@@ -899,7 +914,6 @@ def families_cases(gen, dtype):
     import torch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     dh = 128
     cases = []
     for hq, hkv in ((48, 8), (16, 16)):
@@ -914,13 +928,13 @@ def families_cases(gen, dtype):
         q = _rand(gen, (1, s, hq, dh), dtype)
         k = _rand(gen, (1, s, hkv, dh), dtype)
         v = _rand(gen, (1, s, hkv, dh), dtype)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+        flops, nbytes = kfa.cost(q.shape, k.shape, dtype)
         cases.append((
             "flash_attention", f"B=1,S={s},Hq={hq},Hkv={hkv},Dh={dh},causal",
             lambda q=q, k=k, v=v: kfa.flash_attention(q, k, v, causal=True),
             lambda q=q, k=k, v=v: ref.flash_attention(q, k, v, causal=True),
             lambda q=q, k=k, v=v: sdpa(q, k, v),
-            nbytes, 4 * (s * (s + 1) // 2) * hq * dh, [],
+            nbytes, flops, [],
             {"cold": cold_of(nbytes, lambda q, k, v: (
                 lambda: kfa.flash_attention(q, k, v, causal=True),
                 lambda: sdpa(q, k, v)), q, k, v)}))
@@ -937,7 +951,6 @@ def rolling_decode_case(gen, dtype, b, cap, hq, hkv, dh, lens, label):
     import torch
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     q = _rand(gen, (b, 1, hq, dh), dtype)
     kc = _rand(gen, (b, cap, hkv, dh), dtype)
     vc = _rand(gen, (b, cap, hkv, dh), dtype)
@@ -950,8 +963,7 @@ def rolling_decode_case(gen, dtype, b, cap, hq, hkv, dh, lens, label):
     mask = torch.cat([keep, torch.ones((b, 1), dtype=torch.bool,
                                        device="cuda")], 1)[:, None, None, :]
     rows = int(keep.sum().item())
-    nbytes = (2 * rows * hkv * dh + 2 * q.numel() + 2 * b * hkv * dh) * elt \
-        + 4 * b
+    flops, nbytes = kdec.cost(q.shape, kc.shape, dtype, lens, window=cap)
     k_cat, v_cat = torch.cat([kc, ek], 1), torch.cat([vc, ev], 1)
 
     def kern(kc=kc, vc=vc):
@@ -973,7 +985,7 @@ def rolling_decode_case(gen, dtype, b, cap, hq, hkv, dh, lens, label):
             lambda: ref.decode_attention(q, kc, vc, ln, extra_k=ek,
                                          extra_v=ev, window=cap),
             lambda: sdpa(q, k_cat, v_cat, mask), nbytes,
-            4 * (rows + b) * hq * dh, [("second_run", kern)],
+            flops, [("second_run", kern)],
             {"cold": cold})
 
 
@@ -986,7 +998,6 @@ def flash_case(gen, dtype, label, sq, skv, hq, hkv, dh, *, causal,
     import torch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     q = _rand(gen, (1, sq, hq, dh), dtype)
     k = _rand(gen, (1, skv, hkv, dh), dtype)
     v = _rand(gen, (1, skv, hkv, dh), dtype)
@@ -996,12 +1007,8 @@ def flash_case(gen, dtype, label, sq, skv, hq, hkv, dh, *, causal,
         qp = torch.arange(sq, device="cuda")[:, None]
         kp = torch.arange(skv, device="cuda")[None, :]
         mask = (kp <= qp) & (kp > qp - window)
-        pairs = int(mask.sum().item())
-    elif causal:
-        pairs = sq * (sq + 1) // 2
-    else:
-        pairs = sq * skv
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+    flops, nbytes = kfa.cost(q.shape, k.shape, dtype, causal=causal,
+                             window=window)
 
     def lib(q=q, k=k, v=v):
         return sdpa(q, k, v, mask, causal=causal)
@@ -1012,7 +1019,7 @@ def flash_case(gen, dtype, label, sq, skv, hq, hkv, dh, *, causal,
             + (f",window={window}" if window else ""),
             lambda: kfa.flash_attention(q, k, v, **kw),
             lambda: ref.flash_attention(q, k, v, **kw), lib,
-            nbytes, 4 * pairs * hq * dh, [],
+            nbytes, flops, [],
             {"cold": cold_of(nbytes, lambda q, k, v: (
                 lambda: kfa.flash_attention(q, k, v, **kw),
                 lambda: lib(q, k, v)), q, k, v)})
@@ -1033,7 +1040,6 @@ def window_audio_cases(gen, dtype):
     import torch
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ref
-    elt = torch.tensor([], dtype=dtype).element_size()
     cases = [rolling_decode_case(gen, dtype, 8, 4096, 32, 8, dh,
                                  ROLLING_LENS, name)
              for name, dh in (("mistral", 128), ("danube", 80))]
@@ -1041,7 +1047,7 @@ def window_audio_cases(gen, dtype):
     q = _rand(gen, (b, 1, h, dh), dtype)
     kc, vc = _rand(gen, (b, t, h, dh), dtype), _rand(gen, (b, t, h, dh),
                                                        dtype)
-    nbytes = (2 * kc.numel() + 2 * q.numel()) * elt + 4 * b
+    flops, nbytes = kdec.cost(q.shape, kc.shape, dtype, t, self_kv=False)
 
     def cross(kc=kc, vc=vc):
         return kdec.decode_attention(q, kc, vc, t)
@@ -1051,7 +1057,7 @@ def window_audio_cases(gen, dtype):
         f"whisper_cross,B={b},C={t},Hq={h},Hkv={h},Dh={dh},len={t},"
         f"splits={kdec.launch_plan(b, h, t).splits},no_self",
         cross, lambda: ref.decode_attention(q, kc, vc, t),
-        lambda: sdpa(q, kc, vc, causal=False), nbytes, 4 * b * t * h * dh,
+        lambda: sdpa(q, kc, vc, causal=False), nbytes, flops,
         [("second_run", cross)],
         {"cold": cold_of(nbytes, lambda kc, vc: (
             lambda: cross(kc, vc),
@@ -1386,6 +1392,7 @@ def run_engine(params, cfg, prompts, max_new, **ecfg):
     ops.reset_launch_counts()
     eng.run()
     torch.cuda.synchronize()
+    keep_for_audit(eng)
     return eng, ops.launch_counts()
 
 
@@ -1482,7 +1489,8 @@ def phase_engine_f32() -> dict:
     from repro_torch.models import model as MD
     cfg = registry.get_config(ARCH).replace(dtype="float32")
     params = MD.init_params(cfg, seed=SEED, device="cuda")
-    return stream_gates("engine_f32", params, cfg, gate_prompts(cfg))
+    with auditing("engine_f32"):
+        return stream_gates("engine_f32", params, cfg, gate_prompts(cfg))
 
 
 def _first_logits(params, cfg, prompt, chunk, images=None):
@@ -1604,7 +1612,8 @@ def phase_engine_bf16(card: str) -> dict:
     # through the plain versions
     logit_gates("engine_bf16", params, cfg, prompts[0])
     total: dict = {}
-    serve_bf16("engine_bf16", params, cfg, prompts, card, total)
+    with auditing("engine_bf16"):
+        serve_bf16("engine_bf16", params, cfg, prompts, card, total)
     return total
 
 
@@ -1818,6 +1827,8 @@ def slo_runs(params, cfg, total) -> dict:
                           max_new_tokens=16, scheduler=sched, kv_cache=kv)
             rep, counts = counted(lambda: replay(eng, tr,
                                                  step_quantum_s=QUANTUM))
+            if sched == "slo":
+                keep_for_audit(eng)
             check_launches(f"request_surface slo {kv}+{sched}", eng, counts)
             _pool_balanced(f"overload {kv}+{sched}", eng.kv)
             _add(total, counts)
@@ -1887,6 +1898,8 @@ def prefix_runs(params, cfg, total) -> None:
                           kv_block_size=BS, prefix_cache=on,
                           **{"scheduler": sched, **kw})
             _, counts = counted(lambda: _drive_staged(eng, prompts))
+            if on:
+                keep_for_audit(eng, "prefix")
             check_launches(f"request_surface prefix {sched} on={on}", eng,
                            counts)
             _pool_balanced(f"prefix {sched} on={on}", eng.kv)
@@ -2182,8 +2195,9 @@ def phase_request_surface(card: str) -> dict:
     total: dict = {}
     cfg = registry.get_config(ARCH).replace(dtype="float32")
     params = MD.init_params(cfg, seed=SEED, device="cuda")
-    slo_runs(params, cfg, total)
-    prefix_runs(params, cfg, total)
+    with auditing("request_surface"):
+        slo_runs(params, cfg, total)
+        prefix_runs(params, cfg, total)
     interleaving_runs(params, cfg, total)
     telemetry_runs(params, cfg, total)
     del params
@@ -3602,6 +3616,381 @@ def phase_cluster(base, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the static cost model — pricing on meta tensors, the dispatch
+# audit, measured against predicted
+# ---------------------------------------------------------------------------
+
+# what the audit reads of the engines of phases 3, 4 and 6: (label,
+# record), and the label of the phase whose engines are kept (None: none)
+AUDITED: list = []
+_audit_label = None
+
+
+@contextlib.contextmanager
+def auditing(label):
+    """Keep, for 11b, the engines ``run_engine`` and ``keep_for_audit``
+    see while this is open."""
+    global _audit_label
+    prev, _audit_label = _audit_label, label
+    try:
+        yield
+    finally:
+        _audit_label = prev
+
+
+def keep_for_audit(eng, what="") -> None:
+    """What ``costmodel.audit_engine`` reads of ``eng``: its dispatch log
+    (operand shapes, no tensors), its dispatch functions, configs and the
+    shapes of its params as meta tensors — none of its device memory."""
+    from types import SimpleNamespace
+    from repro_torch.core import trace as T
+    if _audit_label is None:
+        return
+    label = (f"{_audit_label} {eng.kv.name}+{eng.scheduler.name}"
+             + (f" {what}" if what else ""))
+    AUDITED.append((label, SimpleNamespace(
+        dispatch_log=eng.dispatch_log, _closures=eng._closures,
+        _draft_closures=getattr(eng, "_draft_closures", None),
+        params=T.to_meta(eng.params), draft_cfg=eng.draft_cfg,
+        draft_params=(None if eng.draft_params is None
+                      else T.to_meta(eng.draft_params)),
+        cfg=eng.cfg, ecfg=eng.ecfg, kv=SimpleNamespace(name=eng.kv.name),
+        scheduler=eng.scheduler.name, tel_label=eng.tel_label)))
+
+
+# 11a: each family the port serves at its phase's config (layers: the
+# phase's cut, None for full depth)
+PRICED = (("qwen1.5-0.5b", None), ("phi3-mini-3.8b", None),
+          ("deepseek-moe-16b", None), ("internvl2-26b", None),
+          ("dbrx-132b", DBRX_LAYERS), ("h2o-danube-1.8b", None),
+          ("mistral-7b", None), ("whisper-large-v3", None),
+          ("zamba2-2.7b", None), ("xlstm-350m", None))
+PRICE_BATCH, PRICE_LEN, PRICE_PREFILL, PRICE_CHUNK, PRICE_GAMMA = (
+    8, 2048, 1024, 256, 4)
+OTHER_BYTES = 4096.0
+# params leaves a decode step reads as a product's weight, by name: the
+# projections, the MoE router and experts, the recurrent blocks' (not
+# Mamba2's depthwise conv_w, an elementwise window), and the head
+PRODUCT_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "router", "in_proj", "out_proj", "w_i", "w_f", "w_in",
+                  "w_rec", "w_ff_up", "w_ff_down", "head"}
+
+
+def decode_weight_bytes(cfg, params) -> int:
+    """Bytes of the params leaves one decode step reads as weights,
+    counted from the tree by name: every product leaf, the embedding
+    table only where it is the tied head (a decode gathers its rows),
+    none of whisper's encoder (prefill only) nor its cross-attention's
+    wk / wv (their K/V are cached), zamba2's shared block once for each
+    of its groups."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return sum(walk(v, path + (k,)) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(walk(v, path) for v in tree)
+        name = path[-1]
+        read = name in PRODUCT_LEAVES or (
+            path == ("embed", "table") and cfg.tie_embeddings)
+        if path[0] in ("enc_layers", "enc_norm") or (
+                "xattn" in path and name in ("wk", "wv")):
+            read = False
+        n = tree.numel() * tree.element_size() if read else 0
+        if cfg.family == "hybrid" and path[0] == "shared":
+            n *= cfg.n_layers // cfg.attn_every
+        return n
+    return walk(params, ())
+
+
+def _priced_line(arch, kind, ops, lin=None, **extra) -> None:
+    from repro_torch.core import trace as T
+    t = T.totals(ops)
+    fields = dict(arch=arch, kind=kind, flops=f"{t.flops:.6g}",
+                  bytes=f"{t.bytes:.6g}", weight_bytes=f"{t.weight_bytes:.6g}",
+                  kernel_flops=f"{t.kernel_flops:.6g}", ops=len(ops))
+    if lin is not None:
+        fields["kv_bytes_per_position"] = (
+            f"{sum(o.in_bytes[1] + o.out_bytes[1] for o in lin):.6g}")
+    log("costmodel", **fields, **extra)
+
+
+def _price_gates(arch, kind, ops) -> None:
+    """No heavy "other" op, no kernel priced at zero FLOPs."""
+    for o in ops:
+        if o.kind == "other" and o.in_bytes + o.out_bytes > OTHER_BYTES:
+            raise AssertionError(f"{arch} {kind}: unpriced op {o.prim} "
+                                 f"moves {o.in_bytes + o.out_bytes:.0f} B")
+        if o.kind == "kernel" and o.flops <= 0:
+            raise AssertionError(f"{arch} {kind}: kernel {o.kernel} "
+                                 "priced at zero FLOPs")
+
+
+def price_families() -> None:
+    """11a: every family's dispatches priced at full width on meta
+    tensors (nothing allocated): a 1024-position prefill, the ragged
+    decode of 8 rows over 2048 positions on both backends, a 256-token
+    chunk over a 2048-position history, the gamma-4 verify of 8 rows —
+    where the family has them. The decode's weight bytes are the params
+    leaves it reads, and its KV slope 8 x ``kv_bytes_per_token`` (plus
+    each layer's block tables on the paged cache)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import costmodel as CM
+    from repro_torch.serving.kv_cache import kv_bytes_per_token
+    B, C = PRICE_BATCH, PRICE_LEN
+    for arch, layers in PRICED:
+        t0 = time.perf_counter()
+        cfg = registry.get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        pricer = CM.DispatchPricer(cfg)
+        ops = pricer.prefill_ops(1, PRICE_PREFILL)
+        _price_gates(arch, "prefill", ops)
+        _priced_line(arch, "prefill", ops)
+        want_w = decode_weight_bytes(cfg, pricer._params_spec())
+        for kv in ("contiguous", "paged"):
+            try:
+                lin = pricer.decode_ops_linear(B, C, ragged=True,
+                                               kv_cache=kv)
+            except ValueError as e:   # the engine falls back, warning
+                log("costmodel", arch=arch, kind=f"decode {kv}",
+                    refused=f"'{e}'")
+                continue
+            ops = [o.at(C) for o in lin]
+            _price_gates(arch, f"decode {kv}", ops)
+            w = sum(o.weight_bytes for o in ops)
+            slope = sum(o.in_bytes[1] + o.out_bytes[1] for o in lin)
+            want_slope = B * kv_bytes_per_token(cfg) + (
+                cfg.n_layers * B * 4 / 16 if kv == "paged" else 0)
+            k1 = sum(o.in_bytes + o.out_bytes for o in ops
+                     if o.kind == "kernel" and "decode" in o.kernel)
+            total = sum(o.in_bytes + o.out_bytes for o in ops)
+            _priced_line(arch, f"decode {kv}", ops, lin,
+                         want_weight_bytes=want_w,
+                         want_kv_bytes_per_position=f"{want_slope:.6g}",
+                         decode_kernel_byte_share=f"{k1 / total:.4f}")
+            if w != want_w or abs(slope - want_slope) > 1e-6 * want_slope:
+                raise AssertionError(
+                    f"{arch} decode {kv}: weight bytes {w} (want {want_w}),"
+                    f" KV slope {slope} (want {want_slope})")
+        for kind, price in (
+                ("chunk", lambda: pricer.chunk_ops(PRICE_CHUNK, C)),
+                ("verify", lambda: pricer.verify_ops_linear(B, C,
+                                                            PRICE_GAMMA))):
+            try:
+                got = price()
+            except ValueError as e:
+                log("costmodel", arch=arch, kind=kind, refused=f"'{e}'")
+                continue
+            lin = got if kind == "verify" else None
+            ops = [o.at(C) for o in got] if lin else got
+            _price_gates(arch, kind, ops)
+            _priced_line(arch, kind, ops, lin)
+        log("costmodel", arch=arch, layers=cfg.n_layers,
+            priced_seconds=f"{time.perf_counter() - t0:.2f}")
+
+
+def audit_runs(memo) -> None:
+    """11b: every dispatch of the engines phases 3, 4 and 6 ran, traced
+    through the engine's own functions: all priced, no drift, one target
+    dispatch a step."""
+    from repro_torch.core import costmodel as CM
+    seen = set()
+    for label, rec in AUDITED:
+        t0 = time.perf_counter()
+        rep = CM.audit_engine(rec, memo=memo)
+        CM.assert_no_drift(rep)
+        steps = [e["step"] for e in rec.dispatch_log
+                 if e["kind"] in CM.TARGET_STEP_KINDS]
+        if rep["priced"] != rep["dispatches"] or len(steps) != len(
+                set(steps)):
+            raise AssertionError(f"audit {label}: {rep['priced']} of "
+                                 f"{rep['dispatches']} priced")
+        seen.add((rec.kv.name, rec.scheduler))
+        log("costmodel", audit=f"'{label}'", dispatches=rep["dispatches"],
+            priced=rep["priced"], kinds=json.dumps(dict(rep["kinds"])),
+            seconds=f"{time.perf_counter() - t0:.2f}")
+    want = {(kv, s) for kv in ("contiguous", "paged")
+            for s in ("blocking", "chunked", "speculative", "slo")}
+    if not want <= seen:
+        raise AssertionError(f"audited {sorted(seen)}, not {sorted(want)}")
+
+
+def h100_profile():
+    """One card of ``DGX_H100`` (eight): 989.5 TFLOP/s, 3350 GB/s."""
+    from dataclasses import replace
+    from repro_torch.core.profiles import DGX_H100
+    return replace(DGX_H100, name="h100 (dgx-h100 / 8)",
+                   tops=DGX_H100.tops / 8, mem_bw_gbs=DGX_H100.mem_bw_gbs / 8,
+                   vector_gops=DGX_H100.vector_gops / 8,
+                   cost_usd=DGX_H100.cost_usd / 8)
+
+
+# the kernels' device names, by the wrapper that launches them
+KERNEL_NAMES = (("decode", ("decode_partial_kernel", "decode_combine_kernel")),
+                ("add_rmsnorm", ("add_rmsnorm_kernel",)),
+                ("flash_attention", ("flash_fwd_kernel", "flash_bf16_kernel")),
+                ("prefill_attention", ("prefill_hist_kernel",
+                                       "chunk_bf16_kernel",
+                                       "verify_split_kernel",
+                                       "verify_combine_kernel")),
+                ("quant_gemv", ("quant_gemv_kernel", "quant_mma_kernel")))
+
+
+@contextlib.contextmanager
+def costed_launches(calls):
+    """Each kernel module's wrapper appends (group, flops, bytes, dtype)
+    of every call to ``calls``: ``ops.call_cost`` at the call's real
+    lengths (read from the card: a synchronisation, outside any kernel's
+    device time)."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode_attention as kpdec
+    from repro_torch.kernels import prefill_attention as kpre
+    from repro_torch.kernels import quant_gemv as kqg
+    from repro_torch.kernels import rmsnorm as krn
+    saved = {}
+    for mod, name in ((kdec, "decode_attention"),
+                      (kpdec, "paged_decode_attention"),
+                      (krn, "add_rmsnorm"), (kfa, "flash_attention"),
+                      (kpre, "prefill_attention"), (kqg, "quant_gemv")):
+        fn = saved[mod, name] = getattr(mod, name)
+        group = "decode" if name.endswith("decode_attention") else name
+
+        def wrapped(*a, _fn=fn, _name=name, _group=group, **kw):
+            calls.append((_group, *ops.call_cost(_name, *a, **kw),
+                          str(a[0].dtype).removeprefix("torch.")))
+            return _fn(*a, **kw)
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def kernel_bounds(eng, card) -> None:
+    """One decode step of 8 live slots traced by ``torch.profiler``: each
+    kernel's device time against the bound of its cost() at the step's
+    real lengths. A kernel that beats its bound by more than 5% means
+    its cost() overcounts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(DEVICE_TRIES):
+        calls: list = []
+        with costed_launches(calls), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+        dev = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for group, names in KERNEL_NAMES:
+                if any(n in e.key for n in names):
+                    dev[group] = dev.get(group, 0.0) + (
+                        e.self_device_time_total / 1e3)
+        if dev:
+            break
+    else:
+        raise AssertionError("the decode step's trace held no device time")
+    for group in sorted({c[0] for c in calls}):
+        mine = [c for c in calls if c[0] == group]
+        bound = sum(bound_ms(nb, fl, d)[0] for _, fl, nb, d in mine)
+        ms = dev.get(group, 0.0)
+        log("costmodel", kernel=group, calls=len(mine),
+            device_ms=f"{ms:.5f}", bound_ms=f"{bound:.6f}",
+            bound_share=f"{bound / ms:.4f}" if ms else "null",
+            card=f"'{card}'")
+        if not ms or bound > 1.05 * ms:
+            raise AssertionError(f"{group}: device {ms} ms against the "
+                                 f"bound {bound} ms of its cost()")
+
+
+def calibration_runs(card, memo) -> None:
+    """11c: phase 4's traffic on bf16 qwen, paged + chunked 256, with
+    telemetry on — every dispatch's measured wall against the cost
+    model's roofline on one card (``model_error_ratio`` >= 0.95 and
+    finite for every kind) — then one decode step's kernels against
+    their bounds."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import costmodel as CM
+    from repro_torch.models import model as MD
+    from repro_torch.serving import EngineConfig, ServingEngine, Telemetry
+    from repro_torch.serving.telemetry import (dispatch_calibration,
+                                               format_calibration)
+    cfg = registry.get_config(ARCH)
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    prompts = serve_prompts(cfg)
+    run_engine(params, cfg, prompts[:2], 4)  # warm-up (allocator, cuBLAS)
+    tel = Telemetry()
+    eng = ServingEngine(params, cfg, EngineConfig(
+        max_batch=8, max_seq_len=2048, max_new_tokens=64, kv_cache="paged",
+        **CHUNKED), telemetry=tel)
+    for p in prompts:
+        eng.submit(p)
+    _, counts = counted(eng.run)
+    _check_engine("costmodel calibration", eng, counts, len(prompts))
+    t0 = time.perf_counter()
+    CM.assert_no_drift(CM.audit_engine(eng, memo=memo))
+    profile = h100_profile()
+    table = dispatch_calibration(eng, tel, profile, memo=memo)
+    for line in format_calibration(table).splitlines():
+        log("costmodel", calibration=f"'{line}'")
+    log("costmodel", profile=f"'{profile.name}'",
+        peak_tflops=profile.ops_per_s / 1e12,
+        peak_gb_per_s=profile.mem_bw_gbs, card=f"'{card}'",
+        join_seconds=f"{time.perf_counter() - t0:.2f}")
+    for kind, row in table.items():
+        r = row["model_error_ratio"]
+        if not (math.isfinite(r) and r >= 0.95):
+            raise AssertionError(f"calibration {kind}: measured / predicted "
+                                 f"{r} (a wall under the roofline means "
+                                 "the cost model undercounts)")
+    del eng
+    torch.cuda.empty_cache()
+    # one decode step of 8 live slots (prompts of 256-1023 tokens)
+    rng = np.random.default_rng(SEED + 22)
+    eng = ServingEngine(params, cfg, EngineConfig(
+        max_batch=8, max_seq_len=2048, max_new_tokens=10_000,
+        kv_cache="paged", **CHUNKED))
+    for n in rng.integers(256, 1024, size=8):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=int(n)))
+    while eng.waiting or eng.prefilling:
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    kernel_bounds(eng, card)
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def phase_costmodel(card: str) -> None:
+    """Phase 11: 11a full-width pricing on meta, 11b the audit of phases
+    3, 4 and 6's engines, 11c the calibration and the kernels' bounds."""
+    import torch
+    t0 = time.perf_counter()
+    with step_deadline():
+        price_families()
+    t1 = time.perf_counter()
+    memo: dict = {}
+    with step_deadline():
+        audit_runs(memo)
+    t2 = time.perf_counter()
+    with step_deadline():
+        calibration_runs(card, memo)
+    torch.cuda.empty_cache()
+    log("costmodel", seconds=f"{time.perf_counter() - t0:.1f}",
+        pricing_seconds=f"{t1 - t0:.1f}",
+        audit_seconds=f"{t2 - t1:.1f}",
+        calibration_seconds=f"{time.perf_counter() - t2:.1f}",
+        card=f"'{card}'")
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -3657,6 +4046,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, c in phase_cluster(base, card).items():
         counts[name] += c
+    phase_costmodel(card)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

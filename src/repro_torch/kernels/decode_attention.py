@@ -95,6 +95,50 @@ def check_operands(what: str, q: torch.Tensor, kv_shape: tuple,
     return extras
 
 
+def row_list(lens, b: int) -> list:
+    """Per-row lengths as ``b`` Python ints: ``lens`` an int, a
+    sequence, or a host or card tensor (0-d or (B,))."""
+    if isinstance(lens, torch.Tensor):
+        lens = lens.reshape(-1).tolist()
+    elif not isinstance(lens, (list, tuple)):
+        lens = [int(lens)]
+    lens = [int(n) for n in lens]
+    return lens * b if len(lens) == 1 else lens
+
+
+def positions_read(b: int, cap: int, lens=None, window=None) -> int:
+    """Cache positions a call must read over all rows: every one up to
+    the capacity when ``lens`` is None, else each row's valid slots —
+    ``min(len, C)``, less the slot one window back that a full rolling
+    row masks when ``C == window``."""
+    if lens is None:
+        return b * cap
+    tot = 0
+    for n in row_list(lens, b):
+        n = max(0, n)
+        tot += min(n, cap) - (window == cap and n >= cap)
+    return tot
+
+
+def cost(q_shape, kv_shape, dtype, lens=None, *, self_kv=True,
+         window=None) -> tuple[float, float]:
+    """(FLOPs, bytes) the call must do for q (B,1,Hq,Dh) over a cache
+    (B,C,Hkv,Dh) of ``dtype``: QK and PV of every position read (2 x 2
+    x Hq x Dh each, and the self partial's with ``self_kv``); bytes are
+    q, the K/V rows read, the self K/V and the lengths read once, out
+    written once. ``lens`` the real per-row lengths, or None for the
+    capacity."""
+    b, _, hq, dh = q_shape
+    cap, hkv = kv_shape[1], kv_shape[2]
+    elt = dtype.itemsize
+    tot = positions_read(b, cap, lens, window)
+    n_self = b if self_kv else 0
+    flops = 4.0 * (tot + n_self) * hq * dh
+    nbytes = ((2 * tot * hkv * dh + 2 * b * hq * dh
+               + 2 * n_self * hkv * dh) * elt + 4 * b)
+    return flops, float(nbytes)
+
+
 def split_scratch(q: torch.Tensor, hkv: int, cap: int):
     """fp32 partials (o, m, l) of pass 1 for a logical capacity ``cap``,
     and the launch plan."""

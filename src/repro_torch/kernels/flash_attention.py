@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -21,6 +22,31 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {"flash_attention_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
 HEAD_DIMS = (64, 80, 96, 128)
+
+
+def kept_pairs(sq: int, skv: int, *, causal=True, window=None,
+               q_offset=0) -> int:
+    """(query, key) pairs the masks keep: query i at ``q_offset + i``
+    sees key j when j <= its position (causal) and j > its position -
+    ``window``."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv - 1, p) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, p - window + 1) if window is not None else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def cost(q_shape, kv_shape, dtype, *, causal=True, window=None,
+         q_offset=0) -> tuple[float, float]:
+    """(FLOPs, bytes) the call must do for q (B,Sq,Hq,Dh) against k, v
+    (B,Skv,Hkv,Dh) of ``dtype``: QK and PV over the kept pairs (4 x Dh
+    per pair and query head); q, k and v read once, out written once."""
+    b, sq, hq, dh = q_shape
+    skv, hkv = kv_shape[1], kv_shape[2]
+    elt = dtype.itemsize
+    pairs = kept_pairs(sq, skv, causal=causal, window=window,
+                       q_offset=q_offset)
+    return (4.0 * b * pairs * hq * dh,
+            float((2 * b * sq * hq * dh + 2 * b * skv * hkv * dh) * elt))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

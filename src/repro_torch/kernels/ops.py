@@ -5,8 +5,16 @@ tensor. Nothing else — a kernel that fails to build or launch raises.
 Counterpart of ``repro/kernels/ops.py`` (whose entries pick Pallas
 interpret mode off-TPU). Layouts are the model's: q (B,S,Hq,Dh), caches
 (B,C,Hkv,Dh).
+
+A ``meta`` operand (shape and dtype, no storage) runs nothing: the entry
+hands the kernel's name, its ``cost()`` and the outputs it writes to the
+installed tracer (:func:`set_meta_sink`, used by
+:mod:`repro_torch.core.trace`) and returns meta outputs of the kernel's
+shapes and dtypes. With no tracer installed a meta operand raises.
 """
 from __future__ import annotations
+
+import numbers
 
 import torch
 
@@ -31,11 +39,85 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
+# the tracer's record hook for meta operands: (name, flops, bytes,
+# written outputs) -> None; None when no trace is running
+_meta_sink = None
+
+
+def set_meta_sink(sink) -> None:
+    """Install (or, with None, remove) the hook that prices a kernel
+    call on meta operands."""
+    global _meta_sink
+    _meta_sink = sink
+
+
+def _priced(name: str, cost: tuple, outs: tuple, ret):
+    """A kernel call on meta operands: one record for the installed
+    tracer, then ``ret`` (meta outputs); raises with no tracer."""
+    if _meta_sink is None:
+        raise ValueError(f"{name}: meta operands run no kernel and no "
+                         "plain version; trace them with "
+                         "repro_torch.core.trace.trace_ops")
+    _meta_sink(name, cost[0], cost[1], outs)
+    return ret
+
+
+def _known(lens):
+    """The lengths a cost can count: an int as it is, a tensor's values
+    when it has storage (on the card, read with a synchronisation);
+    None (the capacity) for a meta tensor, whose values a trace does not
+    have."""
+    if isinstance(lens, numbers.Integral):
+        return int(lens)
+    if isinstance(lens, torch.Tensor) and not lens.is_meta:
+        return lens.tolist()
+    return None
+
+
+# each wrapper's arguments -> its kernel's cost(): the one mapping, read
+# by the meta branches below and by whoever prices real launches
+_COSTS = {
+    "add_rmsnorm": lambda x, a, w, *, eps=1e-6, out_dtype=None: _rn.cost(
+        tuple(x.shape), x.dtype, add_dtype=None if a is None else a.dtype,
+        out_dtype=out_dtype),
+    "flash_attention": lambda q, k, v, *, causal=True, window=None,
+    q_offset=0: _fa.cost(tuple(q.shape), tuple(k.shape), q.dtype,
+                         causal=causal, window=window, q_offset=q_offset),
+    "decode_attention": lambda q, k_cache, v_cache, cache_len, *,
+    extra_k=None, extra_v=None, window=None: _dec.cost(
+        tuple(q.shape), tuple(k_cache.shape), q.dtype, _known(cache_len),
+        self_kv=extra_k is not None, window=window),
+    "paged_decode_attention": lambda q, k_pool, v_pool, block_tables,
+    cache_len, *, extra_k=None, extra_v=None: _pdec.cost(
+        tuple(q.shape), tuple(k_pool.shape), tuple(block_tables.shape),
+        q.dtype, _known(cache_len), self_kv=extra_k is not None),
+    "prefill_attention": lambda q, k_hist, v_hist, hist_len, k_self,
+    v_self: _pre.cost(tuple(q.shape), tuple(k_hist.shape), q.dtype,
+                      _known(hist_len)),
+    "quant_gemv": lambda x, w_packed, scales, *, group=128: _qg.cost(
+        tuple(x.shape), tuple(w_packed.shape), x.dtype, group=group),
+}
+
+
+def call_cost(name: str, *args, **kw) -> tuple:
+    """(FLOPs, bytes) of one call of the wrapper ``name`` with these
+    arguments (the kernel module's wrapper takes the same), from its
+    kernel's ``cost()`` at the call's lengths (:func:`_known`)."""
+    return _COSTS[name](*args, **kw)
+
+
 def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None):
     """Residual add and RMSNorm over the last axis in one pass (K5):
     (s, h) with s = x + a as torch rounds it (x itself when a is None)
     and h = RMSNorm(s) * w in ``out_dtype`` (default x's dtype). The
     shape and dtype contract of the kernel holds on both devices."""
+    if x.is_meta:
+        hdt = _rn.check_shapes(x, a, w, out_dtype)
+        s = x if a is None else torch.empty_like(x)
+        h = torch.empty_like(x, dtype=hdt)
+        return _priced("add_rmsnorm", call_cost(
+            "add_rmsnorm", x, a, w, out_dtype=hdt),
+            (h,) if a is None else (s, h), (s, h))
     if _on_card(x):
         return _rn.add_rmsnorm(x, a, w, eps=eps, out_dtype=out_dtype)
     _rn.check_shapes(x, a, w, out_dtype)
@@ -50,6 +132,11 @@ def rmsnorm(x, w, *, eps=1e-6):
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """Causal / windowed / non-causal prefill attention at absolute
     positions (K3); ``k``/``v`` may be longer or shorter than ``q``."""
+    if q.is_meta:
+        out = torch.empty_like(q)
+        return _priced("flash_attention", call_cost(
+            "flash_attention", q, k, v, causal=causal, window=window,
+            q_offset=q_offset), (out,), out)
     if _on_card(q):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
@@ -61,6 +148,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
                      extra_v=None, window=None):
     """Ragged split-KV decode attention with the self partial (K1), over
     a rolling sliding-window cache when ``window`` is given."""
+    if q.is_meta:
+        out = torch.empty_like(q)
+        return _priced("decode_attention", call_cost(
+            "decode_attention", q, k_cache, v_cache, cache_len,
+            extra_k=extra_k, window=window), (out,), out)
     if _on_card(q):
         return _dec.decode_attention(q, k_cache, v_cache, cache_len,
                                      extra_k=extra_k, extra_v=extra_v,
@@ -74,6 +166,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
                            extra_k=None, extra_v=None):
     """Split-KV decode over a paged pool through block tables, with the
     self partial (K2)."""
+    if q.is_meta:
+        out = torch.empty_like(q)
+        return _priced("paged_decode_attention", call_cost(
+            "paged_decode_attention", q, k_pool, v_pool, block_tables,
+            cache_len, extra_k=extra_k), (out,), out)
     if _on_card(q):
         return _pdec.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                             cache_len, extra_k=extra_k,
@@ -86,6 +183,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
 def prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self):
     """Chunked-prefill attention over cached history plus the chunk's own
     causal KV (K4)."""
+    if q.is_meta:
+        out = torch.empty_like(q)
+        return _priced("prefill_attention", call_cost(
+            "prefill_attention", q, k_hist, v_hist, hist_len, k_self,
+            v_self), (out,), out)
     if _on_card(q):
         return _pre.prefill_attention(q, k_hist, v_hist, hist_len, k_self,
                                       v_self)
@@ -102,6 +204,10 @@ def quant_gemv(x, w_packed, scales, *, group=128):
     """W4A16 GEMV/GEMM: x (B, K) @ the int4 weight ``w_packed``
     (K//2, N) uint8 with per-group ``scales`` (K//group, N), fp32
     accumulation, x's dtype out (K6)."""
+    if x.is_meta:
+        out = x.new_empty((x.shape[0], w_packed.shape[1]))
+        return _priced("quant_gemv", call_cost(
+            "quant_gemv", x, w_packed, scales, group=group), (out,), out)
     if _on_card(x):
         return _qg.quant_gemv(x, w_packed, scales, group=group)
     return ref.quant_gemv(x, w_packed, scales, group=group)

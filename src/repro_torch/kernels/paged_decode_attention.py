@@ -18,10 +18,23 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels.decode_attention import (SIG, check_operands,
                                                   row_lengths, split_scratch)
 
 launches = 0
+
+
+def cost(q_shape, pool_shape, table_shape, dtype, lens=None, *,
+         self_kv=True) -> tuple[float, float]:
+    """(FLOPs, bytes): K1's (:func:`decode_attention.cost`) over the
+    logical capacity ``W * bs`` of the (B, W) block tables, plus the
+    int32 tables read once."""
+    b, w = table_shape
+    bs, hkv, dh = pool_shape[1:]
+    flops, nbytes = _k1.cost(q_shape, (b, w * bs, hkv, dh), dtype, lens,
+                             self_kv=self_kv)
+    return flops, nbytes + 4.0 * b * w
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

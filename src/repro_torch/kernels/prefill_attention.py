@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import row_lengths
+from repro_torch.kernels.decode_attention import positions_read, row_lengths
 
 launches = 0
 
@@ -50,6 +50,22 @@ def launch_plan(b: int, s: int, c: int, hq: int, dh: int,
         return Plan(False, 0, (), ())
     ns = -(-c // SPLIT)
     return Plan(True, ns, (b, hq, s, ns + 1, dh), (b, hq, s, ns + 1))
+
+
+def cost(q_shape, hist_shape, dtype, lens=None) -> tuple[float, float]:
+    """(FLOPs, bytes) the call must do for q (B,S,Hq,Dh) over a history
+    (B,C,Hkv,Dh) of ``dtype`` valid to ``lens`` (the real per-row
+    lengths, or None for the capacity), then its own S causal keys: QK
+    and PV over every kept pair (4 x Dh per pair and query head); q,
+    the history rows read, the self K/V and the lengths read once, out
+    written once."""
+    b, s, hq, dh = q_shape
+    c, hkv = hist_shape[1], hist_shape[2]
+    elt = dtype.itemsize
+    tot = positions_read(b, c, lens)
+    pairs = tot * s + b * s * (s + 1) // 2
+    nbytes = (2 * b * s * hq * dh + (2 * tot + 2 * b * s) * hkv * dh) * elt
+    return 4.0 * pairs * hq * dh, float(nbytes + 4 * b)
 
 
 def live_splits(hist_len, b: int, c: int) -> list:

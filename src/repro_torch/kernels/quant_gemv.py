@@ -82,6 +82,18 @@ def launch_plan(b: int, k: int, n: int, group: int,
                 -(-nu // (WARPS * upw)))
 
 
+def cost(x_shape, w_shape, dtype, *, group: int = 128
+         ) -> tuple[float, float]:
+    """(FLOPs, bytes) of x (B, K) of ``dtype`` times the packed int4
+    weight (K//2, N): 2 x B x K x N; the packed weight, its fp32 scales
+    and x read once, out written once."""
+    b, k = x_shape
+    n = w_shape[1]
+    elt = dtype.itemsize
+    return (2.0 * b * k * n,
+            float(k * n // 2 + 4 * (k // group) * n + (b * k + b * n) * elt))
+
+
 _tickets: dict = {}
 
 

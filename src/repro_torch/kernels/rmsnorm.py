@@ -85,6 +85,25 @@ def _launch_args(d: int, xdt: torch.dtype, adt: torch.dtype | None,
             *launch_plan(d, xdt.itemsize))
 
 
+def cost(x_shape, dtype, *, add_dtype=None, out_dtype=None
+         ) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call over x (..., d) of ``dtype`` (w of the
+    same), with the residual of ``add_dtype`` (None: no add) and h of
+    ``out_dtype`` (default x's): elementwise operations, 4 a value (5
+    with the add); x, a and w read once, s (with the add) and h
+    written once."""
+    d = x_shape[-1]
+    m = 1
+    for n in x_shape[:-1]:
+        m *= n
+    ex = dtype.itemsize
+    per_row = ex + (out_dtype or dtype).itemsize
+    if add_dtype is not None:
+        per_row += add_dtype.itemsize + ex
+    return ((5.0 if add_dtype is not None else 4.0) * m * d,
+            float(m * d * per_row + d * ex))
+
+
 def _pointer(what: str, t: torch.Tensor, card: int, align: int = 16) -> int:
     """t's address, after :func:`_build.check_operand`'s checks of
     device, layout and alignment (its dtype is checked by the caller) and

@@ -42,7 +42,7 @@ def embed_init(gen, shape, dtype, device):
 
 def _fill_normal(gen, shape, dtype, device, scale):
     out = torch.empty(shape, dtype=dtype, device=device)
-    if not out.numel():
+    if not out.numel() or out.is_meta:   # meta: shapes only, no draw
         return out
     for m in out.view(-1, *shape[-2:]) if len(shape) > 2 else (out,):
         m.copy_(torch.randn(m.shape, generator=gen, device=device)

@@ -30,9 +30,12 @@ right-padded prompt's pads get decay 1 and zero input, so its state is
 bitwise the exact-length prompt's.
 
 - ``init_params(cfg, seed=, device=)`` -> params dict (layer-stacked
-  leaves with a leading ``L`` axis, the reference's nested keys)
+  leaves with a leading ``L`` axis, the reference's nested keys;
+  ``device="meta"``: shapes only)
 - ``init_cache(cfg, B, capacity, device=)`` -> decode cache dict;
-  ``init_paged_pools(cfg, NB, bs, device=)`` -> shared block pools
+  ``init_paged_pools(cfg, NB, bs, device=)`` -> shared block pools;
+  ``cache_spec``, ``paged_cache_spec``, ``batch_spec`` -> the same as
+  meta tensors, for the cost model
 - ``prefill(params, cfg, batch, capacity)`` -> (logits (B, V) fp32, cache)
 - ``prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len)`` ->
   (logits, chunk KV rows)
@@ -115,10 +118,13 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     the values do not (the JAX PRNG stream is not reproducible here —
     load reference weights through :mod:`repro_torch.bridge`). Stacked
     leaves are drawn a matrix at a time (``layers.dense_init``), so a
-    full-width stack never has a float32 twin."""
+    full-width stack never has a float32 twin. ``device="meta"`` returns
+    the tree as empty meta leaves of the same shapes and dtypes (no
+    generator, no storage): the cost model's parameter spec."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = L.dtype_of(cfg)
     p = {"embed": {"table": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                          dt, dev)},
@@ -432,6 +438,18 @@ def init_cache(cfg, batch_size, capacity, *, device="cuda") -> dict:
                                             capacity).items()}
 
 
+def _meta_tree(struct: dict) -> dict:
+    """A ``{name: (shape, dtype)}`` struct as empty meta tensors."""
+    return {k: torch.empty(sh, dtype=dt, device="meta")
+            for k, (sh, dt) in struct.items()}
+
+
+def cache_spec(cfg, batch_size, capacity) -> dict:
+    """The decode cache of :func:`cache_struct` as meta tensors (shapes
+    and dtypes, no storage) — what the cost model traces."""
+    return _meta_tree(cache_struct(cfg, batch_size, capacity))
+
+
 def paged_pool_struct(cfg, num_blocks, block_size, dtype=None) -> dict:
     """Shape/dtype of the shared paged KV pools, all layers stacked on
     the leading axis: ``num_blocks`` allocatable blocks of ``block_size``
@@ -453,6 +471,23 @@ def init_paged_pools(cfg, num_blocks, block_size, *, device="cuda"):
     st = paged_pool_struct(cfg, num_blocks, block_size)
     return tuple(torch.zeros(st[k][0], dtype=st[k][1], device=dev)
                  for k in ("k", "v"))
+
+
+def paged_cache_spec(cfg, batch_size, capacity, block_size,
+                     num_blocks=None, *, ragged=False) -> dict:
+    """Meta tensors of a paged decode cache: the pools (``num_blocks``,
+    by default the resident worst case ``batch * ceil(capacity /
+    block_size)``, plus the scratch block) and per-row block tables
+    wide enough for ``capacity`` positions; ``len`` per row when
+    ``ragged``."""
+    w = -(-capacity // block_size)
+    out = _meta_tree(paged_pool_struct(cfg, num_blocks or batch_size * w,
+                                       block_size))
+    out["block_tab"] = torch.empty((batch_size, w), dtype=torch.int32,
+                                   device="meta")
+    out["len"] = torch.empty((batch_size,) if ragged else (),
+                             dtype=torch.int32, device="meta")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -824,7 +859,7 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
 # chunked prefill and speculative verify (prefill over a cache, K4)
 # ---------------------------------------------------------------------------
 
-def _check_over_cache(cfg, what: str) -> None:
+def check_over_cache(cfg, what: str) -> None:
     """Chunked prefill and verify resume attention from a KV view: the
     attention families without a rolling window only (the reference's
     refusals, ``model.py:708-714``, ``:1014-1020``)."""
@@ -864,7 +899,7 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
     (logits (B, V) read at ``logit_index`` within the chunk — the last
     position when None — and ks, vs (L, B, S, Hkv, Dh)): the chunk's KV
     rows, to be written at offset ``hist_len``."""
-    _check_over_cache(cfg, "chunked prefill")
+    check_over_cache(cfg, "chunked prefill")
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     hl = torch.as_tensor(hist_len, dtype=torch.int32, device=x.device)
@@ -898,7 +933,7 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
     past the capacity, and on a paged cache past the rows' allocated
     blocks, are dropped). Returns (logits (B, S, V) fp32 — position i is
     the next-token distribution after candidate i — and the cache)."""
-    _check_over_cache(cfg, "speculative verify")
+    check_over_cache(cfg, "speculative verify")
     x = L.embed_tokens(params["embed"], tokens)
     b, s = tokens.shape
     dev = x.device
@@ -964,3 +999,32 @@ def self_draft_params(params, cfg, n_draft_layers: int):
     return dp, cfg.replace(
         n_layers=k, first_dense_layers=min(cfg.first_dense_layers, k)
         if cfg.is_moe else cfg.first_dense_layers)
+
+
+# ---------------------------------------------------------------------------
+# batch construction (specs)
+# ---------------------------------------------------------------------------
+
+def batch_struct(cfg, batch_size, seq_len, kind) -> dict:
+    """Shape/dtype of each leaf of a serve batch of ``kind`` ("decode" or
+    "prefill"): ``seq_len`` counts a vlm's image prefix positions first;
+    whisper's also carries its frames."""
+    if kind not in ("decode", "prefill"):
+        raise ValueError(f"unknown batch kind {kind!r}: decode or prefill")
+    dt = L.dtype_of(cfg)
+    if kind == "decode":
+        return {"tokens": ((batch_size, 1), torch.int32)}
+    out = {}
+    s_tok = seq_len
+    if cfg.family == "vlm" and cfg.n_image_tokens:
+        s_tok = seq_len - cfg.n_image_tokens
+        out["images"] = ((batch_size, cfg.n_image_tokens, cfg.d_model), dt)
+    if cfg.family == "audio":
+        out["frames"] = ((batch_size, cfg.encoder_len, cfg.d_model), dt)
+    out["tokens"] = ((batch_size, s_tok), torch.int32)
+    return out
+
+
+def batch_spec(cfg, batch_size, seq_len, kind) -> dict:
+    """:func:`batch_struct` as meta tensors."""
+    return _meta_tree(batch_struct(cfg, batch_size, seq_len, kind))

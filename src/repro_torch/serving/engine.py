@@ -502,7 +502,9 @@ class ServingEngine:
         # dispatch audit trail: (step, kind, operand specs) per dispatch
         self.dispatch_log: list[dict] = []
         self.step_index = 0
-        fns = build_closures(cfg)
+        # the dispatch functions, built once: the cost model's audit
+        # (core.costmodel.entry_tracer) traces these very objects
+        self._closures = fns = build_closures(cfg)
         self._prefill_one, self._decode_ragged = fns["prefill"], fns["decode"]
         self._verify_ragged = fns["verify"]
         self._chunk_fns = {"contiguous": fns["chunk_contiguous"],
@@ -555,7 +557,7 @@ class ServingEngine:
         MD.check_supported(dcfg)
         self.draft_params, self.draft_cfg = draft_params, dcfg
         self.draft_kv = ContiguousCache(dcfg, ecfg, self.device)
-        fns = build_closures(dcfg)
+        self._draft_closures = fns = build_closures(dcfg)
         self._draft_prefill, self._draft_decode = (fns["prefill"],
                                                    fns["decode"])
 

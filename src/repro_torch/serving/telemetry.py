@@ -1,7 +1,8 @@
 """Serving telemetry: span tracing, metrics, and a dispatch profiler.
 
 Counterpart of ``repro/serving/telemetry.py`` (a copy: the module has no
-framework dependency). Three instruments:
+framework dependency but the calibration's lazy import of the port's
+cost model). Three instruments:
 
 * :class:`SpanTracer` — nested spans around every engine phase (admit,
   prefill chunk, decode dispatch, draft/verify, sampling, KV
@@ -14,7 +15,9 @@ framework dependency). Three instruments:
   snapshots commutes with merging the underlying streams.
 * :class:`DispatchProfiler` — per-dispatch wall time, timed to the
   dispatch's completion (the engine synchronises the card), keyed to the
-  exact ``dispatch_log`` entry it measured (:func:`join_coverage`).
+  exact ``dispatch_log`` entry it measured (:func:`join_coverage`), and
+  held against the cost model's prediction for that entry
+  (:func:`dispatch_calibration`, :func:`format_calibration`).
 
 Everything hangs off a single :class:`Telemetry` facade the engine
 accepts. Disabled (the default, :data:`NULL_TELEMETRY`) every hook
@@ -541,6 +544,96 @@ def join_coverage(engine, telemetry: "Telemetry"
                if s.engine == label}
     return len(sampled & set(range(len(engine.dispatch_log)))), \
         len(engine.dispatch_log)
+
+
+# Generic host-CPU reference point used when no HardwareProfile is
+# given: the calibration table still reports finite ratios on any host;
+# absolute values are only meaningful against a real profile.
+HOST_REF_OPS_PER_S = 1e11
+HOST_REF_BYTES_PER_S = 5e10
+
+
+def dispatch_calibration(engines, telemetry: "Telemetry",
+                         profile=None, *, memo: Optional[dict] = None
+                         ) -> Dict[str, Dict[str, float]]:
+    """Join measured dispatch wall times against traced FLOPs/bytes.
+
+    For every profiler sample, the dispatch-log entry it measured is
+    traced through ``core.costmodel.entry_tracer`` (the join the audit
+    uses), and per dispatch kind we aggregate:
+
+    ``n``, ``wall_s``, ``flops``, ``bytes``, ``achieved_flops_per_s``,
+    ``achieved_bytes_per_s``, ``arithmetic_intensity``, ``predicted_s``
+    (roofline max(flops/peak_ops, bytes/peak_bw) per dispatch against
+    ``profile`` — a :class:`repro_torch.core.profiles.HardwareProfile`
+    — or the generic host reference), and ``model_error_ratio`` =
+    wall_s / predicted_s. Below 1, a dispatch beat the roofline: the
+    cost model undercounts it. ``memo`` is the entry tracer's, shared
+    with other calls (``core.costmodel.entry_tracer``).
+    """
+    # costmodel imports serving.engine, which imports this module —
+    # resolve the cycle by importing lazily at call time
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core import trace as T
+
+    if not isinstance(engines, (list, tuple)):
+        engines = [engines]
+    if profile is not None:
+        peak_ops = profile.ops_per_s
+        peak_bw = profile.mem_bw_gbs * 1e9
+    else:
+        peak_ops, peak_bw = HOST_REF_OPS_PER_S, HOST_REF_BYTES_PER_S
+
+    by_label = {}
+    tracers = {}
+    for eng in engines:
+        label = getattr(eng, "tel_label", "engine")
+        by_label[label] = eng
+        tracers[label] = CM.entry_tracer(eng, memo)
+
+    agg: Dict[str, Dict[str, float]] = {}
+    for s in telemetry.profiler.samples:
+        eng = by_label.get(s.engine)
+        if eng is None or s.index >= len(eng.dispatch_log):
+            continue
+        entry = eng.dispatch_log[s.index]
+        tot = T.totals(tracers[s.engine](entry))
+        row = agg.setdefault(s.kind, {
+            "n": 0, "wall_s": 0.0, "flops": 0.0, "bytes": 0.0,
+            "predicted_s": 0.0})
+        row["n"] += 1
+        row["wall_s"] += s.wall_s
+        row["flops"] += tot.flops
+        row["bytes"] += tot.bytes
+        row["predicted_s"] += max(tot.flops / peak_ops, tot.bytes / peak_bw)
+
+    for kind, row in agg.items():
+        wall = row["wall_s"]
+        row["achieved_flops_per_s"] = row["flops"] / wall if wall > 0 else 0.0
+        row["achieved_bytes_per_s"] = row["bytes"] / wall if wall > 0 else 0.0
+        row["arithmetic_intensity"] = (row["flops"] / row["bytes"]
+                                       if row["bytes"] > 0 else 0.0)
+        row["model_error_ratio"] = (wall / row["predicted_s"]
+                                    if row["predicted_s"] > 0
+                                    else float("nan"))
+    return agg
+
+
+def format_calibration(table: Dict[str, Dict[str, float]]) -> str:
+    """Human-readable achieved-vs-predicted table for one calibration."""
+    hdr = (f"{'kind':<16} {'n':>5} {'wall_ms':>9} {'GFLOP/s':>9} "
+           f"{'GB/s':>8} {'AI':>8} {'pred_ms':>9} {'meas/pred':>9}")
+    lines = [hdr, "-" * len(hdr)]
+    for kind in sorted(table):
+        r = table[kind]
+        lines.append(
+            f"{kind:<16} {int(r['n']):>5} {r['wall_s'] * 1e3:>9.3f} "
+            f"{r['achieved_flops_per_s'] / 1e9:>9.2f} "
+            f"{r['achieved_bytes_per_s'] / 1e9:>8.2f} "
+            f"{r['arithmetic_intensity']:>8.2f} "
+            f"{r['predicted_s'] * 1e3:>9.3f} "
+            f"{r['model_error_ratio']:>9.3f}")
+    return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.kv_cache import PagedCache, contiguous_kv_bytes
 from test_torch_swa import (KW, _np, _streams, export_packets_check,
                             slo_replay_check)
+from _torch_threads import one_thread  # noqa: F401
 
 ARCH = "whisper-large-v3"
 ATOL = 1e-4

@@ -35,22 +35,12 @@ from repro_torch.kernels import _build, flash_attention
 from repro_torch.serving import (ClusterConfig, ClusterEngine, EngineConfig,
                                  ServingEngine, Telemetry)
 from repro_torch.serving.workload import SLO, TenantSpec, make_trace, replay
+from _torch_threads import one_thread  # noqa: F401
 
 ARCH = "qwen1.5-0.5b"
 CPU = ("cpu",)
 ROUND_ROBIN = "workers share devices round-robin"
 KW = dict(max_batch=2, max_seq_len=64, max_new_tokens=5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these smoke-size ops gain nothing from more,
-    and under several test workers torch's thread pools oversubscribe
-    the cores they share (the mixshift replay runs ≈ 35× slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -13,13 +13,13 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
-import torch
 
 from repro_torch.configs import registry
 from repro_torch.models import model as MD
 from repro_torch.serving import (ClusterConfig, ClusterEngine, EngineConfig,
                                  ServingEngine)
 from repro_torch.serving.workload import make_named_trace, replay
+from _torch_threads import one_thread  # noqa: F401
 
 CPU = ("cpu",)
 ROUND_ROBIN = "workers share devices round-robin"
@@ -31,17 +31,6 @@ LENS = [7, 12, 19, 9, 15, 6]
 # empties
 WINDOW_LENS = [40, 7, 35, 19, 15, 6]
 _params: dict = {}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these smoke-size ops gain nothing from more,
-    and under several test workers torch's thread pools oversubscribe
-    the cores they share (the mixshift replay runs ≈ 35× slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(arch):

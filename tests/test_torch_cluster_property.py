@@ -7,25 +7,14 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
-import torch
 
 from repro_torch.configs import registry
 from repro_torch.models import model as MD
 from repro_torch.serving import (ClusterConfig, ClusterEngine, EngineConfig,
                                  ServingEngine)
+from _torch_threads import one_thread  # noqa: F401
 
 KW = dict(max_batch=2, max_seq_len=64, max_new_tokens=4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these smoke-size ops gain nothing from more,
-    and under several test workers torch's thread pools oversubscribe
-    the cores they share (the mixshift replay runs ≈ 35× slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_migration_loses_no_tokens_property():

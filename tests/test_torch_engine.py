@@ -15,6 +15,7 @@ from repro_torch import bridge
 from repro_torch.configs import registry
 from repro_torch.models import model as MD
 from repro_torch.serving import EngineConfig, ServingEngine
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from repro.serving import ServingEngine as JServingEngine
 from repro_torch import bridge
 from repro_torch.configs import registry
 from repro_torch.serving import EngineConfig, ServingEngine
+from _torch_threads import one_thread  # noqa: F401
 
 LENS = (5, 16, 21, 40)   # straddles bucket, chunk, block and gamma edges
 KW = dict(max_batch=3, max_seq_len=64, max_new_tokens=5)

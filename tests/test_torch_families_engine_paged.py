@@ -6,6 +6,7 @@ from __future__ import annotations
 import pytest
 
 from test_torch_families_engine import ARCHS, check_blocking_streams
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -21,6 +21,7 @@ import pytest
 
 from repro_torch.serving import EngineConfig, ServingEngine
 from test_torch_families_engine import KW, SPEC, bridged, streams
+from _torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("deepseek-moe-16b", "internvl2-26b", "dbrx-132b")
 CHUNKED = dict(scheduler="chunked", chunk_tokens=16)

@@ -18,6 +18,7 @@ from repro_torch.configs import registry
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.kv_cache import (BlockAllocator, PagedCache,
                                           paged_resident_kv_bytes)
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

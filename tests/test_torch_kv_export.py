@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.models import model as MD
 from repro_torch.serving import EngineConfig, ServingEngine
+from _torch_threads import one_thread  # noqa: F401
 
 BACKENDS = ("contiguous", "paged")
 KW = dict(max_batch=3, max_seq_len=64, max_new_tokens=9, eos_token=-1)

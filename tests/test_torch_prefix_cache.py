@@ -23,6 +23,7 @@ from repro_torch.configs import registry
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving import workload as W
 from repro_torch.serving.kv_cache import PrefixIndex
+from _torch_threads import one_thread  # noqa: F401
 
 BS = 16          # kv_block_size used throughout
 PRE = 3 * BS     # shared preamble: exactly three full blocks

@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.models import model as MD
 from repro_torch.serving import EngineConfig, ServingEngine
+from _torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("xlstm-350m", "zamba2-2.7b")
 

@@ -30,6 +30,7 @@ from repro_torch.serving.kv_cache import (ContiguousCache,
                                           kv_bytes_per_token)
 from test_torch_recurrent_card import record_splices
 from test_torch_swa import _streams, slo_replay_check
+from _torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("xlstm-350m", "zamba2-2.7b")
 # the reference's bucketed-prefill traffic (test_serving.py:349-358)

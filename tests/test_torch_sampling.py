@@ -23,6 +23,7 @@ from repro_torch.models import model as MD
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.engine import (draw_keys, gumbel_draw, make_sampler,
                                         top_k_cut, vocab_keys)
+from _torch_threads import one_thread  # noqa: F401
 
 TEMP = dict(sample="temperature", temperature=0.8, top_k=8)
 

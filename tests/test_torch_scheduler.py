@@ -14,6 +14,7 @@ from repro.serving import ServingEngine as JServingEngine
 from repro_torch import bridge
 from repro_torch.configs import registry
 from repro_torch.serving import EngineConfig, ServingEngine
+from _torch_threads import one_thread  # noqa: F401
 
 KW = dict(max_batch=3, max_seq_len=64, max_new_tokens=6)
 LENS, BUDGETS = (5, 40, 17, 30, 9), (6, 9, 1, 7, 5)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import pytest
 
 from repro_torch.launch import serve
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("extra", [

@@ -29,6 +29,7 @@ from repro_torch.models import model as MD
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving import workload as W
 from repro_torch.serving.kv_cache import PagedCache
+from _torch_threads import one_thread  # noqa: F401
 
 ARCH = "h2o-danube-1.8b"
 WINDOW = 32

@@ -27,6 +27,7 @@ from repro_torch.serving import (EngineConfig, ServingEngine, Telemetry,
 from repro_torch.serving import workload as W
 from repro_torch.serving.telemetry import (MetricsRegistry, SpanTracer,
                                            bucket_index, bucket_upper)
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from repro_torch import bridge
 from repro_torch.configs import registry
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving import workload as W
+from _torch_threads import one_thread  # noqa: F401
 
 QUANTUM = 0.01
 NAMES = ("overload", "steady", "diurnal", "mixshift", "sharedprefix")
