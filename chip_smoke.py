@@ -166,7 +166,23 @@ Phases, one line each (any failure exits non-zero):
    card (``DGX_H100`` / 8: 989.5 TFLOP/s, 3350 GB/s), every kind's
    measured / predicted finite and >= 0.95; then one decode step of 8
    live slots traced by ``torch.profiler``, no kernel's device time
-   under 1 / 1.05 of the bound of its ``cost()`` at the step's lengths.
+   under 1 / 1.05 of the bound of its ``cost()`` at the step's lengths;
+12. simulator — host work only (``repro_torch.core.simulator`` traces on
+   meta tensors): (a) ``LLMSimulator.serve(trace=)`` over the replays
+   phases 6 and 10 ran on the card (the overload trace on both backends
+   under FIFO and SLO, the sharedprefix trace with prefix caching on
+   and off, the mixshift cluster autoscaling) with their engine
+   settings: admission order, preemption log, steps, decode steps,
+   every request's virtual TTFT and token count, prefix hits, hit
+   tokens and evictions, and the cluster's rescale log, handoffs,
+   migrations and transferred KV bytes (the packets' too) equal to the
+   card's; (b) the paper's scenarios (``run_cloud`` for llama2-70b and
+   mixtral-8x22b, GQA and MHA; ``run_mobile`` for llama2-7b and
+   mistral-7b; the 1000 / 1000 runs) within every band of the
+   reference's paper-claims test, each ratio printed; (c) printed, no
+   gate: the simulator on one card of ``DGX_H100`` against 11c's
+   profiled decode step (whole device time) and phase 4's contiguous +
+   blocking TTFT p50 and ITL p50.
 
 Every engine and cluster run and every W4 step checks each kernel's
 launch count against what its path must launch.
@@ -1577,6 +1593,7 @@ def serve_bf16(phase, params, cfg, prompts, card, total) -> None:
         torch.cuda.empty_cache()
         eng, counts = run_engine(params, cfg, prompts, 64, **kw)
         s = _check_engine(f"{phase} {label}", eng, counts, 16)
+        SERVED[phase, label] = s
         for r in eng.finished:
             if len(r.output) != 64:
                 raise AssertionError(f"{phase} {label} request {r.rid}: "
@@ -1758,6 +1775,14 @@ QUANTUM = 0.01          # virtual seconds per engine step (trace replay)
 CHAT_TTFT_SLO = 0.04    # the overload trace's chat TTFT target
 PREAMBLE = 512          # shared-prefix run: 32 blocks of 16
 BS = 16
+# the trace replays phase 12a holds the simulator's schedule mirror to:
+# phases 6 and 10 append {label, cfg, trace, rep, kw (serve(trace=)'s
+# engine settings), cluster (the cluster's own counters, or absent)}
+MIRRORED: list = []
+# phase 4's serving summaries by (phase, config), and 11c's profiled
+# decode step, for phase 12c
+SERVED: dict = {}
+PROFILED_STEP: dict = {}
 
 
 def counted(fn):
@@ -1827,6 +1852,9 @@ def slo_runs(params, cfg, total) -> dict:
                           max_new_tokens=16, scheduler=sched, kv_cache=kv)
             rep, counts = counted(lambda: replay(eng, tr,
                                                  step_quantum_s=QUANTUM))
+            MIRRORED.append(dict(label=f"overload {kv}+{sched}", cfg=cfg,
+                                 trace=tr, rep=rep,
+                                 kw=dict(scheduler=sched, kv_cache=kv)))
             if sched == "slo":
                 keep_for_audit(eng)
             check_launches(f"request_surface slo {kv}+{sched}", eng, counts)
@@ -1942,6 +1970,10 @@ def prefix_runs(params, cfg, total) -> None:
                       max_new_tokens=16, kv_cache="paged", kv_block_size=BS,
                       kv_blocks=6, prefix_cache=on)
         rep, counts = counted(lambda: replay(eng, tr, step_quantum_s=QUANTUM))
+        MIRRORED.append(dict(label=f"sharedprefix on={on}", cfg=cfg, trace=tr,
+                             rep=rep, kw=dict(kv_cache="paged",
+                                              kv_block_size=BS, kv_blocks=6,
+                                              prefix_cache=on)))
         check_launches(f"request_surface sharedprefix on={on}", eng, counts)
         _pool_balanced(f"sharedprefix on={on}", eng.kv)
         _add(total, counts)
@@ -3529,6 +3561,16 @@ def cluster_traces_bf16(params, cfg, total) -> None:
     _add(total, counts)
     cluster_gates("cluster_bf16", clu, records, ref["outputs"],
                   len(tr.requests), arch=ARCH, run="'mixshift autoscale'")
+    MIRRORED.append(dict(
+        label="mixshift 1+3 autoscale", cfg=cfg, trace=tr, rep=rep,
+        kw=dict(cluster=(1, 3), kv_cache="paged", kv_block_size=BS,
+                kv_blocks=6, cluster_opts=dict(autoscale=True,
+                                               autoscale_interval=4,
+                                               prefill_rate=2)),
+        cluster=dict(rescale_log=list(clu.rescale_log),
+                     handoffs=clu.handoffs, migrations=clu.migrations,
+                     kv_transfer_bytes=clu.kv_transfer_bytes,
+                     packet_bytes=sum(r["kv_bytes"] for r in records))))
     dirs = {d for _, d in clu.rescale_log}
     n_workers = len(_workers(clu))
     log("cluster_bf16", trace="mixshift", requests=len(tr.requests),
@@ -3884,9 +3926,11 @@ def kernel_bounds(eng, card) -> None:
             eng.step()
             torch.cuda.synchronize()
         dev = {}
+        step_us = 0.0
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
+            step_us += e.self_device_time_total
             for group, names in KERNEL_NAMES:
                 if any(n in e.key for n in names):
                     dev[group] = dev.get(group, 0.0) + (
@@ -3895,6 +3939,8 @@ def kernel_bounds(eng, card) -> None:
             break
     else:
         raise AssertionError("the decode step's trace held no device time")
+    PROFILED_STEP.update(device_ms=step_us / 1e3,
+                         kernels_ms=sum(dev.values()))
     for group in sorted({c[0] for c in calls}):
         mine = [c for c in calls if c[0] == group]
         bound = sum(bound_ms(nb, fl, d)[0] for _, fl, nb, d in mine)
@@ -3964,6 +4010,10 @@ def calibration_runs(card, memo) -> None:
         eng.step()
     for _ in range(3):
         eng.step()
+    # the positions the profiled step attends over, as a decode step
+    # reads them (each live row's cache length)
+    PROFILED_STEP["positions"] = [int(eng.slot_pos[i]) for i, r in
+                                  enumerate(eng.slot_req) if r is not None]
     kernel_bounds(eng, card)
     del eng, params
     torch.cuda.empty_cache()
@@ -3989,6 +4039,203 @@ def phase_costmodel(card: str) -> None:
         audit_seconds=f"{t2 - t1:.1f}",
         calibration_seconds=f"{time.perf_counter() - t2:.1f}",
         card=f"'{card}'")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the simulator — its schedule mirror against the replays the
+# card ran, the paper's scenarios, predicted against measured
+# ---------------------------------------------------------------------------
+
+def _ttfts(requests) -> dict:
+    return {rid: req.ttft_s for rid, req in requests.items()}
+
+
+def mirror_runs() -> None:
+    """12a: ``LLMSimulator.serve(trace=)`` at each kept replay's engine
+    settings: the schedule must equal the card's — admission order,
+    preemption log, steps, decode steps, each request's virtual TTFT
+    and token count, the prefix ledger; for the cluster the rescale log,
+    handoffs, migrations and transferred KV bytes (also against the
+    packets the card exported)."""
+    from repro_torch.core.profiles import PIM_AI_SERVER
+    from repro_torch.core.simulator import LLMSimulator
+    if len(MIRRORED) != 7:
+        raise AssertionError(f"phase 12a: {len(MIRRORED)} replays kept, "
+                             "want 7 (4 overload, 2 sharedprefix, mixshift)")
+    for run in MIRRORED:
+        rep, clu = run["rep"], run.get("cluster")
+        r = LLMSimulator(run["cfg"], PIM_AI_SERVER).serve(
+            trace=run["trace"], max_batch=4, max_seq_len=96,
+            step_quantum_s=QUANTUM, **run["kw"])
+        want = {"steps": rep["steps"], "decode_steps": rep["decode_steps"],
+                "ttfts": _ttfts(rep["requests"]),
+                "tokens": {i: len(o) for i, o in rep["outputs"].items()}}
+        got = {"steps": r["steps"], "decode_steps": r["decode_steps"],
+               "ttfts": _ttfts(r["requests"]),
+               "tokens": {i: len(q.output) for i, q in
+                          r["requests"].items()}}
+        if clu is None:
+            for k in ("admission_order", "preemption_log"):
+                want[k], got[k] = rep[k], r[k]
+            for k in ("prefix_hits", "prefix_hit_tokens", "prefix_evictions"):
+                want[k], got[k] = rep["summary"][k], r[k]
+        else:
+            for k in ("rescale_log", "handoffs", "migrations",
+                      "kv_transfer_bytes"):
+                want[k], got[k] = clu[k], r[k]
+            want["packet_bytes"], got["packet_bytes"] = (
+                clu["packet_bytes"], r["kv_transfer_bytes"])
+        bad = sorted(k for k in want if got[k] != want[k])
+        log("simulator", mirror=f"'{run['label']}'",
+            requests=len(run["trace"].requests), steps=r["steps"],
+            decode_steps=r["decode_steps"],
+            preemptions=r["summary"]["preemptions"],
+            prefix_hits=r["prefix_hits"],
+            kv_transfer_bytes=r.get("kv_transfer_bytes", 0),
+            equal=f"{len(want) - len(bad)}/{len(want)}",
+            priced_energy_j=f"{r['energy_j']:.6g}")
+        if bad:
+            raise AssertionError(f"phase 12a {run['label']}: the simulated "
+                                 f"schedule differs from the card's in "
+                                 f"{bad}")
+
+
+# every band of tests/test_paper_claims.py: (cell, key, low, high)
+CLOUD_BANDS = (("gqa", "ttft", 2.4, 3.3), ("mha", "ttft", 1.3, 2.1),
+               (None, "tokens_per_s", 2.23 * 0.75, 2.75 * 1.25),
+               (None, "energy_per_token", 1.18, 1.67 * 1.25),
+               (None, "qps", 1.4, float("inf")),
+               (None, "energy_per_query", 0.85, 1.35),
+               (None, "tco_per_qps", 6.2 * 0.9, 6.94 * 1.15))
+MOBILE_BANDS = {
+    "a17-pro": {"tokens_per_s": (1.40, 1.60), "energy_per_token": (17, 22),
+                "qps": (1.35, 1.55), "energy_per_query": (11.5, 14.8)},
+    "snapdragon-8-gen3": {"tokens_per_s": (1.18, 1.35),
+                          "energy_per_token": (8.5, 11.5),
+                          "qps": (1.18, 1.35),
+                          "energy_per_query": (6.0, 7.6)},
+    "dimensity-9300": {"tokens_per_s": (1.18, 1.35),
+                       "energy_per_token": (8.5, 11.5), "qps": (1.18, 1.35),
+                       "energy_per_query": (6.0, 7.6)},
+}
+# §4.2.1's encode-energy savings of llama2-7b, +- 7 points
+ENCODE_SAVINGS = {"a17-pro": 0.285, "snapdragon-8-gen3": 0.164,
+                  "dimensity-9300": 0.153}
+
+
+def paper_scenarios() -> None:
+    """12b: ``run_cloud`` for both models x GQA / MHA and ``run_mobile``
+    for llama2-7b and mistral-7b (and the 1000 / 1000 runs of §5.1) on
+    this host: every band of the reference's paper-claims test, each
+    ratio printed (model outputs of ``core/profiles.py``)."""
+    from repro_torch.core import profiles as HW
+    from repro_torch.core.scenarios import run_cloud, run_mobile
+    checks = []   # (what, value, low, high)
+    for got, want in HW.check_composition().values():
+        checks.append(("table1 composition", got - want, -1e-6, 1e-6))
+    cloud = {(m, a): run_cloud(m, a) for m in ("llama2-70b", "mixtral-8x22b")
+             for a in ("gqa", "mha")}
+    for (m, a), r in cloud.items():
+        ra = r["ratios"]
+        log("simulator", scenario=f"'cloud {m} {a}'",
+            **{k: f"{v:.4f}" for k, v in ra.items()})
+        for cell, key, lo, hi in CLOUD_BANDS:
+            if cell in (None, a):
+                checks.append((f"cloud {m} {a} {key}", ra[key], lo, hi))
+    qps = [r["ratios"]["qps"] for r in cloud.values()]
+    checks.append(("cloud mean qps", sum(qps) / len(qps), 1.5, 2.2))
+    long = run_cloud("llama2-70b", "gqa", 1000, 1000)["ratios"]
+    short = cloud["llama2-70b", "gqa"]["ratios"]
+    for key in ("qps", "energy_per_query"):
+        checks.append((f"cloud 1000/1000 over 1000/100 {key}",
+                       long[key] / short[key], 1.0 + 1e-12, float("inf")))
+    for m in ("llama2-7b", "mistral-7b"):
+        r = run_mobile(m)
+        tt = [q.ttft_s for q in r["profiles"].values()]
+        checks.append((f"mobile {m} ttft max/min", max(tt) / min(tt), 0.0,
+                       1.4 - 1e-12))
+        for hw, bands in MOBILE_BANDS.items():
+            ra = r["ratios"][hw]
+            log("simulator", scenario=f"'mobile {m} {hw}'",
+                **{k: f"{v:.4f}" for k, v in ra.items()})
+            for key, (lo, hi) in bands.items():
+                checks.append((f"mobile {m} {hw} {key}", ra[key], lo, hi))
+        if m == "llama2-7b":
+            enc = {k: v["encode"].energy_j for k, v in r["raw"].items()}
+            for hw, want in ENCODE_SAVINGS.items():
+                saving = 1 - enc["pim-ai-mobile"] / enc[hw]
+                checks.append((f"mobile {m} {hw} encode saving", saving,
+                               want - 0.07, want + 0.07))
+    ra = run_mobile("llama2-7b", 1000, 1000)["ratios"]
+    checks.append(("mobile 1000/1000 a17-pro energy_per_query",
+                   ra["a17-pro"]["energy_per_query"], 17.5, 20.5))
+    checks.append(("mobile 1000/1000 snapdragon energy_per_query",
+                   ra["snapdragon-8-gen3"]["energy_per_query"], 9.0, 10.8))
+    bad = [c for c in checks if not c[2] <= c[1] <= c[3]]
+    log("simulator", paper_bands=len(checks), held=len(checks) - len(bad),
+        tco_per_qps=",".join(f"{r['ratios']['tco_per_qps']:.4f}"
+                             for r in cloud.values()))
+    if bad:
+        raise AssertionError(f"phase 12b: bands missed: {bad}")
+
+
+def predicted_against_measured(card: str) -> None:
+    """12c (printed, no gate): the simulator on one card of DGX_H100
+    against what this card measured — 11c's profiled decode step (8
+    live slots, paged) by its whole device time, and phase 4's traffic
+    on contiguous + blocking (16 requests, 64 tokens each, 8 slots: two
+    waves of 8) by TTFT p50 and ITL p50."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.core.simulator import LLMSimulator
+    cfg = registry.get_config(ARCH)
+    sim = LLMSimulator(cfg, h100_profile())
+    pos = PROFILED_STEP["positions"]
+    step = sim.decode(len(pos), float(np.mean(pos)), 1, ragged=True,
+                      kv_cache="paged", kv_block_size=BS)
+    log("simulator", predicted="'11c decode step'", rows=len(pos),
+        mean_positions=f"{np.mean(pos):.1f}",
+        predicted_ms=f"{step.seconds * 1e3:.5f}",
+        predicted_bytes=f"{step.mem_bytes:.6g}",
+        measured_device_ms=f"{PROFILED_STEP['device_ms']:.5f}",
+        measured_kernels_ms=f"{PROFILED_STEP['kernels_ms']:.5f}",
+        measured_over_predicted=(
+            f"{PROFILED_STEP['device_ms'] / (step.seconds * 1e3):.4f}"),
+        profile=f"'{sim.hw.name}'", card=f"'{card}'")
+    lens = [len(p) for p in serve_prompts(cfg)]
+    t0, ttfts, itl = 0.0, [], []
+    for wave in (lens[:8], lens[8:]):
+        r = sim.serve(wave, 63, max_seq_len=2048)
+        ttfts += [t0 + t for t in r["ttft_per_req_s"]]
+        itl.append(r["decode"].seconds / 63)
+        t0 += r["encode"].seconds + r["decode"].seconds
+    got = SERVED["engine_bf16", "contiguous+blocking"]
+    p_ttft, p_itl = float(np.median(ttfts)), float(np.mean(itl))
+    log("simulator", predicted="'phase 4 contiguous+blocking'",
+        requests=len(lens), predicted_ttft_p50_ms=f"{p_ttft * 1e3:.4f}",
+        measured_ttft_p50_ms=f"{got['ttft_p50_s'] * 1e3:.4f}",
+        predicted_itl_ms=f"{p_itl * 1e3:.5f}",
+        measured_itl_p50_ms=f"{got['itl_p50_s'] * 1e3:.4f}",
+        itl_measured_over_predicted=f"{got['itl_p50_s'] / p_itl:.4f}",
+        ttft_measured_over_predicted=f"{got['ttft_p50_s'] / p_ttft:.4f}",
+        profile=f"'{sim.hw.name}'", card=f"'{card}'")
+
+
+def phase_simulator(card: str) -> None:
+    """Phase 12: 12a the schedule mirror against phases 6 and 10's
+    replays, 12b the paper's scenarios, 12c predicted against measured.
+    Host work only: the simulator traces on meta tensors."""
+    t0 = time.perf_counter()
+    with step_deadline():
+        mirror_runs()
+    t1 = time.perf_counter()
+    with step_deadline():
+        paper_scenarios()
+    t2 = time.perf_counter()
+    predicted_against_measured(card)
+    log("simulator", seconds=f"{time.perf_counter() - t0:.1f}",
+        mirror_seconds=f"{t1 - t0:.1f}", scenario_seconds=f"{t2 - t1:.1f}",
+        predicted_seconds=f"{time.perf_counter() - t2:.1f}")
 
 
 SOURCES = {
@@ -4047,6 +4294,7 @@ def main() -> int:
     for name, c in phase_cluster(base, card).items():
         counts[name] += c
     phase_costmodel(card)
+    phase_simulator(card)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

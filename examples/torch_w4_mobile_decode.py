@@ -12,9 +12,10 @@ given (the plain PyTorch versions of the kernels).
 Run:  PYTHONPATH=src python examples/torch_w4_mobile_decode.py --device cpu
       (on the card: no flag; full-width phi3-mini-3.8b)
 
-The reference example also prints the simulator's W4-vs-W16 figures for
-phi3-mini on the mobile PIM package; the simulator is not ported yet, so
-this script prints none in their place.
+Then, as the reference example does, it prints the simulator's
+W16-vs-W4 figures for full-width phi3-mini on the mobile PIM package
+(``repro_torch.core.simulator``, traced on ``meta`` tensors: model
+outputs of ``core/profiles.py``, not measurements).
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import profiles as HW
+from repro_torch.core.simulator import LLMSimulator, SimConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as MD
@@ -117,6 +120,22 @@ def run(n_steps=8, group=64, device="cuda", cfg=None, params=None, *,
     return list(corr), list(mad)
 
 
+def simulate(n_in=1000, n_out=100):
+    """The simulator's W16 and W4 figures for full-width phi3-mini on the
+    mobile PIM package (the reference example's): {bits: generate()}."""
+    full = registry.get_config("phi3-mini-3.8b")
+    print(f"\nsimulator: phi3-mini on pim-ai-mobile, {n_in} in / {n_out} "
+          "out")
+    out = {}
+    for bits in (16, 4):
+        sim = LLMSimulator(full, HW.PIM_AI_MOBILE,
+                           SimConfig(weight_bits=bits, orchestration_s=0.09))
+        r = out[bits] = sim.generate(1, n_in, n_out)
+        print(f"  W{bits:2d}: {r['tokens_per_s']:6.2f} tok/s, "
+              f"{r['energy_per_token_j']*1e3:6.1f} mJ/token")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -133,8 +152,7 @@ def main(argv=None):
             capacity=1024)
     else:
         run(args.steps, 64, args.device)
-    print("simulator W4-vs-W16 figures (phi3-mini on pim-ai-mobile): not "
-          "printed — they wait for the simulator's port")
+    simulate()
 
 
 if __name__ == "__main__":
