@@ -183,9 +183,29 @@ Phases, one line each (any failure exits non-zero):
    gate: the simulator on one card of ``DGX_H100`` against 11c's
    profiled decode step (whole device time) and phase 4's contiguous +
    blocking TTFT p50 and ITL p50.
+13. mesh — ``EngineConfig.mesh`` with every shard on the one card
+   (``devices=("cuda:0",) * n``: the same sharded code and kernels as
+   across cards, a gather a local copy): K1 split by position over the
+   (1, 3) fallback's shards at its shapes, bitwise K1 over the whole
+   cache and within phase 2's tolerance of the plain version; (a)
+   float32 qwen at full width and depth on phase 3's traffic at (2, 2)
+   — contiguous and paged blocking and paged chunked 256 — equal to
+   phase 3's streams, and the sequence-sharded fallback (16 KV heads
+   over model 3, capacity 1152) equal to one engine of that capacity;
+   (b) float32 deepseek-moe-16b, 4 layers at capacity factor E / k, at
+   (1, 2) (32 experts a rank), equal to phase 7a's streams; (c) bf16
+   qwen at full depth at (1, 4) on phase 4's traffic (TTFT, ITL), then
+   the first prompt's prefill and 8 greedy steps through the mesh with
+   every K1 / K3 / K5 call of every shard held to its plain version on
+   its own inputs (as 9b), each step's logits held to one device's on
+   the same tokens (3e-2, argmax equal or a tie). Every run's launches are
+   exactly the mesh path's (a prefill or chunk on one data replica's
+   model ranks, a decode on every rank), one target dispatch a step,
+   the KV partitioned.
 
-Every engine and cluster run and every W4 step checks each kernel's
-launch count against what its path must launch.
+Every engine, cluster and mesh run and every W4 step checks each
+kernel's launch count against what its path must launch. The four-card
+run of the mesh is ``scripts/torch_mesh_card.py``.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. It needs CUDA and the repository's
@@ -1169,7 +1189,8 @@ def plain_kernels():
     from repro_torch.kernels import ops, ref
     # ops.rmsnorm goes through ops.add_rmsnorm
     names = ("add_rmsnorm", "flash_attention", "decode_attention",
-             "paged_decode_attention", "prefill_attention", "quant_gemv")
+             "decode_attention_shard", "paged_decode_attention",
+             "prefill_attention", "quant_gemv")
     saved = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, getattr(ref, n))
@@ -2249,6 +2270,7 @@ def phase_request_surface(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 FAMILY_ARCHS = ("deepseek-moe-16b", "internvl2-26b")
+GATED: dict = {}       # arch -> 7a's gated float32 streams (phase 13)
 GATE_LAYERS = 4        # 7a's depth: deepseek keeps its dense layer 0
 DBRX_LAYERS = 2        # 7c's depth
 STEP_SECONDS = 420     # each step of phase 7 ends the process past this
@@ -2349,8 +2371,8 @@ def phase_families_f32() -> dict:
                 extra["capacity_factor"] = \
                     f"{gate_cfg.moe_capacity_factor:.4g}"
             with counting_drops() as drops:
-                stream_gates("families_f32", params, gate_cfg, prompts,
-                             extra, total)
+                GATED[arch] = stream_gates("families_f32", params, gate_cfg,
+                                           prompts, extra, total)
             if any(int(sum(v).item()) for v in drops.values()):
                 raise AssertionError(f"{arch}: a slot dropped at E / k")
             if cfg.is_moe:
@@ -3659,6 +3681,391 @@ def phase_cluster(base, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: mesh serving, every shard on the one card
+# ---------------------------------------------------------------------------
+
+MESH_GATES = (((2, 2), "contiguous+blocking", {}),
+              ((2, 2), "paged+blocking", {"kv_cache": "paged"}),
+              ((2, 2), "paged+chunked", {"kv_cache": "paged", **CHUNKED}))
+FALLBACK_MESH = (1, 3)       # qwen's 16 KV heads do not divide 3
+FALLBACK_CAPACITY = 1152     # 3 shards of 384: whole 128-position splits
+MOE_MESH = (1, 2)
+BF16_MESH = (1, 4)
+MESH_STEPS = 8           # 13c's greedy steps through the mesh, checked
+
+
+def mesh_run(params, cfg, mesh, prompts, max_new, **ecfg):
+    """Serve ``prompts`` on a mesh engine whose ``data * model`` shards
+    all sit on the card (8 slots, capacity 2048 unless ``ecfg`` says
+    otherwise); returns (engine, launch counts of exactly this run,
+    wall seconds)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, ServingEngine
+    eng = ServingEngine(params, cfg, EngineConfig(
+        **{"max_batch": 8, "max_seq_len": 2048, **ecfg},
+        max_new_tokens=max_new, mesh=mesh),
+        devices=(CARD,) * (mesh[0] * mesh[1]))
+    for p in prompts:
+        eng.submit(p)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, ops.launch_counts(), time.perf_counter() - t0
+
+
+def mesh_expected_launches(eng) -> tuple[dict, set]:
+    """(launches per kernel, the kernels that must have run) of a mesh
+    run: a prefill or chunk runs on the model ranks of one data replica,
+    a decode on every rank, each rank launching what one device would
+    (:func:`expected_launches`'s counts per dispatch); the sequence-
+    sharded decode counts as K1."""
+    s = eng.summary()
+    d, m = eng.mesh.shape
+    norms, n = path_shape(eng.cfg)
+    paged = s["kv_cache"] == "paged"
+    one = s["prefills"] + s["prefill_chunk_dispatches"]
+    want = {
+        "rmsnorm": norms * (m * one + d * m * s["decode_dispatches"]),
+        "flash_attention": n * m * s["prefills"],
+        "decode_attention": 0 if paged else n * d * m * s["decode_steps"],
+        "paged_decode_attention": n * d * m * s["decode_steps"] if paged
+        else 0,
+        "prefill_attention": n * m * s["prefill_chunk_dispatches"],
+        "quant_gemv": 0,
+    }
+    path = {"flash_attention" if s["prefills"] else "prefill_attention",
+            "paged_decode_attention" if paged else "decode_attention"}
+    if norms:
+        path.add("rmsnorm")
+    if s["prefill_chunk_dispatches"]:
+        path.add("prefill_attention")
+    return want, path
+
+
+def mesh_checks(phase, eng, counts, n_requests, **fields) -> dict:
+    """Launches exactly as the mesh path says, one target dispatch a
+    step, every request finished; one line with the mesh accounting."""
+    s = eng.summary()
+    _launch_gate(phase, counts, *mesh_expected_launches(eng))
+    if s["decode_dispatches"] != s["decode_steps"]:
+        raise AssertionError(f"{phase}: {s['decode_dispatches']} target "
+                             f"dispatches over {s['decode_steps']} steps")
+    if s["requests"] != n_requests:
+        raise AssertionError(f"{phase}: {s['requests']} of {n_requests} "
+                             "requests finished")
+    if s["kv_partitions"] < 2:
+        raise AssertionError(f"{phase}: the KV is not partitioned")
+    log(phase, mesh=f"{s['mesh'][0]}x{s['mesh'][1]}",
+        kv_cache=s["kv_cache"], layout=eng.kv.layout,
+        decode_steps=s["decode_steps"],
+        dispatches_per_step=s["dispatches_per_step"],
+        kv_partitions=s["kv_partitions"],
+        peak_resident_kv_bytes=s["peak_resident_kv_bytes"],
+        resident_kv_bytes_per_device=s["resident_kv_bytes_per_device"],
+        **fields)
+    return s
+
+
+def mesh_stream_gate(phase, got, want, what) -> None:
+    log(phase, streams_equal=got == want, against=what)
+    if got != want:
+        raise AssertionError(f"{phase}: mesh streams {got} != {what} "
+                             f"{want}")
+
+
+def sharded_decode_case() -> None:
+    """K1 split by position over the (1, 3) fallback's shards at its
+    shapes (8 rows, 16 heads of 64, 1152 positions, lengths on both
+    sides of the shard edges), bf16 and float32: every shard's result
+    bitwise K1's over the whole cache (the shards hold whole splits),
+    and within phase 2's tolerance of the plain version."""
+    import torch
+    from repro_torch.distributed import hints as H
+    from repro_torch.distributed.mesh import DeviceMesh
+    from repro_torch.kernels import decode_attention as K1
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    m = FALLBACK_MESH[1]
+    mesh = DeviceMesh(FALLBACK_MESH, (CARD,) * m)
+    b, cap, h, dh = 8, FALLBACK_CAPACITY, 16, 64
+    c = cap // m
+    lens = torch.tensor([1, 17, 383, 384, 385, 700, 1000, 1151],
+                        dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        q, ek, ev = (_rand(gen, (b, 1, h, dh), dtype) for _ in range(3))
+        k, v = (_rand(gen, (b, cap, h, dh), dtype) for _ in range(2))
+        whole = K1.decode_attention(q, k, v, lens, extra_k=ek, extra_v=ev)
+        want = ref.decode_attention(q, k, v, lens, extra_k=ek, extra_v=ev)
+
+        def shard(r):
+            with H.use_mesh(mesh, attn="seq", plan=(b, h)):
+                return ops.decode_attention_shard(
+                    q, k[:, r * c:(r + 1) * c].contiguous(),
+                    v[:, r * c:(r + 1) * c].contiguous(), lens,
+                    offset=r * c, gather=H.gather_positions, extra_k=ek,
+                    extra_v=ev, split=K1.split_size(b, h))
+
+        outs = mesh.run(shard)
+        err = (outs[0].float() - want.float()).abs().max().item()
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        bitwise = all(torch.equal(o, whole) for o in outs)
+        log("mesh", kernel="decode_attention_shard", dtype=name,
+            shards=m, positions=cap, bitwise_whole_k1=bitwise,
+            max_abs_err_vs_plain=f"{err:.3e}", tol=TOL[name])
+        if not bitwise or err > TOL[name]:
+            raise AssertionError(f"sharded K1 ({name}): bitwise {bitwise}, "
+                                 f"max |kernel - plain| {err:.3e}")
+    mesh.close()
+
+
+def mesh_forward(eng, prompt, n_steps, feed=None):
+    """A prefill of ``prompt`` and ``n_steps`` greedy decode steps (or
+    the tokens of ``feed``) through the engine's mesh: each rank runs the
+    port's ``prefill`` / ``decode_step`` on its shard over a one-row
+    contiguous cache of its heads. Returns (every step's logits, whole
+    vocab, from rank 0; the tokens fed)."""
+    import torch
+    from repro_torch.distributed import hints as H
+    from repro_torch.models import model as MD
+    mesh, cfg_r = eng.mesh, eng._cfg_rank
+    plan = (1, eng.cfg.n_kv_heads)
+    cap = len(prompt) + n_steps + 1
+    caches = [None] * mesh.size
+    toks = torch.as_tensor(prompt[None], dtype=torch.int32)
+
+    def run(fn):
+        def one(r):
+            with H.use_mesh(mesh, attn="heads", plan=plan):
+                return fn(r)
+        return mesh.run(one)
+
+    def prefill(r):
+        logits, caches[r] = MD.prefill(
+            eng.params[r], cfg_r, {"tokens": toks.to(mesh.devices[r])}, cap)
+        return logits
+
+    out = [run(prefill)[0]]
+    fed = []
+    for i in range(n_steps):
+        tok = (feed[i] if feed is not None
+               else torch.argmax(out[-1], -1)[:, None].to(torch.int32))
+        fed.append(tok)
+
+        def step(r, tok=tok):
+            logits, caches[r] = MD.decode_step(
+                eng.params[r], cfg_r, tok.to(mesh.devices[r]), caches[r])
+            return logits
+
+        out.append(run(step)[0])
+    return out, fed
+
+
+@contextlib.contextmanager
+def mesh_routes(replay=None):
+    """:func:`routes` per rank: every rank routes the same
+    gathered hidden, so each keeps its own list of the experts it picked
+    (``replay``: per rank, the lists to replay). Yields {rank: list}."""
+    import torch
+    from repro_torch.distributed import hints as H
+    from repro_torch.models import moe as M
+    route = M.route
+    seen: dict = {}
+
+    def rank():
+        return H.current_mesh().rank()
+
+    def recording(router_w, x, top_k):
+        w, ids = route(router_w, x, top_k)
+        seen.setdefault(rank(), []).append(ids)
+        return w, ids
+
+    def replaying(router_w, x, top_k):
+        r = rank()
+        mine = seen.setdefault(r, [])
+        _, own = route(router_w, x, top_k)
+        ids = replay[r][len(mine)]
+        mine.append((own.sort(-1).values != ids.sort(-1).values)
+                    .any(-1).sum())
+        w = torch.softmax(x.float() @ router_w, dim=-1).gather(1, ids)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), ids
+
+    M.route = recording if replay is None else replaying
+    try:
+        yield seen
+    finally:
+        M.route = route
+
+
+@contextlib.contextmanager
+def mesh_nudged():
+    """:func:`nudged_moe_inputs` per rank: each rank's own
+    generator from the seed, so the ranks nudge alike."""
+    import torch
+    from repro_torch.distributed import hints as H
+    from repro_torch.models import moe as M
+    apply_moe = M.apply_moe
+    gens: dict = {}
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+    def nudged(p, cfg, x):
+        r = H.current_mesh().rank()
+        if r not in gens:
+            gens[r] = torch.Generator(device=x.device).manual_seed(SEED)
+        up = torch.rand(x.shape, generator=gens[r], device=x.device) < 0.5
+        bits = x.contiguous().view(ints[x.dtype])
+        moved = (bits + torch.where(up, 1, -1).to(bits.dtype)).view(x.dtype)
+        return apply_moe(p, cfg, torch.where(x == 0, x, moved))
+
+    M.apply_moe = nudged
+    try:
+        yield
+    finally:
+        M.apply_moe = apply_moe
+
+
+def mesh_qwen_f32(base, total) -> None:
+    """13a: full-width, full-depth float32 qwen at (2, 2) on phase 3's
+    traffic — contiguous and paged blocking and paged chunked 256 equal
+    to phase 3's streams — and the sequence-sharded fallback at (1, 3)
+    over capacity 1152, equal to one engine of the same capacity."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    prompts = gate_prompts(cfg)
+    for mesh, label, kw in MESH_GATES:
+        eng, counts, wall = mesh_run(params, cfg, mesh, prompts, 16, **kw)
+        mesh_checks("mesh_f32", eng, counts, len(prompts), config=label,
+                    wall_s=f"{wall:.2f}")
+        _add(total, counts)
+        mesh_stream_gate("mesh_f32", {r.rid: r.output for r in eng.finished},
+                         base, "phase 3's")
+        eng.mesh.close()
+        del eng
+    single, _ = run_engine(params, cfg, prompts, 16,
+                           max_seq_len=FALLBACK_CAPACITY)
+    want = {r.rid: r.output for r in single.finished}
+    del single
+    eng, counts, wall = mesh_run(params, cfg, FALLBACK_MESH, prompts, 16,
+                                 max_seq_len=FALLBACK_CAPACITY)
+    if eng.kv.layout != "seq":
+        raise AssertionError(f"fallback layout {eng.kv.layout} != seq")
+    mesh_checks("mesh_f32", eng, counts, len(prompts),
+                config="contiguous+blocking (sequence fallback)",
+                capacity=FALLBACK_CAPACITY, wall_s=f"{wall:.2f}")
+    _add(total, counts)
+    mesh_stream_gate("mesh_f32", {r.rid: r.output for r in eng.finished},
+                     want, f"one engine at capacity {FALLBACK_CAPACITY}")
+    eng.mesh.close()
+    del eng, params
+    gc_empty()
+
+
+def mesh_moe_f32(total) -> None:
+    """13b: float32 deepseek-moe-16b, 4 layers at capacity factor E / k,
+    at (1, 2) — 32 experts a rank — on phase 3's traffic: phase 7a's
+    streams."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    arch = FAMILY_ARCHS[0]
+    cfg = registry.get_config(arch).replace(dtype="float32",
+                                            n_layers=GATE_LAYERS)
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    eng, counts, wall = mesh_run(params, dropless(cfg), MOE_MESH,
+                                 gate_prompts(cfg), 16)
+    mesh_checks("mesh_f32", eng, counts, 4, arch=arch, depth=GATE_LAYERS,
+                config="contiguous+blocking", wall_s=f"{wall:.2f}")
+    _add(total, counts)
+    mesh_stream_gate("mesh_f32", {r.rid: r.output for r in eng.finished},
+                     GATED[arch], "phase 7a's")
+    eng.mesh.close()
+    del eng, params
+    gc_empty()
+
+
+def single_forward(params, cfg, prompt, feed):
+    """One device's prefill of ``prompt`` and a decode step for each of
+    ``feed``'s tokens (the reference for :func:`mesh_forward`): every
+    step's logits."""
+    import torch
+    from repro_torch.models import model as MD
+    toks = torch.as_tensor(prompt[None], dtype=torch.int32, device="cuda")
+    logits, cache = MD.prefill(params, cfg, {"tokens": toks},
+                               len(prompt) + len(feed) + 1)
+    out = [logits]
+    for tok in feed:
+        logits, cache = MD.decode_step(params, cfg, tok.to("cuda"), cache)
+        out.append(logits)
+    return out
+
+
+def mesh_qwen_bf16(card, total) -> None:
+    """13c: bf16 qwen at full width and depth at (1, 4): phase 4's
+    traffic (16 requests, 64 new tokens, 8 slots, contiguous + blocking)
+    with exact launches, then the first prompt's prefill and 8 greedy
+    steps through the mesh with every K1 / K3 / K5 call of every shard
+    held to its plain version on its own inputs (:func:`checked_kernels`,
+    as 9b), each step's logits held to one device's on the same tokens
+    (3e-2, argmax equal or a tie at rounding level)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    cfg = registry.get_config(ARCH)
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    prompts = serve_prompts(cfg)
+    eng, counts, wall = mesh_run(params, cfg, BF16_MESH, prompts, 64)
+    s = mesh_checks("mesh_bf16", eng, counts, len(prompts),
+                    tokens=s_tok(eng), wall_s=f"{wall:.2f}",
+                    tok_per_s=f"{s_tok(eng) / wall:.1f}", card=f"'{card}'")
+    log("mesh_bf16", ttft_p50_ms=f"{s['ttft_p50_s'] * 1e3:.1f}",
+        itl_p50_ms=f"{s['itl_p50_s'] * 1e3:.2f}",
+        note="host-bound: four ranks' launches from one interpreter")
+    _add(total, counts)
+    errs: dict = {}
+    with checked_kernels(errs):
+        got, fed = mesh_forward(eng, prompts[0], MESH_STEPS)
+    want = single_forward(params, cfg, prompts[0], fed)
+    log("mesh_bf16", checked_calls=json.dumps(
+        {k: n for k, (n, _) in errs.items()}),
+        max_abs_err=json.dumps({k: f"{e:.3e}" for k, (_, e) in errs.items()}),
+        tol=TOL["bfloat16"])
+    for name in ("add_rmsnorm", "flash_attention", "decode_attention"):
+        if not errs.get(name, (0, 0))[0]:
+            raise AssertionError(f"mesh_bf16: no {name} call was checked")
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel, ties = _tie_gate(f"mesh_bf16 step {i}", g, w)
+        log("mesh_bf16", logits="prefill" if i == 0 else f"decode_{i}",
+            prompt_len=len(prompts[0]), rel_err=f"{rel:.3e}",
+            max_abs_err=f"{(g - w).abs().max().item():.3e}",
+            tol=TOL["bfloat16"], against="one device", ties=json.dumps(ties))
+    eng.mesh.close()
+    del eng, params
+    gc_empty()
+
+
+def s_tok(eng) -> int:
+    return sum(len(r.output) for r in eng.finished)
+
+
+def phase_mesh(base, card: str) -> dict:
+    """Phase 13: mesh serving with every shard on the card — the
+    sharded K1 at the fallback's shapes, 13a, 13b and 13c. Returns the
+    launch counts of its runs."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    with step_deadline():
+        sharded_decode_case()
+        mesh_qwen_f32(base, total)
+        mesh_moe_f32(total)
+        mesh_qwen_bf16(card, total)
+    log("mesh", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the static cost model — pricing on meta tensors, the dispatch
 # audit, measured against predicted
 # ---------------------------------------------------------------------------
@@ -4292,6 +4699,9 @@ def main() -> int:
         counts[name] += c
     torch.cuda.empty_cache()
     for name, c in phase_cluster(base, card).items():
+        counts[name] += c
+    torch.cuda.empty_cache()
+    for name, c in phase_mesh(base, card).items():
         counts[name] += c
     phase_costmodel(card)
     phase_simulator(card)

@@ -204,7 +204,12 @@ def entry_tracer(engine, memo: dict | None = None):
     function. ``memo`` (optional) is shared between engines: an entry
     traced for one engine is not traced again for another of the same
     model (its ``"entries"`` dict holds the traces). Raises ``KeyError``
-    for a kind with no function."""
+    for a kind with no function, NotImplementedError for an engine on
+    a device mesh (its dispatches run per rank, gathers between)."""
+    if getattr(engine, "mesh", None) is not None:
+        raise NotImplementedError(
+            "the dispatch audit prices one device's dispatches; a mesh "
+            "engine's run per rank with gathers between them")
     closures = engine._closures
     draft_closures = getattr(engine, "_draft_closures", None)
     # params and operands as meta tensors (every tensor and TensorSpec);

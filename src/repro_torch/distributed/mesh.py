@@ -1,0 +1,295 @@
+"""A (data, model) mesh of devices driven from one process.
+
+Counterpart of ``jax.sharding.Mesh`` as the serving engine uses it: one
+controller, one worker thread per rank (``torch.nn.DataParallel``'s
+``parallel_apply`` idiom). Each rank runs the port's model functions on
+its own shard, under its own device (the current CUDA device is
+thread-local), and the ranks meet only in :meth:`DeviceMesh.all_gather`,
+which concatenates their tensors in fixed rank order onto each rank's
+device. A cross-device ``.to()`` orders itself against both devices'
+current streams, and the barrier in front of it means the producing
+rank has already queued the work that makes its tensor.
+
+Rank ``r`` sits at ``(data, model) = divmod(r, model_size)``. A device
+may be named more than once: several shards then share it, and a gather
+between them is a local copy — the same code path and the same kernels.
+
+An exception in any rank aborts every barrier of the mesh, so no rank is
+left waiting, and :meth:`DeviceMesh.run` raises it in the caller.
+"""
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import weakref
+
+import torch
+
+from repro_torch.device import resolve_device
+
+AXES = ("data", "model")
+
+# a rank waits at most this long for the others at one gather before
+# the mesh gives up on the call (a rank that hangs instead of raising)
+BARRIER_TIMEOUT_S = 600.0
+
+
+class PerRank(list):
+    """One value per rank of a mesh, in rank order (None where a rank
+    takes no part): a dispatch operand or result that differs by rank."""
+
+
+class _Exchange:
+    """The meeting point of one group of ranks: a barrier and two slot
+    lists used alternately, so a gather needs one barrier — a rank can
+    only overwrite a list after every rank has passed the next gather's
+    barrier, and so has read this one."""
+
+    def __init__(self, n: int, timeout: float):
+        self.barrier = threading.Barrier(n, timeout=timeout)
+        self.slots = ([None] * n, [None] * n)
+
+
+class DeviceMesh:
+    """``shape`` (data, model) ranks over ``devices`` (``data * model``
+    of them, ``torch.device``\\ s or strings, in rank order)."""
+
+    def __init__(self, shape, devices, *, timeout: float = BARRIER_TIMEOUT_S):
+        d, m = (int(x) for x in shape)
+        if d < 1 or m < 1:
+            raise ValueError(f"mesh shape {shape!r} must be two positive "
+                             "axis sizes (data, model)")
+        devs = tuple(resolve_device(x) for x in devices)
+        if len(devs) != d * m:
+            raise ValueError(f"mesh {d}x{m} needs {d * m} devices, got "
+                             f"{len(devs)}")
+        self.shape = (d, m)
+        self.devices = devs
+        self.size = d * m
+        self.timeout = timeout
+        self._local = threading.local()
+        self._shared = _Shared()
+        self._queues = None
+        self._threads: list[threading.Thread] = []
+        self._n_threads = torch.get_num_threads()
+
+    # -- coordinates -------------------------------------------------------
+    def coords(self, rank: int) -> tuple[int, int]:
+        """(data, model) of ``rank``."""
+        return divmod(rank, self.shape[1])
+
+    def rank_of(self, data: int, model: int) -> int:
+        return data * self.shape[1] + model
+
+    def group(self, rank: int, axis: str) -> tuple:
+        """The ranks that share ``rank``'s other coordinate, in ``axis``
+        order: its model group (``axis="model"``) or data group."""
+        di, mi = self.coords(rank)
+        if axis == "model":
+            return tuple(self.rank_of(di, j) for j in range(self.shape[1]))
+        if axis == "data":
+            return tuple(self.rank_of(i, mi) for i in range(self.shape[0]))
+        raise ValueError(f"unknown mesh axis {axis!r}: {AXES}")
+
+    def data_group(self, data: int) -> tuple:
+        """The ``model`` ranks of data replica ``data``."""
+        return tuple(self.rank_of(data, j) for j in range(self.shape[1]))
+
+    def rank(self) -> int | None:
+        """The rank the calling thread runs (None outside :meth:`run`)."""
+        return getattr(self._local, "rank", None)
+
+    # -- workers -----------------------------------------------------------
+    def _start(self) -> None:
+        # the threads hold the shared state, never the mesh itself, so a
+        # mesh nobody references is collected and its finalizer stops them
+        self._queues = [queue.SimpleQueue() for _ in range(self.size)]
+        for r in range(self.size):
+            t = threading.Thread(
+                target=_serve, args=(r, self.devices[r], self._queues[r],
+                                     self._local, self._shared,
+                                     self._n_threads),
+                name=f"mesh-rank-{r}", daemon=True)
+            t.start()
+            self._threads.append(t)
+        self._finalizer = weakref.finalize(self, _stop, self._queues,
+                                           self._threads)
+
+    def _reset(self) -> None:
+        with self._shared.lock:
+            for ex in self._shared.exchanges.values():
+                ex.barrier.reset()
+                for slots in ex.slots:
+                    slots[:] = [None] * len(slots)
+
+    def run(self, fn, ranks=None) -> list:
+        """``fn(rank)`` on each of ``ranks`` (default every rank), each on
+        its own thread under its device; returns the results in rank
+        order, None for a rank that did not run. An exception in any
+        rank is raised here once every rank has returned."""
+        ranks = tuple(range(self.size)) if ranks is None else tuple(ranks)
+        if self._queues is None:
+            self._start()
+        call = _Call(self.size, ranks)
+        for r in ranks:
+            self._queues[r].put((fn, call))
+        for _ in ranks:
+            call.done.acquire()
+        if call.errors:
+            self._reset()
+            errs = [call.errors[r] for r in sorted(call.errors)]
+            first = next((e for e in errs
+                          if not isinstance(e, threading.BrokenBarrierError)),
+                         errs[0])
+            if isinstance(first, threading.BrokenBarrierError):
+                raise RuntimeError(
+                    f"mesh call on ranks {ranks}: a rank waited more than "
+                    f"{self.timeout} s for the others at a gather") from first
+            raise first
+        return call.results
+
+    def close(self) -> None:
+        """Stop the worker threads (the mesh restarts them on the next
+        :meth:`run`)."""
+        if self._queues is None:
+            return
+        self._finalizer()
+        self._queues, self._threads = None, []
+
+    # -- collectives -------------------------------------------------------
+    def _exchange(self, grp: tuple) -> _Exchange:
+        with self._shared.lock:
+            ex = self._shared.exchanges.get(grp)
+            if ex is None:
+                ex = self._shared.exchanges[grp] = _Exchange(len(grp),
+                                                             self.timeout)
+            return ex
+
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str
+                   ) -> torch.Tensor:
+        """Called by every rank of the calling rank's ``axis`` group:
+        their ``x`` concatenated along ``dim`` in group order, on the
+        calling rank's device. A group of one returns ``x``."""
+        rank = self.rank()
+        if rank is None:
+            raise RuntimeError("all_gather runs inside DeviceMesh.run")
+        grp = self.group(rank, axis)
+        if len(grp) == 1:
+            return x
+        call = self._local.call
+        if not call.ranks.issuperset(grp):
+            raise RuntimeError(f"all_gather over {axis!r} needs ranks {grp}, "
+                               f"but this call runs {sorted(call.ranks)}")
+        ex = self._exchange(grp)
+        if call.aborted:   # a rank failed before this group's barrier
+            raise threading.BrokenBarrierError   # existed to be broken
+        # which of the two slot lists: the parity of this rank's gathers
+        # in the group during this call (every rank of it counts alike)
+        counts = call.gathers[rank]
+        k = counts.get(grp, 0)
+        counts[grp] = k + 1
+        slots = ex.slots[k % 2]
+        slots[grp.index(rank)] = x
+        self._shared.baton.release()
+        try:
+            ex.barrier.wait()
+        finally:
+            self._shared.baton.acquire()
+        dev = self.devices[rank]
+        parts = [t if t.device == dev else t.to(dev) for t in slots]
+        return torch.cat(parts, dim)
+
+
+class _Shared:
+    """What the worker threads share with the mesh: its exchanges, their
+    lock, and the baton — the one rank that runs Python at a time holds
+    it, and gives it up only to wait at a gather. The interpreter runs
+    one thread at a time anyway; without the baton every torch op of
+    every rank would hand the interpreter lock to another thread (a
+    context switch per op), with it a rank switches once a gather."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.exchanges: dict[tuple, _Exchange] = {}
+        self.baton = threading.Lock()
+
+    def abort(self) -> None:
+        """Break every barrier: ranks waiting at a gather raise."""
+        with self.lock:
+            for ex in self.exchanges.values():
+                ex.barrier.abort()
+
+
+def _serve(rank, dev, q, local, shared, n_threads) -> None:
+    """A rank's worker: run each task's ``fn(rank)`` under ``dev`` until
+    the None that stops it."""
+    torch.set_num_threads(n_threads)
+    local.rank = rank
+    while True:
+        task = q.get()
+        if task is None:
+            return
+        fn, call = task
+        local.call = call
+        try:
+            ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+                   else contextlib.nullcontext())
+            with ctx, shared.baton:
+                call.results[rank] = fn(rank)
+        except BaseException as e:   # noqa: BLE001 — re-raised by run
+            call.errors[rank] = e
+            call.aborted = True
+            shared.abort()
+        finally:
+            local.call = None
+            call.done.release()
+            # hold nothing of the task while waiting for the next: its
+            # closure may reference a whole shard of weights
+            del task, fn, call
+
+
+def _stop(queues, threads) -> None:
+    """Stop a mesh's workers and wait for them (also at interpreter exit:
+    no worker may still run torch code while the interpreter tears
+    down)."""
+    for q in queues:
+        q.put(None)
+    for t in threads:
+        if t is not threading.current_thread():
+            t.join()
+
+
+class _Call:
+    """One :meth:`DeviceMesh.run`: the ranks it runs, per-rank results,
+    errors and gather counts, and a semaphore the caller takes once per
+    rank."""
+
+    def __init__(self, n: int, ranks):
+        self.ranks = frozenset(ranks)
+        self.results: list = [None] * n
+        self.errors: dict[int, BaseException] = {}
+        self.gathers: list[dict] = [{} for _ in range(n)]
+        self.aborted = False
+        self.done = threading.Semaphore(0)
+
+
+def mesh_devices(shape, devices=None) -> tuple:
+    """The ``data * model`` devices of a mesh: ``devices`` as given
+    (a name may repeat: several shards on one device), or the first
+    ``data * model`` visible CUDA devices — raising where there are
+    fewer, as the reference does, and never falling back to the CPU."""
+    d, m = (int(x) for x in shape)
+    n = d * m
+    if devices is not None:
+        devs = [resolve_device(x) for x in devices]
+        if len(devs) < n:
+            raise ValueError(f"mesh={tuple(shape)} needs {n} devices, but "
+                             f"only {len(devs)} are in the device group")
+        return tuple(devs[:n])
+    resolve_device("cuda")
+    count = torch.cuda.device_count()
+    if count < n:
+        raise ValueError(f"mesh={tuple(shape)} needs {n} devices, but only "
+                         f"{count} are visible to torch")
+    return tuple(torch.device("cuda", i) for i in range(n))

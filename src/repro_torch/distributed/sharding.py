@@ -1,0 +1,473 @@
+"""Serve-mode sharding rules over the (data, model) mesh, and the shards
+they give each rank.
+
+Counterpart of ``repro/distributed/sharding.py``'s serving half
+(``fsdp_axes``, ``axis_size``, ``_div``, ``_param_spec(serve=True)``,
+``param_shardings``' budget switch, ``cache_shardings``' ``kv_spec`` and
+``pool_shardings``); training's rules come with the training slice. The
+rules work on shapes: a spec is a tuple with one entry per dim, None
+(whole) or the tuple of mesh axes the dim is split over, leading stack
+dims whole. An axis of size 1 splits nothing.
+
+Weights follow the reference's "gather-rows" tensor parallelism: every
+product splits its output columns over ``model`` and keeps its
+contraction dim whole — row-parallel ``wo`` / ``w_down`` too — experts
+split over ``model``, the embedding and head split their vocab over
+``model``. A model that fits ``serve_budget_bytes`` a device on the
+model axis alone keeps its weights whole over ``data`` (each data
+replica then reads local weights); a larger one keeps the FSDP rules,
+which split contraction dims over ``data``. The port gathers no weight
+per step: such a placement on a mesh with ``data > 1`` raises
+(:func:`serve_specs`).
+
+KV caches put the slot batch over ``data`` and the heads over
+``model``; when the KV heads do not divide ``model`` a contiguous cache
+splits its positions over ``model`` instead (the sequence-sharded
+decode of :mod:`repro_torch.models.attention`), and a paged pool stays
+whole.
+
+:func:`shard_params` cuts a whole tree into per-rank trees;
+:func:`init_params_sharded` makes each rank's leaves directly on its
+device, so the whole tree of a model that fits no single device never
+exists.
+"""
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import model as MD
+
+POD, DATA, MODEL = "pod", "data", "model"
+MOE_EXPERT_SHARD = "dff"   # the reference's default: experts' FFN dim
+                           # over FSDP, contraction dims whole
+SERVE_BUDGET_BYTES = 8e9
+ROADMAP_DATA_SPLIT = ("weights split over 'data' (a model over the serve "
+                      "budget on a mesh with data > 1) wait for per-step "
+                      "weight gathers — ROADMAP, Queue 1, M4's \"what "
+                      "waits\"")
+
+
+def _sizes(mesh) -> dict:
+    """{axis: size} of a DeviceMesh or a (data, model) pair."""
+    shape = getattr(mesh, "shape", mesh)
+    return {DATA: int(shape[0]), MODEL: int(shape[1])}
+
+
+def axis_names(mesh) -> tuple:
+    return (DATA, MODEL)
+
+
+def fsdp_axes(mesh) -> tuple:
+    """Axes used for batch / FSDP sharding: ``("data",)`` (a serving
+    mesh has no ``pod`` axis)."""
+    return tuple(a for a in (POD, DATA) if a in axis_names(mesh))
+
+
+def axis_size(mesh, axes) -> int:
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = _sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _div(dim: int, mesh, axes) -> bool:
+    if not axes:   # serve mode under the budget: never split over FSDP
+        return False
+    return dim % axis_size(mesh, axes) == 0
+
+
+def _ax(axes):
+    """A spec entry: None, or the tuple of axes."""
+    if axes is None:
+        return None
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _spec(*entries) -> tuple:
+    return tuple(_ax(e) for e in entries)
+
+
+# ---------------------------------------------------------------------------
+# parameter rules
+# ---------------------------------------------------------------------------
+
+_COL = {"wq", "wk", "wv", "w_gate", "w_up", "w_in", "w_ff_up", "in_proj",
+        "w_i", "w_f"}
+_ROW = {"wo", "w_down", "w_ff_down", "out_proj"}
+_EMBED = {"table", "head"}
+
+
+def param_spec(path_names, shape, mesh, fsdp, serve=False) -> tuple:
+    """The reference's ``_param_spec`` for a leaf of ``shape`` at
+    ``path_names``, as a full-length spec."""
+    name = path_names[-1] if path_names else ""
+    in_moe = "moe" in path_names
+    nd = len(shape)
+
+    def lead(n_trailing):
+        return (None,) * (nd - n_trailing)
+
+    if nd <= 1:
+        return (None,) * nd
+
+    if in_moe and name in ("w_gate", "w_up", "w_down") and nd >= 3:
+        e, a, b = shape[-3], shape[-2], shape[-1]
+        e_ax = MODEL if _div(e, mesh, MODEL) else None
+        if MOE_EXPERT_SHARD == "dff":
+            if name == "w_down":
+                f_ax = fsdp if _div(a, mesh, fsdp) else None
+                return _spec(*lead(3), e_ax, f_ax, None)
+            f_ax = fsdp if _div(b, mesh, fsdp) else None
+            return _spec(*lead(3), e_ax, None, f_ax)
+        d_ax = fsdp if _div((a if name != "w_down" else b), mesh,
+                            fsdp) else None
+        if name == "w_down":
+            return _spec(*lead(3), e_ax, None, d_ax)
+        return _spec(*lead(3), e_ax, d_ax, None)
+
+    if name in _EMBED or path_names[-2:] == ["embed", "table"]:
+        v, d = shape[-2], shape[-1]
+        v_ax = MODEL if _div(v, mesh, MODEL) else None
+        d_ax = fsdp if _div(d, mesh, fsdp) else None
+        return _spec(*lead(2), v_ax, d_ax)
+
+    if name in _COL:
+        i, o = shape[-2], shape[-1]
+        o_ax = MODEL if _div(o, mesh, MODEL) else None
+        i_ax = fsdp if _div(i, mesh, fsdp) else None
+        return _spec(*lead(2), i_ax, o_ax)
+
+    if name in _ROW:
+        i, o = shape[-2], shape[-1]
+        if serve:
+            # gather-rows TP: the contraction dim stays whole, OUT splits
+            o_ax = MODEL if _div(o, mesh, MODEL) else None
+            return _spec(*lead(2), None, o_ax)
+        i_ax = MODEL if _div(i, mesh, MODEL) else None
+        o_ax = fsdp if _div(o, mesh, fsdp) else None
+        return _spec(*lead(2), i_ax, o_ax)
+
+    if name == "router":
+        d = shape[-2]
+        return _spec(*lead(2), fsdp if _div(d, mesh, fsdp) else None, None)
+
+    if name == "conv_w":
+        c = shape[-1]
+        return _spec(*lead(2), None, MODEL if _div(c, mesh, MODEL) else None)
+
+    if name == "w_rec":
+        return (None,) * nd
+
+    d0 = shape[-2]
+    return _spec(*lead(2), fsdp if _div(d0, mesh, fsdp) else None, None)
+
+
+def _walk(tree, path=()):
+    """(path names, leaf) of every tensor leaf: dict keys, list indices
+    as strings, in tree order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (str(i),))
+    else:
+        yield list(path), tree
+
+
+def _map(tree, fn, path=()):
+    """``tree`` with each leaf replaced by ``fn(path names, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(list(path), tree)
+
+
+def tree_bytes(tree) -> int:
+    return sum(int(np.prod(leaf.shape)) * leaf.element_size()
+               for _, leaf in _walk(tree))
+
+
+def param_specs(params, mesh, *, serve: bool = False,
+                serve_budget_bytes: float = SERVE_BUDGET_BYTES):
+    """A spec per leaf of ``params`` (tensors, meta ones included): the
+    reference's ``param_shardings``. With ``serve``, a model that fits
+    ``serve_budget_bytes`` a device over ``model`` alone keeps its
+    weights whole over ``data``."""
+    fsdp = fsdp_axes(mesh)
+    if serve and (tree_bytes(params) / axis_size(mesh, MODEL)
+                  <= serve_budget_bytes):
+        fsdp = ()
+    return _map(params, lambda names, leaf: param_spec(
+        names, tuple(leaf.shape), mesh, fsdp, serve=serve))
+
+
+def serve_specs(params, mesh, *,
+                serve_budget_bytes: float = SERVE_BUDGET_BYTES):
+    """The placement the engine realizes: :func:`param_specs` with
+    ``serve=True``, except that an MoE's shared experts take the dense
+    MLP's rule (the reference's rule reads a stacked shared MLP
+    (L, d, f) as an expert stack and would split its layer axis). Raises
+    NotImplementedError where a weight would split over ``data`` on a
+    mesh with ``data > 1``."""
+    specs = param_specs(params, mesh, serve=True,
+                        serve_budget_bytes=serve_budget_bytes)
+    fsdp = fsdp_axes(mesh)
+    if tree_bytes(params) / axis_size(mesh, MODEL) <= serve_budget_bytes:
+        fsdp = ()
+
+    def fix(names, leaf):
+        if "moe" in names and "shared" in names:
+            dense = [n for n in names if n != "moe"]
+            return param_spec(dense, tuple(leaf.shape), mesh, fsdp,
+                              serve=True)
+        return None
+
+    fixed = _map(params, fix)
+
+    def merged(a, b):
+        if isinstance(a, dict):
+            return {k: merged(a[k], b[k]) for k in a}
+        if isinstance(a, list):
+            return [merged(x, y) for x, y in zip(a, b)]
+        return a if b is None else b
+
+    specs = merged(specs, fixed)
+    if _sizes(mesh)[DATA] > 1:
+        for names, spec in _walk_specs(specs):
+            if any(e is not None and DATA in e for e in spec):
+                raise NotImplementedError(
+                    f"{'/'.join(names)} would split over 'data' at mesh "
+                    f"{tuple(_sizes(mesh).values())}: {ROADMAP_DATA_SPLIT}")
+    return specs
+
+
+def _walk_specs(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk_specs(v, path + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk_specs(v, path + (str(i),))
+    else:
+        yield list(path), tree
+
+
+# ---------------------------------------------------------------------------
+# cache rules
+# ---------------------------------------------------------------------------
+
+def kv_spec(shape, mesh) -> tuple:
+    """``cache_shardings``' rule for a K/V leaf (.., B, C, H, Dh)."""
+    fsdp = fsdp_axes(mesh)
+    nd = len(shape)
+    b, c, h = shape[-4], shape[-3], shape[-2]
+    lead = (None,) * (nd - 4)
+    if _div(h, mesh, MODEL):
+        h_ax, c_model = MODEL, None
+    else:
+        h_ax, c_model = None, MODEL if _div(c, mesh, MODEL) else None
+    if _div(b, mesh, fsdp):
+        return _spec(*lead, fsdp, c_model, h_ax, None)
+    if _div(b, mesh, DATA):
+        return _spec(*lead, DATA, c_model, h_ax, None)
+    all_axes = axis_names(mesh)
+    if _div(c, mesh, all_axes):
+        return _spec(*lead, None, all_axes, None, None)
+    c_ax = c_model if c_model else (fsdp if _div(c, mesh, fsdp) else None)
+    return _spec(*lead, None, c_ax, h_ax, None)
+
+
+def cache_specs(cache, mesh) -> dict:
+    """The reference's ``cache_shardings`` for a decode cache dict (its
+    leaves' shapes): K/V by :func:`kv_spec`, recurrent state batch over
+    FSDP and heads or channels over ``model``, the position counter
+    whole."""
+    fsdp = fsdp_axes(mesh)
+    out = {}
+    for name, leaf in cache.items():
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if name == "len" or nd == 0:
+            out[name] = (None,) * nd
+        elif name in ("k", "v", "cross_k", "cross_v"):
+            out[name] = kv_spec(shape, mesh)
+        elif name in ("ssm", "mlstm"):
+            b, h = shape[-4], shape[-3]
+            out[name] = _spec(*(None,) * (nd - 4),
+                              fsdp if _div(b, mesh, fsdp) else None,
+                              MODEL if _div(h, mesh, MODEL) else None,
+                              None, None)
+        elif name == "conv":
+            b, c = shape[-3], shape[-1]
+            out[name] = _spec(*(None,) * (nd - 3),
+                              fsdp if _div(b, mesh, fsdp) else None, None,
+                              MODEL if _div(c, mesh, MODEL) else None)
+        elif name.startswith("slstm"):
+            b = shape[-3]
+            out[name] = _spec(*(None,) * (nd - 3),
+                              fsdp if _div(b, mesh, fsdp) else None,
+                              None, None)
+        else:
+            out[name] = (None,) * nd
+    return out
+
+
+def pool_spec(shape, mesh) -> tuple:
+    """``pool_shardings``' rule for a paged pool (.., NB, bs, H, Dh):
+    heads over ``model`` when they divide, everything else whole."""
+    nd = len(shape)
+    if nd < 2:
+        return (None,) * nd
+    h_ax = MODEL if _div(shape[-2], mesh, MODEL) else None
+    return _spec(*(None,) * (nd - 2), h_ax, None)
+
+
+# ---------------------------------------------------------------------------
+# shards
+# ---------------------------------------------------------------------------
+
+def split_count(entry, mesh) -> int:
+    """Shards a dim with spec ``entry`` is cut into."""
+    return 1 if entry is None else axis_size(mesh, entry)
+
+
+def shard_index(entry, mesh, coords) -> int:
+    """Which shard of a dim with spec ``entry`` the rank at ``coords``
+    (data, model) holds: row-major over the entry's axes."""
+    if entry is None:
+        return 0
+    pos = dict(zip((DATA, MODEL), coords))
+    sizes = _sizes(mesh)
+    i = 0
+    for a in entry:
+        i = i * sizes[a] + pos[a]
+    return i
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    out = []
+    for n, e in zip(shape, spec):
+        k = split_count(e, mesh)
+        if n % k:
+            raise ValueError(f"dim {n} does not split into {k} shards")
+        out.append(n // k)
+    return tuple(out)
+
+
+def shard_slices(shape, spec, mesh, coords) -> tuple:
+    """The index of the rank at ``coords``'s shard of a ``shape`` leaf."""
+    out = []
+    for n, e in zip(shape, spec):
+        w = n // split_count(e, mesh)
+        i = shard_index(e, mesh, coords)
+        out.append(slice(i * w, (i + 1) * w))
+    return tuple(out)
+
+
+def shard_key(spec, mesh, coords) -> tuple:
+    """The shard's identity: its index along every split dim (ranks
+    with equal keys hold equal values)."""
+    return tuple(shard_index(e, mesh, coords) for e in spec)
+
+
+def check_family(cfg) -> None:
+    """Mesh serving takes the attention decoder families; the others
+    raise, naming the family."""
+    if cfg.family not in MD.TRANSFORMER_FAMILIES:
+        raise NotImplementedError(
+            f"mesh serving of family {cfg.family!r} ({cfg.name}) waits for "
+            "its sharding rules in the port — ROADMAP, Queue 1, M4's "
+            "\"what waits\" (whisper and the recurrent families on a mesh)")
+
+
+def shard_params(params, cfg, mesh) -> list:
+    """Per-rank trees of ``params`` (a whole tree, any device) under
+    :func:`serve_specs`, each on its rank's device. A leaf a rank holds
+    whole is the same tensor on every rank of one device; a split leaf
+    is a contiguous copy of the rank's shard."""
+    check_family(cfg)
+    specs = serve_specs(params, mesh)
+    out = []
+    for r in range(mesh.size):
+        coords, dev = mesh.coords(r), mesh.devices[r]
+
+        def one(names, leaf, specs=specs):
+            spec = _lookup(specs, names)
+            if all(split_count(e, mesh) == 1 for e in spec):
+                return leaf.to(dev)
+            sl = shard_slices(tuple(leaf.shape), spec, mesh, coords)
+            return leaf[sl].to(dev).contiguous()
+
+        out.append(_map(params, one))
+    return out
+
+
+def _lookup(tree, names):
+    for n in names:
+        tree = tree[int(n)] if isinstance(tree, list) else tree[n]
+    return tree
+
+
+def _init_kind(names) -> str:
+    """How :func:`repro_torch.models.model.init_params` fills the leaf
+    at ``names``: a norm's weight (ones) or bias (zeros), a projection
+    bias (zeros), an embedding or head (N(0, 0.02)), or a dense weight
+    (N(0, 1 / fan_in), fan_in its second-last dim)."""
+    name = names[-1]
+    parent = names[-2] if len(names) > 1 else ""
+    if parent.startswith("ln") or parent.endswith("norm"):
+        return "ones" if name == "w" else "zeros"
+    if name in ("bq", "bk", "bv"):
+        return "zeros"
+    if name in _EMBED:
+        return "embed"
+    return "dense"
+
+
+def init_params_sharded(cfg, mesh, *, seed: int = 0) -> list:
+    """Per-rank trees of random params, each leaf made on its rank's
+    device at its shard's shape from a generator seeded per (leaf,
+    shard) — ranks holding the same shard hold the same values, and a
+    rank holding a whole leaf shares it with the other ranks of its
+    device. The values are :func:`~repro_torch.models.model.init_params`'
+    distributions, not its draws; the whole tree is never made."""
+    check_family(cfg)
+    meta = MD.init_params(cfg, device="meta")
+    specs = serve_specs(meta, mesh)
+    made: dict = {}
+
+    def one_rank(r):
+        coords, dev = mesh.coords(r), mesh.devices[r]
+
+        def one(names, leaf):
+            spec = _lookup(specs, names)
+            shape = local_shape(tuple(leaf.shape), spec, mesh)
+            key = (str(dev), "/".join(names), shard_key(spec, mesh, coords))
+            if key in made:
+                return made[key]
+            kind = _init_kind(names)
+            if kind in ("ones", "zeros"):
+                t = (torch.ones if kind == "ones" else torch.zeros)(
+                    shape, dtype=leaf.dtype, device=dev)
+            else:
+                h = zlib.crc32(f"{seed}/{key[1]}/{key[2]}".encode())
+                gen = torch.Generator(device=dev).manual_seed(h)
+                scale = (0.02 if kind == "embed"
+                         else 1.0 / max(1, leaf.shape[-2]) ** 0.5)
+                t = L._fill_normal(gen, shape, leaf.dtype, dev, scale)
+            made[key] = t
+            return t
+
+        return _map(meta, one)
+
+    return [one_rank(r) for r in range(mesh.size)]

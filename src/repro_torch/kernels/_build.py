@@ -30,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# taken around every wrapper's ``launches += 1``: the ranks of a mesh
+# launch from several threads at once, and a count must not lose one
+COUNTING = threading.Lock()
 
 
 def _nvcc() -> str:

@@ -334,31 +334,38 @@ __global__ void decode_combine_kernel(
   if (dim_ok) out[row * DH + d] = port::from_f<T>(num / fmaxf(den, 1e-30f));
 }
 
+// ``passes``: 1 runs pass 1 alone (the partials), 2 the combine alone
+// over partials the caller provides, 3 both — one call of K1 or K2.
 template <typename T, int DH, typename Rows>
 cudaError_t launch_dh(const void* q, const void* kc, const void* vc,
                       const void* ek, const void* ev, const int* lens,
                       Rows rows, float* o_part, float* m_part,
                       float* l_part, void* out, int b, int cap, int hkv,
                       int g, int ns, int psplit, float scale, int window,
-                      cudaStream_t stream) {
-  const size_t smem = partial_smem<T, DH>(g, psplit);
-  // register arrays sized for one query head (MHA) or for up to kMaxG
-  const auto kernel = g == 1 ? decode_partial_kernel<T, DH, 1, Rows>
-                             : decode_partial_kernel<T, DH, kMaxG, Rows>;
-  cudaError_t err = tile::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(ns, hkv, b), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lens, rows, o_part, m_part, l_part, cap,
-      hkv, g, ns, psplit, scale, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = (DH + 31) / 32 * 32;  // whole warps (Dh 80: 96)
-  decode_combine_kernel<T, DH>
-      <<<dim3(hkv * g, b), threads, 2 * ns * sizeof(float), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ek),
-      static_cast<const T*>(ev), lens, o_part, m_part, l_part,
-      static_cast<T*>(out), cap, hkv, g, ns, psplit, scale, ek != nullptr);
+                      int passes, cudaStream_t stream) {
+  if (passes & 1) {
+    const size_t smem = partial_smem<T, DH>(g, psplit);
+    // register arrays sized for one query head (MHA) or for up to kMaxG
+    const auto kernel = g == 1 ? decode_partial_kernel<T, DH, 1, Rows>
+                               : decode_partial_kernel<T, DH, kMaxG, Rows>;
+    cudaError_t err = tile::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(ns, hkv, b), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kc),
+        static_cast<const T*>(vc), lens, rows, o_part, m_part, l_part, cap,
+        hkv, g, ns, psplit, scale, window);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 2) {
+    const int threads = (DH + 31) / 32 * 32;  // whole warps (Dh 80: 96)
+    decode_combine_kernel<T, DH>
+        <<<dim3(hkv * g, b), threads, 2 * ns * sizeof(float), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(ek),
+        static_cast<const T*>(ev), lens, o_part, m_part, l_part,
+        static_cast<T*>(out), cap, hkv, g, ns, psplit, scale,
+        ek != nullptr);
+  }
   return cudaGetLastError();
 }
 
@@ -367,24 +374,25 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* ek, const void* ev, const int* lens,
                    Rows rows, float* o_part, float* m_part, float* l_part,
                    void* out, int b, int cap, int hkv, int g, int dh, int ns,
-                   int psplit, float scale, int window, cudaStream_t s) {
+                   int psplit, float scale, int window, int passes,
+                   cudaStream_t s) {
   switch (dh) {
     case 64:
       return launch_dh<T, 64>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
                               l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              window, s);
+                              window, passes, s);
     case 80:
       return launch_dh<T, 80>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
                               l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              window, s);
+                              window, passes, s);
     case 96:
       return launch_dh<T, 96>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
                               l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              window, s);
+                              window, passes, s);
     case 128:
       return launch_dh<T, 128>(q, kc, vc, ek, ev, lens, rows, o_part,
                                m_part, l_part, out, b, cap, hkv, g, ns,
-                               psplit, scale, window, s);
+                               psplit, scale, window, passes, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -395,7 +403,8 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
                  const void* ek, const void* ev, const void* lens, Rows rows,
                  void* o_part, void* m_part, void* l_part, void* out, int b,
                  int cap, int hkv, int g, int dh, int ns, int psplit,
-                 float scale, int window, int dtype, void* stream) {
+                 float scale, int window, int dtype, void* stream,
+                 int passes = 3) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
   float* op = static_cast<float*>(o_part);
@@ -403,15 +412,17 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
   float* lp = static_cast<float*>(l_part);
   if (g < 1 || g > kMaxG || cap < 1 ||
       (psplit != 32 && psplit != 128) ||
-      ns != (cap + psplit - 1) / psplit || window < 0)
+      ns != (cap + psplit - 1) / psplit || window < 0 || passes < 1 ||
+      passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::DT_F32)
     return launch<float>(q, kc, vc, ek, ev, ln, rows, op, mp, lp, out, b,
-                         cap, hkv, g, dh, ns, psplit, scale, window, s);
+                         cap, hkv, g, dh, ns, psplit, scale, window, passes,
+                         s);
   if (dtype == port::DT_BF16)
     return launch<__nv_bfloat16>(q, kc, vc, ek, ev, ln, rows, op, mp, lp,
                                  out, b, cap, hkv, g, dh, ns, psplit, scale,
-                                 window, s);
+                                 window, passes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -452,4 +463,32 @@ KERNEL_EXPORT int paged_decode_attention_launch(
   return launch_dtype(q, kp, vp, ek, ev, lens, rows, o_part, m_part, l_part,
                       out, b, w * bs, hkv, g, dh, ns, psplit, scale, 0, dtype,
                       stream);
+}
+
+// K1's passes one at a time, for a cache split by position over several
+// shards (the sequence-sharded decode of a mesh): each shard runs pass 1
+// over its positions with its own lengths (``cap`` its positions, ``ns``
+// = cap / psplit), the shards' partials are concatenated along the split
+// axis in shard order, and the combine runs over them with the whole
+// cache's capacity and lengths — the partials the single cache's pass 1
+// would have written, when every shard holds whole splits.
+KERNEL_EXPORT int decode_partial_launch(
+    const void* q, const void* kc, const void* vc, const void* lens,
+    void* o_part, void* m_part, void* l_part, int b, int cap, int hkv,
+    int g, int dh, int ns, int psplit, float scale, int dtype,
+    void* stream) {
+  return launch_dtype(q, kc, vc, nullptr, nullptr, lens,
+                      ContiguousRows{cap}, o_part, m_part, l_part, nullptr,
+                      b, cap, hkv, g, dh, ns, psplit, scale, 0, dtype,
+                      stream, 1);
+}
+
+KERNEL_EXPORT int decode_combine_launch(
+    const void* q, const void* ek, const void* ev, const void* lens,
+    void* o_part, void* m_part, void* l_part, void* out, int b, int cap,
+    int hkv, int g, int dh, int ns, int psplit, float scale, int dtype,
+    void* stream) {
+  return launch_dtype(q, nullptr, nullptr, ek, ev, lens, ContiguousRows{cap},
+                      o_part, m_part, l_part, out, b, cap, hkv, g, dh, ns,
+                      psplit, scale, 0, dtype, stream, 2);
 }

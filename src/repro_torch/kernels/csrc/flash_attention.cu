@@ -258,8 +258,8 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out,
             hq, hkv, causal, window, q_offset, scale);
   } else {
     constexpr size_t smem = bf16_smem_bytes<DH>();
-    static const cudaError_t attr =
-        tile::allow_smem(flash_bf16_kernel<DH>, smem);
+    const cudaError_t attr =
+        tile::allow_smem_once<flash_bf16_kernel<DH>>(smem);
     if (attr != cudaSuccess) return attr;
     flash_bf16_kernel<DH><<<dim3(b * hq, n_qt), kThreads, smem, stream>>>(
         static_cast<const tile::bf16*>(q), static_cast<const tile::bf16*>(k),

@@ -20,6 +20,7 @@
 // row address stays 16-byte aligned (DH 80: 176 B).
 #pragma once
 
+#include <atomic>
 #include "common.cuh"
 
 namespace tile {
@@ -260,6 +261,25 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// allow_smem once per device for the kernel K at a fixed size: the limit
+// is an attribute of the function on each device, so a process that
+// launches on several cards sets it on each (threads that race here set
+// the same value).
+template <auto K>
+cudaError_t allow_smem_once(size_t bytes) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = allow_smem(K, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    done[dev].store(1, std::memory_order_release);
+  return err;
 }
 
 }  // namespace tile

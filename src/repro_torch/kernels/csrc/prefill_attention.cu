@@ -473,8 +473,8 @@ cudaError_t launch_bf16(const void* q, const void* kh, const void* vh,
   const float sl2 = scale * kLog2e;
   if (s > kVerifyMaxS) {
     constexpr size_t smem = chunk_smem_bytes<DH>();
-    static const cudaError_t chunk_attr =
-        tile::allow_smem(chunk_bf16_kernel<DH>, smem);
+    const cudaError_t chunk_attr =
+        tile::allow_smem_once<chunk_bf16_kernel<DH>>(smem);
     if (chunk_attr != cudaSuccess) return chunk_attr;
     chunk_bf16_kernel<DH>
         <<<dim3(b * hq, (s + kBQ - 1) / kBQ), kThreads, smem, stream>>>(
@@ -484,8 +484,8 @@ cudaError_t launch_bf16(const void* q, const void* kh, const void* vh,
   if (o_part == nullptr || m_part == nullptr || l_part == nullptr ||
       ns < (c + kSplit - 1) / kSplit)
     return cudaErrorInvalidValue;
-  static const cudaError_t split_attr = tile::allow_smem(
-      verify_split_kernel<DH>, split_smem_bytes<DH>(kRowsPerBlock / 16));
+  const cudaError_t split_attr = tile::allow_smem_once<
+      verify_split_kernel<DH>>(split_smem_bytes<DH>(kRowsPerBlock / 16));
   if (split_attr != cudaSuccess) return split_attr;
   const int n_rows = (hq / hkv) * s;
   const int n_rb = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;

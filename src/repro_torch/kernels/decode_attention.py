@@ -34,7 +34,13 @@ SIG = {"decode_attention_launch":
         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
        "paged_decode_attention_launch":
        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+       "decode_partial_launch":
+       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _P],
+       "decode_combine_launch":
+       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _P]}
 
 
 class Plan(NamedTuple):
@@ -57,9 +63,14 @@ def split_size(b: int, hkv: int) -> int:
     return 32 if b * hkv <= 64 else 128
 
 
-def launch_plan(b: int, hkv: int, cap: int) -> Plan:
-    """The launch over a (logical) capacity ``cap``."""
-    p = split_size(b, hkv)
+def launch_plan(b: int, hkv: int, cap: int, split: int | None = None
+                ) -> Plan:
+    """The launch over a (logical) capacity ``cap``; ``split`` (one of
+    :data:`SPLITS`) overrides :func:`split_size` — a shard of a mesh
+    cuts its cache where the whole decode's (B, Hkv) would."""
+    p = split or split_size(b, hkv)
+    if p not in SPLITS:
+        raise ValueError(f"split {p} not in {SPLITS}")
     ns = max(1, -(-cap // p))
     return Plan(p, ns, (ns, hkv, b))
 
@@ -139,12 +150,13 @@ def cost(q_shape, kv_shape, dtype, lens=None, *, self_kv=True,
     return flops, float(nbytes)
 
 
-def split_scratch(q: torch.Tensor, hkv: int, cap: int):
+def split_scratch(q: torch.Tensor, hkv: int, cap: int,
+                  split: int | None = None):
     """fp32 partials (o, m, l) of pass 1 for a logical capacity ``cap``,
     and the launch plan."""
     b, _, hq, dh = q.shape
     g = hq // hkv
-    plan = launch_plan(b, hkv, cap)
+    plan = launch_plan(b, hkv, cap, split)
     o_part = torch.empty((b, hkv, g, plan.splits, dh), dtype=torch.float32,
                          device=q.device)
     m_part = torch.empty((b, hkv, g, plan.splits), dtype=torch.float32,
@@ -156,13 +168,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      extra_k: torch.Tensor | None = None,
                      extra_v: torch.Tensor | None = None,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None,
+                     split: int | None = None) -> torch.Tensor:
     """q (B,1,Hq,Dh); caches (B,C,Hkv,Dh); ``cache_len`` scalar or (B,)
     valid slots per row; ``extra_k``/``extra_v`` (B,1,Hkv,Dh), the
     current token's KV, or both None. ``window``: the cache rolls (slot
     ``p % C`` holds position p); rows are valid to ``min(len, C)``, and
     when ``C == window`` a full row's slot ``len % C`` — the position
-    ``window`` back — is masked. Returns (B,1,Hq,Dh)."""
+    ``window`` back — is masked. ``split``: pass 1's positions per block
+    (:func:`launch_plan`). Returns (B,1,Hq,Dh)."""
     global launches
     b, _, hq, dh = q.shape
     _, cap, hkv, _ = k_cache.shape
@@ -179,7 +193,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    o_part, m_part, l_part, plan = split_scratch(q, hkv, cap)
+    o_part, m_part, l_part, plan = split_scratch(q, hkv, cap, split)
     lib = _build.load("decode_attention", SIG)
     _build.launch(
         lib, "decode_attention_launch", "decode_attention", q.device,
@@ -190,5 +204,66 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         l_part.data_ptr(), out.data_ptr(), b, cap, hkv, hq // hkv, dh,
         plan.splits, plan.split, 1.0 / math.sqrt(dh), int(window or 0),
         code, _build.stream_handle(q))
-    launches += 1
+    with _build.COUNTING:
+        launches += 1
+    return out
+
+
+def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cache_len, *,
+                           offset: int, gather,
+                           extra_k: torch.Tensor | None = None,
+                           extra_v: torch.Tensor | None = None,
+                           split: int | None = None) -> torch.Tensor:
+    """K1 over a cache split by position across shards: this shard holds
+    positions ``offset .. offset + C - 1`` of every row in ``k_cache`` /
+    ``v_cache`` (B,C,Hkv,Dh); ``cache_len`` (scalar or (B,)) counts the
+    whole row. Pass 1 runs over the shard's positions; ``gather(t,
+    dim)`` concatenates every shard's ``t`` along ``dim`` in shard order
+    (one call per partial), and the combine runs over all of them with
+    the whole row's length and the self partial — the partials one
+    cache's pass 1 would have written, so every shard returns K1's
+    result on the whole cache. C must hold whole splits. Returns
+    (B,1,Hq,Dh); one launch in ``launches``."""
+    global launches
+    b, _, hq, dh = q.shape
+    _, cap, hkv, _ = k_cache.shape
+    if tuple(v_cache.shape) != tuple(k_cache.shape) or k_cache.shape[0] != b:
+        raise ValueError(f"decode_attention_shard: shapes q "
+                         f"{tuple(q.shape)} k {tuple(k_cache.shape)}")
+    extras = check_operands("decode_attention_shard", q,
+                            tuple(k_cache.shape), extra_k, extra_v)
+    plan = launch_plan(b, hkv, cap, split)
+    if cap % plan.split:
+        raise ValueError(f"decode_attention_shard: a shard of {cap} "
+                         f"positions holds no whole number of "
+                         f"{plan.split}-position splits")
+    code = _build.launch_dtype("decode_attention_shard", q, k_cache,
+                               v_cache, *extras)
+    lens = row_lengths(cache_len, b, q.device)
+    local = (lens - offset).clamp(0, cap).to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    o_part, m_part, l_part, plan = split_scratch(q, hkv, cap, plan.split)
+    lib = _build.load("decode_attention", SIG)
+    g, scale = hq // hkv, 1.0 / math.sqrt(dh)
+    _build.launch(
+        lib, "decode_partial_launch", "decode_attention_shard", q.device,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        local.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
+        l_part.data_ptr(), b, cap, hkv, g, dh, plan.splits, plan.split,
+        scale, code, _build.stream_handle(q))
+    o_all = gather(o_part, 3).contiguous()
+    m_all, l_all = gather(m_part, 3).contiguous(), gather(l_part, 3).contiguous()
+    ns = o_all.shape[3]
+    _build.launch(
+        lib, "decode_combine_launch", "decode_attention_shard", q.device,
+        q.data_ptr(), extra_k.data_ptr() if extras else None,
+        extra_v.data_ptr() if extras else None, lens.data_ptr(),
+        o_all.data_ptr(), m_all.data_ptr(), l_all.data_ptr(),
+        out.data_ptr(), b, ns * plan.split, hkv, g, dh, ns, plan.split,
+        scale, code, _build.stream_handle(q))
+    with _build.COUNTING:
+        launches += 1
     return out

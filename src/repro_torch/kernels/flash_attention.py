@@ -80,5 +80,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
         hq, hkv, dh, int(causal), int(window or 0), int(q_offset),
         1.0 / math.sqrt(dh), code, _build.stream_handle(q))
-    launches += 1
+    with _build.COUNTING:
+        launches += 1
     return out

@@ -84,11 +84,11 @@ _COSTS = {
     q_offset=0: _fa.cost(tuple(q.shape), tuple(k.shape), q.dtype,
                          causal=causal, window=window, q_offset=q_offset),
     "decode_attention": lambda q, k_cache, v_cache, cache_len, *,
-    extra_k=None, extra_v=None, window=None: _dec.cost(
+    extra_k=None, extra_v=None, window=None, split=None: _dec.cost(
         tuple(q.shape), tuple(k_cache.shape), q.dtype, _known(cache_len),
         self_kv=extra_k is not None, window=window),
     "paged_decode_attention": lambda q, k_pool, v_pool, block_tables,
-    cache_len, *, extra_k=None, extra_v=None: _pdec.cost(
+    cache_len, *, extra_k=None, extra_v=None, split=None: _pdec.cost(
         tuple(q.shape), tuple(k_pool.shape), tuple(block_tables.shape),
         q.dtype, _known(cache_len), self_kv=extra_k is not None),
     "prefill_attention": lambda q, k_hist, v_hist, hist_len, k_self,
@@ -145,9 +145,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
-                     extra_v=None, window=None):
+                     extra_v=None, window=None, split=None):
     """Ragged split-KV decode attention with the self partial (K1), over
-    a rolling sliding-window cache when ``window`` is given."""
+    a rolling sliding-window cache when ``window`` is given; ``split``
+    sets pass 1's positions per block (a mesh shard takes the whole
+    decode's)."""
     if q.is_meta:
         out = torch.empty_like(q)
         return _priced("decode_attention", call_cost(
@@ -156,14 +158,28 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
     if _on_card(q):
         return _dec.decode_attention(q, k_cache, v_cache, cache_len,
                                      extra_k=extra_k, extra_v=extra_v,
-                                     window=window)
+                                     window=window, split=split)
     return ref.decode_attention(q, k_cache, v_cache, cache_len,
                                 extra_k=extra_k, extra_v=extra_v,
                                 window=window)
 
 
+def decode_attention_shard(q, k_cache, v_cache, cache_len, *, offset,
+                           gather, extra_k=None, extra_v=None, split=None):
+    """K1 over one shard of a cache split by position across a mesh's
+    ranks: pass 1 over the shard, ``gather`` to every shard's partials,
+    the combine with the self partial (the sequence-sharded decode)."""
+    if _on_card(q):
+        return _dec.decode_attention_shard(
+            q, k_cache, v_cache, cache_len, offset=offset, gather=gather,
+            extra_k=extra_k, extra_v=extra_v, split=split)
+    return ref.decode_attention_shard(
+        q, k_cache, v_cache, cache_len, offset=offset, gather=gather,
+        extra_k=extra_k, extra_v=extra_v)
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
-                           extra_k=None, extra_v=None):
+                           extra_k=None, extra_v=None, split=None):
     """Split-KV decode over a paged pool through block tables, with the
     self partial (K2)."""
     if q.is_meta:
@@ -174,7 +190,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     if _on_card(q):
         return _pdec.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                             cache_len, extra_k=extra_k,
-                                            extra_v=extra_v)
+                                            extra_v=extra_v, split=split)
     return ref.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                       cache_len, extra_k=extra_k,
                                       extra_v=extra_v)

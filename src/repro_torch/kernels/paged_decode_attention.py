@@ -40,13 +40,13 @@ def cost(q_shape, pool_shape, table_shape, dtype, lens=None, *,
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            cache_len, *, extra_k: torch.Tensor | None = None,
-                           extra_v: torch.Tensor | None = None
-                           ) -> torch.Tensor:
+                           extra_v: torch.Tensor | None = None,
+                           split: int | None = None) -> torch.Tensor:
     """q (B,1,Hq,Dh); pools (NB,bs,Hkv,Dh); ``block_tables`` (B,W) int
     block ids (entries >= NB are sentinels, masked by the length);
     ``cache_len`` scalar or (B,) valid positions per row, at most W*bs;
-    ``extra_k``/``extra_v`` (B,1,Hkv,Dh) or both None. Returns
-    (B,1,Hq,Dh)."""
+    ``extra_k``/``extra_v`` (B,1,Hkv,Dh) or both None; ``split`` as
+    K1's. Returns (B,1,Hq,Dh)."""
     global launches
     b, _, hq, dh = q.shape
     nb, bs, hkv, _ = k_pool.shape
@@ -66,7 +66,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     w = tab.shape[1]
     if b == 0:
         return out
-    o_part, m_part, l_part, plan = split_scratch(q, hkv, w * bs)
+    o_part, m_part, l_part, plan = split_scratch(q, hkv, w * bs, split)
     lib = _build.load("decode_attention", SIG)
     _build.launch(
         lib, "paged_decode_attention_launch", "paged_decode_attention",
@@ -77,5 +77,6 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, w, bs, nb,
         hkv, hq // hkv, dh, plan.splits, plan.split, 1.0 / math.sqrt(dh),
         code, _build.stream_handle(q))
-    launches += 1
+    with _build.COUNTING:
+        launches += 1
     return out

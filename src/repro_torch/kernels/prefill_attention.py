@@ -119,5 +119,6 @@ def prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
         k_self.data_ptr(), v_self.data_ptr(), lens.data_ptr(), *parts,
         out.data_ptr(), b, s, c, hq, hkv, dh, plan.ns, 1.0 / math.sqrt(dh),
         code, _build.stream_handle(q))
-    launches += 1
+    with _build.COUNTING:
+        launches += 1
     return out

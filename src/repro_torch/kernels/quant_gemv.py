@@ -156,5 +156,6 @@ def quant_gemv(x: torch.Tensor, w_packed: torch.Tensor,
         None if tickets is None else tickets.data_ptr(),
         out.data_ptr(), b, k, n, group, plan.unit, plan.vec, plan.rows,
         plan.units_per_warp, plan.splits, code, stream)
-    launches += 1
+    with _build.COUNTING:
+        launches += 1
     return out

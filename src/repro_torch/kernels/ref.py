@@ -56,14 +56,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      extra_k: torch.Tensor | None = None,
                      extra_v: torch.Tensor | None = None,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None,
+                     split: int | None = None) -> torch.Tensor:
     """q (B,1,Hq,Dh); caches (B,C,Hkv,Dh) valid to ``cache_len`` (scalar
     or (B,)); optional current-token ``extra_k``/``extra_v``
     (B,1,Hkv,Dh) merged as one always-valid self partial, exactly as
     ``repro.models.attention.decode_attention`` does — with its rolling
     mask under ``window``: slots valid to ``min(len, C)``, and when
     ``C == window`` a full row's slot ``len % C`` (the position
-    ``window`` back) masked."""
+    ``window`` back) masked. ``split`` is the kernel's launch plan and
+    changes nothing here."""
     b, _, hq, dh = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.float().reshape(b, hkv, hq // hkv, dh)
@@ -97,6 +99,51 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 
+def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cache_len, *,
+                           offset: int, gather,
+                           extra_k: torch.Tensor | None = None,
+                           extra_v: torch.Tensor | None = None,
+                           split: int | None = None) -> torch.Tensor:
+    """:func:`decode_attention` over a cache split by position across
+    shards, this one holding positions ``offset .. offset + C - 1``: one
+    unnormalised partial (o, m, l) over the shard's valid positions,
+    every shard's gathered in shard order by ``gather(t, dim)``, then
+    merged with the self partial — the same online softmax as one
+    cache's, summed by shard. ``split`` is the kernel's launch plan and
+    changes nothing here."""
+    b, _, hq, dh = q.shape
+    cap, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, dh)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg,
+                          k_cache.float()) / math.sqrt(dh)
+    clen = torch.broadcast_to(
+        torch.as_tensor(cache_len, device=q.device).reshape(-1, 1), (b, 1))
+    valid = (offset + torch.arange(cap, device=q.device)[None, :]) < clen
+    valid = valid[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m1 = torch.clamp(scores.amax(-1), min=NEG_INF)
+    p1 = torch.where(valid, torch.exp(scores - m1[..., None]), 0.0)
+    o1 = torch.einsum("bhgk,bkhd->bhgd", p1, v_cache.float())
+    o = gather(o1[..., None, :], 3)                 # (b, hkv, g, n, dh)
+    m = gather(m1[..., None], 3)                    # (b, hkv, g, n)
+    l = gather(p1.sum(-1)[..., None], 3)
+    mx = m.amax(-1)
+    if extra_k is not None:
+        s2 = torch.einsum("bhgd,bhd->bhg", qg,
+                          extra_k[:, 0].float()) / math.sqrt(dh)
+        mx = torch.maximum(mx, s2)
+    a = torch.exp(m - mx[..., None])
+    num = (o * a[..., None]).sum(3)
+    den = (l * a).sum(-1)
+    if extra_k is not None:
+        a2 = torch.exp(s2 - mx)
+        num = num + extra_v[:, 0].float()[:, :, None, :] * a2[..., None]
+        den = den + a2
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
 def gather_kv_blocks(pool: torch.Tensor, block_tables: torch.Tensor
                      ) -> torch.Tensor:
     """Paged-cache gather: ``pool`` (NB, bs, Hkv, Dh) through per-row
@@ -111,8 +158,8 @@ def gather_kv_blocks(pool: torch.Tensor, block_tables: torch.Tensor
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            cache_len, *, extra_k: torch.Tensor | None = None,
-                           extra_v: torch.Tensor | None = None
-                           ) -> torch.Tensor:
+                           extra_v: torch.Tensor | None = None,
+                           split: int | None = None) -> torch.Tensor:
     """Pools (NB,bs,Hkv,Dh) read through ``block_tables`` (B,W): the
     table gather, then :func:`decode_attention` on the dense view — the
     reference's paged decode."""

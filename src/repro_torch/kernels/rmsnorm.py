@@ -145,7 +145,8 @@ def add_rmsnorm(x: torch.Tensor, a: torch.Tensor | None, w: torch.Tensor,
         lib, "add_rmsnorm_launch", "add_rmsnorm", x.device, xp, ap, wp,
         None if a is None else s.data_ptr(), h.data_ptr(), m, d, float(eps),
         xt, at, ht, threads, vecs, _build.stream_handle(x))
-    launches += 1
+    with _build.COUNTING:
+        launches += 1
     return s, h
 
 

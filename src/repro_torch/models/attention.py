@@ -13,7 +13,9 @@ import math
 
 import torch
 
+from repro_torch.distributed import hints as H
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import split_size
 # the paged-cache gather (chunk and verify histories on a paged pool) is
 # the plain K2's own first step
 from repro_torch.kernels.ref import gather_kv_blocks  # noqa: F401
@@ -82,14 +84,44 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
     token's KV, one more always-valid slot, so the cache write stays
     outside attention; both None for cross-attention over a fixed
     encoder cache. Runs the split-KV decode kernel (K1, contiguous) or
-    its paged form (K2) on the card."""
+    its paged form (K2) on the card.
+
+    On a mesh each rank's kernel cuts its cache where the whole decode's
+    (B, Hkv) would (:func:`mesh_split`); in the sequence layout the
+    rank's cache holds a range of positions and K1 runs as
+    ``decode_attention_shard``: pass 1 over the range, every rank's
+    partials gathered in shard order, one combine."""
+    kw = {}
+    split = mesh_split()
+    if split is not None:
+        kw["split"] = split
     if block_tables is not None:
         if window is not None:
             raise ValueError("a paged KV cache never rolls: sliding-window "
                              "decode needs a contiguous cache")
         return ops.paged_decode_attention(q.contiguous(), k_cache, v_cache,
                                           block_tables, cache_len,
-                                          extra_k=extra_k, extra_v=extra_v)
+                                          extra_k=extra_k, extra_v=extra_v,
+                                          **kw)
+    if H.attn_layout() == "seq":
+        if window is not None:
+            raise NotImplementedError(
+                "the sequence-sharded decode takes a cache without a "
+                "rolling window")
+        return ops.decode_attention_shard(
+            q.contiguous(), k_cache, v_cache, cache_len,
+            offset=H.kv_offset(k_cache.shape[1]),
+            gather=H.gather_positions, extra_k=extra_k, extra_v=extra_v,
+            **kw)
     return ops.decode_attention(q.contiguous(), k_cache, v_cache, cache_len,
                                 extra_k=extra_k, extra_v=extra_v,
-                                window=window)
+                                window=window, **kw)
+
+
+def mesh_split() -> int | None:
+    """Pass 1's positions per block on a mesh: the split the whole
+    decode's (batch, KV heads) gives (``H.decode_plan``), so a shard with
+    fewer rows or heads sums each head's positions in the single
+    device's blocks; None off a mesh."""
+    plan = H.decode_plan()
+    return None if plan is None else split_size(*plan)

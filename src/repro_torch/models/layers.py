@@ -11,6 +11,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import hints as H
 from repro_torch.kernels import ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -130,7 +131,10 @@ def gelu(x):
 
 def apply_mlp(p, cfg, x, mm=torch.matmul):
     """The MLP of ``cfg.activation``; ``mm`` computes each product (the
-    recurrent prefill passes :func:`row_tiled`)."""
+    recurrent prefill passes :func:`row_tiled`). On a mesh the hidden
+    units are the rank's columns: they are gathered whole before
+    ``w_down`` (a row-parallel product that keeps its contraction
+    whole), and its output columns gathered to x's width."""
     act = cfg.activation
     if act in GATED:
         g = mm(x, p["w_gate"])
@@ -144,7 +148,8 @@ def apply_mlp(p, cfg, x, mm=torch.matmul):
             h = r * r
         else:
             raise ValueError(f"unknown activation {act}")
-    return mm(h, p["w_down"])
+    w = p["w_down"]
+    return H.hidden(mm(H.row_input(h, w.shape[-2]), w), x.shape[-1])
 
 
 def row_tiled(tile: int):
@@ -206,8 +211,14 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int
 # embeddings / logits
 # ---------------------------------------------------------------------------
 
-def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+def embed_tokens(p, tokens: torch.Tensor, vocab: int | None = None
+                 ) -> torch.Tensor:
+    """Rows of ``p["table"]`` at ``tokens``; with ``vocab`` (the whole
+    vocabulary) a mesh's vocab-sharded table is read by
+    :func:`~repro_torch.distributed.hints.embed`."""
+    if vocab is None:
+        return p["table"][tokens.long()]
+    return H.embed(p["table"], tokens, vocab)
 
 
 def logits_from_hidden(head_table: torch.Tensor, x: torch.Tensor

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import hints as H
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -219,30 +220,56 @@ def _head(params, cfg):
     return params["embed"]["table"] if cfg.tie_embeddings else params["head"]
 
 
+def _logits(params, cfg, h):
+    """fp32 logits (..., V) of the final hidden ``h``: on a mesh the
+    vocab-sharded head's columns gathered to the whole vocab."""
+    return H.logits(L.logits_from_hidden(_head(params, cfg), h),
+                    cfg.vocab_size)
+
+
+def _embed(params, cfg, tokens):
+    return L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
+
+
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
 
 def _proj_q(p, cfg, x, mm=torch.matmul):
-    """x: (B,S,d) -> q (B,S,Hq,Dh); ``mm`` computes the product."""
-    q = mm(x, p["wq"])
+    """x: (B,S,d) -> q (B,S,Hq,Dh); ``mm`` computes the product. On a
+    mesh the product holds the rank's columns: its own heads (the shard
+    config's ``n_heads``), or gathered to every head where the layout
+    keeps them all (:func:`~repro_torch.distributed.hints.heads`); a
+    whole bias is cut to the rank's columns."""
+    q = H.heads(mm(x, p["wq"]), cfg.n_heads * cfg.d_head)
     if cfg.qkv_bias:
-        q = q + p["bq"]
+        q = q + H.local_cols(p["bq"], q.shape[-1])
     return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.d_head)
 
 
 def _proj_qkv(p, cfg, x, kv_x=None, mm=torch.matmul):
     """x: (B,S,d); ``kv_x`` (B,Skv,d), the keys' and values' input for
     cross-attention (x itself when None). Returns q (B,S,Hq,Dh), k/v
-    (B,Skv,Hkv,Dh)."""
+    (B,Skv,Hkv,Dh), each on a mesh as :func:`_proj_q` says."""
     kv_x = x if kv_x is None else kv_x
     b, skv, _ = kv_x.shape
-    k, v = mm(kv_x, p["wk"]), mm(kv_x, p["wv"])
+    width = cfg.n_kv_heads * cfg.d_head
+    k = H.heads(mm(kv_x, p["wk"]), width)
+    v = H.heads(mm(kv_x, p["wv"]), width)
     if cfg.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
+        k = k + H.local_cols(p["bk"], k.shape[-1])
+        v = v + H.local_cols(p["bv"], v.shape[-1])
     return (_proj_q(p, cfg, x, mm),
             k.reshape(b, skv, cfg.n_kv_heads, cfg.d_head),
             v.reshape(b, skv, cfg.n_kv_heads, cfg.d_head))
+
+
+def _out_proj(p, cfg, o, mm=torch.matmul):
+    """The attention output (B, S, Hq * Dh) through ``wo``: on a mesh
+    gathered whole first (the row-parallel product contracts every head
+    locally), the product's columns then gathered to d_model."""
+    return H.hidden(mm(H.row_input(o, p["wo"].shape[-2]), p["wo"]),
+                    cfg.d_model)
 
 
 def attn_full(p, cfg, x, *, positions, causal=True, window=None,
@@ -255,7 +282,8 @@ def attn_full(p, cfg, x, *, positions, causal=True, window=None,
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, causal=causal, window=window, q_offset=0)
-    return mm(o.reshape(x.shape[0], x.shape[1], -1), p["wo"]), (k, v)
+    return _out_proj(p, cfg, o.reshape(x.shape[0], x.shape[1], -1),
+                     mm), (k, v)
 
 
 def attn_decode(p, cfg, x, k_cache, v_cache, cache_len, *, window=None,
@@ -272,7 +300,7 @@ def attn_decode(p, cfg, x, k_cache, v_cache, cache_len, *, window=None,
         k1 = L.apply_rope(k1, pos, cfg.rope_theta)
     o = decode_attention(q, k_cache, v_cache, cache_len, window=window,
                          extra_k=k1, extra_v=v1, block_tables=block_tables)
-    return o.reshape(x.shape[0], 1, -1) @ p["wo"], k1, v1
+    return _out_proj(p, cfg, o.reshape(x.shape[0], 1, -1)), k1, v1
 
 
 def attn_cross_decode(p, cfg, x, cross_k, cross_v, cross_len):
@@ -281,7 +309,7 @@ def attn_cross_decode(p, cfg, x, cross_k, cross_v, cross_len):
     an int32 tensor on the cache's device) slots valid, no self partial
     (K1 without extras)."""
     o = decode_attention(_proj_q(p, cfg, x), cross_k, cross_v, cross_len)
-    return o.reshape(x.shape[0], 1, -1) @ p["wo"]
+    return _out_proj(p, cfg, o.reshape(x.shape[0], 1, -1))
 
 
 def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
@@ -293,7 +321,7 @@ def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o = prefill_over_cache(q, k_hist, v_hist, hist_len, k, v)
-    return o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"], (k, v)
+    return _out_proj(p, cfg, o.reshape(x.shape[0], x.shape[1], -1)), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +526,7 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     """(B, S, d): the tokens' embeddings, after the vlm's image prefix
     ``batch["images"]`` (B, n_img, d) where the batch carries one; plus
     the sinusoid of each position on whisper's decoder."""
-    x = L.embed_tokens(params["embed"], batch["tokens"])
+    x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm" and "images" in batch:
         x = torch.cat([batch["images"].to(x.dtype), x], dim=1)
     if cfg.family == "audio":
@@ -661,24 +689,29 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None,
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     _, h = L.add_norm(params["final_norm"], cfg,
                       *_read_rows(logit_index, x, delta))
-    return L.logits_from_hidden(_head(params, cfg), h)[:, 0], cache
+    return _logits(params, cfg, h)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
 # decode step
 # ---------------------------------------------------------------------------
 
-def _write_token_kv(cache_arr, kv, slot, live=None):
+def _write_token_kv(cache_arr, kv, slot, live=None, *, shard=False):
     """Write one decoded token's KV ``kv`` (B, 1, H, Dh) into one layer's
     cache ``cache_arr`` (B, C, H, Dh) at ``slot`` — a scalar or a per-row
     (B,) vector — **in place** (the reference scatters functionally).
     Rows that are not ``live``, or whose slot is past the capacity, keep
     their cache exactly, like the reference's ``mode="drop"``: they
-    write back the value already there, so no host sync is needed."""
+    write back the value already there, so no host sync is needed. A
+    ``shard`` of a position-split cache also drops slots before its
+    first position (negative ones)."""
     b, c = cache_arr.shape[0], cache_arr.shape[1]
     slot = torch.broadcast_to(
         torch.as_tensor(slot, device=cache_arr.device).reshape(-1), (b,))
     keep = slot < c
+    if shard:
+        keep = keep & (slot >= 0)
+        slot = slot.clamp(min=0)
     if live is not None:
         keep = keep & live
     rows = torch.arange(b, device=cache_arr.device)
@@ -807,7 +840,7 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
     recurrent families update their state leaves in place too; a
     non-live row's keep their bits."""
     check_supported(cfg)
-    x = L.embed_tokens(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     n = torch.as_tensor(cache["len"], dtype=torch.int32, device=x.device)
     btab = cache.get("block_tab")
     window = cfg.sliding_window
@@ -820,10 +853,16 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
         x, delta = _decode_recurrent(params, cfg, x, cache, n, slot, live)
         cache["len"] = n + 1 if live is None else n + live.to(torch.int32)
         _, h = L.add_norm(params["final_norm"], cfg, x, delta)
-        return L.logits_from_hidden(_head(params, cfg), h)[:, 0], cache
+        return _logits(params, cfg, h)[:, 0], cache
     if cfg.family == "audio":
         x = x + L.sinusoidal_positions(n.reshape(-1, 1), cfg.d_model).to(
             x.dtype)
+    # a shard of a position-split cache (a mesh's sequence layout) holds
+    # positions from its offset on: the token's slot is relative to it
+    offset = 0 if btab is not None else H.kv_offset(cache["k"].shape[2])
+    if offset:
+        slot = slot - offset
+    shard = btab is None and H.attn_layout() == "seq"
     index = None
     if btab is not None:
         pool = cache["k"]
@@ -845,14 +884,14 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
         # layer i's attention has read its cache; the token's KV lands
         # at its slot now (later layers never read layer i's rows)
         if btab is None:
-            _write_token_kv(cache["k"][i], k1, slot, live)
-            _write_token_kv(cache["v"][i], v1, slot, live)
+            _write_token_kv(cache["k"][i], k1, slot, live, shard=shard)
+            _write_token_kv(cache["v"][i], v1, slot, live, shard=shard)
         else:
             _write_paged(cache["k"][i], k1, index)
             _write_paged(cache["v"][i], v1, index)
     cache["len"] = n + 1 if live is None else n + live.to(torch.int32)
     _, h = L.add_norm(params["final_norm"], cfg, x, delta)
-    return L.logits_from_hidden(_head(params, cfg), h)[:, 0], cache
+    return _logits(params, cfg, h)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -918,7 +957,7 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
         lambda i, k, v: (ks.append(k), vs.append(v)))
     _, h = L.add_norm(params["final_norm"], cfg,
                       *_read_rows(logit_index, x, delta))
-    logits = L.logits_from_hidden(_head(params, cfg), h)[:, 0]
+    logits = _logits(params, cfg, h)[:, 0]
     return logits, torch.stack(ks), torch.stack(vs)
 
 
@@ -934,7 +973,7 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
     blocks, are dropped). Returns (logits (B, S, V) fp32 — position i is
     the next-token distribution after candidate i — and the cache)."""
     check_over_cache(cfg, "speculative verify")
-    x = L.embed_tokens(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     b, s = tokens.shape
     dev = x.device
     n = torch.broadcast_to(torch.as_tensor(
@@ -968,7 +1007,7 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
     x, delta = _layers_over_cache(params, cfg, x, hist, n, positions, write)
     cache["len"] = n + (s if live is None else s * live.to(torch.int32))
     _, h = L.add_norm(params["final_norm"], cfg, x, delta)
-    return L.logits_from_hidden(_head(params, cfg), h), cache
+    return _logits(params, cfg, h), cache
 
 
 def self_draft_params(params, cfg, n_draft_layers: int):

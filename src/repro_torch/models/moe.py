@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import hints as H
 from repro_torch.models import layers as L
 
 
@@ -70,7 +71,11 @@ def slot_positions(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def apply_moe(p, cfg, x):
-    """x (B, S, d) -> (B, S, d) in x's dtype."""
+    """x (B, S, d) -> (B, S, d) in x's dtype. On a mesh every rank
+    routes the whole (gathered) hidden over all ``cfg.n_experts`` and
+    fills the whole buffer; its three products run over its own experts
+    (:func:`~repro_torch.distributed.hints.moe_buf`), whose outputs are
+    gathered in expert order before the combine."""
     b, s, d = x.shape
     n, k, e = b * s, cfg.moe_top_k, cfg.n_experts
     cap = _capacity(n, cfg)
@@ -83,11 +88,11 @@ def apply_moe(p, cfg, x):
     dest = torch.where(keep, ids.reshape(-1) * cap + pos, e * cap)
     buf = x.new_zeros((e * cap + 1, d))
     buf[dest] = xf.repeat_interleave(k, dim=0)
-    buf = buf[:-1].view(e, cap, d)
+    buf = H.moe_buf(buf[:-1].view(e, cap, d), p["w_gate"].shape[-3])
     g = torch.bmm(buf, p["w_gate"])
     u = torch.bmm(buf, p["w_up"])
     h = (L.gelu(g) if cfg.activation == "geglu" else F.silu(g)) * u
-    y_buf = torch.bmm(h, p["w_down"]).view(e * cap, d)
+    y_buf = H.moe_gather(torch.bmm(h, p["w_down"]), e).view(e * cap, d)
     y_slots = torch.where(keep[:, None], y_buf[dest.clamp(max=e * cap - 1)],
                           0)
     y = (y_slots * w.reshape(-1, 1).to(y_slots.dtype)).view(n, k, d).sum(1)

@@ -18,10 +18,13 @@ from repro_torch.serving.kv_cache import (  # noqa: F401
     BlockAllocator,
     ContiguousCache,
     KVCacheManager,
+    MeshContiguousCache,
+    MeshPagedCache,
     PagedCache,
     PrefixIndex,
     contiguous_kv_bytes,
     kv_bytes_per_token,
+    kv_partition_count,
     make_kv_cache,
     paged_resident_kv_bytes,
 )

@@ -41,8 +41,11 @@ With fewer devices than workers, workers share them round-robin. The
 weights move to each distinct device once: workers on one device share
 the same tensors and own only their caches; each worker's engine calls
 run with its card current, and every kernel launches on its operands'
-card. Mesh workers (one tensor-parallel engine over a group of devices)
-wait for the port's mesh serving.
+card. With ``EngineConfig.mesh = (data, model)`` each worker is a mesh
+engine over its own disjoint group of ``data * model`` devices (as in
+the reference; a device named several times in ``devices`` counts once
+per naming), and the handoff moves the single device's packets, which a
+mesh cache gathers on export and cuts on import.
 
 Greedy outputs are bitwise the single blocking ``ServingEngine``'s,
 migrations included: a decode dispatch runs over all ``max_batch``
@@ -137,9 +140,10 @@ def params_to(tree, device: torch.device):
 
 class Worker:
     """One ServingEngine on a device, over ``params`` already placed
-    there."""
+    there — or, for a mesh worker, on a tuple of devices, over the whole
+    tree its engine shards."""
 
-    def __init__(self, role: str, idx: int, device: torch.device, params,
+    def __init__(self, role: str, idx: int, device, params,
                  cfg, ecfg: EngineConfig, straggler_factor: float, *,
                  telemetry=None):
         self.role = role
@@ -153,6 +157,11 @@ class Worker:
         # every worker engine shares the cluster's telemetry hub and gets
         # its own span/metric track, keyed by its creation identity
         # (autoscaling may later change ``role``; the track name stays)
+        if isinstance(device, tuple):
+            self.eng = ServingEngine(params, cfg, ecfg, devices=device,
+                                     telemetry=telemetry,
+                                     telemetry_label=f"{role}{idx}")
+            return
         with self.ctx():
             self.eng = ServingEngine(params, cfg, ecfg, device=device,
                                      telemetry=telemetry,
@@ -160,7 +169,10 @@ class Worker:
 
     def ctx(self):
         """Context for host-driven engine calls: the worker's card
-        current, or nothing on the CPU."""
+        current, or nothing on the CPU or on a mesh (each rank's thread
+        enters its own device)."""
+        if isinstance(self.device, tuple):
+            return contextlib.nullcontext()
         if self.device.type == "cuda":
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
@@ -202,19 +214,33 @@ class ClusterEngine:
                 "have to migrate too)")
         devices = cluster_devices(ccfg.devices)
         n = ccfg.n_prefill + ccfg.n_decode
-        if len(devices) < n:
-            warnings.warn(
-                f"cluster wants {n} devices but only {len(devices)} "
-                "available; workers share devices round-robin (no "
-                "hardware parallelism, placement still exercised)",
-                stacklevel=2)
-        groups = [devices[i % len(devices)] for i in range(n)]
-        # the weights cross to each distinct device once; workers on one
-        # device share the tensors
-        placed: dict[torch.device, dict] = {}
-        for dev in groups:
-            if dev not in placed:
-                placed[dev] = params_to(params, dev)
+        placed: dict = {}
+        if ecfg.mesh is not None:
+            # each worker takes a disjoint group of data * model devices
+            # and builds its own mesh over it; its engine shards the
+            # whole tree onto the group
+            per = ecfg.mesh[0] * ecfg.mesh[1]
+            if len(devices) < n * per:
+                raise ValueError(
+                    f"cluster of {n} workers with per-worker mesh "
+                    f"{ecfg.mesh} needs {n * per} devices, but only "
+                    f"{len(devices)} are available")
+            groups = [tuple(devices[i * per:(i + 1) * per])
+                      for i in range(n)]
+            placed = {g: params for g in groups}
+        else:
+            if len(devices) < n:
+                warnings.warn(
+                    f"cluster wants {n} devices but only {len(devices)} "
+                    "available; workers share devices round-robin (no "
+                    "hardware parallelism, placement still exercised)",
+                    stacklevel=2)
+            groups = [devices[i % len(devices)] for i in range(n)]
+            # the weights cross to each distinct device once; workers on
+            # one device share the tensors
+            for dev in groups:
+                if dev not in placed:
+                    placed[dev] = params_to(params, dev)
 
         def worker(role, i, dev):
             return Worker(role, i, dev, placed[dev], cfg, ecfg,

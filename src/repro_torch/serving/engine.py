@@ -53,8 +53,21 @@ engine in the vLLM style that consumes its KV cache only through the
   synchronisation.
 
 PyTorch runs eagerly, so a "dispatch" is one call of a model function
-built by :func:`build_closures`. Device meshes are a later slice: the
-summary's mesh keys hold one-device values.
+built by :func:`build_closures`.
+
+``EngineConfig.mesh = (data, model)`` serves the attention decoder
+families (dense, MoE, vlm) over a
+:class:`~repro_torch.distributed.mesh.DeviceMesh` of ``data * model``
+devices (``ServingEngine(..., devices=)``; the first CUDA devices by
+default, and a name may repeat — several shards on one device). Each
+data replica serves ``max_batch / data`` of the slots; within it the
+``model`` ranks hold the serve-mode shards of
+:mod:`~repro_torch.distributed.sharding` and run the unchanged model
+functions, one worker thread each, meeting at the gathers of
+:mod:`~repro_torch.distributed.hints`. Every dispatch is one
+``DeviceMesh.run`` — still one target dispatch a step — and the host
+scheduler and bookkeeping exist once. whisper and the recurrent
+families refuse a mesh.
 """
 from __future__ import annotations
 
@@ -67,10 +80,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import hints as H
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.mesh import DeviceMesh, PerRank, mesh_devices
 from repro_torch.models import model as MD
 from repro_torch.models.layers import dtype_of
 from repro_torch.serving.kv_cache import (ContiguousCache,
-                                          contiguous_kv_bytes, make_kv_cache)
+                                          MeshContiguousCache,
+                                          contiguous_kv_bytes,
+                                          make_kv_cache)
 from repro_torch.serving.scheduler import PrefillState, make_scheduler
 from repro_torch.serving.telemetry import NULL_TELEMETRY
 
@@ -289,6 +307,11 @@ class EngineConfig:
                                   # target's first k layers) or a
                                   # registry arch id sharing the vocab
     spec_draft_layers: int = 0    # self-draft depth; 0 -> n_layers // 2
+    mesh: tuple | None = None     # (data, model): serve over a device
+                                  # mesh — each data replica max_batch /
+                                  # data slots, weights and KV heads
+                                  # split over model (the serve-mode
+                                  # sharding rules); None -> one device
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -315,6 +338,13 @@ class EngineConfig:
                     "longest-accepted-prefix verification is exact only "
                     "against the target argmax (stochastic acceptance "
                     "would need rejection sampling)")
+        if self.mesh is not None:
+            m = tuple(int(x) for x in self.mesh)
+            if len(m) != 2 or any(x < 1 for x in m):
+                raise ValueError(
+                    f"mesh={self.mesh!r} must be a (data, model) pair "
+                    "of positive axis sizes")
+            self.mesh = m
         if self.scheduler == "chunked":
             if self.chunk_tokens < 1:
                 raise ValueError(
@@ -424,24 +454,70 @@ def request_breakdowns(done) -> dict:
             "by_priority": bucket(lambda r: r.priority)}
 
 
+def shard_cfg(cfg, layout: str, model: int):
+    """The config a rank's model functions run with: its own query and KV
+    heads in the ``"heads"`` layout, every width global otherwise."""
+    if layout != "heads" or model == 1:
+        return cfg
+    return cfg.replace(n_heads=cfg.n_heads // model,
+                       n_kv_heads=cfg.n_kv_heads // model)
+
+
+def place_params(params, cfg, mesh) -> PerRank:
+    """Per-rank param trees: ``params`` as given when it is already one
+    tree per rank (:func:`~repro_torch.distributed.sharding.
+    init_params_sharded`), else a whole tree cut by the serve rules."""
+    if isinstance(params, (list, tuple)):
+        if len(params) != mesh.size:
+            raise ValueError(f"{len(params)} per-rank param trees for a "
+                             f"mesh of {mesh.size} ranks")
+        return PerRank(params)
+    return PerRank(SH.shard_params(params, cfg, mesh))
+
+
 class ServingEngine:
     def __init__(self, params, cfg, ecfg: EngineConfig, *,
                  draft_params=None, draft_cfg=None, device="cuda",
-                 telemetry=None, telemetry_label: str | None = None):
+                 devices=None, telemetry=None,
+                 telemetry_label: str | None = None):
         MD.check_supported(cfg)
-        self.device = resolve_device(device)
-        where = params["embed"]["table"].device
-        if where.type != self.device.type:
-            raise ValueError(f"params live on {where}, the engine runs on "
-                             f"{self.device}")
+        # tensor- and data-parallel serving: ``ecfg.mesh`` places this
+        # engine on a (data, model) mesh of ``devices`` (the first CUDA
+        # devices by default; the cluster hands each worker a disjoint
+        # group) under the serve-mode sharding rules
+        self.mesh = None
+        if ecfg.mesh is not None:
+            SH.check_family(cfg)
+            self.mesh = DeviceMesh(ecfg.mesh,
+                                   mesh_devices(ecfg.mesh, devices))
+            self.device = self.mesh.devices[0]
+            params = place_params(params, cfg, self.mesh)
+        else:
+            self.device = resolve_device(device)
+            where = params["embed"]["table"].device
+            if where.type != self.device.type:
+                raise ValueError(f"params live on {where}, the engine runs "
+                                 f"on {self.device}")
         self.cfg, self.ecfg, self.params = cfg, ecfg, params
         # a shared telemetry hub; the disabled singleton by default, when
         # every hook is a no-op and nothing synchronises the card
         self.telemetry = NULL_TELEMETRY if telemetry is None else telemetry
         self.tel_label = telemetry_label or "engine"
         B = ecfg.max_batch
-        self.kv = make_kv_cache(cfg, ecfg, self.device)
+        self.kv = make_kv_cache(cfg, ecfg, self.device, mesh=self.mesh)
         self.scheduler = make_scheduler(cfg, ecfg)
+        # each rank's attention layout and config (one device: "heads"
+        # over itself, the config as given)
+        self._attn = getattr(self.kv, "layout", "heads")
+        self._cfg_rank = (cfg if self.mesh is None
+                          else shard_cfg(cfg, self._attn, self.mesh.shape[1]))
+        if (self._attn == "seq"
+                and self.scheduler.name in ("chunked", "speculative")):
+            raise NotImplementedError(
+                f"{self.scheduler.name} scheduling over a contiguous cache "
+                f"whose {cfg.n_kv_heads} KV heads do not divide model="
+                f"{ecfg.mesh[1]} (the sequence-sharded layout) waits in the "
+                "port — ROADMAP, Queue 1, M4's \"what waits\"")
         # host-side slot bookkeeping
         self.slot_req: list[Request | None] = [None] * B
         self.slot_len = np.zeros(B, np.int32)     # tokens generated
@@ -504,7 +580,7 @@ class ServingEngine:
         self.step_index = 0
         # the dispatch functions, built once: the cost model's audit
         # (core.costmodel.entry_tracer) traces these very objects
-        self._closures = fns = build_closures(cfg)
+        self._closures = fns = build_closures(self._cfg_rank)
         self._prefill_one, self._decode_ragged = fns["prefill"], fns["decode"]
         self._verify_ragged = fns["verify"]
         self._chunk_fns = {"contiguous": fns["chunk_contiguous"],
@@ -527,13 +603,22 @@ class ServingEngine:
             dcfg = draft_cfg or cfg
         elif ecfg.draft == "self":
             k = ecfg.spec_draft_layers or max(1, cfg.n_layers // 2)
-            draft_params, dcfg = MD.self_draft_params(self.params, cfg, k)
+            if self.mesh is not None:
+                # every rank's draft is a view of its own target shard
+                draft_params = PerRank(
+                    MD.self_draft_params(p, cfg, k)[0] for p in self.params)
+                dcfg = MD.self_draft_params(self.params[0], cfg, k)[1]
+            else:
+                draft_params, dcfg = MD.self_draft_params(self.params, cfg,
+                                                          k)
         else:
             from repro_torch.configs import registry
             dcfg = registry.get_smoke_config(ecfg.draft).replace(
                 dtype=cfg.dtype)
             draft_params = MD.init_params(dcfg, seed=ecfg.seed,
                                           device=self.device)
+        if self.mesh is not None:
+            draft_params = place_params(draft_params, dcfg, self.mesh)
         if dcfg.vocab_size != cfg.vocab_size:
             raise ValueError(
                 f"draft vocab {dcfg.vocab_size} != target vocab "
@@ -556,8 +641,14 @@ class ServingEngine:
                 "caches")
         MD.check_supported(dcfg)
         self.draft_params, self.draft_cfg = draft_params, dcfg
-        self.draft_kv = ContiguousCache(dcfg, ecfg, self.device)
-        self._draft_closures = fns = build_closures(dcfg)
+        if self.mesh is None:
+            self.draft_kv = ContiguousCache(dcfg, ecfg, self.device)
+            self._draft_attn, dcfg_rank = "heads", dcfg
+        else:
+            self.draft_kv = MeshContiguousCache(dcfg, ecfg, self.mesh)
+            self._draft_attn = self.draft_kv.layout
+            dcfg_rank = shard_cfg(dcfg, self._draft_attn, self.mesh.shape[1])
+        self._draft_closures = fns = build_closures(dcfg_rank)
         self._draft_prefill, self._draft_decode = (fns["prefill"],
                                                    fns["decode"])
 
@@ -605,7 +696,10 @@ class ServingEngine:
     # -- telemetry hooks ---------------------------------------------------
     def _log_dispatch(self, kind: str, *operands):
         """Append one dispatch-audit entry: the kind plus the shape and
-        dtype of every operand (params excluded)."""
+        dtype of every operand (params excluded; on a mesh, the first
+        rank's operands)."""
+        operands = tuple(next(v for v in x if v is not None)
+                         if isinstance(x, PerRank) else x for x in operands)
         self.dispatch_log.append({
             "step": self.step_index, "kind": kind,
             "spec": operand_spec(operands)})
@@ -626,18 +720,20 @@ class ServingEngine:
         synchronised) under a span named like the dispatch kind and feed
         the profiler a sample keyed to the log entry just written. The
         result is the same either way: waiting on it cannot change its
-        bits."""
+        bits. On a mesh the dispatch is one :meth:`DeviceMesh.run`
+        (:meth:`_call`)."""
         self._log_dispatch(kind, *args)
         tel = self.telemetry
         if not tel.enabled:
-            return fn(params, *args)
+            return self._call(kind, fn, params, args)
         idx = len(self.dispatch_log) - 1
         with tel.span(kind, cat="dispatch", tid=self.tel_label,
                       now_fn=self._vnow):
             t0 = time.perf_counter()
-            out = fn(params, *args)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            out = self._call(kind, fn, params, args)
+            for dev in self._devices():
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0
         tel.profiler.record(self.tel_label, idx, kind, dt)
         tel.counter("engine_dispatches_total", engine=self.tel_label,
@@ -645,6 +741,52 @@ class ServingEngine:
         tel.histogram("engine_dispatch_wall_s", engine=self.tel_label,
                       kind=kind, kv=self.kv.name).observe(dt)
         return out
+
+    def _devices(self) -> list:
+        """The distinct devices this engine runs on."""
+        if self.mesh is None:
+            return [self.device]
+        return list(dict.fromkeys(self.mesh.devices))
+
+    def _call(self, kind: str, fn, params, args):
+        """``fn(params, *args)``; on a mesh, on each rank with its params,
+        its share of every :class:`PerRank` operand and the hints armed
+        for the dispatch's cache layout — on every rank, or, for a
+        one-request dispatch (prefill, chunk), on the ranks of the
+        request's data replica: those its operands name (the others'
+        shares are None). A mesh result is the dispatch's tuple with the
+        logits (its first element) whole on the engine's device — each
+        data replica's rows from its first rank, in replica order — and
+        every other element a :class:`PerRank`."""
+        if self.mesh is None:
+            return fn(params, *args)
+        mesh = self.mesh
+        draft = kind.startswith("draft")
+        attn = self._draft_attn if draft else self._attn
+        heads = (self.draft_cfg if draft else self.cfg).n_kv_heads
+        plan = (self.ecfg.max_batch, heads)
+        ranks = [r for r in range(mesh.size)
+                 if all(x[r] is not None for x in args
+                        if isinstance(x, PerRank))]
+        ranks = None if len(ranks) == mesh.size else ranks
+
+        def one(r):
+            shares = [x[r] if isinstance(x, PerRank) else x for x in args]
+            with H.use_mesh(mesh, attn=attn, plan=plan):
+                return fn(params[r], *shares)
+
+        outs = mesh.run(one, ranks)
+        firsts = ([mesh.rank_of(g, 0) for g in range(mesh.shape[0])]
+                  if ranks is None else [ranks[0]])
+        logits = torch.cat([outs[r][0].to(self.device) for r in firsts])
+        rest = [PerRank(None if o is None else o[i] for o in outs)
+                for i in range(1, len(outs[firsts[0]]))]
+        return (logits, *rest)
+
+    def _data_index(self, slot: int) -> int:
+        """The data replica that serves ``slot`` (its rows of the slot
+        arrays, its ranks' caches)."""
+        return int(slot) // (self.ecfg.max_batch // self.mesh.shape[0])
 
     def _finish(self, req: Request):
         """Retire ``req`` into ``finished`` (every finish site funnels
@@ -698,11 +840,19 @@ class ServingEngine:
                           self.kv.resident_kv_bytes())
 
     # -- internals ---------------------------------------------------------
-    def _t(self, a: np.ndarray) -> torch.Tensor:
+    def _t(self, a: np.ndarray):
         """A host array as a tensor on the engine's device (on the CPU it
         shares the array's memory: never mutate an array a dispatch still
-        reads — rebind it)."""
-        return torch.from_numpy(a).to(self.device)
+        reads — rebind it). On a mesh, a per-slot array (first dim
+        ``max_batch``) as each rank's data replica's rows on its device."""
+        if self.mesh is None:
+            return torch.from_numpy(a).to(self.device)
+        n = self.ecfg.max_batch // self.mesh.shape[0]
+        out = PerRank()
+        for r, dev in enumerate(self.mesh.devices):
+            g = self.mesh.coords(r)[0]
+            out.append(torch.from_numpy(a[g * n:(g + 1) * n]).to(dev))
+        return out
 
     def _decode_step(self, live):
         cache = self.kv.decode_view(self.slot_pos, live)
@@ -833,16 +983,25 @@ class ServingEngine:
         and less the vlm's image prefix (it shares the cache)."""
         return self.ecfg.max_seq_len - 1 - self._n_prefix
 
-    def _batch(self, toks: np.ndarray, images: bool) -> dict:
+    def _batch(self, toks: np.ndarray, images: bool, slot: int = 0):
         """A one-row model batch of ``toks``; with ``images`` (the
         prompt's first dispatch), the vlm's zero stub image prefix in the
-        cache dtype before them, or whisper's zero stub frames."""
-        batch = {"tokens": torch.from_numpy(toks[None, :]).to(self.device)}
-        if images and self._n_prefix:
-            batch["images"] = stub_images(self.cfg, self.device)
-        if images and self.cfg.family == "audio":
-            batch["frames"] = stub_frames(self.cfg, self.device)
-        return batch
+        cache dtype before them, or whisper's zero stub frames. On a mesh
+        the batch of each rank of ``slot``'s data replica, on its
+        device."""
+        def on(device):
+            batch = {"tokens": torch.from_numpy(toks[None, :]).to(device)}
+            if images and self._n_prefix:
+                batch["images"] = stub_images(self.cfg, device)
+            if images and self.cfg.family == "audio":
+                batch["frames"] = stub_frames(self.cfg, device)
+            return batch
+
+        if self.mesh is None:
+            return on(self.device)
+        group = self.mesh.data_group(self._data_index(slot))
+        return PerRank(on(dev) if r in group else None
+                       for r, dev in enumerate(self.mesh.devices))
 
     def _bucket_len(self, n: int) -> int:
         """Smallest power-of-two bucket >= n (floor ``prefill_bucket_min``),
@@ -908,7 +1067,7 @@ class ServingEngine:
         n = int(prompt.shape[0])
         toks = np.zeros(self._bucket_len(n), np.int32)
         toks[:n] = prompt   # right-pad to the bucket length
-        batch = self._batch(toks, images=True)
+        batch = self._batch(toks, images=True, slot=slot)
         logits, rows = self._dispatch("prefill", self._prefill_one,
                                       self.params, batch, n_prompt - 1,
                                       n_prompt)
@@ -954,7 +1113,7 @@ class ServingEngine:
         n_suf = n_prompt - h
         toks = np.zeros(self._bucket_len(n_suf), np.int32)
         toks[:n_suf] = prompt[h:]
-        batch = self._batch(toks, images=False)
+        batch = self._batch(toks, images=False, slot=slot)
         view = self.kv.chunk_view(slot)
         sel = view["slot"] if view["kind"] == "contiguous" else view["table"]
         logits, ks, vs = self._dispatch(
@@ -1019,7 +1178,7 @@ class ServingEngine:
         n_tok = min(ct, int(st.prompt.shape[0]) - tok_start)
         toks = np.zeros(ct, np.int32)
         toks[:n_tok] = st.prompt[tok_start:tok_start + n_tok]
-        batch = self._batch(toks, images=first)
+        batch = self._batch(toks, images=first, slot=slot)
         n_valid = n_tok + (st.n_prefix if first else 0)
         final = st.done + n_valid >= st.n_prompt
         # logits at the prompt's last position, chunk-local index
@@ -1183,6 +1342,7 @@ class ServingEngine:
         draft_bytes = self.draft_kv.peak_resident_kv_bytes if spec else 0
         peak = self.kv.peak_resident_kv_bytes + draft_bytes
         prefix = getattr(self.kv, "prefix", None)
+        parts = int(getattr(self.kv, "kv_partitions", 1))
 
         def pct(vals, q):
             return float(np.percentile(vals, q)) if vals else 0.0
@@ -1248,11 +1408,15 @@ class ServingEngine:
             "draft_kv_bytes": draft_bytes,
             "contiguous_kv_bytes": contiguous_kv_bytes(
                 self.cfg, self.ecfg.max_batch, self.ecfg.max_seq_len),
-            # mesh serving is a later slice: one device holds everything
-            "mesh": None,
-            "mesh_devices": 1,
-            "kv_partitions": 1,
-            "resident_kv_bytes_per_device": peak,
+            # mesh-serving accounting: the (data, model) shape (None on
+            # one device), the devices spanned, and the residency each
+            # device holds of the partitioned KV (heads over model and,
+            # contiguous, slots over data; positions over model where
+            # the heads do not divide it)
+            "mesh": self.ecfg.mesh,
+            "mesh_devices": 1 if self.mesh is None else self.mesh.size,
+            "kv_partitions": parts,
+            "resident_kv_bytes_per_device": -(-peak // parts),
             # telemetry fold-in: always present; all zero when disabled
             "telemetry": self.telemetry.engine_aggregates(self.tel_label),
         }

@@ -48,6 +48,8 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.mesh import PerRank
 from repro_torch.models import model as MD
 
 
@@ -478,8 +480,7 @@ class PagedCache:
         self.num_blocks = NB = ecfg.kv_blocks or ecfg.max_batch * W
         self.device = device
         self._bytes_per_token = kv_bytes_per_token(cfg)
-        self._pool_k, self._pool_v = MD.init_paged_pools(cfg, NB, bs,
-                                                         device=device)
+        self._pool_k, self._pool_v = self._make_pools(cfg, NB, bs, device)
         B = ecfg.max_batch
         self.table = np.full((B, W), NB, np.int32)
         self.allocator = BlockAllocator(NB)
@@ -493,6 +494,10 @@ class PagedCache:
         self.prefix_hits = 0           # admissions with a nonzero match
         self.prefix_hit_tokens = 0     # prompt tokens served from cache
         self.prefix_lookup_tokens = 0  # prompt tokens across lookups
+
+    def _make_pools(self, cfg, num_blocks, block_size, device):
+        return MD.init_paged_pools(cfg, num_blocks, block_size,
+                                   device=device)
 
     # -- accounting -------------------------------------------------------
     def _need_blocks(self, n_prompt: int, budget: int) -> int:
@@ -664,6 +669,10 @@ class PagedCache:
                        self._max_seq_len - 2)
             for b in range(int(pos[i]) // bs, last // bs + 1):
                 self._alloc_into(i, b)
+        return self._view()
+
+    def _view(self) -> dict:
+        """The device cache dict of a decode or verify dispatch."""
         return {"k": self._pool_k, "v": self._pool_v,
                 "block_tab": torch.from_numpy(self.table.copy()
                                               ).to(self.device),
@@ -711,12 +720,8 @@ class PagedCache:
         importer re-matches it and aliases what it already holds."""
         bs = self.block_size
         nblk = max(1, math.ceil(max(int(n_valid), 1) / bs))
-        idx = torch.from_numpy(self.table[slot, :nblk].astype(np.int64))
-        idx = idx.to(self.device)
-        l, tail = self._pool_k.shape[0], self._pool_k.shape[3:]
-        packet = _host_packet(
-            n_valid, k=self._pool_k[:, idx].reshape(l, 1, nblk * bs, *tail),
-            v=self._pool_v[:, idx].reshape(l, 1, nblk * bs, *tail))
+        k, v = self._slot_rows(slot, nblk)
+        packet = _host_packet(n_valid, k=k, v=v)
         if (self.prefix is not None and prompt is not None
                 and n_prompt is not None):
             packet["prefix"] = {
@@ -725,6 +730,16 @@ class PagedCache:
                 "shared_blocks": len(self._shared[slot]),
             }
         return packet
+
+    def _slot_rows(self, slot: int, nblk: int) -> tuple:
+        """The slot's first ``nblk`` blocks as dense rows (L, 1, nblk *
+        bs, H, Dh), K and V."""
+        idx = torch.from_numpy(self.table[slot, :nblk].astype(np.int64))
+        idx = idx.to(self.device)
+        l, tail = self._pool_k.shape[0], self._pool_k.shape[3:]
+        span = nblk * self.block_size
+        return (self._pool_k[:, idx].reshape(l, 1, span, *tail),
+                self._pool_v[:, idx].reshape(l, 1, span, *tail))
 
     def import_slot(self, packet: dict, slot: int, n_prompt: int,
                     budget: int) -> None:
@@ -793,13 +808,323 @@ class PagedCache:
         return self.prefix_hit_tokens / self.prefix_lookup_tokens
 
 
-def make_kv_cache(cfg, ecfg, device) -> KVCacheManager:
+# ---------------------------------------------------------------------------
+# caches over a device mesh
+# ---------------------------------------------------------------------------
+
+def kv_layout(spec) -> str:
+    """How a K/V spec (.., B, C, H, Dh) splits over ``model``:
+    ``"heads"``, ``"seq"`` (positions) or ``"replicated"``."""
+    h_ax, c_ax = spec[-2], spec[-3]
+    if h_ax is not None and SH.MODEL in h_ax:
+        return "heads"
+    if c_ax == (SH.MODEL,):
+        return "seq"
+    if c_ax is not None:
+        raise NotImplementedError(
+            f"a KV cache split {c_ax} over its positions (the batch does "
+            "not divide over 'data') waits in the port: give max_batch a "
+            "multiple of the mesh's data axis")
+    return "replicated"
+
+
+def kv_partition_count(spec, mesh) -> int:
+    """Distinct shards a leaf of ``spec`` has: the divisor from its
+    logical bytes to each device's (the reference's
+    ``kv_partition_count``)."""
+    n = 1
+    for e in spec:
+        n *= SH.split_count(e, mesh)
+    return n
+
+
+class _MeshSlots:
+    """What the mesh caches share: slot ``s`` lives on data replica ``s
+    // (B / data)`` at local row ``s % (B / data)``, and a rank's share
+    of a slot's rows (L, 1, S, H, Dh) is its heads (``"heads"``) or all
+    of them."""
+
+    def _init_mesh(self, mesh, max_batch: int, layout: str, h_local: int):
+        d = mesh.shape[0]
+        if max_batch % d:
+            raise ValueError(f"max_batch={max_batch} must split evenly "
+                             f"over the mesh's data axis ({d})")
+        self.mesh = mesh
+        self.layout = layout
+        self._rows_per_group = max_batch // d
+        self._h_local = h_local
+
+    def _where(self, slot: int) -> tuple[int, int]:
+        return divmod(int(slot), self._rows_per_group)
+
+    def _share(self, rows, name: str, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s share of a slot's rows, on its device: its own
+        dispatch output when ``rows`` is a :class:`PerRank` (the ranks of
+        one model index hold equal shares), else its cut of the whole
+        rows (an imported packet)."""
+        dev = self.mesh.devices[rank]
+        mi = self.mesh.coords(rank)[1]
+        if isinstance(rows, PerRank):
+            src = next(r for i, r in enumerate(rows) if r is not None
+                       and self.mesh.coords(i)[1] == mi)
+            return src[name].to(dev)
+        t = rows[name]
+        if self.layout == "heads":
+            h = self._h_local
+            t = t[..., mi * h:(mi + 1) * h, :]
+        return t.to(dev)
+
+    def _gather_heads(self, parts: list) -> torch.Tensor:
+        """A slot's rows from one data replica's ranks (in model order)
+        as the single device holds them."""
+        if self.layout == "heads":
+            return torch.cat([p.cpu() for p in parts], dim=3)
+        if self.layout == "seq":
+            return torch.cat([p.cpu() for p in parts], dim=2)
+        return parts[0].cpu()
+
+
+class MeshContiguousCache(_MeshSlots, ContiguousCache):
+    """:class:`ContiguousCache` over a mesh, for the attention decoders:
+    each rank holds its data replica's ``B / data`` slots and, by
+    :func:`~repro_torch.distributed.sharding.cache_specs`, its KV heads
+    (``"heads"``), a range of positions (``"seq"``: the heads do not
+    divide ``model``) or the whole rows (``"replicated"``). The host
+    bookkeeping is the base class's; exported packets are the single
+    device's, byte for byte."""
+
+    def __init__(self, cfg, ecfg, mesh):
+        B, C = ecfg.max_batch, ecfg.max_seq_len
+        meta = MD.cache_spec(cfg, B, C)
+        if B % mesh.shape[0]:
+            raise ValueError(f"max_batch={B} must split evenly over the "
+                             f"mesh's data axis ({mesh.shape[0]})")
+        self.specs = SH.cache_specs(meta, mesh)
+        spec = self.specs["k"]
+        layout = kv_layout(spec)
+        if layout == "seq" and cfg.sliding_window is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: a rolling window cache whose KV heads do not "
+                f"divide model={mesh.shape[1]} would split its positions — "
+                "the sequence-sharded decode takes no rolling window")
+        shape = SH.local_shape(tuple(meta["k"].shape), spec, mesh)
+        self._init_mesh(mesh, B, layout, shape[-2])
+        self._shards = PerRank(
+            {"k": torch.zeros(shape, dtype=meta["k"].dtype, device=dev),
+             "v": torch.zeros(shape, dtype=meta["v"].dtype, device=dev),
+             "len": torch.zeros((), dtype=torch.int32, device=dev)}
+            for dev in mesh.devices)
+        self._cache = None
+        self._axes = {"k": 1, "v": 1}
+        self._rolling = cfg.sliding_window is not None
+        self._footprint = contiguous_kv_bytes(cfg, B, C)
+        self.device = mesh.devices[0]
+        self._occupied: set[int] = set()
+        self.kv_partitions = kv_partition_count(spec, mesh)
+        self._c_local = shape[2]
+
+    def splice(self, rows, slot: int, n_prompt: int, budget: int,
+               prompt=None) -> None:
+        """As :meth:`ContiguousCache.splice` on each rank of the slot's
+        data replica; in the ``"seq"`` layout a rank keeps the prompt's
+        positions in its range."""
+        self._occupied.add(slot)
+        g, lr = self._where(slot)
+        c = self._c_local
+        for r in self.mesh.data_group(g):
+            for name in ("k", "v"):
+                src = self._share(rows, name, r)
+                dst = self._shards[r][name][:, lr]
+                s = src.shape[2]
+                if self.layout == "seq":
+                    off = self.mesh.coords(r)[1] * c
+                    part = src[:, 0, off:off + c]
+                    n = part.shape[1]
+                    dst[:, :n] = part
+                    dst[:, n:].zero_()
+                elif self._rolling and s >= c:
+                    dst.copy_(MD.roll_window(src, c)[:, 0])
+                else:
+                    dst[:, :s] = src[:, 0]
+                    dst[:, s:].zero_()
+
+    def splice_partial(self, k_rows, v_rows, slot: int, offset: int,
+                       n_valid: int) -> None:
+        if self.layout == "seq":
+            raise NotImplementedError("chunked prefill over a position-"
+                                      "split cache")
+        g, lr = self._where(slot)
+        for r in self.mesh.data_group(g):
+            for name, rows in (("k", k_rows), ("v", v_rows)):
+                src = self._share(_named(rows, name), name, r)
+                self._shards[r][name][:, lr, offset:offset + n_valid] = \
+                    src[:, 0, :n_valid]
+
+    def chunk_view(self, slot: int) -> dict:
+        return {"kind": "contiguous",
+                "k": PerRank(sh["k"] for sh in self._shards),
+                "v": PerRank(sh["v"] for sh in self._shards),
+                "slot": self._where(slot)[1]}
+
+    def decode_view(self, pos, live) -> PerRank:
+        return self._shards
+
+    def verify_view(self, pos, live, n_tokens) -> PerRank:
+        return self._shards
+
+    def commit(self, new_cache) -> None:
+        self._shards = PerRank(new_cache)
+
+    def export_slot(self, slot: int, n_valid: int, prompt=None,
+                    n_prompt=None) -> dict:
+        """The single device's packet: the slot's rows gathered from its
+        data replica's ranks (heads, or positions, in model order)."""
+        g, lr = self._where(slot)
+        rows = {}
+        for name in ("k", "v"):
+            full = self._gather_heads(
+                [self._shards[r][name][:, lr:lr + 1]
+                 for r in self.mesh.data_group(g)])
+            rows[name] = full[:, :, :min(_export_span(n_valid),
+                                         full.shape[2])]
+        return _host_packet(n_valid, **rows)
+
+    def import_slot(self, packet: dict, slot: int, n_prompt: int,
+                    budget: int) -> None:
+        if slot in self._occupied:
+            raise RuntimeError(
+                f"import_slot into occupied slot {slot}: a live stream's "
+                "KV would be silently clobbered — free the slot first "
+                "(preemption/requeue must never double-import)")
+        self.splice({"k": packet["k"], "v": packet["v"]}, slot, n_prompt,
+                    budget)
+
+
+class MeshPagedCache(_MeshSlots, PagedCache):
+    """:class:`PagedCache` over a mesh: one host allocator and block
+    table; each rank's pool holds its KV heads (every head where they do
+    not divide ``model``: :func:`~repro_torch.distributed.sharding.
+    pool_spec`), whole over ``data``. Blocks written from the host (a
+    prefill's splice, a chunk, an import) land in every data replica's
+    pools, so a shared prefix block is whole wherever a table aliases
+    it; a decode or verify dispatch writes its own rows' blocks."""
+
+    def __init__(self, cfg, ecfg, mesh):
+        self.mesh = mesh
+        super().__init__(cfg, ecfg, mesh.devices[0])
+        self._init_mesh(mesh, ecfg.max_batch, self._pool_layout,
+                        self._h_pool)
+        self.kv_partitions = kv_partition_count(self._pool_spec, mesh)
+
+    def _make_pools(self, cfg, num_blocks, block_size, device):
+        st = MD.paged_pool_struct(cfg, num_blocks, block_size)
+        shape, dt = st["k"]
+        self._pool_spec = spec = SH.pool_spec(shape, self.mesh)
+        self._pool_layout = "heads" if spec[-2] is not None else "replicated"
+        local = SH.local_shape(shape, spec, self.mesh)
+        self._h_pool = local[-2]
+        self._pools_k = PerRank(torch.zeros(local, dtype=dt, device=d)
+                                for d in self.mesh.devices)
+        self._pools_v = PerRank(torch.zeros(local, dtype=dt, device=d)
+                                for d in self.mesh.devices)
+        return None, None
+
+    def _write(self, k_rows, v_rows, slot: int, pos: np.ndarray) -> None:
+        bs = self.block_size
+        blk = torch.from_numpy(self.table[slot, pos // bs].astype(np.int64))
+        off = torch.from_numpy(pos % bs)
+        n = len(pos)
+        for r, dev in enumerate(self.mesh.devices):
+            b, o = blk.to(dev), off.to(dev)
+            for pools, rows, name in ((self._pools_k, k_rows, "k"),
+                                      (self._pools_v, v_rows, "v")):
+                src = self._share(_named(rows, name), name, r)
+                pools[r][:, b, o] = src[:, 0, :n].to(pools[r].dtype)
+
+    def splice(self, rows, slot: int, n_prompt: int, budget: int,
+               prompt=None) -> None:
+        now = math.ceil(n_prompt / self.block_size)
+        for b in range(now):
+            self.table[slot, b] = self._alloc_block()
+        self._reserved[slot] = self._need_blocks(n_prompt, budget) - now
+        s = _rows_len(rows)
+        n = min(s, now * self.block_size)
+        self._write(_leaf(rows, "k"), _leaf(rows, "v"), slot, np.arange(n))
+        if self.prefix is not None and prompt is not None:
+            self.prefix_lookups += 1
+            self.prefix_lookup_tokens += int(n_prompt)
+
+    def chunk_view(self, slot: int) -> dict:
+        tab = self.table[slot:slot + 1].copy()
+        return {"kind": "paged", "k": self._pools_k, "v": self._pools_v,
+                "table": PerRank(torch.from_numpy(tab).to(d)
+                                 for d in self.mesh.devices)}
+
+    def _view(self) -> PerRank:
+        out = PerRank()
+        for r, dev in enumerate(self.mesh.devices):
+            g = self.mesh.coords(r)[0]
+            rows = self.table[g * self._rows_per_group:
+                              (g + 1) * self._rows_per_group]
+            out.append({"k": self._pools_k[r], "v": self._pools_v[r],
+                        "block_tab": torch.from_numpy(rows.copy()).to(dev),
+                        "len": torch.zeros((), dtype=torch.int32)})
+        return out
+
+    def commit(self, new_cache) -> None:
+        self._pools_k = PerRank(c["k"] for c in new_cache)
+        self._pools_v = PerRank(c["v"] for c in new_cache)
+
+    def _slot_rows(self, slot: int, nblk: int) -> tuple:
+        g, _ = self._where(slot)
+        idx = torch.from_numpy(self.table[slot, :nblk].astype(np.int64))
+        span = nblk * self.block_size
+        out = []
+        for pools in (self._pools_k, self._pools_v):
+            parts = []
+            for r in self.mesh.data_group(g):
+                p = pools[r]
+                parts.append(p[:, idx.to(p.device)].reshape(
+                    p.shape[0], 1, span, *p.shape[3:]))
+            out.append(self._gather_heads(parts))
+        return tuple(out)
+
+
+def _named(rows, name):
+    """``rows`` for :meth:`_MeshSlots._share` given one leaf's rows: a
+    PerRank of tensors becomes a PerRank of {name: tensor}."""
+    if isinstance(rows, PerRank):
+        return PerRank(None if r is None else {name: r} for r in rows)
+    return {name: rows}
+
+
+def _leaf(rows, name):
+    """One leaf of splice ``rows``: a PerRank of dicts, or a dict."""
+    if isinstance(rows, PerRank):
+        return PerRank(None if r is None else r[name] for r in rows)
+    return rows[name]
+
+
+def _rows_len(rows) -> int:
+    """Positions the splice ``rows`` carry (dim 2 of ``k``)."""
+    if isinstance(rows, PerRank):
+        return int(next(r for r in rows if r is not None)["k"].shape[2])
+    return int(rows["k"].shape[2])
+
+
+def make_kv_cache(cfg, ecfg, device, mesh=None) -> KVCacheManager:
     """Build the configured backend; families the paged layout cannot
     express (whisper's cross-attention cache, rolling SWA) fall back to
-    contiguous with the reference's warning."""
+    contiguous with the reference's warning. With ``mesh`` (a
+    :class:`~repro_torch.distributed.mesh.DeviceMesh`) the backend's
+    mesh form holds per-rank shards."""
     kind = ecfg.kv_cache
+    contiguous = (ContiguousCache if mesh is None
+                  else lambda c, e, _: MeshContiguousCache(c, e, mesh))
+    paged = (PagedCache if mesh is None
+             else lambda c, e, _: MeshPagedCache(c, e, mesh))
     if kind == "contiguous":
-        return ContiguousCache(cfg, ecfg, device)
+        return contiguous(cfg, ecfg, device)
     if kind == "paged":
         if (cfg.family not in MD.TRANSFORMER_FAMILIES
                 or cfg.sliding_window is not None):
@@ -807,6 +1132,6 @@ def make_kv_cache(cfg, ecfg, device) -> KVCacheManager:
                 f"paged KV cache unsupported for family={cfg.family!r} "
                 f"sliding_window={cfg.sliding_window}; falling back to "
                 "contiguous", stacklevel=2)
-            return ContiguousCache(cfg, ecfg, device)
-        return PagedCache(cfg, ecfg, device)
+            return contiguous(cfg, ecfg, device)
+        return paged(cfg, ecfg, device)
     raise ValueError(f"unknown kv_cache {kind!r}")
