@@ -41,7 +41,8 @@ Phases, one line each (any failure exits non-zero):
    over 8 ragged slots at capacity 2048 with the self partial, K3
    causal over a 1024-token bucket), K5 at its gated norm's (8, 5120)
    without the add and its layer norm's (8, 2560) with it;
-3. engine, float32 gate — full-width qwen1.5-0.5b (random weights from a
+3. engine, float32 gate — full-width qwen1.5-0.5b, 12 of its 24 layers
+   (``QWEN_F32_LAYERS``, as in phases 6, 10a and 13a; random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
    must equal the port's own batch-1 prefill + decode_step loop, and
    paged + blocking, chunked and speculative on both backends must
@@ -57,7 +58,8 @@ Phases, one line each (any failure exits non-zero):
    (``examples/torch_w4_mobile_decode.py``): per-step fidelity and wall
    ms, the prefill's and every W4 step's logits held against runs
    through the plain versions;
-6. request surface — full-width qwen1.5-0.5b again, float32 for the
+6. request surface — full-width qwen1.5-0.5b again (12 layers in
+   float32, 8 in bf16), float32 for the
    stream gates: the overload trace replayed under FIFO and SLO on
    both backends (SLO streams == FIFO streams, >= 1 preemption, chat
    p99 TTFT <= 0.04 virtual s under SLO and > 0.04 under FIFO, tokens
@@ -78,7 +80,8 @@ Phases, one line each (any failure exits non-zero):
    E / k, where no dispatch can drop a routed slot; then deepseek at
    its config's 1.25 on the same six configurations, the dropped slots
    per dispatch kind printed, only paged == contiguous gated; (b) bf16
-   at full depth, both models: the first prefill's logits, whole and
+   (deepseek 8 layers, internvl2 12; ``BF16_LAYERS``), both models: the
+   first prefill's logits, whole and
    chunked, against the plain versions (an MoE's plain run replays the
    kernel run's experts; the tokens its own routing would move may be
    at most twice those that one-ulp noise at every MoE input moves in
@@ -98,7 +101,8 @@ Phases, one line each (any failure exits non-zero):
    reference does and giving the same streams, the overload trace under
    FIFO and SLO (>= 1 preemption, equal streams), export -> import of
    every live slot ``torch.equal`` (past the window; with the cross
-   K/V); (b) bf16 at full depth: the first prefill's logits and a
+   K/V); (b) bf16 at full depth (mistral at 8 layers): the first
+   prefill's logits and a
    rolling one's with 8 decode steps past the window (whisper: a
    200-token prompt over seeded frames) against the plain versions, 8
    requests of 64 new tokens on contiguous + blocking, and one decode
@@ -106,7 +110,8 @@ Phases, one line each (any failure exits non-zero):
 9. recurrent — zamba2-2.7b (Mamba2 and the shared attention block) and
    xlstm-350m (mLSTM / sLSTM) at full width, random weights from the
    seed, one model at a time: (a) float32, zamba2 12 layers deep (2
-   groups of 6, two shared-block applications), xlstm at full depth, 4
+   groups of 6, two shared-block applications), xlstm 8 layers deep (one
+   super-block), 4
    requests of 17, 300, 700 and 1000 tokens, 16 new each, over 8 slots
    at capacity 2048: contiguous + blocking equal to the batch-1 loop;
    admission bucketed from 16 against exact-length, the same streams and
@@ -114,7 +119,8 @@ Phases, one line each (any failure exits non-zero):
    paged, chunked and speculative runs each warning as the reference
    does and giving the same streams; the overload trace under FIFO and
    SLO (>= 1 preemption, equal streams); export -> import of every live
-   slot ``torch.equal`` leaf by leaf; (b) bf16 at full depth: the first
+   slot ``torch.equal`` leaf by leaf; (b) bf16 (zamba2 at 18 layers,
+   xlstm at 8): the first
    prefill and 8 decode steps, every K1 / K3 / K5 call held to its
    plain version on its own inputs and the logits to the plain
    versions' within the larger of 3e-2 and twice what one-ulp noise at
@@ -126,7 +132,7 @@ Phases, one line each (any failure exits non-zero):
    (``serving/cluster.py``) with every worker on the one card (the
    round-robin warning asserted; the weights held once, the cluster's
    allocation no more than its workers' caches): (a) float32, qwen1.5-
-   0.5b at full width and depth on phase 3's traffic through 1 prefill
+   0.5b at phase 3's width and depth on phase 3's traffic through 1 prefill
    + 2 decode workers on both backends, decode worker 0 killed after
    step 2, and through 1 + 3 with a drain and then a kill (two hops),
    its streams equal to phase 3's; deepseek-moe-16b (4 layers, capacity
@@ -137,7 +143,7 @@ Phases, one line each (any failure exits non-zero):
    onto the contiguous fallback, with a drain — each against its own
    single blocking engine; every run's ``kv_transfer_bytes`` equal to
    its packets' bytes, one decode dispatch per worker step, every pool
-   balanced; (b) bf16 qwen at full depth: phase 4's traffic through
+   balanced; (b) bf16 qwen at 8 layers: phase 4's traffic through
    1 + 2 paged workers against the single paged engine (equal streams;
    each handoff's bytes, export and import ms and GB/s; TTFT, ITL and
    tok/s side by side; a decode worker's step against the single
@@ -188,13 +194,13 @@ Phases, one line each (any failure exits non-zero):
    across cards, a gather a local copy): K1 split by position over the
    (1, 3) fallback's shards at its shapes, bitwise K1 over the whole
    cache and within phase 2's tolerance of the plain version; (a)
-   float32 qwen at full width and depth on phase 3's traffic at (2, 2)
+   float32 qwen at phase 3's width and depth on its traffic at (2, 2)
    — contiguous and paged blocking and paged chunked 256 — equal to
    phase 3's streams, and the sequence-sharded fallback (16 KV heads
    over model 3, capacity 1152) equal to one engine of that capacity;
    (b) float32 deepseek-moe-16b, 4 layers at capacity factor E / k, at
    (1, 2) (32 experts a rank), equal to phase 7a's streams; (c) bf16
-   qwen at full depth at (1, 4) on phase 4's traffic (TTFT, ITL), then
+   qwen at 8 layers at (1, 4) on phase 4's traffic (TTFT, ITL), then
    the first prompt's prefill and 8 greedy steps through the mesh with
    every K1 / K3 / K5 call of every shard held to its plain version on
    its own inputs (as 9b), each step's logits held to one device's on
@@ -202,6 +208,24 @@ Phases, one line each (any failure exits non-zero):
    exactly the mesh path's (a prefill or chunk on one data replica's
    model ranks, a decode on every rank), one target dispatch a step,
    the KV partitioned.
+14. train — single-device training, in a process of its own (cuBLAS's
+   deterministic workspace set before CUDA starts): (a) K5's backward
+   K5b in phase 2's table at qwen's training rows (8192 x 1024, with and
+   without the add) and zamba2's widths (2560, 5120), bitwise against
+   its own second run; (b) float32 qwen at full width and depth, B 2 x
+   S 2048, remat full: one ``loss_fn`` and backward through K5 / K5b
+   against the plain path (loss within 1e-5, every gradient leaf
+   normwise within 1e-4 of its norm plus 1e-6 of the whole gradient's,
+   97 K5 and 49 K5b launches), then microbatch 2 against 1; (c) bf16
+   qwen at B 4 x S 2048 through ``launch.train``: 20 steps checkpointed
+   every 10, then the same run failing at step 13 under
+   ``RestartPolicy``, its final state bitwise the first's under
+   ``torch.use_deterministic_algorithms``; step wall, device ms, idle
+   share, tokens/s, peak allocation, a profiled step's top kernels;
+   ``launch.serve --ckpt-dir`` from that checkpoint; every other
+   family's smoke config one float32 step against the plain path; (d)
+   ``examples/torch_train_100m.py --full-100m``, 100 steps, the last 5
+   losses' mean at least 0.3 below the first 5's.
 
 Every engine, cluster and mesh run and every W4 step checks each
 kernel's launch count against what its path must launch. The four-card
@@ -216,10 +240,12 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -234,6 +260,16 @@ PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core bf16
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 ARCH = "qwen1.5-0.5b"
 SEED = 0
+# qwen's depth in the float32 runs that hold streams to each other —
+# phases 3, 6, 10a and 13a, one depth for all — cut for the run's time
+QWEN_F32_LAYERS = 12
+
+
+def qwen_f32_cfg():
+    """Full-width float32 qwen at ``QWEN_F32_LAYERS`` layers."""
+    from repro_torch.configs import registry
+    return registry.get_config(ARCH).replace(dtype="float32",
+                                             n_layers=QWEN_F32_LAYERS)
 
 
 def log(phase: str, **fields) -> None:
@@ -1123,6 +1159,70 @@ def recurrent_cases(gen, dtype):
     return cases
 
 
+def add_rmsnorm_bwd_case(gen, m, d, dtype, *, add, label):
+    """K5b at (m, d) in ``dtype`` — with the forward's add (and a
+    cotangent of s along the residual) or without — against the plain
+    version, bitwise against its own second run (gw included: per-block
+    partials summed in a fixed order); library: torch's autograd
+    backward of ``F.rms_norm`` after ``x + a``, its graph built once;
+    cold: copies of s, gh, gs and w. Bytes (``bwd_cost``): s, gh, gs and
+    w read, gx, ga and gw written."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as krn
+    x, a, gh, gs = (_rand(gen, (m, d), dtype) for _ in range(4))
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    adt = dtype if add else None
+    s = x + a if add else x
+    g_s = gs if add else None
+    flops, nbytes = krn.bwd_cost(s.shape, dtype, add_dtype=adt,
+                                 residual=add)
+    xl, al, wl = (t.clone().requires_grad_() for t in (x, a, w))
+    sl = xl + al if add else xl
+    hl = F.rms_norm(sl, (d,), wl, eps=1e-6)
+    outs, cots, ins = (([sl, hl], [gs, gh], [xl, al, wl]) if add
+                       else ([hl], [gh], [xl, wl]))
+
+    def kern(s=s, gh=gh, g_s=g_s, w=w):
+        return krn.add_rmsnorm_bwd(s, w, gh, g_s, add_dtype=adt)
+
+    def lib():
+        return torch.autograd.grad(outs, ins, cots, retain_graph=True)
+
+    def plain():
+        gx, ga, gw = ref.add_rmsnorm_bwd(s, w, gh, g_s, add_dtype=adt)
+        return (gx, gw) if ga is None else (gx, ga, gw)
+
+    def kern_out():
+        gx, ga, gw = kern()
+        return (gx, gw) if ga is None else (gx, ga, gw)
+
+    return (
+        "add_rmsnorm_bwd",
+        f"{label}M={m},d={d},{'x+a,gs' if add else 'x'}", kern_out, plain,
+        lib, nbytes, flops, [("its_second_run", kern_out)],
+        {"cold": cold_of(nbytes, lambda s, gh, w, g_s=None: (
+            lambda: kern(s, gh, g_s, w), None), s, gh, w,
+            *(() if g_s is None else (g_s,)))})
+
+
+def backward_cases(gen, dtype):
+    """Phase 14's backward kernel, K5b, at its training shapes: qwen's
+    8192 rows (B 4 x S 2048) at d 1024 with the add and the residual's
+    cotangent (every norm after the first), and without the add (layer
+    0's ``ln1``); zamba2-2.7b's d 2560 (its layer norm, with the add)
+    and 5120 (its gated norm, without)."""
+    return [add_rmsnorm_bwd_case(gen, 8192, 1024, dtype, add=True,
+                                 label="qwen_train,"),
+            add_rmsnorm_bwd_case(gen, 8192, 1024, dtype, add=False,
+                                 label="qwen_train,"),
+            add_rmsnorm_bwd_case(gen, 8192, 2560, dtype, add=True,
+                                 label="zamba2_ln,"),
+            add_rmsnorm_bwd_case(gen, 8192, 5120, dtype, add=False,
+                                 label="zamba2_gated,")]
+
+
 def phase_kernels() -> dict:
     """Every kernel vs its plain version, both dtypes. Returns, per
     kernel, the bf16 numbers at its first (main-path) shape and the
@@ -1133,6 +1233,7 @@ def phase_kernels() -> dict:
     gen_fam = torch.Generator(device="cuda").manual_seed(SEED + 18)
     gen_win = torch.Generator(device="cuda").manual_seed(SEED + 19)
     gen_rec = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    gen_bwd = torch.Generator(device="cuda").manual_seed(SEED + 25)
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
@@ -1140,7 +1241,8 @@ def phase_kernels() -> dict:
                 kernel_cases(gen, dtype) + w4_path_cases(gen_w4, dtype)
                 + families_cases(gen_fam, dtype)
                 + window_audio_cases(gen_win, dtype)
-                + recurrent_cases(gen_rec, dtype)):
+                + recurrent_cases(gen_rec, dtype)
+                + backward_cases(gen_bwd, dtype)):
             opts = opts[0] if opts else {}
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -1524,7 +1626,7 @@ def phase_engine_f32() -> dict:
     them)."""
     from repro_torch.configs import registry
     from repro_torch.models import model as MD
-    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    cfg = qwen_f32_cfg()
     params = MD.init_params(cfg, seed=SEED, device="cuda")
     with auditing("engine_f32"):
         return stream_gates("engine_f32", params, cfg, gate_prompts(cfg))
@@ -2237,7 +2339,8 @@ def admission_device_ms(params, cfg) -> None:
 
 
 def phase_request_surface(card: str) -> dict:
-    """Full-width qwen1.5-0.5b: SLO preemption, prefix caching,
+    """Full-width qwen1.5-0.5b (``QWEN_F32_LAYERS`` deep in float32,
+    ``QWEN_CUT_LAYERS`` in bf16): SLO preemption, prefix caching,
     preemption interleavings and telemetry in float32 (the conditions of
     phase 3's gates); sampling, export/import and admission device time
     in bf16. Returns the launch counts of its engine runs."""
@@ -2246,7 +2349,7 @@ def phase_request_surface(card: str) -> dict:
     from repro_torch.models import model as MD
     t0 = time.perf_counter()
     total: dict = {}
-    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    cfg = qwen_f32_cfg()
     params = MD.init_params(cfg, seed=SEED, device="cuda")
     with auditing("request_surface"):
         slo_runs(params, cfg, total)
@@ -2255,7 +2358,7 @@ def phase_request_surface(card: str) -> dict:
     telemetry_runs(params, cfg, total)
     del params
     torch.cuda.empty_cache()
-    cfg = registry.get_config(ARCH)
+    cfg = registry.get_config(ARCH).replace(n_layers=QWEN_CUT_LAYERS)
     params = MD.init_params(cfg, seed=SEED, device="cuda")
     export_import_bf16(params, cfg)
     sampling_runs(params, cfg, total)
@@ -2270,6 +2373,23 @@ def phase_request_surface(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 FAMILY_ARCHS = ("deepseek-moe-16b", "internvl2-26b")
+# the bf16 runs of phases 7b, 8b and 9b cut these models' depth for the
+# run's time (full width; the rest run at full depth): deepseek its dense
+# layer and 7 MoE layers of 27, internvl2 12 of 48, mistral 8 of 32,
+# zamba2 3 of its 9 groups of 6, xlstm one of its 3 super-blocks
+BF16_LAYERS = {"deepseek-moe-16b": 8, "internvl2-26b": 12, "mistral-7b": 8,
+               "zamba2-2.7b": 18, "xlstm-350m": 8}
+# qwen's depth in the bf16 cluster (10b) and mesh (13c) runs, which hold
+# themselves to engines of the same depth (cut for the run's time)
+QWEN_CUT_LAYERS = 8
+
+
+def bf16_cfg(arch):
+    """The full-width bf16 config of ``arch`` at its ``BF16_LAYERS``
+    depth."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config(arch)
+    return cfg.replace(n_layers=BF16_LAYERS.get(arch, cfg.n_layers))
 GATED: dict = {}       # arch -> 7a's gated float32 streams (phase 13)
 GATE_LAYERS = 4        # 7a's depth: deepseek keeps its dense layer 0
 DBRX_LAYERS = 2        # 7c's depth
@@ -2386,7 +2506,8 @@ def phase_families_f32() -> dict:
 
 
 def phase_families_bf16(card: str) -> dict:
-    """7b: bf16 at full width and depth, one model at a time: logits
+    """7b: bf16 at full width, ``BF16_LAYERS`` deep, one model at a
+    time: logits
     against the plain versions, phase 4's serving runs, and one decode
     step of 8 live slots traced by ``torch.profiler``."""
     import numpy as np
@@ -2397,7 +2518,7 @@ def phase_families_bf16(card: str) -> dict:
     total: dict = {}
     for arch in FAMILY_ARCHS:
         with step_deadline():
-            cfg = registry.get_config(arch)
+            cfg = bf16_cfg(arch)
             t0 = time.perf_counter()
             params = MD.init_params(cfg, seed=SEED, device="cuda")
             torch.cuda.synchronize()
@@ -2843,7 +2964,8 @@ def window_logits(phase, params, cfg, prompt, capacity=WINDOW_CAPACITY,
 
 
 def phase_window_bf16(card: str) -> dict:
-    """8b: bf16 at full width and depth, one model at a time: logits of
+    """8b: bf16 at full width and depth (mistral at ``BF16_LAYERS``), one
+    model at a time: logits of
     the first prefill and of a rolling one with 8 steps past the window
     (whisper: a 200-token prompt over seeded frames) against the plain
     versions, 8 requests of 64 new tokens on contiguous + blocking, and
@@ -2857,7 +2979,7 @@ def phase_window_bf16(card: str) -> dict:
     for arch in WINDOW_ARCHS:
         with step_deadline():
             t0 = time.perf_counter()
-            cfg = registry.get_config(arch)
+            cfg = bf16_cfg(arch)
             params = MD.init_params(cfg, seed=SEED, device="cuda")
             torch.cuda.synchronize()
             log("window_bf16", arch=arch, layers=cfg.n_layers,
@@ -2915,18 +3037,19 @@ def phase_window(card: str) -> dict:
 
 RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-350m")
 ZAMBA_GATE_LAYERS = 12    # 9a's zamba2 depth: 2 groups of 6 Mamba2 layers
+XLSTM_GATE_LAYERS = 8     # 9a's xlstm depth: one super-block of 7 mLSTMs
+#                           and the sLSTM (of 3; cut for the run's time)
 RECURRENT_CAPACITY = 2048
 RECURRENT_GATE_LENS = (17, 300, 700, 1000)
 
 
 def recurrent_gate_cfg(arch):
     """9a's float32 config: zamba2 at 12 of its 54 layers (2 shared-block
-    applications), xlstm-350m at full depth."""
+    applications), xlstm-350m at 8 of its 24 (one super-block)."""
     from repro_torch.configs import registry
     cfg = registry.get_config(arch).replace(dtype="float32")
-    if cfg.family == "hybrid":
-        cfg = cfg.replace(n_layers=ZAMBA_GATE_LAYERS)
-    return cfg
+    return cfg.replace(n_layers=ZAMBA_GATE_LAYERS if cfg.family == "hybrid"
+                       else XLSTM_GATE_LAYERS)
 
 
 def bucket_gate(phase, params, cfg, prompts, base, total) -> None:
@@ -3023,7 +3146,8 @@ def phase_recurrent_f32() -> dict:
 
 
 def phase_recurrent_bf16(card: str) -> dict:
-    """9b: bf16 at full width and depth, one model at a time: logits of
+    """9b: bf16 at full width, ``BF16_LAYERS`` deep, one model at a time:
+    logits of
     the first prefill and 8 decode steps against the plain versions, 8
     requests of 256–1023 tokens (64 new each) on contiguous + blocking,
     one decode step of 8 live slots and one 1024-token prefill traced by
@@ -3037,7 +3161,7 @@ def phase_recurrent_bf16(card: str) -> dict:
     for arch in RECURRENT_ARCHS:
         with step_deadline():
             t0 = time.perf_counter()
-            cfg = registry.get_config(arch)
+            cfg = bf16_cfg(arch)
             params = MD.init_params(cfg, seed=SEED, device="cuda")
             torch.cuda.synchronize()
             log("recurrent_bf16", arch=arch, layers=cfg.n_layers,
@@ -3110,7 +3234,8 @@ CLUSTER_FAMILIES = (
     ("internvl2-26b", GATE_LAYERS, 2048, None, "kill"),
     ("zamba2-2.7b", ZAMBA_GATE_LAYERS, RECURRENT_CAPACITY,
      RECURRENT_GATE_LENS, "drain"),
-    ("xlstm-350m", None, RECURRENT_CAPACITY, RECURRENT_GATE_LENS, "drain"),
+    ("xlstm-350m", XLSTM_GATE_LAYERS, RECURRENT_CAPACITY,
+     RECURRENT_GATE_LENS, "drain"),
     ("whisper-large-v3", WINDOW_LAYERS, WINDOW_CAPACITY, AUDIO_GATE_LENS,
      "drain"),
     ("h2o-danube-1.8b", WINDOW_LAYERS, WINDOW_CAPACITY,
@@ -3290,7 +3415,7 @@ def drain_then_kill(clu):
 
 
 def cluster_qwen_f32(base, total) -> None:
-    """10a on qwen1.5-0.5b, float32, full width and depth, phase 3's
+    """10a on qwen1.5-0.5b, float32, phase 3's width and depth, its
     traffic: 1 + 2 workers on both backends with decode worker 0 killed
     after step 2, then 1 + 3 with a drain and a kill (two hops); streams
     against phase 3's. The cluster's construction may allocate the
@@ -3299,7 +3424,7 @@ def cluster_qwen_f32(base, total) -> None:
     from repro_torch.configs import registry
     from repro_torch.models import model as MD
     from repro_torch.serving.kv_cache import contiguous_kv_bytes
-    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    cfg = qwen_f32_cfg()
     before = torch.cuda.memory_allocated()
     params = MD.init_params(cfg, seed=SEED, device="cuda")
     weights = torch.cuda.memory_allocated() - before
@@ -3655,8 +3780,9 @@ def cluster_traces_bf16(params, cfg, total) -> None:
 def phase_cluster(base, card: str) -> dict:
     """10a: float32 stream gates of the cluster (qwen against phase 3's
     streams, the other families against their own single engines); 10b:
-    bf16 full-depth qwen — serving, prefix affinity, autoscaling, SLO
-    ordering and auto-drain. Returns the launch counts of its runs."""
+    bf16 qwen, ``QWEN_CUT_LAYERS`` deep — serving, prefix affinity,
+    autoscaling, SLO ordering and auto-drain. Returns the launch counts
+    of its runs."""
     from repro_torch.configs import registry
     from repro_torch.models import model as MD
     t0 = time.perf_counter()
@@ -3666,7 +3792,7 @@ def phase_cluster(base, card: str) -> dict:
     cluster_families_f32(total)
     t1 = time.perf_counter()
     with step_deadline():
-        cfg = registry.get_config(ARCH)
+        cfg = registry.get_config(ARCH).replace(n_layers=QWEN_CUT_LAYERS)
         params = MD.init_params(cfg, seed=SEED, device="cuda")
         cluster_serve_bf16(params, cfg, card, total)
         cluster_prefix_bf16(params, cfg, total)
@@ -3927,13 +4053,13 @@ def mesh_nudged():
 
 
 def mesh_qwen_f32(base, total) -> None:
-    """13a: full-width, full-depth float32 qwen at (2, 2) on phase 3's
+    """13a: float32 qwen at phase 3's width and depth at (2, 2) on its
     traffic — contiguous and paged blocking and paged chunked 256 equal
     to phase 3's streams — and the sequence-sharded fallback at (1, 3)
     over capacity 1152, equal to one engine of the same capacity."""
     from repro_torch.configs import registry
     from repro_torch.models import model as MD
-    cfg = registry.get_config(ARCH).replace(dtype="float32")
+    cfg = qwen_f32_cfg()
     params = MD.init_params(cfg, seed=SEED, device="cuda")
     prompts = gate_prompts(cfg)
     for mesh, label, kw in MESH_GATES:
@@ -4003,16 +4129,17 @@ def single_forward(params, cfg, prompt, feed):
 
 
 def mesh_qwen_bf16(card, total) -> None:
-    """13c: bf16 qwen at full width and depth at (1, 4): phase 4's
-    traffic (16 requests, 64 new tokens, 8 slots, contiguous + blocking)
-    with exact launches, then the first prompt's prefill and 8 greedy
-    steps through the mesh with every K1 / K3 / K5 call of every shard
-    held to its plain version on its own inputs (:func:`checked_kernels`,
-    as 9b), each step's logits held to one device's on the same tokens
-    (3e-2, argmax equal or a tie at rounding level)."""
+    """13c: bf16 qwen at full width, ``QWEN_CUT_LAYERS`` deep, at (1, 4):
+    phase 4's traffic (16 requests, 64 new tokens, 8 slots, contiguous +
+    blocking) with exact launches, then the first prompt's prefill and 8
+    greedy steps through the mesh with every K1 / K3 / K5 call of every
+    shard held to its plain version on its own inputs
+    (:func:`checked_kernels`, as 9b), each step's logits held to one
+    device's on the same tokens (3e-2, argmax equal or a tie at rounding
+    level)."""
     from repro_torch.configs import registry
     from repro_torch.models import model as MD
-    cfg = registry.get_config(ARCH)
+    cfg = registry.get_config(ARCH).replace(n_layers=QWEN_CUT_LAYERS)
     params = MD.init_params(cfg, seed=SEED, device="cuda")
     prompts = serve_prompts(cfg)
     eng, counts, wall = mesh_run(params, cfg, BF16_MESH, prompts, 64)
@@ -4645,6 +4772,457 @@ def phase_simulator(card: str) -> None:
         predicted_seconds=f"{time.perf_counter() - t2:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: single-device training
+# ---------------------------------------------------------------------------
+
+TRAIN_DEVICE = "cuda"
+GATE_SHAPE = (2, 2048)      # 14b: B x S — two q chunks of 1024, one skipped
+TRAIN_SHAPE = (4, 2048)     # 14c: B x S, 8192 rows a step
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 13
+TRAIN_FAMILIES = ("deepseek-moe-16b", "internvl2-26b", "whisper-large-v3",
+                  "h2o-danube-1.8b", "zamba2-2.7b", "xlstm-350m")
+FAMILY_SHAPE = (2, 64)      # 14c's smoke-config steps: past danube's window
+EXAMPLE_STEPS = 100         # 14d
+# float32 gradients, kernel path against plain: each leaf normwise within
+# GRAD_RTOL of its own norm plus GRAD_ATOL of the whole gradient's (a
+# leaf whose gradient nearly cancels, zamba2's A_log, is float32 noise at
+# its own scale); the loss within LOSS_RTOL
+GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-6, 1e-5
+# microbatch 2 == 1 after one AdamW step: the reference test's tolerance
+MB_RTOL, MB_ATOL = 1e-4, 1e-5
+LOSS_DROP = 0.3             # 14d: mean of the last 5 below the first 5
+
+
+def train_cfg(arch=ARCH, **kw):
+    from repro_torch.configs import registry
+    return registry.get_config(arch).replace(**kw)
+
+
+def family_cfg(arch):
+    from repro_torch.configs import registry
+    return registry.get_smoke_config(arch).replace(dtype="float32")
+
+
+def _sync():
+    import torch
+    if TRAIN_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def train_counted(fn):
+    """(fn(), forward launches, K5b launches) of exactly this call."""
+    from repro_torch.kernels import ops
+    _sync()
+    ops.reset_launch_counts()
+    out = fn()
+    _sync()
+    return out, ops.launch_counts(), ops.backward_launch_counts()
+
+
+def grad_gate(phase, what, got, want) -> float:
+    """Every leaf of ``got`` within GRAD_RTOL of ``want``'s norm plus
+    GRAD_ATOL of the whole gradient's; returns the worst leaf's error
+    relative to its own norm."""
+    import torch
+    from repro_torch import tree as T
+    gl, wl = T.paths(got), T.paths(want)
+    whole = torch.sqrt(sum(w.float().square().sum() for _, w in wl)).item()
+    worst, name, fails = 0.0, "", []
+    for (k, g), (_, w) in zip(gl, wl):
+        err = (g.float() - w.float()).norm().item()
+        ref_n = w.float().norm().item()
+        rel = err / max(ref_n, 1e-30)
+        if rel > worst:
+            worst, name = rel, k
+        if err > GRAD_RTOL * ref_n + GRAD_ATOL * whole:
+            fails.append(f"{k}: {err:.3e} of {ref_n:.3e}")
+    log(phase, check=f"{what}_grads", leaves=len(gl),
+        worst_leaf=f"'{name}'", worst_rel_err=f"{worst:.3e}",
+        whole_grad_norm=f"{whole:.4e}", rtol=GRAD_RTOL,
+        atol_of_whole=GRAD_ATOL)
+    if fails:
+        raise AssertionError(f"{phase} {what}: gradients off the plain "
+                             f"path's: {fails[:4]}")
+    return worst
+
+
+def _loss_gate(phase, what, got, want) -> None:
+    rel = abs(got - want) / abs(want)
+    log(phase, check=f"{what}_loss", kernels=f"{got:.8f}",
+        plain=f"{want:.8f}", rel_err=f"{rel:.3e}", tol=LOSS_RTOL)
+    if rel > LOSS_RTOL:
+        raise AssertionError(f"{phase} {what}: loss {got} against the "
+                             f"plain path's {want}")
+
+
+def _k5_gate(phase, counts, bwd, want_fwd, want_bwd) -> None:
+    log(phase, k5_launches=counts["rmsnorm"], expected_k5=want_fwd,
+        k5b_launches=bwd["add_rmsnorm_bwd"], expected_k5b=want_bwd,
+        other_launches=sum(v for k, v in counts.items() if k != "rmsnorm"))
+    if (counts["rmsnorm"] != want_fwd or bwd["add_rmsnorm_bwd"] != want_bwd
+            or any(v for k, v in counts.items() if k != "rmsnorm")):
+        raise AssertionError(f"{phase}: launches {counts} {bwd}, expected "
+                             f"K5 {want_fwd} and K5b {want_bwd} only")
+
+
+def train_gate_f32(total) -> None:
+    """14b: full-width, full-depth qwen in float32 (remat "full"), one
+    ``loss_fn`` and backward through K5 / K5b against the plain path on
+    the card; then one train step at microbatch 2 against microbatch 1."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    from repro_torch.optim import AdamW, OptConfig
+    cfg = train_cfg(dtype="float32")
+    b, s = GATE_SHAPE
+    params = MD.init_params(cfg, seed=SEED, device=TRAIN_DEVICE)
+    batch = MD.make_dummy_batch(cfg, b, s, seed=SEED, device=TRAIN_DEVICE)
+    t0 = time.perf_counter()
+    (loss, grads), counts, bwd = train_counted(
+        lambda: ST.loss_and_grads(params, cfg, batch))
+    kernel_s = time.perf_counter() - t0
+    _add(total, {**counts, **bwd})
+    norms = 2 * cfg.n_layers + 1
+    _k5_gate("train_f32", counts, bwd, 2 * norms - 1, norms)
+    with plain_kernels():
+        t0 = time.perf_counter()
+        loss_p, grads_p = ST.loss_and_grads(params, cfg, batch)
+        _sync()
+        plain_s = time.perf_counter() - t0
+    _loss_gate("train_f32", "qwen", loss.item(), loss_p.item())
+    grad_gate("train_f32", "qwen", grads, grads_p)
+    del grads, grads_p
+    log("train_f32", batch=b, seq=s, remat=cfg.remat,
+        kernels_s=f"{kernel_s:.2f}", plain_s=f"{plain_s:.2f}")
+    opt = AdamW(OptConfig(lr=3e-3, warmup_steps=5, total_steps=200,
+                          weight_decay=0.0))
+    outs = {}
+    for mb in (1, 2):
+        (loss, grads), counts, bwd = train_counted(
+            lambda: ST.accumulated_grads(params, cfg.replace(microbatch=mb),
+                                         batch))
+        _add(total, {**counts, **bwd})
+        p, _, _ = opt.apply(grads, opt.init(params), params)
+        outs[mb] = (loss.item(), grads, p)
+    _check_microbatch("train_f32", outs)
+
+
+def _check_microbatch(phase, outs) -> None:
+    """Microbatch 2 against 1: the loss within LOSS_RTOL and every
+    gradient element within the reference test's rtol / atol; after one
+    AdamW step, every param element off by more than that tolerance
+    must be one whose gradient sits at float32 noise (the two runs'
+    gradients differ by over 1% of it) — Adam's first update is
+    lr * g / (|g| + eps), ±lr for any |g| well above eps, so such an
+    element's sign may flip."""
+    from repro_torch import tree as T
+    (l1, g1, p1), (l2, g2, p2) = outs[1], outs[2]
+    worst_g = worst_p = 0.0
+    flipped = noisy = 0
+    for a, c, ga, gc in zip(T.leaves(p1), T.leaves(p2), T.leaves(g1),
+                            T.leaves(g2)):
+        ga, gc = ga.float(), gc.float()
+        dg = (ga - gc).abs()
+        worst_g = max(worst_g, dg.max().item())
+        if ((dg - (MB_ATOL + MB_RTOL * gc.abs())).max().item() > 0):
+            raise AssertionError(f"{phase}: microbatch 2 gradients off "
+                                 "microbatch 1's past the tolerance")
+        dp = (a.float() - c.float()).abs()
+        worst_p = max(worst_p, dp.max().item())
+        off = dp > MB_ATOL + MB_RTOL * c.float().abs()
+        flipped += int(off.sum())
+        noisy += int((off & (dg > 0.01 * ga.abs())).sum())
+    rel = abs(l1 - l2) / abs(l1)
+    log(phase, check="microbatch_2_vs_1", loss_1=f"{l1:.8f}",
+        loss_2=f"{l2:.8f}", loss_rel_err=f"{rel:.3e}",
+        grads_max_abs_err=f"{worst_g:.3e}",
+        params_max_abs_err_after_adamw=f"{worst_p:.3e}",
+        params_off_tolerance=flipped, of_them_at_gradient_noise=noisy,
+        rtol=MB_RTOL, atol=MB_ATOL)
+    if rel > LOSS_RTOL or noisy != flipped:
+        raise AssertionError(f"{phase}: microbatch 2 against 1: loss "
+                             f"{l2} / {l1}, {flipped - noisy} params off "
+                             "with a gradient above its noise")
+
+
+def train_argv(ckpt_dir, extra=()) -> list:
+    b, s = TRAIN_SHAPE
+    return ["--arch", ARCH, "--device", TRAIN_DEVICE, "--steps",
+            str(TRAIN_STEPS), "--batch", str(b), "--seq", str(s),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--ckpt-dir", ckpt_dir,
+            "--log-every", "10", "--seed", str(SEED), *extra]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms on (cuBLAS's workspace set in the
+    phase's environment, before CUDA started); an op with no
+    deterministic form raises instead of running."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_bf16(card, total) -> None:
+    """14c: full-width qwen in bf16 (remat "full") through
+    ``launch.train``: 20 steps checkpointed every 10, then the same run
+    failing once at step 13 under ``RestartPolicy`` — its final params
+    and optimizer state bitwise the uninterrupted run's — then
+    ``launch.serve --ckpt-dir`` serving from that checkpoint."""
+    import tempfile
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import serve, train
+    cfg = train_cfg()
+    b, s = TRAIN_SHAPE
+    norms = 2 * cfg.n_layers + 1
+    lines = []
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2, deterministic():
+        if TRAIN_DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run, counts, bwd = train_counted(
+            lambda: train.train(train_argv(d1), log=lines.append))
+        run_s = time.perf_counter() - t0
+        _add(total, {**counts, **bwd})
+        peak = (0 if TRAIN_DEVICE == "cpu"
+                else torch.cuda.max_memory_allocated())
+        _k5_gate("train_bf16", counts, bwd, TRAIN_STEPS * (2 * norms - 1),
+                 TRAIN_STEPS * norms)
+        t0 = time.perf_counter()
+        again, counts2, bwd2 = train_counted(lambda: train.train(
+            train_argv(d2, ["--inject-failure-at", str(TRAIN_FAIL_AT)]),
+            log=lines.append))
+        again_s = time.perf_counter() - t0
+        _add(total, {**counts2, **bwd2})
+        equal = all(torch.equal(x, y) for x, y in zip(
+            T.leaves(run["state"]), T.leaves(again["state"])))
+        log("train_bf16", check="resume_after_failure_bitwise",
+            equal=equal, restarts=again["restarts"], end=again["step"],
+            steps_run=len(again["losses"]), fail_at=TRAIN_FAIL_AT,
+            seconds=f"{again_s:.1f}", k5=counts2["rmsnorm"],
+            k5b=bwd2["add_rmsnorm_bwd"])
+        if not (equal and again["restarts"] == 1
+                and again["step"] == TRAIN_STEPS):
+            raise AssertionError("train_bf16: the resumed run's state is "
+                                 "not the uninterrupted run's")
+        train_metrics(card, cfg, run, run_s, peak, norms, lines)
+        del run, again
+        t0 = time.perf_counter()
+        (rc, served), counts3, bwd3 = train_counted(lambda: _serve_ckpt(
+            serve, d2))
+        _add(total, {**counts3, **bwd3})
+        log("train_bf16", check="serve_from_checkpoint", rc=rc,
+            seconds=f"{time.perf_counter() - t0:.1f}",
+            launches=json.dumps(counts3), **served)
+        if rc != 0 or served.get("from_step") != str(TRAIN_STEPS):
+            raise AssertionError(f"train_bf16: serving from the checkpoint "
+                                 f"failed: {served}")
+
+
+def _serve_ckpt(serve, ckpt_dir):
+    """``launch.serve.main`` from ``ckpt_dir`` at a small load; (rc,
+    fields of what it printed)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--ckpt-dir", ckpt_dir, "--device", TRAIN_DEVICE,
+                         "--requests", "4", "--prompt-len", "64",
+                         "--max-new", "8", "--capacity", "128"])
+    out = buf.getvalue()
+    m = re.search(r"checkpoint step (\d+)", out)
+    n = re.search(r"served (\d+) requests / (\d+) tokens", out)
+    return rc, {"from_step": m.group(1) if m else "none",
+                "requests": n.group(1) if n else "none",
+                "tokens": n.group(2) if n else "none"}
+
+
+def train_metrics(card, cfg, run, run_s, peak, norms, lines) -> None:
+    """14c's numbers: step wall (median past the first step), device ms
+    of one more step in a ``torch.profiler`` trace, the idle share,
+    tokens/s, peak allocation, K5 / K5b per step, the loss curve."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    from repro_torch.optim import AdamW, OptConfig
+    b, s = TRAIN_SHAPE
+    walls = [run["step_seconds"][k] for k in sorted(run["step_seconds"])]
+    wall = statistics.median(walls[1:])
+    state = run["state"]
+    opt = AdamW(OptConfig(lr=3e-3, total_steps=TRAIN_STEPS,
+                          warmup_steps=min(50, TRAIN_STEPS // 10)))
+    step = ST.build_train_step(cfg, opt)
+    batch = MD.make_dummy_batch(cfg, b, s, seed=SEED, device=TRAIN_DEVICE)
+    dev = (None if TRAIN_DEVICE == "cpu" else profiled_step(
+        lambda: step(state["params"], state["opt"], batch)))
+    losses = [run["losses"][k] for k in sorted(run["losses"])]
+    log("train_bf16", arch=ARCH, dtype=cfg.dtype, remat=cfg.remat,
+        batch=b, seq=s, steps=TRAIN_STEPS, run_s=f"{run_s:.1f}",
+        step_wall_ms_median=f"{wall * 1e3:.1f}",
+        step_wall_ms_first=f"{walls[0] * 1e3:.1f}",
+        step_device_ms="null" if dev is None else f"{dev:.1f}",
+        idle_share="null" if dev is None else f"{1 - dev / (wall * 1e3):.3f}",
+        tokens_per_s=f"{b * s / wall:.0f}",
+        max_memory_allocated_gb=f"{peak / 1e9:.2f}",
+        k5_per_step=2 * norms - 1, k5b_per_step=norms,
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+        card=f"'{card}'")
+    for ln in lines:
+        log("train_bf16", launcher=f"'{ln}'")
+
+
+def profiled_step(fn) -> float | None:
+    """Device ms of one more (warm) call of ``fn``, from a
+    ``torch.profiler`` trace that also prints the kernels taking the
+    most device time (``serving.profile.report``); None when the trace
+    held no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.profile import report
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        return None
+    report("train_step", prof, wall, 1, 15)
+    return us / 1e3
+
+
+def train_families(total) -> None:
+    """14c: every other family's smoke config in float32 — one loss and
+    backward through the kernels against the plain path, then one train
+    step — K5 / K5b launched where the family has an RMSNorm."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    from repro_torch.optim import AdamW, OptConfig
+    b, s = FAMILY_SHAPE
+    for arch in TRAIN_FAMILIES:
+        cfg = family_cfg(arch)
+        params = MD.init_params(cfg, seed=SEED, device=TRAIN_DEVICE)
+        batch = MD.make_dummy_batch(cfg, b, s, seed=SEED,
+                                    device=TRAIN_DEVICE)
+        (loss, grads), counts, bwd = train_counted(
+            lambda: ST.loss_and_grads(params, cfg, batch))
+        _add(total, {**counts, **bwd})
+        with plain_kernels():
+            loss_p, grads_p = ST.loss_and_grads(params, cfg, batch)
+        _loss_gate(f"train_{arch}", "smoke", loss.item(), loss_p.item())
+        worst = grad_gate(f"train_{arch}", "smoke", grads, grads_p)
+        opt = AdamW(OptConfig(lr=3e-3, warmup_steps=1, total_steps=10))
+        (p, _, m), c2, b2 = train_counted(lambda: ST.build_train_step(
+            cfg, opt)(params, opt.init(params), batch))
+        _add(total, {**c2, **b2})
+        rms = path_shape(cfg)[0] > 0
+        log(f"train_{arch}", family=cfg.family, norm=cfg.norm, remat=cfg.remat,
+            k5=counts["rmsnorm"], k5b=bwd["add_rmsnorm_bwd"],
+            step_loss=f"{m['loss'].item():.4f}",
+            worst_rel_err=f"{worst:.3e}")
+        if rms and not (counts["rmsnorm"] and bwd["add_rmsnorm_bwd"]):
+            raise AssertionError(f"train_{arch}: K5 / K5b never launched")
+
+
+def train_example(total) -> None:
+    """14d: ``examples/torch_train_100m.py --full-100m`` for 100 steps;
+    the mean of the last 5 losses at least LOSS_DROP below the first 5."""
+    sys.path.insert(0, str(REPO / "examples"))
+    import torch_train_100m as ex
+    t0 = time.perf_counter()
+    res, counts, bwd = train_counted(lambda: ex.run(
+        ["--full-100m", "--steps", str(EXAMPLE_STEPS), "--device",
+         TRAIN_DEVICE], verbose=False))
+    _add(total, {**counts, **bwd})
+    losses = res["losses"]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log("train_100m", steps=res["end"], seconds=f"{res['seconds']:.1f}",
+        ms_per_step=f"{res['seconds'] / max(1, res['end']) * 1e3:.1f}",
+        loss_first5=f"{first:.4f}", loss_last5=f"{last:.4f}",
+        drop=f"{first - last:.4f}", gate=LOSS_DROP,
+        k5=counts["rmsnorm"], k5b=bwd["add_rmsnorm_bwd"],
+        wall_s=f"{time.perf_counter() - t0:.1f}")
+    if not last < first - LOSS_DROP:
+        raise AssertionError(f"train_100m: loss {first:.4f} -> {last:.4f}, "
+                             f"not {LOSS_DROP} lower")
+
+
+TRAIN_SECONDS = 600    # the phase's own process ends past this
+TRAIN_COUNTS = "train_counts="
+
+
+def phase_train(card: str) -> dict:
+    """Phase 14 in a process of its own (``chip_smoke.py --phase-train``),
+    its lines passed through: cuBLAS's deterministic workspace
+    (``CUBLAS_WORKSPACE_CONFIG``, read when CUDA starts), which 14c's
+    bitwise resume under ``torch.use_deterministic_algorithms`` needs,
+    then holds for this phase only. Returns the launch counts of its
+    runs, K5b's as ``add_rmsnorm_bwd``."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    proc = subprocess.Popen(
+        [sys.executable, "-u", str(Path(__file__).resolve()),
+         "--phase-train", card], env=env, stdout=subprocess.PIPE,
+        text=True)
+    deadline = threading.Timer(TRAIN_SECONDS, proc.kill)
+    deadline.start()
+    counts = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(TRAIN_COUNTS):
+                counts = json.loads(line[len(TRAIN_COUNTS):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait()
+    finally:
+        deadline.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or counts is None:
+        raise AssertionError(f"phase 14's process exited {rc}")
+    return counts
+
+
+def train_child(card: str) -> int:
+    """``--phase-train``: phase 14's runs, then their launch counts on a
+    line of their own for the parent."""
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(TRAIN_COUNTS + json.dumps(train_phases(card)), flush=True)
+    return 0
+
+
+def train_phases(card: str) -> dict:
+    """Phase 14: single-device training — 14b the float32 gradient gate,
+    14c bf16 training with a failure and a restart then serving from its
+    checkpoint, and the other families' smoke steps, 14d the 100M
+    example (14a, K5b's table, is in phase 2)."""
+    import torch
+    t0 = time.perf_counter()
+    total: dict = {}
+    with step_deadline():
+        train_gate_f32(total)
+    torch.cuda.empty_cache()
+    with step_deadline():
+        train_bf16(card, total)
+    torch.cuda.empty_cache()
+    with step_deadline():
+        train_families(total)
+        train_example(total)
+    log("train", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -4659,6 +5237,10 @@ SOURCES = {
                     "src/repro/kernels/rmsnorm.py:25"),
     "quant_gemv": ("src/repro_torch/kernels/csrc/quant_gemv.cu",
                    "src/repro/kernels/quant_gemv.py:56"),
+    # K5b has no TPU kernel: it is the gradient XLA derives from the
+    # reference's plain RMSNorm, which the training path runs
+    "add_rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        "src/repro/models/layers.py:49"),
 }
 
 
@@ -4705,6 +5287,9 @@ def main() -> int:
         counts[name] += c
     phase_costmodel(card)
     phase_simulator(card)
+    torch.cuda.empty_cache()
+    for name, c in phase_train(card).items():
+        counts[name] = counts.get(name, 0) + c
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
@@ -4729,4 +5314,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase-train"]:
+        sys.exit(train_child(sys.argv[2]))
     sys.exit(main())

@@ -11,6 +11,13 @@ hands the kernel's name, its ``cost()`` and the outputs it writes to the
 installed tracer (:func:`set_meta_sink`, used by
 :mod:`repro_torch.core.trace`) and returns meta outputs of the kernel's
 shapes and dtypes. With no tracer installed a meta operand raises.
+
+Under autograd — grad mode on and an operand that requires grad —
+:func:`add_rmsnorm` runs as an ``autograd.Function``: K5 forward, K5b
+backward on the card, the plain versions of both on the CPU. Every other
+kernel has no backward: its entry refuses such operands on either device
+instead of returning a result cut off from the graph (training attention
+is :func:`repro_torch.models.attention.chunked_attention`).
 """
 from __future__ import annotations
 
@@ -106,11 +113,93 @@ def call_cost(name: str, *args, **kw) -> tuple:
     return _COSTS[name](*args, **kw)
 
 
+def _needs_grad(*tensors) -> bool:
+    """Grad mode is on and an operand requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward ``name`` lacks."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an operand requires "
+            "grad; train through models.attention.chunked_attention "
+            "(attn_impl='chunked'), or call it under torch.no_grad()")
+
+
+def _add_rmsnorm(x, a, w, eps, out_dtype):
+    """The forward on x's device: K5 on the card, else its plain
+    version under the kernel's contract."""
+    if _on_card(x):
+        return _rn.add_rmsnorm(x, a, w, eps=eps, out_dtype=out_dtype)
+    _rn.check_shapes(x, a, w, out_dtype)
+    return ref.add_rmsnorm(x, a, w, eps, out_dtype=out_dtype)
+
+
+def _add_rmsnorm_bwd(s, w, gh, gs, eps, add_dtype):
+    """(gx, ga, gw) on s's device: K5b on the card, else its plain
+    version under the kernel's contract."""
+    gh = gh.contiguous()
+    gs = None if gs is None else gs.contiguous()
+    if _on_card(s):
+        return _rn.add_rmsnorm_bwd(s, w, gh, gs, add_dtype=add_dtype,
+                                   eps=eps)
+    _rn.check_bwd(s, w, gh, gs, add_dtype)
+    return ref.add_rmsnorm_bwd(s, w, gh, gs, eps, add_dtype=add_dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """h = RMSNorm(x) * w (K5 without the add); backward K5b with no
+    residual cotangent — x's other uses get theirs from autograd."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, out_dtype):
+        _, h = _add_rmsnorm(x, None, w, eps, out_dtype)
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gh):
+        x, w = ctx.saved_tensors
+        gx, _, gw = _add_rmsnorm_bwd(x, w, gh, None, ctx.eps, None)
+        return gx, gw if ctx.needs_input_grad[1] else None, None, None
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """(s, h) = (x + a, RMSNorm(s) * w) (K5 with the add); backward K5b,
+    with the cotangent reaching s along the residual when s is used."""
+
+    @staticmethod
+    def forward(ctx, x, a, w, eps, out_dtype):
+        ctx.set_materialize_grads(False)
+        s, h = _add_rmsnorm(x, a, w, eps, out_dtype)
+        ctx.save_for_backward(s, w)
+        ctx.eps, ctx.add_dtype = eps, a.dtype
+        return s, h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gs, gh):
+        s, w = ctx.saved_tensors
+        if gh is None:      # h unused: s passes its cotangent through
+            return (gs, None if gs is None else gs.to(ctx.add_dtype), None,
+                    None, None)
+        gx, ga, gw = _add_rmsnorm_bwd(s, w, gh, gs, ctx.eps, ctx.add_dtype)
+        return gx, ga, gw if ctx.needs_input_grad[2] else None, None, None
+
+
 def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None):
     """Residual add and RMSNorm over the last axis in one pass (K5):
     (s, h) with s = x + a as torch rounds it (x itself when a is None)
     and h = RMSNorm(s) * w in ``out_dtype`` (default x's dtype). The
-    shape and dtype contract of the kernel holds on both devices."""
+    shape and dtype contract of the kernel holds on both devices.
+
+    With grad mode on and an operand requiring grad it is an autograd
+    node whose backward is K5b (:func:`_AddRMSNorm`, :func:`_RMSNorm`);
+    otherwise the same call as ever, saving nothing."""
     if x.is_meta:
         hdt = _rn.check_shapes(x, a, w, out_dtype)
         s = x if a is None else torch.empty_like(x)
@@ -118,10 +207,11 @@ def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None):
         return _priced("add_rmsnorm", call_cost(
             "add_rmsnorm", x, a, w, out_dtype=hdt),
             (h,) if a is None else (s, h), (s, h))
-    if _on_card(x):
-        return _rn.add_rmsnorm(x, a, w, eps=eps, out_dtype=out_dtype)
-    _rn.check_shapes(x, a, w, out_dtype)
-    return ref.add_rmsnorm(x, a, w, eps, out_dtype=out_dtype)
+    if _needs_grad(x, a, w):
+        if a is None:
+            return x, _RMSNorm.apply(x, w, eps, out_dtype)
+        return _AddRMSNorm.apply(x, a, w, eps, out_dtype)
+    return _add_rmsnorm(x, a, w, eps, out_dtype)
 
 
 def rmsnorm(x, w, *, eps=1e-6):
@@ -131,7 +221,9 @@ def rmsnorm(x, w, *, eps=1e-6):
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """Causal / windowed / non-causal prefill attention at absolute
-    positions (K3); ``k``/``v`` may be longer or shorter than ``q``."""
+    positions (K3); ``k``/``v`` may be longer or shorter than ``q``.
+    No backward: refuses operands that require grad."""
+    _refuse_grad("flash_attention", q, k, v)
     if q.is_meta:
         out = torch.empty_like(q)
         return _priced("flash_attention", call_cost(
@@ -149,7 +241,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
     """Ragged split-KV decode attention with the self partial (K1), over
     a rolling sliding-window cache when ``window`` is given; ``split``
     sets pass 1's positions per block (a mesh shard takes the whole
-    decode's)."""
+    decode's). No backward: refuses operands that require grad."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache, extra_k, extra_v)
     if q.is_meta:
         out = torch.empty_like(q)
         return _priced("decode_attention", call_cost(
@@ -168,7 +261,9 @@ def decode_attention_shard(q, k_cache, v_cache, cache_len, *, offset,
                            gather, extra_k=None, extra_v=None, split=None):
     """K1 over one shard of a cache split by position across a mesh's
     ranks: pass 1 over the shard, ``gather`` to every shard's partials,
-    the combine with the self partial (the sequence-sharded decode)."""
+    the combine with the self partial (the sequence-sharded decode).
+    No backward: refuses operands that require grad."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache, extra_k, extra_v)
     if _on_card(q):
         return _dec.decode_attention_shard(
             q, k_cache, v_cache, cache_len, offset=offset, gather=gather,
@@ -181,7 +276,10 @@ def decode_attention_shard(q, k_cache, v_cache, cache_len, *, offset,
 def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
                            extra_k=None, extra_v=None, split=None):
     """Split-KV decode over a paged pool through block tables, with the
-    self partial (K2)."""
+    self partial (K2). No backward: refuses operands that require
+    grad."""
+    _refuse_grad("paged_decode_attention", q, k_pool, v_pool, extra_k,
+                 extra_v)
     if q.is_meta:
         out = torch.empty_like(q)
         return _priced("paged_decode_attention", call_cost(
@@ -198,7 +296,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
 
 def prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self):
     """Chunked-prefill attention over cached history plus the chunk's own
-    causal KV (K4)."""
+    causal KV (K4). No backward: refuses operands that require grad."""
+    _refuse_grad("prefill_attention", q, k_hist, v_hist, k_self, v_self)
     if q.is_meta:
         out = torch.empty_like(q)
         return _priced("prefill_attention", call_cost(
@@ -219,7 +318,9 @@ def verify_attention(q, k_hist, v_hist, hist_len, k_self, v_self):
 def quant_gemv(x, w_packed, scales, *, group=128):
     """W4A16 GEMV/GEMM: x (B, K) @ the int4 weight ``w_packed``
     (K//2, N) uint8 with per-group ``scales`` (K//group, N), fp32
-    accumulation, x's dtype out (K6)."""
+    accumulation, x's dtype out (K6). No backward: refuses operands
+    that require grad."""
+    _refuse_grad("quant_gemv", x, scales)
     if x.is_meta:
         out = x.new_empty((x.shape[0], w_packed.shape[1]))
         return _priced("quant_gemv", call_cost(
@@ -234,6 +335,13 @@ def launch_counts() -> dict:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
+def backward_launch_counts() -> dict:
+    """Backward-kernel launches since the last reset: K5b's."""
+    return {"add_rmsnorm_bwd": _rn.bwd_launches}
+
+
 def reset_launch_counts() -> None:
+    """Every forward and backward count to zero."""
     for mod in _KERNELS.values():
         mod.launches = 0
+    _rn.bwd_launches = 0

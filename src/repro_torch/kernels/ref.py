@@ -30,6 +30,30 @@ def add_rmsnorm(x: torch.Tensor, a: torch.Tensor | None, w: torch.Tensor,
     return s, rmsnorm(s, w, eps).to(out_dtype or s.dtype)
 
 
+def add_rmsnorm_bwd(s: torch.Tensor, w: torch.Tensor, gh: torch.Tensor,
+                    gs: torch.Tensor | None = None, eps: float = 1e-6, *,
+                    add_dtype: torch.dtype | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor | None,
+                               torch.Tensor]:
+    """The backward of :func:`add_rmsnorm` from its sum ``s``: with
+    r = rsqrt(mean(s^2) + eps), n = s * r and u = gh * w, all in fp32,
+    g = gs + r * (u - n * mean(u * n)) is the cotangent of s (gs, the
+    one reaching s along the residual, may be None) — gx in s's dtype,
+    ga in ``add_dtype`` (None without an add) — and gw = sum over rows
+    of gh * n in w's dtype."""
+    sf = s.float()
+    r = torch.rsqrt((sf * sf).mean(-1, keepdim=True) + eps)
+    n = sf * r
+    gf = gh.float()
+    u = gf * w.float()
+    g = r * (u - n * (u * n).mean(-1, keepdim=True))
+    if gs is not None:
+        g = gs.float() + g
+    gw = (gf * n).reshape(-1, s.shape[-1]).sum(0).to(w.dtype)
+    return (g.to(s.dtype), None if add_dtype is None else g.to(add_dtype),
+            gw)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0) -> torch.Tensor:

@@ -7,6 +7,13 @@ that precedes every norm of the model but the first fused in:
 same kernel without the add. ``launches`` counts the kernel launches
 this module made, with or without the add (reset by
 :func:`repro_torch.kernels.ops.reset_launch_counts`).
+
+K5b, :func:`add_rmsnorm_bwd`, is its backward (the same source): from
+``s``, ``w`` and the cotangents of ``h`` and ``s`` it gives those of x,
+a and w; ``bwd_launches`` counts its calls. It has no TPU counterpart —
+it is the gradient XLA derives from the reference's plain RMSNorm — and
+:func:`repro_torch.kernels.ops.add_rmsnorm` runs it as the backward of
+K5 under autograd.
 """
 from __future__ import annotations
 
@@ -18,13 +25,16 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+bwd_launches = 0
 
 MAX_D = 8192              # the row stays in registers up to this width
 VECS = (1, 2)             # 16-byte vectors a thread holds (instantiated)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {"add_rmsnorm_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
-                               _I, _I, _P]}
+                               _I, _I, _P],
+        "add_rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _F, _I, _I, _I, _I, _I, _I, _P]}
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (x, a or None, h) dtypes the kernel is instantiated for: those the
 # model paths produce
@@ -44,6 +54,23 @@ def launch_plan(d: int, elt: int) -> tuple[int, int]:
     v = VECS[0] if nvec <= 1024 else VECS[1]
     t = -(-nvec // v)
     return max(32, -(-t // 32) * 32), v
+
+
+# K5b's grid: enough blocks of the forward's width to fill the card's
+# 132 SMs with ``RESIDENT_THREADS`` threads each, at most one per row
+SMS = 132
+RESIDENT_THREADS = 1024
+
+
+def bwd_launch_plan(m: int, d: int, elt: int) -> tuple[int, int, int]:
+    """(threads, vectors a thread, blocks) of K5b over ``m`` rows of
+    ``d`` elements of ``elt`` bytes: the forward's block shape
+    (:func:`launch_plan`), and ``min(m, ceil(SMS * RESIDENT_THREADS /
+    threads))`` blocks, each over rows ``b, b + blocks, ...``. Depends on
+    m, d and x's type only, so gw's partials — one per block, summed in
+    a fixed order — are the same from run to run."""
+    threads, vecs = launch_plan(d, elt)
+    return threads, vecs, min(m, -(-SMS * RESIDENT_THREADS // threads))
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,6 +131,27 @@ def cost(x_shape, dtype, *, add_dtype=None, out_dtype=None
             float(m * d * per_row + d * ex))
 
 
+def bwd_cost(x_shape, dtype, *, add_dtype=None, out_dtype=None,
+             residual=True) -> tuple[float, float]:
+    """(FLOPs, bytes) of one K5b call over s (..., d) of ``dtype`` (w of
+    the same), h of ``out_dtype`` (default s's), the forward's residual
+    of ``add_dtype`` (None: no add, so no ga) and a cotangent of s along
+    the residual (``residual``): 11 operations a value; s, gh, gs and w
+    read once, gx, ga and gw written once. The fp32 partials of gw the
+    kernel exchanges through memory are its own overhead, not counted."""
+    d = x_shape[-1]
+    m = 1
+    for n in x_shape[:-1]:
+        m *= n
+    ex = dtype.itemsize
+    per_row = 2 * ex + (out_dtype or dtype).itemsize
+    if residual:
+        per_row += ex
+    if add_dtype is not None:
+        per_row += add_dtype.itemsize
+    return 11.0 * m * d, float(m * d * per_row + 2 * d * ex)
+
+
 def _pointer(what: str, t: torch.Tensor, card: int, align: int = 16) -> int:
     """t's address, after :func:`_build.check_operand`'s checks of
     device, layout and alignment (its dtype is checked by the caller) and
@@ -154,3 +202,59 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
     """x (..., d), w (d,) on the card; d % 8 == 0. Returns x's dtype."""
     return add_rmsnorm(x, None, w, eps=eps)[1]
+
+
+def check_bwd(s: torch.Tensor, w: torch.Tensor, gh: torch.Tensor,
+              gs: torch.Tensor | None, add_dtype: torch.dtype | None
+              ) -> None:
+    """K5b's contract, held by the plain version too: the forward's
+    (:func:`check_shapes`, h of gh's dtype) and the cotangents of s's
+    shape, gs of s's dtype."""
+    _contract(s.shape[-1], w.shape, s.dtype, add_dtype, w.dtype, gh.dtype)
+    if gh.shape != s.shape or (gs is not None and gs.shape != s.shape):
+        raise ValueError(f"add_rmsnorm_bwd: cotangent shapes "
+                         f"{tuple(gh.shape)}, "
+                         f"{None if gs is None else tuple(gs.shape)} != s "
+                         f"shape {tuple(s.shape)}")
+    if gs is not None and gs.dtype != s.dtype:
+        raise TypeError(f"add_rmsnorm_bwd: gs dtype {gs.dtype} != s dtype "
+                        f"{s.dtype}")
+
+
+def add_rmsnorm_bwd(s: torch.Tensor, w: torch.Tensor, gh: torch.Tensor,
+                    gs: torch.Tensor | None = None, *,
+                    add_dtype: torch.dtype | None = None, eps: float = 1e-6
+                    ) -> tuple[torch.Tensor, torch.Tensor | None,
+                               torch.Tensor]:
+    """K5b on the card: s (..., d) — the forward's sum, or its x where it
+    had no add —, w (d,) of s's dtype, gh (s's shape, h's dtype) and gs
+    (s's shape and dtype, or None). Returns (gx, ga, gw): gx in s's
+    dtype, ga in ``add_dtype`` (None when the forward had no add), gw in
+    w's dtype."""
+    global bwd_launches
+    check_bwd(s, w, gh, gs, add_dtype)
+    card = s.get_device()
+    sp, wp = _pointer("rmsnorm_bwd s", s, card), _pointer("rmsnorm_bwd w",
+                                                         w, card)
+    ghp = _pointer("rmsnorm_bwd gh", gh, card,
+                   16 * gh.element_size() // s.element_size())
+    gsp = None if gs is None else _pointer("rmsnorm_bwd gs", gs, card)
+    gx = torch.empty_like(s)
+    ga = None if add_dtype is None else torch.empty_like(s, dtype=add_dtype)
+    gw = torch.empty_like(w)
+    d = s.shape[-1]
+    m = s.numel() // d
+    if m == 0:
+        return gx, ga, gw.zero_()
+    threads, vecs, blocks = bwd_launch_plan(m, d, s.element_size())
+    part = torch.empty((blocks, d), dtype=torch.float32, device=s.device)
+    xt, at, ht, _, _ = _launch_args(d, s.dtype, add_dtype, gh.dtype)
+    lib = _build.load("rmsnorm", _SIG)
+    _build.launch(
+        lib, "add_rmsnorm_bwd_launch", "add_rmsnorm_bwd", s.device, sp, wp,
+        ghp, gsp, gx.data_ptr(), None if ga is None else ga.data_ptr(),
+        gw.data_ptr(), part.data_ptr(), m, d, float(eps), xt, at, ht,
+        threads, vecs, blocks, _build.stream_handle(s))
+    with _build.COUNTING:
+        bwd_launches += 1
+    return gx, ga, gw

@@ -1,28 +1,29 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> ...``.
 
 Counterpart of ``repro/launch/serve.py``: stands up the continuous-
-batching engine (``serving/engine.py``) on a registry model with random
-weights from ``--seed``, drives a synthetic request workload and reports
-the serving metrics (TTFT, tokens/s, QPS). Runs on the card unless
-``--device cpu`` is given. Restoring weights from a training checkpoint
-(the reference's ``--ckpt-dir``) waits for the port's checkpoint module.
+batching engine (``serving/engine.py``) on a registry model — random
+weights from ``--seed``, or a training checkpoint's (``--ckpt-dir``: the
+newest valid step's ``params``, read as the reference reads them, from
+a file either package wrote) — drives a synthetic request workload and
+reports the serving metrics (TTFT, tokens/s, QPS). Runs on the card
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.models import model as MD
+from repro_torch.optim import AdamW, OptConfig
 from repro_torch.serving import EngineConfig, ServingEngine
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="--ckpt-dir (serving weights from a training checkpoint) "
-               "is not available yet: the port has no checkpoint module.")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b",
                     help="registry model id: the dense, MoE and vlm "
                     "decoders (rolling sliding windows too, e.g. "
@@ -34,6 +35,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--capacity", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore params from the latest checkpoint (a "
+                         "directory without a valid one is refused)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-cache", default="contiguous",
                     choices=("contiguous", "paged"),
@@ -51,6 +55,15 @@ def main(argv=None):
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
     params = MD.init_params(cfg, seed=args.seed, device=args.device)
+    if args.ckpt_dir:
+        if not os.path.isdir(args.ckpt_dir):
+            ap.error(f"--ckpt-dir {args.ckpt_dir}: no such directory")
+        like = {"params": params, "opt": AdamW(OptConfig()).init(params)}
+        step, got = CheckpointManager(args.ckpt_dir).restore_latest(like)
+        if got is None:
+            ap.error(f"--ckpt-dir {args.ckpt_dir}: no valid checkpoint")
+        params = got["params"]
+        print(f"serving weights from checkpoint step {step}")
     eng = ServingEngine(params, cfg, EngineConfig(
         max_batch=args.slots, max_seq_len=args.capacity,
         max_new_tokens=args.max_new, kv_cache=args.kv_cache,

@@ -221,15 +221,59 @@ def embed_tokens(p, tokens: torch.Tensor, vocab: int | None = None
     return H.embed(p["table"], tokens, vocab)
 
 
+class _HeadLogits(torch.autograd.Function):
+    """bf16 hidden rows x2 (M, d) against the bf16 head (V, d) on the
+    card: fp32 logits from ``torch.mm(..., out_dtype=float32)`` (each
+    product exact, accumulated in fp32, never rounded to bf16), as the
+    serving path computes them. Its backward is explicit — that overload
+    of ``mm`` is not known to have a derivative — and in fp32: the fp32
+    cotangent against the head and the hidden rows, each cast to its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head.T, out_dtype=torch.float32)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        gx = gh = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ head.float()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gh = (g.T @ x2.float()).to(head.dtype)
+        return gx, gh
+
+
 def logits_from_hidden(head_table: torch.Tensor, x: torch.Tensor
                        ) -> torch.Tensor:
     """head_table (V, d); x (..., d). fp32 logits, accumulated in fp32
-    and never rounded to a narrower type on the way."""
+    and never rounded to a narrower type on the way; differentiable on
+    every path (the bf16 one on the card through :class:`_HeadLogits`)."""
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         out = x2 @ head_table.T
-    elif x.is_cuda:
-        out = torch.mm(x2, head_table.T, out_dtype=torch.float32)
-    else:
+    elif not x.is_cuda:
         out = x2.float() @ head_table.float().T
+    elif torch.is_grad_enabled() and (x.requires_grad
+                                      or head_table.requires_grad):
+        out = _HeadLogits.apply(x2, head_table)
+    else:
+        out = torch.mm(x2, head_table.T, out_dtype=torch.float32)
     return out.reshape(*x.shape[:-1], head_table.shape[0])
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """logits fp32 (..., V), labels integer (...,): the mean negative log
+    likelihood over the positions ``mask`` keeps (all when None; at least
+    one counted), as the reference's."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -42,6 +42,13 @@ bitwise the exact-length prompt's.
 - ``decode_step(params, cfg, tokens, cache, live=)`` -> (logits, cache)
 - ``verify_tokens(params, cfg, tokens, cache, live=)`` -> (logits
   (B, S, V), cache); ``self_draft_params`` -> the self-draft pair
+- ``forward(params, cfg, batch, attn_impl=)`` -> full-sequence fp32
+  logits (B, S, V) and ``loss_fn(params, cfg, batch)`` -> (loss,
+  metrics): the training path, differentiable end to end — the norms'
+  K5 with its backward K5b, attention by ``attn_impl`` (``"chunked"``:
+  :func:`~repro_torch.models.attention.chunked_attention`), each layer
+  under ``cfg.remat``'s activation checkpointing (:func:`_remat`);
+  ``make_dummy_batch`` -> a random batch of a kind
 
 The reference's ``lax.scan`` over the stacked layer axis is a Python
 loop over ``L`` here, and caches are written in place. Paged pools
@@ -53,8 +60,12 @@ only, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import hints as H
@@ -62,7 +73,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
-from repro_torch.models.attention import (attention, decode_attention,
+from repro_torch.models.attention import (attention, bf16_grad,
+                                          decode_attention,
                                           gather_kv_blocks,
                                           prefill_over_cache)
 
@@ -207,6 +219,19 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked subtree, each leaf split
+    along its leading axis by one ``torch.unbind`` (under autograd one
+    backward node a leaf, which stacks the layers' gradients at once)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if tree.shape[0] != n:
+        raise ValueError(f"stacked leaf of {tree.shape[0]} layers, "
+                         f"expected {n}")
+    return list(torch.unbind(tree, 0))
+
+
 def blocks(params, cfg) -> list:
     """Every decoder block's params in layer order: the leading dense
     ``first_layers``, then each layer of the stack — cache layer ``i``
@@ -273,15 +298,20 @@ def _out_proj(p, cfg, o, mm=torch.matmul):
 
 
 def attn_full(p, cfg, x, *, positions, causal=True, window=None,
-              kv_x=None, mm=torch.matmul):
+              kv_x=None, mm=torch.matmul, attn_impl="pallas"):
     """Full-sequence attention, or cross-attention over ``kv_x``
-    (non-causal: every query sees every key). Returns (out (B,S,d),
-    (k, v))."""
+    (non-causal: every query sees every key), by ``attn_impl``
+    (:func:`~repro_torch.models.attention.attention`: K3 for serving,
+    ``"chunked"`` to train). Returns (out (B,S,d), (k, v))."""
     q, k, v = _proj_qkv(p, cfg, x, kv_x, mm)
+    if cfg.bf16_grads and x.dtype == torch.bfloat16:
+        q, k, v = bf16_grad(q), bf16_grad(k), bf16_grad(v)
     if _use_rope(cfg):
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=causal, window=window, q_offset=0)
+    o = attention(q, k, v, causal=causal, window=window, q_offset=0,
+                  impl=attn_impl, q_chunk=cfg.attn_chunk,
+                  kv_chunk=cfg.attn_chunk)
     return _out_proj(p, cfg, o.reshape(x.shape[0], x.shape[1], -1),
                      mm), (k, v)
 
@@ -342,19 +372,22 @@ def _apply_ffn(p, cfg, h, mm=torch.matmul):
 # adds, in its order, each fused into the norm that follows it.
 
 def decoder_block(p, cfg, x, delta, *, positions, causal=True,
-                  window=None, enc_out=None, mm=torch.matmul):
+                  window=None, enc_out=None, mm=torch.matmul,
+                  attn_impl="pallas"):
     """One block over a whole sequence. Returns ((residual, MLP output),
     kv): kv is the block's (k, v), and with ``enc_out`` (whisper's
     decoder) also its cross-attention's (k, v) over the encoder output,
     (k, v, xk, xv). ``mm`` computes the dense products (the recurrent
-    prefill's :func:`~repro_torch.models.layers.row_tiled`)."""
+    prefill's :func:`~repro_torch.models.layers.row_tiled`),
+    ``attn_impl`` the attention (:func:`attn_full`)."""
     x, h = L.add_norm(p["ln1"], cfg, x, delta)
     a, kv = attn_full(p["attn"], cfg, h, positions=positions,
-                      causal=causal, window=window, mm=mm)
+                      causal=causal, window=window, mm=mm,
+                      attn_impl=attn_impl)
     if enc_out is not None:
         x, h = L.add_norm(p["ln_x"], cfg, x, a)
         a, xkv = attn_full(p["xattn"], cfg, h, positions=positions,
-                           causal=False, kv_x=enc_out)
+                           causal=False, kv_x=enc_out, attn_impl=attn_impl)
         kv = kv + xkv
     x, h = L.add_norm(p["ln2"], cfg, x, a)
     return (x, _apply_ffn(p, cfg, h, mm)), kv
@@ -383,6 +416,130 @@ def decoder_block_decode(p, cfg, x, delta, k_cache, v_cache, cache_len, *,
                               cross_len)
     x, h = L.add_norm(p["ln2"], cfg, x, a)
     return (x, _apply_ffn(p, cfg, h)), k1, v1
+
+
+# ---------------------------------------------------------------------------
+# the training path: forward and loss
+# ---------------------------------------------------------------------------
+
+# the products "dots" keeps (the reference's checkpoint_dots): what every
+# einsum and matmul of a layer lowers to
+_PRODUCTS = frozenset(
+    getattr(torch.ops.aten, op).default
+    for op in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """``fn`` under ``cfg.remat``'s activation checkpointing (the
+    reference's ``jax.checkpoint`` of a layer body): ``"none"`` keeps
+    every activation; ``"full"`` recomputes the layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the
+    layer's matmul outputs and recomputes the rest (a selective
+    checkpoint whose policy saves ``mm``, ``bmm``, ``addmm`` and
+    ``baddbmm``). A K5 inside runs again in the recompute."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _keep_products)}
+    else:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _block_step(lp, cfg, **kw):
+    """(x, delta) -> (residual, MLP output) of the decoder block ``lp``
+    (:func:`decoder_block` with ``kw``), its K/V dropped."""
+    def step(x, delta):
+        return decoder_block(lp, cfg, x, delta, **kw)[0]
+    return step
+
+
+def _mlstm_step(lp, cfg):
+    def step(x, delta):
+        return X.apply_mlstm(lp, cfg, x, delta)[0]
+    return step
+
+
+def _mamba_step(lp, cfg):
+    """One Zamba2 layer: its ``ln`` (with the pending add), then Mamba2."""
+    def step(x, delta):
+        x, h = L.add_norm(lp["ln"], cfg, x, delta)
+        return x, S.apply_mamba2(lp["mamba"], cfg, h)[0]
+    return step
+
+
+def forward(params, cfg, batch, *, attn_impl="chunked") -> torch.Tensor:
+    """Full-sequence logits (B, S, V) fp32 — the training path
+    (reference ``forward``, ``model.py:344``), differentiable end to end.
+
+    ``batch``: ``tokens`` (B, S_tok); a vlm's ``images`` (B, n_img, d)
+    first, whose positions count; whisper's ``frames`` (B, encoder_len,
+    d) through the encoder. ``attn_impl``: ``"chunked"`` (the plain
+    online-softmax attention, or the naive one for Sq * Skv <= 256²),
+    ``"reference"``, or ``"pallas"`` (K3, which has no backward: for a
+    forward without grad). The layers the reference checkpoints run
+    under :func:`_remat` — the stacked decoder layers (not an MoE's
+    leading dense ones), whisper's encoder and decoder layers, each
+    mLSTM and each Zamba2 Mamba2 layer (not the sLSTMs nor the shared
+    block) — and every RMSNorm is K5 with K5b as its backward."""
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    delta = None
+    fam = cfg.family
+    if fam == "ssm":
+        n_super, n_inner = xlstm_dims(cfg)
+        slstm = (unstack(params["slstm"], n_super) if "slstm" in params
+                 else None)
+        for i, sup in enumerate(unstack(params["mlstm"], n_super)):
+            for lp in unstack(sup, n_inner):
+                x, delta = _remat(cfg, _mlstm_step(lp, cfg))(x, delta)
+            if slstm is not None:
+                (x, delta), _ = X.apply_slstm(slstm[i], cfg, x, delta)
+    elif fam == "hybrid":
+        for grp in unstack(params["mamba"], n_groups(cfg)):
+            for lp in unstack(grp, cfg.attn_every):
+                x, delta = _remat(cfg, _mamba_step(lp, cfg))(x, delta)
+            (x, delta), _ = decoder_block(params["shared"], cfg, x, delta,
+                                          positions=positions,
+                                          attn_impl=attn_impl)
+    else:
+        enc = (_encode_audio(params, cfg, batch["frames"],
+                             attn_impl=attn_impl, train=True)
+               if fam == "audio" else None)
+        kw = dict(positions=positions, window=cfg.sliding_window,
+                  enc_out=enc, attn_impl=attn_impl)
+        for lp in params.get("first_layers", []):
+            x, delta = _block_step(lp, cfg, **kw)(x, delta)
+        n_stack = cfg.n_layers - n_first_layers(cfg)
+        for lp in unstack(params["layers"], n_stack):
+            x, delta = _remat(cfg, _block_step(lp, cfg, **kw))(x, delta)
+    _, h = L.add_norm(params["final_norm"], cfg, x, delta)
+    return _logits(params, cfg, h)
+
+
+def loss_fn(params, cfg, batch, *, attn_impl="chunked"):
+    """Next-token cross-entropy of :func:`forward` against
+    ``batch["labels"]`` (B, S_tok), aligned to the tokens: a vlm's
+    image-prefix positions carry no loss; ``batch["loss_mask"]``, where
+    given, keeps the positions it marks. Returns (loss, {"loss": loss})."""
+    logits = forward(params, cfg, batch, attn_impl=attn_impl)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # a vlm's image prefix
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    loss = L.softmax_cross_entropy(logits, labels, batch.get("loss_mask"))
+    return loss, {"loss": loss}
 
 
 # ---------------------------------------------------------------------------
@@ -535,18 +692,20 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     return x
 
 
-def _encode_audio(params, cfg, frames) -> torch.Tensor:
+def _encode_audio(params, cfg, frames, *, attn_impl="pallas",
+                  train=False) -> torch.Tensor:
     """Whisper's encoder over the frame embeddings (B, T, d): sinusoidal
-    positions, non-causal blocks (K3 without a mask), then ``enc_norm``.
+    positions, non-causal blocks (K3 without a mask, or ``attn_impl``),
+    then ``enc_norm``; each layer under :func:`_remat` when ``train``.
     Returns (B, T, d) in the frames' dtype."""
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames + L.sinusoidal_positions(pos, cfg.d_model)[None].to(
         frames.dtype)
     delta = None
-    enc = params["enc_layers"]
-    for i in range(cfg.n_encoder_layers):
-        (x, delta), _ = decoder_block(layer_params(enc, i), cfg, x, delta,
-                                      positions=pos, causal=False)
+    for lp in unstack(params["enc_layers"], cfg.n_encoder_layers):
+        step = _block_step(lp, cfg, positions=pos, causal=False,
+                           attn_impl=attn_impl)
+        x, delta = (_remat(cfg, step) if train else step)(x, delta)
     return L.add_norm(params["enc_norm"], cfg, x, delta)[1]
 
 
@@ -1044,12 +1203,14 @@ def self_draft_params(params, cfg, n_draft_layers: int):
 # batch construction (specs)
 # ---------------------------------------------------------------------------
 
-def batch_struct(cfg, batch_size, seq_len, kind) -> dict:
-    """Shape/dtype of each leaf of a serve batch of ``kind`` ("decode" or
-    "prefill"): ``seq_len`` counts a vlm's image prefix positions first;
-    whisper's also carries its frames."""
-    if kind not in ("decode", "prefill"):
-        raise ValueError(f"unknown batch kind {kind!r}: decode or prefill")
+def batch_struct(cfg, batch_size, seq_len, kind="train") -> dict:
+    """Shape/dtype of each leaf of a batch of ``kind`` ("train",
+    "prefill" or "decode"): ``seq_len`` counts a vlm's image prefix
+    positions first; whisper's also carries its frames; a train batch
+    adds ``labels``, aligned to the tokens."""
+    if kind not in ("train", "decode", "prefill"):
+        raise ValueError(f"unknown batch kind {kind!r}: train, decode or "
+                         "prefill")
     dt = L.dtype_of(cfg)
     if kind == "decode":
         return {"tokens": ((batch_size, 1), torch.int32)}
@@ -1061,9 +1222,31 @@ def batch_struct(cfg, batch_size, seq_len, kind) -> dict:
     if cfg.family == "audio":
         out["frames"] = ((batch_size, cfg.encoder_len, cfg.d_model), dt)
     out["tokens"] = ((batch_size, s_tok), torch.int32)
+    if kind == "train":
+        out["labels"] = ((batch_size, s_tok), torch.int32)
     return out
 
 
-def batch_spec(cfg, batch_size, seq_len, kind) -> dict:
+def batch_spec(cfg, batch_size, seq_len, kind="train") -> dict:
     """:func:`batch_struct` as meta tensors."""
     return _meta_tree(batch_struct(cfg, batch_size, seq_len, kind))
+
+
+def make_dummy_batch(cfg, batch_size, seq_len, kind="train", *, seed=0,
+                     device="cuda") -> dict:
+    """A random batch of :func:`batch_struct`'s leaves, in its order,
+    from an explicit generator seeded with ``seed``: integer leaves
+    uniform over the vocabulary, the others N(0, 0.01) in their dtype
+    (the reference's values differ: its PRNG stream is JAX's)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, (sh, dt) in batch_struct(cfg, batch_size, seq_len,
+                                       kind).items():
+        if dt == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, sh, generator=gen,
+                                      device=dev, dtype=torch.int32)
+        else:
+            out[name] = (torch.randn(sh, generator=gen, device=dev)
+                         * 0.1).to(dt)
+    return out

@@ -99,3 +99,16 @@ def apply_moe(p, cfg, x):
     if "shared" in p:
         y = y + L.apply_mlp(p["shared"], cfg, xf)
     return y.reshape(b, s, d).to(x.dtype)
+
+
+def aux_load_balance_loss(p, cfg, x) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss of the router ``p``
+    over x (B, S, d): E * sum over experts of (the share of routed slots
+    it takes) * (its mean router probability). The reference's
+    ``loss_fn`` does not add it; a trainer may."""
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"],
+                          dim=-1)
+    ids = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :cfg.moe_top_k]
+    frac = F.one_hot(ids, cfg.n_experts).float().mean((0, 1))
+    return cfg.n_experts * (frac * probs.mean(0)).sum()

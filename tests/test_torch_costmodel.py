@@ -349,14 +349,16 @@ def test_spec_functions_match_reference_structs():
                 (MD.cache_spec(cfg, 2, 48), JMD.cache_spec(jcfg, 2, 48)),
                 (MD.batch_spec(cfg, 2, 40, "prefill"),
                  JMD.batch_spec(jcfg, 2, 40, "prefill")),
+                (MD.batch_spec(cfg, 2, 40, "train"),
+                 JMD.batch_spec(jcfg, 2, 40, "train")),
                 (MD.batch_spec(cfg, 2, 1, "decode"),
                  JMD.batch_spec(jcfg, 2, 1, "decode"))):
             assert got.keys() == want.keys(), arch
             for k in got:
                 assert got[k].is_meta
                 assert tuple(got[k].shape) == tuple(want[k].shape), (arch, k)
-        with pytest.raises(ValueError, match="decode or prefill"):
-            MD.batch_spec(cfg, 2, 40, "train")  # the port serves only
+        with pytest.raises(ValueError, match="unknown batch kind"):
+            MD.batch_spec(cfg, 2, 40, "score")
     cfg = registry.get_smoke_config("qwen1.5-0.5b")
     got = MD.paged_cache_spec(cfg, 2, 40, 16, ragged=True)
     want = JMD.paged_cache_spec(jreg.get_smoke_config("qwen1.5-0.5b"), 2,
