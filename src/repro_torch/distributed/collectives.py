@@ -1,0 +1,154 @@
+"""The collectives of training over a :class:`~repro_torch.distributed.
+mesh.DeviceMesh`, as autograd functions.
+
+A rank's autograd graph never reaches into another rank's: each function
+below makes its collective in ``forward`` on tensors autograd does not
+track, and its ``backward`` makes the transposed collective itself — so
+the other ranks' parts arrive detached, and no rank's backward writes a
+gradient into another's graph. Each carries the rank and its
+:meth:`DeviceMesh.run` call (a :class:`Comm`) in ``ctx``: on the card
+autograd runs a rank's backward on its device's worker thread, where the
+mesh's thread-locals are not the rank's.
+
+Conventions, Megatron's: an activation is *replicated* over an axis
+(every rank of the group holds the same bits, and its gradient comes out
+the same on each) or *split* over it (each rank its chunk, or its
+partial sum).
+
+- :func:`fsdp_gather` — a weight split over ``data`` gathered whole at
+  use: all-gather forward, rank-ordered reduce-scatter backward;
+- :func:`copy_to` — Megatron's *f*, ahead of a product whose columns are
+  split: identity forward, all-reduce backward;
+- :func:`reduce_from` — Megatron's *g*, after a product whose
+  contraction is split: all-reduce forward, identity backward;
+- :func:`gather_from` — split chunks made whole: all-gather forward,
+  the rank's chunk of the gradient backward;
+- :func:`split_to` — a replicated tensor cut to the rank's chunk: slice
+  forward, all-gather of the chunks' gradients backward.
+
+Every sum is the mesh's rank-ordered one, so the ranks of a group get
+the same bits forward and backward.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class Comm(NamedTuple):
+    """A rank of a mesh and the :meth:`DeviceMesh.run` call it serves."""
+    mesh: object
+    rank: int
+    call: object
+
+    def size(self, axis: str) -> int:
+        return len(self.mesh.group(self.rank, axis))
+
+    def index(self, axis: str) -> int:
+        return self.mesh.group(self.rank, axis).index(self.rank)
+
+    def all_gather(self, x, dim, axis):
+        return self.mesh.all_gather(x.contiguous(), dim, axis,
+                                    rank=self.rank, call=self.call)
+
+    def all_reduce(self, x, axis):
+        return self.mesh.all_reduce(x.contiguous(), axis, rank=self.rank,
+                                    call=self.call)
+
+    def reduce_scatter(self, x, dim, axis):
+        return self.mesh.reduce_scatter(x.contiguous(), dim, axis,
+                                        rank=self.rank, call=self.call)
+
+    def chunk(self, x, dim, axis):
+        """The rank's chunk of ``x`` along ``dim``: one of the group's
+        size, in group order."""
+        w = x.shape[dim] // self.size(axis)
+        return x.narrow(dim, self.index(axis) * w, w)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, comm):
+        ctx.dim, ctx.comm = dim, comm
+        return comm.all_gather(x, dim, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g, ctx.dim, "data"), None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, comm):
+        ctx.axis, ctx.comm = axis, comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g, ctx.axis), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, comm):
+        return comm.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, comm):
+        ctx.dim, ctx.axis, ctx.comm = dim, axis, comm
+        return comm.all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm.chunk(g, ctx.dim, ctx.axis).contiguous(), None,
+                None, None)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, comm):
+        ctx.dim, ctx.axis, ctx.comm = dim, axis, comm
+        return comm.chunk(x, dim, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, ctx.axis), None, None, None
+
+
+def _lone(comm: Comm, axis: str) -> bool:
+    return comm.size(axis) == 1
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, comm: Comm) -> torch.Tensor:
+    """``x``, split along ``dim`` over ``data``, gathered whole."""
+    return x if _lone(comm, "data") else _FsdpGather.apply(x, dim, comm)
+
+
+def copy_to(x: torch.Tensor, axis: str, comm: Comm) -> torch.Tensor:
+    """Megatron's *f*: ``x`` as it is, its gradient summed over ``axis``."""
+    return x if _lone(comm, axis) else _Copy.apply(x, axis, comm)
+
+
+def reduce_from(x: torch.Tensor, axis: str, comm: Comm) -> torch.Tensor:
+    """Megatron's *g*: the sum of the group's ``x``, its gradient passed
+    to each as it is."""
+    return x if _lone(comm, axis) else _Reduce.apply(x, axis, comm)
+
+
+def gather_from(x: torch.Tensor, dim: int, axis: str, comm: Comm
+                ) -> torch.Tensor:
+    """The group's chunks of ``x`` concatenated along ``dim``."""
+    return x if _lone(comm, axis) else _Gather.apply(x, dim, axis, comm)
+
+
+def split_to(x: torch.Tensor, dim: int, axis: str, comm: Comm
+             ) -> torch.Tensor:
+    """The rank's chunk of the replicated ``x`` along ``dim``."""
+    return x if _lone(comm, axis) else _Split.apply(x, dim, axis, comm)

@@ -23,32 +23,98 @@ Each is a no-op outside :func:`use_mesh` — every path that runs on one
 device is untouched — and a no-op on a tensor that is already whole (a
 weight the rules left whole). The context is per thread: each rank's
 worker enters it around its own call.
+
+Under ``use_mesh(..., train=True)`` the same sites apply the reference's
+train placements instead (the rules of
+:func:`~repro_torch.distributed.sharding.train_specs`), each through an
+autograd function of :mod:`repro_torch.distributed.collectives`:
+
+- :func:`weights` gathers a layer's weights split over ``data`` (FSDP)
+  whole at use, and reduce-scatters their gradients;
+- :func:`col_input` is Megatron's *f* ahead of a product whose columns
+  (heads, FFN units, vocab) are split over ``model``; :func:`row_input`
+  passes the rank's columns on, and :func:`hidden` is Megatron's *g*,
+  the rank-ordered all-reduce of the row-parallel product's partial
+  sums (``wo`` / ``w_down`` split their contraction over ``model``);
+- :func:`logits` gathers the vocab-split logits, its backward the rank's
+  slice; :func:`embed` sums the vocab-split lookups by *g*;
+- :func:`local_cols` and :func:`moe_buf` cut a replicated tensor to the
+  rank's columns or experts (backward: the chunks' gradients gathered),
+  :func:`moe_gather` gathers the experts' outputs;
+- :func:`data_ranks` and :func:`slot_offsets` size an MoE's capacity
+  and number its slots over the whole microbatch of every data rank, and
+  :func:`sum_over_data` / :func:`sum_over_mesh` make the loss's mean and
+  the gradient's norm global.
+
+The train context carries its rank, so autograd's worker thread — which
+runs a rank's backward and recompute on the card — can restore it
+(:func:`snapshot`, :func:`restored`).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+from typing import NamedTuple
 
 import torch
+
+from repro_torch.distributed import collectives as C
 
 _STATE = threading.local()
 
 
+class _Ctx(NamedTuple):
+    mesh: object
+    attn: str
+    plan: object
+    train: bool
+    comm: object       # collectives.Comm of a train context's rank
+    specs: object      # the train placements' spec tree (whole params)
+
+
 @contextlib.contextmanager
-def use_mesh(mesh, *, attn: str = "heads", plan=None):
+def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
+             specs=None):
     """Arm the hints for the calling rank's model code. ``attn``: how
     this dispatch's KV cache is laid out over ``model`` — ``"heads"``
     (each rank its KV heads), ``"seq"`` (each rank a range of positions;
     q, k and v gathered to every head) or ``"replicated"`` (every head
     and position on every rank). ``plan``: the (batch, KV heads) of the
     whole decode, from which the split-KV kernels take their launch
-    plan on every shard."""
+    plan on every shard.
+
+    ``train``: the train placements, over the params' ``specs`` (the
+    spec tree of the whole params). Around a train step's call, on the
+    controller, it names the mesh :func:`~repro_torch.launch.steps.
+    build_train_step` runs over; inside a rank's worker it also takes
+    the rank and its call from the thread."""
     if attn not in ("heads", "seq", "replicated"):
         raise ValueError(f"unknown attention layout {attn!r}")
+    comm = None
+    if train and mesh.rank() is not None:
+        comm = C.Comm(mesh, mesh.rank(), mesh.current_call())
     prev = getattr(_STATE, "ctx", None)
-    _STATE.ctx = (mesh, attn, plan)
+    _STATE.ctx = _Ctx(mesh, attn, plan, train, comm, specs)
     try:
         yield mesh
+    finally:
+        _STATE.ctx = prev
+
+
+def snapshot():
+    """The calling thread's context, for :func:`restored`."""
+    return _ctx()
+
+
+@contextlib.contextmanager
+def restored(ctx):
+    """``ctx`` (a :func:`snapshot`) armed on the calling thread: a layer's
+    recompute, which autograd runs on its own worker thread on the card,
+    runs the rank's mesh path."""
+    prev = getattr(_STATE, "ctx", None)
+    _STATE.ctx = ctx
+    try:
+        yield
     finally:
         _STATE.ctx = prev
 
@@ -59,17 +125,33 @@ def _ctx():
 
 def current_mesh():
     ctx = _ctx()
-    return None if ctx is None else ctx[0]
+    return None if ctx is None else ctx.mesh
+
+
+def training() -> bool:
+    """Whether the train placements are armed."""
+    ctx = _ctx()
+    return ctx is not None and ctx.train
+
+
+def _comm():
+    """The train context's :class:`~repro_torch.distributed.collectives.
+    Comm`, or None (serving, one device, or the controller)."""
+    ctx = _ctx()
+    return None if ctx is None else ctx.comm
 
 
 def attn_layout() -> str | None:
     """The armed attention layout (None outside a mesh)."""
     ctx = _ctx()
-    return None if ctx is None else ctx[1]
+    return None if ctx is None else ctx.attn
 
 
 def model_index() -> int:
     """The calling rank's coordinate on ``model`` (0 outside a mesh)."""
+    comm = _comm()
+    if comm is not None:
+        return comm.index("model")
     mesh = current_mesh()
     return 0 if mesh is None else mesh.coords(mesh.rank())[1]
 
@@ -89,19 +171,45 @@ def _gather_last(x: torch.Tensor, width: int) -> torch.Tensor:
 def row_input(x: torch.Tensor, width: int) -> torch.Tensor:
     """The activation feeding a row-parallel product whose contraction
     dim is ``width``: gathered whole, so the product contracts every
-    column locally, in one order."""
+    column locally, in one order. Training passes the rank's columns on:
+    its weight holds the matching rows."""
+    if _comm() is not None:
+        if x.shape[-1] != width:
+            raise ValueError(f"row-parallel input of {x.shape[-1]} columns "
+                             f"against {width} weight rows")
+        return x
     return _gather_last(x, width)
 
 
 def hidden(x: torch.Tensor, width: int) -> torch.Tensor:
     """A sublayer's output (..., d_model / model) gathered to
-    ``width`` = d_model on every rank, ahead of the residual add."""
+    ``width`` = d_model on every rank, ahead of the residual add.
+    Training: the row-parallel product's partial sums (..., d_model)
+    summed over ``model`` in rank order (Megatron's *g*)."""
+    comm = _comm()
+    if comm is not None:
+        return C.reduce_from(x, "model", comm)
     return _gather_last(x, width)
+
+
+def col_input(x: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """The replicated activation feeding products whose output columns
+    are split over ``model`` (``split``): in training, Megatron's *f* —
+    its gradient, each rank's partial, summed over ``model``. A no-op
+    outside training or for a product the rules left whole."""
+    comm = _comm()
+    if comm is None or not split:
+        return x
+    return C.copy_to(x, "model", comm)
 
 
 def logits(x: torch.Tensor, vocab: int) -> torch.Tensor:
     """(..., V / model) logits of a vocab-sharded head gathered to the
-    whole vocab."""
+    whole vocab (in training, the gradient's slice back to each rank)."""
+    comm = _comm()
+    if comm is not None:
+        return x if x.shape[-1] == vocab else C.gather_from(
+            x, x.dim() - 1, "model", comm)
     return _gather_last(x, vocab)
 
 
@@ -109,7 +217,13 @@ def heads(x: torch.Tensor, width: int) -> torch.Tensor:
     """A q, k or v projection's columns gathered to ``width`` (its
     config's heads x d_head): in the "seq" and "replicated" layouts the
     shard config keeps every head, and attention needs them all; in
-    "heads" the width is the rank's own and nothing moves."""
+    "heads" — training's only layout — the width is the rank's own and
+    nothing moves."""
+    if _comm() is not None:
+        if x.shape[-1] != width:
+            raise ValueError(f"{x.shape[-1]} projection columns on a rank "
+                             f"of {width}")
+        return x
     return _gather_last(x, width)
 
 
@@ -119,6 +233,9 @@ def local_cols(b: torch.Tensor, n: int) -> torch.Tensor:
     already has ``n`` columns."""
     if b.shape[-1] == n:
         return b
+    comm = _comm()
+    if comm is not None:
+        return C.split_to(b, b.dim() - 1, "model", comm)
     i = model_index()
     return b[..., i * n:(i + 1) * n]
 
@@ -128,6 +245,9 @@ def moe_buf(buf: torch.Tensor, n_local: int) -> torch.Tensor:
     buffer: experts are split over ``model`` in order."""
     if buf.shape[0] == n_local:
         return buf
+    comm = _comm()
+    if comm is not None:
+        return C.split_to(buf, 0, "model", comm)
     i = model_index()
     return buf[i * n_local:(i + 1) * n_local]
 
@@ -138,6 +258,9 @@ def moe_gather(y: torch.Tensor, n_experts: int) -> torch.Tensor:
     mesh = current_mesh()
     if mesh is None or y.shape[0] == n_experts:
         return y
+    comm = _comm()
+    if comm is not None:
+        return C.gather_from(y, 0, "model", comm)
     return mesh.all_gather(y.contiguous(), 0, "model")
 
 
@@ -146,7 +269,8 @@ def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
     """Rows of ``ids`` from a vocab-sharded ``table`` (V / model, d):
     each rank looks up its own id range, zero elsewhere, and the ranks'
     rows are summed in rank order — every token's row is one rank's,
-    exactly, plus zeros."""
+    exactly, plus zeros (in training by Megatron's *g*, so each rank's
+    table rows take the gradient of the tokens in its range)."""
     rows = table.shape[0]
     mesh = current_mesh()
     if mesh is None or rows == vocab:
@@ -157,11 +281,78 @@ def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
     x = table[local.clamp(0, rows - 1)]
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
+    comm = _comm()
+    if comm is not None:
+        return C.reduce_from(x, "model", comm)
     parts = mesh.all_gather(x.unsqueeze(0), 0, "model")
     out = parts[0]
     for p in parts[1:]:
         out = out + p
     return out
+
+
+def weights(tree, *path):
+    """In training, ``tree`` — the params' subtree at ``path``, or one
+    layer of a stacked subtree — with every leaf the placements split
+    over ``data`` gathered whole (FSDP at use; its gradient
+    reduce-scattered back to the shards). ``tree`` itself otherwise."""
+    ctx = _ctx()
+    if ctx is None or ctx.comm is None or ctx.comm.size("data") == 1:
+        return tree
+    specs = ctx.specs
+    for k in path:
+        specs = specs[k]
+    return _gather_data(tree, specs, ctx.comm)
+
+
+def _gather_data(tree, specs, comm):
+    if isinstance(tree, dict):
+        return {k: _gather_data(v, specs[k], comm) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_gather_data(v, s, comm) for v, s in zip(tree, specs)]
+    # a stacked leaf's layer drops the spec's leading (whole) entries
+    for dim, entry in enumerate(specs[len(specs) - tree.dim():]):
+        if entry is not None and "data" in entry:
+            tree = C.fsdp_gather(tree, dim, comm)
+    return tree
+
+
+def data_ranks() -> int:
+    """Ranks the batch is split over in training (1 otherwise)."""
+    comm = _comm()
+    return 1 if comm is None else comm.size("data")
+
+
+def slot_offsets(ids: torch.Tensor, n_experts: int):
+    """Per routed slot of ``ids`` (N, k), the slots the lower data ranks
+    route to its expert — in training over a data-split batch the
+    dispatch numbers slots over the whole microbatch, rank by rank, as
+    the reference's one program does; 0 otherwise."""
+    comm = _comm()
+    if comm is None or comm.size("data") == 1:
+        return 0
+    counts = torch.bincount(ids.reshape(-1), minlength=n_experts)
+    every = comm.all_gather(counts[None], 0, "data")
+    below = every[:comm.index("data")].sum(0)
+    return below[ids.reshape(-1)]
+
+
+def sum_over_data(x: torch.Tensor) -> torch.Tensor:
+    """In training, the data ranks' ``x`` summed in rank order (its
+    gradient passed to each as it is); ``x`` itself otherwise."""
+    comm = _comm()
+    return x if comm is None else C.reduce_from(x, "data", comm)
+
+
+@torch.no_grad()
+def sum_over_mesh(x: torch.Tensor) -> torch.Tensor:
+    """In training, the sum of every rank's ``x`` — over ``model``, then
+    over ``data``, each in rank order, so every rank gets the same bits;
+    ``x`` itself otherwise."""
+    comm = _comm()
+    if comm is None:
+        return x
+    return comm.all_reduce(comm.all_reduce(x, "model"), "data")
 
 
 def kv_offset(c_local: int) -> int:
@@ -183,4 +374,4 @@ def decode_plan():
     """The (batch, KV heads) of the whole decode, or None: the split-KV
     kernels cut a shard's cache where the single device would."""
     ctx = _ctx()
-    return None if ctx is None else ctx[2]
+    return None if ctx is None else ctx.plan

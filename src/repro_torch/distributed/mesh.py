@@ -4,11 +4,14 @@ Counterpart of ``jax.sharding.Mesh`` as the serving engine uses it: one
 controller, one worker thread per rank (``torch.nn.DataParallel``'s
 ``parallel_apply`` idiom). Each rank runs the port's model functions on
 its own shard, under its own device (the current CUDA device is
-thread-local), and the ranks meet only in :meth:`DeviceMesh.all_gather`,
-which concatenates their tensors in fixed rank order onto each rank's
-device. A cross-device ``.to()`` orders itself against both devices'
-current streams, and the barrier in front of it means the producing
-rank has already queued the work that makes its tensor.
+thread-local), and the ranks meet only in its collectives:
+:meth:`DeviceMesh.all_gather`, which concatenates their tensors in fixed
+rank order onto each rank's device, and :meth:`~DeviceMesh.all_reduce`
+and :meth:`~DeviceMesh.reduce_scatter`, which sum them in rank order on
+each rank's device, so every rank gets the same bits. A cross-device
+``.to()`` orders itself against both devices' current streams, and the
+barrier in front of it means the producing rank has already queued the
+work that makes its tensor.
 
 Rank ``r`` sits at ``(data, model) = divmod(r, model_size)``. A device
 may be named more than once: several shards then share it, and a gather
@@ -158,6 +161,12 @@ class DeviceMesh:
         self._queues, self._threads = None, []
 
     # -- collectives -------------------------------------------------------
+    def current_call(self):
+        """The :meth:`run` the calling thread serves (None outside one):
+        a collective made on another thread on a rank's behalf (autograd's
+        worker for the rank's device) passes it, with the rank."""
+        return getattr(self._local, "call", None)
+
     def _exchange(self, grp: tuple) -> _Exchange:
         with self._shared.lock:
             ex = self._shared.exchanges.get(grp)
@@ -166,20 +175,22 @@ class DeviceMesh:
                                                              self.timeout)
             return ex
 
-    def all_gather(self, x: torch.Tensor, dim: int, axis: str
-                   ) -> torch.Tensor:
-        """Called by every rank of the calling rank's ``axis`` group:
-        their ``x`` concatenated along ``dim`` in group order, on the
-        calling rank's device. A group of one returns ``x``."""
-        rank = self.rank()
-        if rank is None:
-            raise RuntimeError("all_gather runs inside DeviceMesh.run")
+    def _meet(self, x, axis, what, rank, call):
+        """Post ``x`` for the calling rank's ``axis`` group and wait for the
+        others: (group, the group's posted tensors in group order, this
+        rank's device). ``rank`` and ``call`` default to the calling
+        thread's."""
+        rank = self.rank() if rank is None else rank
+        call = self.current_call() if call is None else call
+        if rank is None or call is None:
+            raise RuntimeError(f"{what} runs inside DeviceMesh.run, or is "
+                               "given the rank and its call")
         grp = self.group(rank, axis)
+        dev = self.devices[rank]
         if len(grp) == 1:
-            return x
-        call = self._local.call
+            return grp, [x], dev
         if not call.ranks.issuperset(grp):
-            raise RuntimeError(f"all_gather over {axis!r} needs ranks {grp}, "
+            raise RuntimeError(f"{what} over {axis!r} needs ranks {grp}, "
                                f"but this call runs {sorted(call.ranks)}")
         ex = self._exchange(grp)
         if call.aborted:   # a rank failed before this group's barrier
@@ -191,14 +202,62 @@ class DeviceMesh:
         counts[grp] = k + 1
         slots = ex.slots[k % 2]
         slots[grp.index(rank)] = x
+        # the baton is released by whichever thread waits here: the rank's
+        # own, or autograd's worker running the rank's backward while the
+        # rank's thread waits for it
         self._shared.baton.release()
         try:
             ex.barrier.wait()
         finally:
             self._shared.baton.acquire()
-        dev = self.devices[rank]
-        parts = [t if t.device == dev else t.to(dev) for t in slots]
-        return torch.cat(parts, dim)
+        return grp, list(slots), dev
+
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str, *,
+                   rank: int | None = None, call=None) -> torch.Tensor:
+        """Called by every rank of the calling rank's ``axis`` group:
+        their ``x`` concatenated along ``dim`` in group order, on the
+        calling rank's device. A group of one returns ``x``."""
+        grp, parts, dev = self._meet(x, axis, "all_gather", rank, call)
+        if len(grp) == 1:
+            return x
+        return torch.cat([t if t.device == dev else t.to(dev)
+                          for t in parts], dim)
+
+    def all_reduce(self, x: torch.Tensor, axis: str, *,
+                   rank: int | None = None, call=None) -> torch.Tensor:
+        """Called by every rank of the calling rank's ``axis`` group: the
+        sum of their ``x``, added left to right in group order in float32
+        on the calling rank's device and returned in x's dtype — every
+        rank of the group gets the same bits. No float atomics, no
+        library collective. A group of one returns ``x``."""
+        grp, parts, dev = self._meet(x, axis, "all_reduce", rank, call)
+        if len(grp) == 1:
+            return x
+        return _ordered_sum([t.to(dev) for t in parts]).to(x.dtype)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, axis: str, *,
+                       rank: int | None = None, call=None) -> torch.Tensor:
+        """Called by every rank of the calling rank's ``axis`` group,
+        each with ``x`` of the same shape: the calling rank's chunk along
+        ``dim`` (the group's size of them, in group order) of the sum of
+        their ``x``, summed as :meth:`all_reduce` sums. A group of one
+        returns ``x``."""
+        grp, parts, dev = self._meet(x, axis, "reduce_scatter", rank, call)
+        if len(grp) == 1:
+            return x
+        rank = self.rank() if rank is None else rank
+        w = x.shape[dim] // len(grp)
+        i = grp.index(rank) * w
+        return _ordered_sum([t.narrow(dim, i, w).to(dev)
+                             for t in parts]).to(x.dtype)
+
+
+def _ordered_sum(parts) -> torch.Tensor:
+    """parts[0] + parts[1] + ... in float32, left to right."""
+    out = parts[0].float()
+    for p in parts[1:]:
+        out = out + p.float()
+    return out
 
 
 class _Shared:

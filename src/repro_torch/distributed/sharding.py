@@ -1,13 +1,14 @@
-"""Serve-mode sharding rules over the (data, model) mesh, and the shards
-they give each rank.
+"""Sharding rules over the (data, model) mesh — serve mode and train
+mode — and the shards they give each rank.
 
-Counterpart of ``repro/distributed/sharding.py``'s serving half
-(``fsdp_axes``, ``axis_size``, ``_div``, ``_param_spec(serve=True)``,
-``param_shardings``' budget switch, ``cache_shardings``' ``kv_spec`` and
-``pool_shardings``); training's rules come with the training slice. The
-rules work on shapes: a spec is a tuple with one entry per dim, None
-(whole) or the tuple of mesh axes the dim is split over, leading stack
-dims whole. An axis of size 1 splits nothing.
+Counterpart of ``repro/distributed/sharding.py`` over the port's two
+axes (``fsdp_axes``, ``axis_size``, ``_div``, ``_param_spec``,
+``param_shardings`` with its serve budget switch, ``opt_state_shardings``,
+``batch_shardings``, ``cache_shardings``' ``kv_spec``,
+``pool_shardings``, ``replicated``; the ``pod`` axis waits — ROADMAP
+M5c). The rules work on shapes: a spec is a tuple with one entry per
+dim, None (whole) or the tuple of mesh axes the dim is split over,
+leading stack dims whole. An axis of size 1 splits nothing.
 
 Weights follow the reference's "gather-rows" tensor parallelism: every
 product splits its output columns over ``model`` and keeps its
@@ -20,16 +21,26 @@ which split contraction dims over ``data``. The port gathers no weight
 per step: such a placement on a mesh with ``data > 1`` raises
 (:func:`serve_specs`).
 
+Training keeps the reference's rules (``param_specs(serve=False)``):
+FSDP splits contraction dims over ``data``, the row-parallel ``wo`` /
+``w_down`` split their contraction (IN) dim over ``model`` (Megatron's
+partial sums), experts split their FFN dim over ``data``; the optimizer
+moments follow the params, the batch splits its rows over ``data``.
+:func:`train_specs` is the placement the train step realizes (the rules
+of one layer's shapes, the layer stack whole), and
+:func:`check_train_mesh` what it takes.
+
 KV caches put the slot batch over ``data`` and the heads over
 ``model``; when the KV heads do not divide ``model`` a contiguous cache
 splits its positions over ``model`` instead (the sequence-sharded
 decode of :mod:`repro_torch.models.attention`), and a paged pool stays
 whole.
 
-:func:`shard_params` cuts a whole tree into per-rank trees;
+:func:`shard_params` cuts a whole tree into per-rank trees (and
+:func:`shard_tree` any tree by a spec tree: the optimizer state);
 :func:`init_params_sharded` makes each rank's leaves directly on its
 device, so the whole tree of a model that fits no single device never
-exists.
+exists; :func:`gather_tree` reassembles per-rank trees whole.
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ POD, DATA, MODEL = "pod", "data", "model"
 MOE_EXPERT_SHARD = "dff"   # the reference's default: experts' FFN dim
                            # over FSDP, contraction dims whole
 SERVE_BUDGET_BYTES = 8e9
+ROADMAP_TRAIN = "ROADMAP M5c"
 ROADMAP_DATA_SPLIT = ("weights split over 'data' (a model over the serve "
                       "budget on a mesh with data > 1) wait for per-step "
                       "weight gathers — ROADMAP, Queue 1, M4's \"what "
@@ -251,6 +263,134 @@ def serve_specs(params, mesh, *,
     return specs
 
 
+def train_specs(params, mesh):
+    """The placement the train step realizes: the train rules applied to
+    each layer's leaf — a stacked leaf (``params["layers"]``) keeps its
+    layer axis whole and takes the rule of one layer's shape, since the
+    step gathers and runs a layer at a time. :func:`param_specs` applies
+    the rules to the stacked shapes as the reference does, and there
+    they differ: it reads a stacked vector (L, d) — a norm's scale, a
+    bias — as a matrix and splits its layer axis over ``data``, and an
+    MoE's stacked shared experts (L, d, f) as an expert stack; here the
+    vector is whole and the shared experts take the dense MLP's rule."""
+    fsdp = fsdp_axes(mesh)
+
+    def one(names, leaf):
+        shape = tuple(leaf.shape)
+        if names and names[0] == "layers":
+            return (None,) + param_spec(names, shape[1:], mesh, fsdp)
+        return param_spec(names, shape, mesh, fsdp)
+
+    return _map(params, one)
+
+
+def opt_state_specs(opt_state, mesh):
+    """The reference's ``opt_state_shardings``: each moment leaf by the
+    param rules (train mode) at its path — the leading ``mu`` / ``nu``
+    changes no rule —, a scalar (the step) whole."""
+    fsdp = fsdp_axes(mesh)
+
+    def one(names, leaf):
+        if leaf.dim() == 0:
+            return ()
+        return param_spec(names, tuple(leaf.shape), mesh, fsdp)
+
+    return _map(opt_state, one)
+
+
+def train_state_specs(param_spec_tree) -> dict:
+    """The realized placement of an AdamW state over params placed by
+    ``param_spec_tree`` (:func:`train_specs`): each moment as its param,
+    the step whole — so the update stays elementwise on a rank's
+    shard."""
+    return {"mu": param_spec_tree, "nu": param_spec_tree, "step": ()}
+
+
+def batch_spec(shape, mesh) -> tuple:
+    """The reference's ``batch_shardings`` for one leaf: the batch dim
+    over the FSDP axes, else over ``data``, else whole."""
+    if not shape:
+        return ()
+    b = shape[0]
+    fsdp = fsdp_axes(mesh)
+    b_ax = fsdp if _div(b, mesh, fsdp) else (
+        DATA if _div(b, mesh, DATA) else None)
+    return _spec(b_ax, *(None,) * (len(shape) - 1))
+
+
+def batch_specs(batch, mesh):
+    """:func:`batch_spec` of every leaf of ``batch``."""
+    return _map(batch, lambda names, leaf: batch_spec(tuple(leaf.shape),
+                                                      mesh))
+
+
+def replicated(tree):
+    """The reference's ``replicated``: every leaf whole on every rank."""
+    return _map(tree, lambda names, leaf: (None,) * leaf.dim())
+
+
+def check_train_mesh(cfg, mesh) -> None:
+    """What training over ``mesh`` takes: an attention family; query
+    and KV heads and every dense FFN width dividing ``model`` (each rank
+    runs attention on its own heads, the MLP's Megatron pair on its own
+    units); on the card, one device per rank — autograd runs a device's
+    backward on one worker thread, where two ranks' backward collectives
+    would wait for each other."""
+    if cfg.family not in MD.TRANSFORMER_FAMILIES:
+        raise NotImplementedError(
+            f"training family {cfg.family!r} ({cfg.name}) over a mesh waits "
+            f"for its sharding in the port — {ROADMAP_TRAIN} (the recurrent "
+            "and audio families on a mesh)")
+    d, m = _sizes(mesh)[DATA], _sizes(mesh)[MODEL]
+    widths = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
+    if not cfg.is_moe:
+        widths["d_ff"] = cfg.d_ff
+    else:
+        widths["shared experts' d_ff"] = (cfg.n_shared_experts
+                                          * cfg.d_ff_expert)
+        if cfg.first_dense_layers:
+            widths["d_ff_first_dense"] = cfg.d_ff_first_dense or cfg.d_ff
+    bad = {k: v for k, v in widths.items() if v % m}
+    if bad:
+        raise NotImplementedError(
+            f"training {cfg.name} at model={m}: {bad} do not divide "
+            f"model — {ROADMAP_TRAIN}")
+    devs = list(getattr(mesh, "devices", ()))
+    cuda = [x for x in devs if x.type == "cuda"]
+    if len(set(cuda)) != len(cuda):
+        raise ValueError(
+            f"a training mesh of {d}x{m} on {[str(x) for x in devs]} names "
+            "a CUDA device twice: autograd runs each device's backward on "
+            "one worker thread, so two ranks sharing a card would wait for "
+            "each other at their first backward collective")
+
+
+def counted_leaves(specs, mesh, coords) -> list:
+    """Per leaf of ``specs`` (a param or gradient spec tree), in pytree
+    order, whether the rank at ``coords`` counts it in a sum over the
+    mesh: a leaf whole over an axis is counted by the axis's first rank
+    only, so every distinct shard counts once."""
+    pos = dict(zip((DATA, MODEL), coords))
+    out = []
+    for _, spec in spec_leaves(specs):
+        split = {a for e in spec if e is not None for a in e}
+        out.append(all(pos[a] == 0 for a in (DATA, MODEL)
+                       if a not in split))
+    return out
+
+
+def spec_leaves(tree, path=""):
+    """(path, spec) in pytree order (a dict's keys sorted, as
+    :func:`repro_torch.tree.paths` walks)."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in spec_leaves(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in spec_leaves(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
 def _walk_specs(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -390,26 +530,52 @@ def check_family(cfg) -> None:
             "\"what waits\" (whisper and the recurrent families on a mesh)")
 
 
-def shard_params(params, cfg, mesh) -> list:
-    """Per-rank trees of ``params`` (a whole tree, any device) under
-    :func:`serve_specs`, each on its rank's device. A leaf a rank holds
-    whole is the same tensor on every rank of one device; a split leaf
-    is a contiguous copy of the rank's shard."""
-    check_family(cfg)
-    specs = serve_specs(params, mesh)
+def shard_tree(tree, specs, mesh) -> list:
+    """Per-rank trees of ``tree`` (a whole tree, any device) under
+    ``specs``, each on its rank's device. A leaf a rank holds whole is
+    the same tensor on every rank of one device; a split leaf is a
+    contiguous copy of the rank's shard."""
     out = []
     for r in range(mesh.size):
         coords, dev = mesh.coords(r), mesh.devices[r]
 
-        def one(names, leaf, specs=specs):
+        def one(names, leaf):
             spec = _lookup(specs, names)
             if all(split_count(e, mesh) == 1 for e in spec):
                 return leaf.to(dev)
             sl = shard_slices(tuple(leaf.shape), spec, mesh, coords)
             return leaf[sl].to(dev).contiguous()
 
-        out.append(_map(params, one))
+        out.append(_map(tree, one))
     return out
+
+
+def shard_params(params, cfg, mesh) -> list:
+    """Per-rank trees of ``params`` under :func:`serve_specs`."""
+    check_family(cfg)
+    return shard_tree(params, serve_specs(params, mesh), mesh)
+
+
+def gather_tree(per_rank, specs, mesh, device="cpu"):
+    """The whole tree of ``per_rank`` trees placed by ``specs``, on
+    ``device``: each shard copied from the first rank holding it."""
+    dev = torch.device(device)
+
+    def one(names, leaf):
+        spec = _lookup(specs, names)
+        shape = tuple(n * split_count(e, mesh)
+                      for n, e in zip(leaf.shape, spec))
+        out = torch.empty(shape, dtype=leaf.dtype, device=dev)
+        seen = set()
+        for r in range(mesh.size):
+            key = shard_key(spec, mesh, mesh.coords(r))
+            if key not in seen:
+                seen.add(key)
+                sl = shard_slices(shape, spec, mesh, mesh.coords(r))
+                out[sl] = _lookup(per_rank[r], names).to(dev)
+        return out
+
+    return _map(per_rank[0], one)
 
 
 def _lookup(tree, names):
@@ -434,16 +600,20 @@ def _init_kind(names) -> str:
     return "dense"
 
 
-def init_params_sharded(cfg, mesh, *, seed: int = 0) -> list:
+def init_params_sharded(cfg, mesh, *, seed: int = 0, specs=None) -> list:
     """Per-rank trees of random params, each leaf made on its rank's
     device at its shard's shape from a generator seeded per (leaf,
     shard) — ranks holding the same shard hold the same values, and a
     rank holding a whole leaf shares it with the other ranks of its
     device. The values are :func:`~repro_torch.models.model.init_params`'
-    distributions, not its draws; the whole tree is never made."""
+    distributions, not its draws; the whole tree is never made. The
+    placement is ``specs`` (a spec tree of the whole params: to train,
+    :func:`train_specs`' — the optimizer state then comes from
+    ``AdamW.init`` of each rank's tree, zeros of its shards), by default
+    :func:`serve_specs`'."""
     check_family(cfg)
     meta = MD.init_params(cfg, device="meta")
-    specs = serve_specs(meta, mesh)
+    specs = serve_specs(meta, mesh) if specs is None else specs
     made: dict = {}
 
     def one_rank(r):

@@ -340,8 +340,16 @@ def backward_launch_counts() -> dict:
     return {"add_rmsnorm_bwd": _rn.bwd_launches}
 
 
+def rmsnorm_counts_by_card() -> dict:
+    """{card index: (K5 launches, K5b launches)} since the last reset."""
+    return {c: (_rn.by_card.get(c, 0), _rn.bwd_by_card.get(c, 0))
+            for c in sorted(set(_rn.by_card) | set(_rn.bwd_by_card))}
+
+
 def reset_launch_counts() -> None:
     """Every forward and backward count to zero."""
     for mod in _KERNELS.values():
         mod.launches = 0
     _rn.bwd_launches = 0
+    _rn.by_card.clear()
+    _rn.bwd_by_card.clear()

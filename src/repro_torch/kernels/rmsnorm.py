@@ -6,14 +6,15 @@ that precedes every norm of the model but the first fused in:
 ``h = RMSNorm(s) * w``, one pass over memory; ``rmsnorm(x, w)`` is the
 same kernel without the add. ``launches`` counts the kernel launches
 this module made, with or without the add (reset by
-:func:`repro_torch.kernels.ops.reset_launch_counts`).
+:func:`repro_torch.kernels.ops.reset_launch_counts`); ``by_card`` the
+same per CUDA device index (a mesh's ranks, one to a card).
 
 K5b, :func:`add_rmsnorm_bwd`, is its backward (the same source): from
 ``s``, ``w`` and the cotangents of ``h`` and ``s`` it gives those of x,
-a and w; ``bwd_launches`` counts its calls. It has no TPU counterpart —
-it is the gradient XLA derives from the reference's plain RMSNorm — and
-:func:`repro_torch.kernels.ops.add_rmsnorm` runs it as the backward of
-K5 under autograd.
+a and w; ``bwd_launches`` counts its calls (``bwd_by_card`` per card).
+It has no TPU counterpart — it is the gradient XLA derives from the
+reference's plain RMSNorm — and :func:`repro_torch.kernels.ops.
+add_rmsnorm` runs it as the backward of K5 under autograd.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ from repro_torch.kernels import _build
 
 launches = 0
 bwd_launches = 0
+by_card: dict = {}
+bwd_by_card: dict = {}
 
 MAX_D = 8192              # the row stays in registers up to this width
 VECS = (1, 2)             # 16-byte vectors a thread holds (instantiated)
@@ -195,6 +198,7 @@ def add_rmsnorm(x: torch.Tensor, a: torch.Tensor | None, w: torch.Tensor,
         xt, at, ht, threads, vecs, _build.stream_handle(x))
     with _build.COUNTING:
         launches += 1
+        by_card[card] = by_card.get(card, 0) + 1
     return s, h
 
 
@@ -257,4 +261,5 @@ def add_rmsnorm_bwd(s: torch.Tensor, w: torch.Tensor, gh: torch.Tensor,
         threads, vecs, blocks, _build.stream_handle(s))
     with _build.COUNTING:
         bwd_launches += 1
+        bwd_by_card[card] = bwd_by_card.get(card, 0) + 1
     return gx, ga, gw

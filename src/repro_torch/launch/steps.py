@@ -6,7 +6,10 @@ Counterpart of ``repro/launch/steps.py``:
   accumulation over ``cfg.microbatch`` slices of the batch), the
   optional gradient-compression hook, then the AdamW update. Functional
   as the reference's: it takes params and optimizer state and returns
-  new ones; the params passed in need not require grad.
+  new ones; the params passed in need not require grad. Under
+  ``hints.use_mesh(mesh, train=True)`` it trains over a (data, model)
+  mesh: FSDP over ``data``, Megatron tensor parallelism over ``model``
+  (:class:`MeshTrain`).
 - :func:`build_prefill_step` — the prompt's last-token logits and a
   filled cache.
 - :func:`build_serve_step` — one decode token against a cache and its
@@ -17,16 +20,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import hints as H
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.mesh import PerRank
 from repro_torch.models import model as MD
 from repro_torch.optim import AdamW
 
 
-def microbatches(cfg, batch_size: int) -> int:
+def microbatches(cfg, batch_size: int, fsdp: int = 1) -> int:
     """Slices of a batch of ``batch_size`` rows: the largest count up to
-    ``cfg.microbatch`` that divides it (one device: no mesh extent to
-    keep divisible, as the reference's clamp also asks)."""
+    ``cfg.microbatch`` that divides it into slices whose rows divide
+    ``fsdp`` (the mesh's FSDP extent, its ``data`` size) — the
+    reference's ``_clamp_mb``."""
     mb = max(1, min(cfg.microbatch, batch_size))
-    while mb > 1 and batch_size % mb:
+    while mb > 1 and (batch_size % mb or (batch_size // mb) % fsdp):
         mb -= 1
     return mb
 
@@ -44,6 +52,30 @@ def loss_and_grads(params, cfg, batch, *, attn_impl="chunked"):
     return loss.detach(), T.unflatten(params, grads)
 
 
+def _accumulate(params, cfg, parts, *, attn_impl="chunked"):
+    """(loss, gradients) over the microbatches ``parts``: one is
+    :func:`loss_and_grads` of it; more are differentiated in turn, their
+    gradients added in fp32 (the sum, and the loss, then divided by
+    their count after ``reduce``, as the reference's scan)."""
+    if len(parts) == 1:
+        loss, grads = loss_and_grads(params, cfg, parts[0],
+                                     attn_impl=attn_impl)
+        return loss, grads, 1
+    acc = [torch.zeros_like(p, dtype=torch.float32)
+           for p in T.leaves(params)]
+    loss = 0.0
+    for part in parts:
+        li, g = loss_and_grads(params, cfg, part, attn_impl=attn_impl)
+        acc = [a + gi.float() for a, gi in zip(acc, T.leaves(g))]
+        loss = loss + li
+    return loss, T.unflatten(params, acc), len(parts)
+
+
+def _microbatch(batch, mb: int, i: int) -> dict:
+    return {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+            for k, v in batch.items()}
+
+
 def accumulated_grads(params, cfg, batch, *, attn_impl="chunked"):
     """(loss, gradients) of a batch over ``m = microbatches(cfg, B)``
     slices: with m > 1 each slice of B / m rows is differentiated in
@@ -51,18 +83,118 @@ def accumulated_grads(params, cfg, batch, *, attn_impl="chunked"):
     by m, as the reference's scan does (the gradients are then fp32);
     with m == 1, :func:`loss_and_grads` of the whole batch."""
     mb = microbatches(cfg, batch["tokens"].shape[0])
-    if mb == 1:
-        return loss_and_grads(params, cfg, batch, attn_impl=attn_impl)
-    acc = [torch.zeros_like(p, dtype=torch.float32)
-           for p in T.leaves(params)]
-    loss = 0.0
-    for i in range(mb):
-        part = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
-                for k, v in batch.items()}
-        li, g = loss_and_grads(params, cfg, part, attn_impl=attn_impl)
-        acc = [a + gi.float() for a, gi in zip(acc, T.leaves(g))]
-        loss = loss + li
-    return loss / mb, T.unflatten(params, [a / mb for a in acc])
+    loss, grads, n = _accumulate(
+        params, cfg, [_microbatch(batch, mb, i) for i in range(mb)],
+        attn_impl=attn_impl)
+    if n == 1:
+        return loss, grads
+    return loss / n, T.tree_map(lambda a: a / n, grads)
+
+
+# ---------------------------------------------------------------------------
+# over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def mesh_microbatches(batch, mb: int, data: int) -> list:
+    """``[data rank][microbatch]`` row slices of a global ``batch``, the
+    reference's order: the batch cut into ``mb`` microbatches of
+    consecutive rows first, then each microbatch's rows into ``data``
+    consecutive blocks. (The other order would give an MoE dispatch
+    other tokens, and so other drops.)"""
+    b = batch["tokens"].shape[0]
+    if b % (mb * data):
+        raise ValueError(f"a batch of {b} rows does not split into {mb} "
+                         f"microbatches over data={data}")
+    w = b // (mb * data)
+    return [[{k: v[i * data * w + j * w:i * data * w + (j + 1) * w]
+              for k, v in batch.items()} for i in range(mb)]
+            for j in range(data)]
+
+
+class MeshTrain:
+    """The train placements of ``cfg`` over ``mesh``: the spec trees of
+    the params (:func:`~repro_torch.distributed.sharding.train_specs`)
+    and of the AdamW state, and the config each rank runs (its own query
+    and KV heads)."""
+
+    def __init__(self, cfg, mesh):
+        SH.check_train_mesh(cfg, mesh)
+        self.mesh, self.cfg = mesh, cfg
+        self.specs = SH.train_specs(MD.init_params(cfg, device="meta"),
+                                    mesh)
+        self.state_specs = SH.train_state_specs(self.specs)
+        m = mesh.shape[1]
+        self.rank_cfg = cfg.replace(n_heads=cfg.n_heads // m,
+                                    n_kv_heads=cfg.n_kv_heads // m)
+
+    def shard(self, params, opt_state=None):
+        """Per-rank trees of whole ``params`` (and ``opt_state``)."""
+        p = SH.shard_tree(params, self.specs, self.mesh)
+        if opt_state is None:
+            return p
+        return p, SH.shard_tree(opt_state, self.state_specs, self.mesh)
+
+    def gather(self, per_rank, device="cpu"):
+        """The whole params (or gradients) of per-rank trees."""
+        return SH.gather_tree(per_rank, self.specs, self.mesh, device)
+
+    def grads(self, params, rank, parts, *, attn_impl="chunked"):
+        """On ``rank``'s worker, in its train context: (loss, gradients)
+        of its shard ``params`` over its microbatches ``parts``. Leaves
+        the placements split over ``data`` arrive reduce-scattered from
+        their gathers' backward; the others — whole over ``data`` — are
+        summed over ``data`` here, once, after the accumulation."""
+        loss, grads, n = _accumulate(params, self.rank_cfg, parts,
+                                     attn_impl=attn_impl)
+        comm = C.Comm(self.mesh, rank, self.mesh.current_call())
+        sp = SH.spec_leaves(self.specs)
+        out = []
+        for (_, spec), g in zip(sp, T.leaves(grads)):
+            if not any(e is not None and SH.DATA in e for e in spec):
+                g = comm.all_reduce(g, SH.DATA)
+            out.append(g / n if n > 1 else g)
+        return (loss / n if n > 1 else loss), T.unflatten(grads, out)
+
+    def step(self, opt, params, opt_state, parts, rank, *,
+             attn_impl="chunked"):
+        """On ``rank``'s worker: :meth:`grads`, then AdamW on the rank's
+        shard with the global norm. Returns (params, opt_state, metrics,
+        gradients), the metrics the same bits on every rank."""
+        loss, grads = self.grads(params, rank, parts, attn_impl=attn_impl)
+        counted = SH.counted_leaves(self.specs, self.mesh,
+                                    self.mesh.coords(rank))
+        p, s, stats = opt.apply(grads, opt_state, params, counted=counted)
+        return p, s, {"loss": loss, **stats}, grads
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on every rank's worker, in its train context."""
+        def one(r):
+            with H.use_mesh(self.mesh, train=True, specs=self.specs):
+                return fn(r)
+        return self.mesh.run(one)
+
+
+def mesh_train(cfg) -> MeshTrain:
+    """The :class:`MeshTrain` of ``cfg`` over the mesh armed on the
+    calling thread (``hints.use_mesh(mesh, train=True)``), made once a
+    mesh (kept on it)."""
+    mesh = H.current_mesh()
+    made = mesh.__dict__.setdefault("_train_placements", {})
+    if cfg not in made:
+        made[cfg] = MeshTrain(cfg, mesh)
+    return made[cfg]
+
+
+def mesh_parts(mt: MeshTrain, batch) -> list:
+    """Each rank's microbatches of the global ``batch``
+    (``microbatches(cfg, B, data)`` of them, :func:`mesh_microbatches`'
+    rows), on its device."""
+    data = mt.mesh.shape[0]
+    mb = microbatches(mt.cfg, batch["tokens"].shape[0], data)
+    rows = mesh_microbatches(batch, mb, data)
+    return [[{k: v.to(mt.mesh.devices[r]) for k, v in part.items()}
+             for part in rows[mt.mesh.coords(r)[0]]]
+            for r in range(mt.mesh.size)]
 
 
 def build_train_step(cfg, opt: AdamW, *, attn_impl="chunked",
@@ -70,8 +202,31 @@ def build_train_step(cfg, opt: AdamW, *, attn_impl="chunked",
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`accumulated_grads`, then
     ``grad_compression(grads, opt_state) -> (grads, opt_state)`` where
-    given, then the AdamW update."""
+    given, then the AdamW update.
+
+    Under ``hints.use_mesh(mesh, train=True)`` the step runs over the
+    mesh: ``params`` and ``opt_state`` are per-rank trees placed by
+    :class:`MeshTrain` (``shard`` them, or make them with
+    ``sharding.init_params_sharded(..., specs=MeshTrain(...).specs)``
+    and ``opt.init`` of each), ``batch`` the global batch. Each rank
+    accumulates its rows of every microbatch (:func:`mesh_microbatches`)
+    in fp32, its gradients are reduced over ``data`` once, and AdamW
+    runs on its shard with the global norm (:meth:`MeshTrain.step`); the
+    step returns per-rank trees and the metrics, the same bits on every
+    rank (rank 0's)."""
     def train_step(params, opt_state, batch):
+        if H.training():
+            if grad_compression is not None:
+                raise NotImplementedError(
+                    "gradient compression over a mesh waits for its place "
+                    f"in the reduction — {SH.ROADMAP_TRAIN}")
+            mt = mesh_train(cfg)
+            parts = mesh_parts(mt, batch)
+            outs = mt.run(lambda r: mt.step(opt, params[r], opt_state[r],
+                                            parts[r], r,
+                                            attn_impl=attn_impl))
+            return (PerRank(o[0] for o in outs),
+                    PerRank(o[1] for o in outs), outs[0][2])
         loss, grads = accumulated_grads(params, cfg, batch,
                                         attn_impl=attn_impl)
         if grad_compression is not None:

@@ -134,7 +134,10 @@ def apply_mlp(p, cfg, x, mm=torch.matmul):
     recurrent prefill passes :func:`row_tiled`). On a mesh the hidden
     units are the rank's columns: they are gathered whole before
     ``w_down`` (a row-parallel product that keeps its contraction
-    whole), and its output columns gathered to x's width."""
+    whole), and its output columns gathered to x's width. In training
+    ``w_down`` holds the rank's rows instead: x passes Megatron's *f*,
+    and the partial sums of ``w_down`` its *g*."""
+    x = H.col_input(x)
     act = cfg.activation
     if act in GATED:
         g = mm(x, p["w_gate"])
@@ -269,10 +272,18 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor | None = None) -> torch.Tensor:
     """logits fp32 (..., V), labels integer (...,): the mean negative log
     likelihood over the positions ``mask`` keeps (all when None; at least
-    one counted), as the reference's."""
+    one counted), as the reference's. In training over a data-split
+    batch the mean is the whole batch's: each rank's sum and count are
+    summed over ``data`` before the divide (ranks may keep different
+    counts of positions)."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
+    if H.data_ranks() > 1:
+        keep = (torch.ones_like(nll) if mask is None
+                else mask.to(nll.dtype))
+        total = H.sum_over_data((nll * keep).sum())
+        return total / torch.clamp(H.sum_over_data(keep.sum()), min=1.0)
     if mask is None:
         return nll.mean()
     mask = mask.to(nll.dtype)

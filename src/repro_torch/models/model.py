@@ -247,13 +247,19 @@ def _head(params, cfg):
 
 def _logits(params, cfg, h):
     """fp32 logits (..., V) of the final hidden ``h``: on a mesh the
-    vocab-sharded head's columns gathered to the whole vocab."""
-    return H.logits(L.logits_from_hidden(_head(params, cfg), h),
-                    cfg.vocab_size)
+    vocab-sharded head's columns gathered to the whole vocab (in
+    training the head gathered over ``data`` first, and ``h`` behind
+    Megatron's *f*)."""
+    head = H.weights(_head(params, cfg),
+                     *(("embed", "table") if cfg.tie_embeddings
+                       else ("head",)))
+    h = H.col_input(h, head.shape[0] != cfg.vocab_size)
+    return H.logits(L.logits_from_hidden(head, h), cfg.vocab_size)
 
 
 def _embed(params, cfg, tokens):
-    return L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
+    return L.embed_tokens(H.weights(params["embed"], "embed"), tokens,
+                          cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +282,8 @@ def _proj_qkv(p, cfg, x, kv_x=None, mm=torch.matmul):
     """x: (B,S,d); ``kv_x`` (B,Skv,d), the keys' and values' input for
     cross-attention (x itself when None). Returns q (B,S,Hq,Dh), k/v
     (B,Skv,Hkv,Dh), each on a mesh as :func:`_proj_q` says."""
-    kv_x = x if kv_x is None else kv_x
+    x = H.col_input(x)
+    kv_x = x if kv_x is None else H.col_input(kv_x)
     b, skv, _ = kv_x.shape
     width = cfg.n_kv_heads * cfg.d_head
     k = H.heads(mm(kv_x, p["wk"]), width)
@@ -452,16 +459,27 @@ def _remat(cfg, fn):
     else:
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
+    # the recompute runs where autograd runs the backward — on the card
+    # its device's worker thread — under the forward's mesh context
+    ctx = H.snapshot()
+
+    def body(*args):
+        with H.restored(ctx):
+            return fn(*args)
+
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
     return run
 
 
-def _block_step(lp, cfg, **kw):
+def _block_step(lp, cfg, where=(), **kw):
     """(x, delta) -> (residual, MLP output) of the decoder block ``lp``
-    (:func:`decoder_block` with ``kw``), its K/V dropped."""
+    (:func:`decoder_block` with ``kw``), its K/V dropped. ``where``: the
+    block's path in the params; in training over a mesh its weights
+    split over ``data`` are gathered here, inside the layer's
+    checkpoint, so a recompute gathers them again."""
     def step(x, delta):
-        return decoder_block(lp, cfg, x, delta, **kw)[0]
+        return decoder_block(H.weights(lp, *where), cfg, x, delta, **kw)[0]
     return step
 
 
@@ -520,11 +538,13 @@ def forward(params, cfg, batch, *, attn_impl="chunked") -> torch.Tensor:
                if fam == "audio" else None)
         kw = dict(positions=positions, window=cfg.sliding_window,
                   enc_out=enc, attn_impl=attn_impl)
-        for lp in params.get("first_layers", []):
-            x, delta = _block_step(lp, cfg, **kw)(x, delta)
+        for i, lp in enumerate(params.get("first_layers", [])):
+            x, delta = _block_step(lp, cfg, ("first_layers", i), **kw)(
+                x, delta)
         n_stack = cfg.n_layers - n_first_layers(cfg)
         for lp in unstack(params["layers"], n_stack):
-            x, delta = _remat(cfg, _block_step(lp, cfg, **kw))(x, delta)
+            x, delta = _remat(cfg, _block_step(lp, cfg, ("layers",), **kw))(
+                x, delta)
     _, h = L.add_norm(params["final_norm"], cfg, x, delta)
     return _logits(params, cfg, h)
 

@@ -9,7 +9,8 @@ the moments stored in ``moment_dtype``. Plain tensor code over the
 params tree — ``torch.optim.AdamW`` decays every leaf and has neither
 the clip nor the schedule. The state is a tree of the params' structure
 (``mu``, ``nu``) and an int32 ``step``, as the reference's, so its
-checkpoints carry the same leaves.
+checkpoints carry the same leaves. Over a mesh it runs on each rank's
+shards, its norm global (``apply``'s ``counted``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import hints as H
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -67,13 +69,30 @@ class AdamW:
                                     device=first.device)}
 
     @torch.no_grad()
-    def apply(self, grads, state, params):
+    def apply(self, grads, state, params, *, counted=None):
         """One step. Returns (new params, new state, {"grad_norm",
         "lr"}); nothing is updated in place, and nothing waits for the
-        card."""
+        card.
+
+        Over a mesh (in a rank's training context) each tree is the
+        rank's shards and ``counted`` says, per leaf in pytree order,
+        whether this rank counts it in the global norm (a leaf whole
+        over an axis counts on one rank of it: :func:`~repro_torch.
+        distributed.sharding.counted_leaves`): the rank's squares are
+        summed in pytree order, then over the mesh in rank order, so
+        every rank clips by the same norm; the update stays elementwise
+        on the shard."""
         c = self.cfg
         step = state["step"] + 1
-        gsq = sum(g.float().square().sum() for g in T.leaves(grads))
+        leaves = T.leaves(grads)
+        if counted is None:
+            gsq = sum(g.float().square().sum() for g in leaves)
+        else:
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=state["step"].device)
+            gsq = H.sum_over_mesh(sum(
+                (g.float().square().sum()
+                 for g, keep in zip(leaves, counted) if keep), zero))
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)

@@ -26,13 +26,14 @@ GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-6, 1e-6
 BATCH, SEQ = 2, 48
 
 
-def family(arch, seq=SEQ, **kw):
+def family(arch, seq=SEQ, batch=BATCH, **kw):
     """(port cfg, port params requiring grad, port batch, JAX cfg, JAX
-    params, JAX batch) of ``arch``'s float32 smoke model."""
+    params, JAX batch) of ``arch``'s float32 smoke model, ``batch`` rows
+    of ``seq`` tokens."""
     jcfg = jreg.get_smoke_config(arch).replace(dtype="float32", **kw)
     cfg = treg.get_smoke_config(arch).replace(dtype="float32", **kw)
     jp = JMD.init_params(jax.random.PRNGKey(3), jcfg)
-    jb = JMD.make_dummy_batch(jax.random.PRNGKey(5), jcfg, BATCH, seq,
+    jb = JMD.make_dummy_batch(jax.random.PRNGKey(5), jcfg, batch, seq,
                               "train")
     params = params_from_jax(jax.device_get(jp), cfg, device="cpu")
     batch = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}

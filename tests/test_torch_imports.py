@@ -47,3 +47,17 @@ def test_w4_example_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tw4.run(n_steps=1, verbose=False)
+
+
+def test_mesh_training_files_are_checked():
+    """The mesh-training slice's files are in the checked set: its
+    collectives, the train half of the rules, the step, the four-card
+    script."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for want in ("src/repro_torch/distributed/collectives.py",
+                 "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/distributed/hints.py",
+                 "src/repro_torch/distributed/mesh.py",
+                 "src/repro_torch/launch/steps.py",
+                 "scripts/torch_mesh_train_card.py"):
+        assert want in names, want
