@@ -227,6 +227,16 @@ Phases, one line each (any failure exits non-zero):
    ``examples/torch_train_100m.py --full-100m``, 100 steps, the last 5
    losses' mean at least 0.3 below the first 5's.
 
+15. mesh_train — training over a mesh on the one card, in phase 14's
+   process: a CUDA training mesh takes one device per rank, so (1, 1)
+   and (1, 1, 1) meshes on ``cuda:0``; one float32 step of the
+   smoke-depth zamba2, xlstm and whisper bitwise the one-device step
+   (params, AdamW state, metrics) with the same K5 / K5b launches, and
+   a checkpoint of the mesh state saved from its shards read into the
+   one-device trainer's state bitwise (at most 60 s). The four-card
+   runs are ``scripts/torch_mesh_train_card.py`` and
+   ``scripts/torch_mesh_train_families_card.py``.
+
 Every engine, cluster and mesh run and every W4 step checks each
 kernel's launch count against what its path must launch. The four-card
 run of the mesh is ``scripts/torch_mesh_card.py``.
@@ -5153,6 +5163,88 @@ def train_example(total) -> None:
                              f"not {LOSS_DROP} lower")
 
 
+MESH_TRAIN_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-large-v3")
+MESH_TRAIN_SECONDS = 60    # phase 15's own limit
+MESH_TRAIN_SHAPES = ((1, 1), (1, 1, 1))
+
+
+def mesh_train_one_card(total) -> None:
+    """15: training over a mesh on the one card — a CUDA training mesh
+    takes one device per rank, so (1, 1) and (1, 1, 1) meshes on
+    ``cuda:0``. For the smoke-depth zamba2, xlstm and whisper in float32
+    one step of ``build_train_step`` under ``hints.use_mesh(mesh,
+    train=True)`` is the one-device step bit for bit — params, AdamW
+    state, metrics — with the same K5 / K5b launches (some where the
+    family has an RMSNorm); then a checkpoint of the mesh state, saved
+    from its shards (``CheckpointManager.save(..., placement=)``), read
+    into the one-device trainer's state the same bits."""
+    import tempfile
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import hints as H
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.mesh import DeviceMesh, PerRank
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    from repro_torch.optim import AdamW, OptConfig
+    b, s = FAMILY_SHAPE
+    for arch in MESH_TRAIN_ARCHS:
+        phase = f"mesh_train_{arch}"
+        cfg = family_cfg(arch)
+        params = MD.init_params(cfg, seed=SEED, device=TRAIN_DEVICE)
+        batch = MD.make_dummy_batch(cfg, b, s, seed=SEED,
+                                    device=TRAIN_DEVICE)
+        opt = AdamW(OptConfig(lr=3e-3, warmup_steps=1, total_steps=10))
+        step = ST.build_train_step(cfg, opt)
+        (p1, s1, m1), c1, b1 = train_counted(
+            lambda: step(params, opt.init(params), batch))
+        _add(total, {**c1, **b1})
+        rms = path_shape(cfg)[0] > 0
+        for shape in MESH_TRAIN_SHAPES:
+            mesh = DeviceMesh(shape, (TRAIN_DEVICE,))
+            with H.use_mesh(mesh, train=True):
+                (pr, sr, mr), c2, b2 = train_counted(
+                    lambda: step([params], [opt.init(params)], batch))
+            _add(total, {**c2, **b2})
+            same = (all(torch.equal(x, y) for x, y in zip(
+                T.leaves(pr[0]), T.leaves(p1))) and all(
+                torch.equal(x, y) for x, y in zip(T.leaves(sr[0]),
+                                                  T.leaves(s1)))
+                and all(torch.equal(m1[k], mr[k]) for k in m1))
+            what = "x".join(map(str, shape))
+            log(phase, mesh=what, check="step_bitwise_one_device",
+                equal=same, k5=c2["rmsnorm"], k5b=b2["add_rmsnorm_bwd"],
+                one_device_k5=c1["rmsnorm"],
+                one_device_k5b=b1["add_rmsnorm_bwd"],
+                loss=f"{mr['loss'].item():.6f}")
+            if not same or (c2, b2) != (c1, b1) or (
+                    rms and not (c2["rmsnorm"] and b2["add_rmsnorm_bwd"])):
+                raise AssertionError(f"{phase} {what}: the mesh step is not "
+                                     "the one-device step")
+            mt = ST.MeshTrain(cfg, mesh)
+            place = SH.Placement(mesh, {"params": mt.specs,
+                                        "opt_state": mt.state_specs})
+            with tempfile.TemporaryDirectory() as d:
+                t0 = time.perf_counter()
+                CheckpointManager(d).save(
+                    1, PerRank([{"params": pr[0], "opt_state": sr[0]}]),
+                    placement=place)
+                save_s = time.perf_counter() - t0
+                got_step, got = CheckpointManager(d).restore_latest(
+                    {"params": p1, "opt_state": s1})
+            same = got_step == 1 and all(
+                torch.equal(x, y) for x, y in zip(
+                    T.leaves(got), T.leaves({"params": p1,
+                                             "opt_state": s1})))
+            log(phase, mesh=what, check="mesh_checkpoint_one_device_bitwise",
+                equal=same, save_s=f"{save_s:.3f}")
+            if not same:
+                raise AssertionError(f"{phase} {what}: the mesh checkpoint "
+                                     "does not load the one-device state")
+            mesh.close()
+
+
 TRAIN_SECONDS = 600    # the phase's own process ends past this
 TRAIN_COUNTS = "train_counts="
 
@@ -5205,7 +5297,9 @@ def train_phases(card: str) -> dict:
     """Phase 14: single-device training — 14b the float32 gradient gate,
     14c bf16 training with a failure and a restart then serving from its
     checkpoint, and the other families' smoke steps, 14d the 100M
-    example (14a, K5b's table, is in phase 2)."""
+    example (14a, K5b's table, is in phase 2) —; then phase 15, training
+    over a mesh on the one card, in the same process (its bitwise gates
+    under the same deterministic cuBLAS)."""
     import torch
     t0 = time.perf_counter()
     total: dict = {}
@@ -5220,6 +5314,11 @@ def train_phases(card: str) -> dict:
         train_example(total)
     log("train", seconds=f"{time.perf_counter() - t0:.1f}",
         launches=json.dumps(total), card=f"'{card}'")
+    t0 = time.perf_counter()
+    with step_deadline(MESH_TRAIN_SECONDS), deterministic():
+        mesh_train_one_card(total)
+    log("mesh_train", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=f"'{card}'")
     return total
 
 

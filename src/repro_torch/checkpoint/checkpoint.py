@@ -11,6 +11,15 @@ other reads, and reading needs no numpy bfloat16 type. Writes are
 atomic (a temporary name, then ``os.replace``); ``CheckpointManager``
 keeps the newest ``keep`` steps, writes on a background thread when
 asked, and ``restore_latest`` skips a step that fails to load.
+
+A state trained over a mesh — per-rank trees and their
+:class:`~repro_torch.distributed.sharding.Placement` — is saved as the
+same whole-leaf file (``save(..., placement=)``): the shards are copied
+to the host leaf by leaf, synchronously, and assembled there, as the
+reference's ``device_get`` gathers a sharded array; no device holds a
+leaf it does not own. ``restore_latest(like, shardings=)`` re-shards
+what it reads onto a placement's mesh — the same mesh, or another
+device count.
 """
 from __future__ import annotations
 
@@ -186,11 +195,16 @@ class CheckpointManager:
             self._thread = None
 
     def save(self, step: int, tree, *, blocking: bool = True,
-             extra: dict | None = None) -> None:
+             extra: dict | None = None, placement=None) -> None:
         """Copy ``tree`` to the host now (the card's values as of this
-        call); write now, or on a background thread (``blocking=False``)
-        that the next save or :meth:`wait` joins."""
+        call, before any later step writes them); write now, or on a
+        background thread (``blocking=False``) that the next save or
+        :meth:`wait` joins. With ``placement`` (a ``sharding.
+        Placement``), ``tree`` is per-rank trees, gathered whole on the
+        host leaf by leaf."""
         self.wait()
+        if placement is not None:
+            tree = placement.gather(tree, "cpu")
         arrays = _flatten(tree)
         path = self._path(step)
         marker = {"step": step, **(extra or {})}
@@ -214,15 +228,37 @@ class CheckpointManager:
                 except OSError:
                     pass
 
-    def restore_latest(self, like):
+    def restore_latest(self, like, *, shardings=None):
         """(step, tree) from the newest step that loads, each leaf on the
         device of ``like``'s; (None, None) when none does. A step whose
         file fails to load (a partial write whose marker survived, a
-        zip CRC error) is skipped for the one before it."""
+        zip CRC error) is skipped for the one before it.
+
+        With ``shardings`` (a ``sharding.Placement``) the tree read is
+        re-sharded onto its mesh: per-rank trees, each shard on its
+        rank's device. ``like`` is then per-rank trees placed by
+        ``shardings`` (a replay on the same mesh), or a tree of the whole
+        leaves' shapes — meta tensors will do — to restore onto another
+        mesh."""
         self.wait()
+        if shardings is not None:
+            like = _whole_like(like, shardings)
         for step in reversed(self.steps()):
             try:
-                return step, load_pytree(self._path(step), like)
+                tree = load_pytree(self._path(step), like)
             except Exception:  # noqa: BLE001 — corrupt: try older
                 continue
+            if shardings is not None:
+                tree = shardings.shard(tree)
+            return step, tree
         return None, None
+
+
+def _whole_like(like, placement):
+    """A host tree of the whole leaves' shapes and dtypes (no storage):
+    from per-rank trees (a list, one tree a rank) by ``placement``, else
+    ``like``'s own — so the file is read onto the host, then sharded."""
+    if isinstance(like, list):
+        return placement.whole_like(like[0])
+    return T.tree_map(lambda t: torch.empty((), dtype=t.dtype).expand(
+        tuple(t.shape)), like)

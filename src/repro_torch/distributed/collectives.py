@@ -15,25 +15,33 @@ Conventions, Megatron's: an activation is *replicated* over an axis
 the same on each) or *split* over it (each rank its chunk, or its
 partial sum).
 
-- :func:`fsdp_gather` — a weight split over ``data`` gathered whole at
-  use: all-gather forward, rank-ordered reduce-scatter backward;
+- :func:`fsdp_gather` — a weight split over the FSDP axes (``data``,
+  or ``("pod", "data")`` flattened pod-major) gathered whole at use:
+  all-gather forward, rank-ordered reduce-scatter backward;
 - :func:`copy_to` — Megatron's *f*, ahead of a product whose columns are
   split: identity forward, all-reduce backward;
 - :func:`reduce_from` — Megatron's *g*, after a product whose
   contraction is split: all-reduce forward, identity backward;
 - :func:`gather_from` — split chunks made whole: all-gather forward,
-  the rank's chunk of the gradient backward;
+  the rank's chunk of the gradient backward. Where every rank of the
+  group computes the same whole gradient (a layer run whole on each
+  model rank, on the same input), that chunk is the leaf's gradient:
+  no sum;
 - :func:`split_to` — a replicated tensor cut to the rank's chunk: slice
   forward, all-gather of the chunks' gradients backward.
 
 Every sum is the mesh's rank-ordered one, so the ranks of a group get
-the same bits forward and backward.
+the same bits forward and backward. An ``axis`` is one mesh axis or a
+tuple of them, flattened in the order named.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+
+FSDP = ("pod", "data")   # the batch / FSDP group; a two-axis mesh: data
 
 
 class Comm(NamedTuple):
@@ -69,13 +77,14 @@ class Comm(NamedTuple):
 
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, comm):
-        ctx.dim, ctx.comm = dim, comm
-        return comm.all_gather(x, dim, "data")
+    def forward(ctx, x, dim, axes, comm):
+        ctx.dim, ctx.axes, ctx.comm = dim, axes, comm
+        return comm.all_gather(x, dim, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm.reduce_scatter(g, ctx.dim, "data"), None, None
+        return (ctx.comm.reduce_scatter(g, ctx.dim, ctx.axes), None, None,
+                None)
 
 
 class _Copy(torch.autograd.Function):
@@ -126,9 +135,12 @@ def _lone(comm: Comm, axis: str) -> bool:
     return comm.size(axis) == 1
 
 
-def fsdp_gather(x: torch.Tensor, dim: int, comm: Comm) -> torch.Tensor:
-    """``x``, split along ``dim`` over ``data``, gathered whole."""
-    return x if _lone(comm, "data") else _FsdpGather.apply(x, dim, comm)
+def fsdp_gather(x: torch.Tensor, dim: int, comm: Comm, axes=FSDP
+                ) -> torch.Tensor:
+    """``x``, split along ``dim`` over ``axes``, gathered whole."""
+    axes = tuple(axes)
+    return x if _lone(comm, axes) else _FsdpGather.apply(x, dim, axes,
+                                                         comm)
 
 
 def copy_to(x: torch.Tensor, axis: str, comm: Comm) -> torch.Tensor:

@@ -29,20 +29,27 @@ train placements instead (the rules of
 :func:`~repro_torch.distributed.sharding.train_specs`), each through an
 autograd function of :mod:`repro_torch.distributed.collectives`:
 
-- :func:`weights` gathers a layer's weights split over ``data`` (FSDP)
-  whole at use, and reduce-scatters their gradients;
+- :func:`weights` gathers a layer's weights split over the FSDP axes
+  whole at use, and reduce-scatters their gradients; a sublayer that
+  runs whole on every model rank (``sharding.whole_sublayers``, or an
+  MLP its placement keeps whole) comes back as a :class:`Whole` dict,
+  its weights split over ``model`` gathered too — their gradient the
+  rank's slice of the whole one every model rank computes alike, never
+  a sum;
 - :func:`col_input` is Megatron's *f* ahead of a product whose columns
   (heads, FFN units, vocab) are split over ``model``; :func:`row_input`
   passes the rank's columns on, and :func:`hidden` is Megatron's *g*,
   the rank-ordered all-reduce of the row-parallel product's partial
   sums (``wo`` / ``w_down`` split their contraction over ``model``);
+  both are identities for a :class:`Whole` sublayer;
 - :func:`logits` gathers the vocab-split logits, its backward the rank's
   slice; :func:`embed` sums the vocab-split lookups by *g*;
 - :func:`local_cols` and :func:`moe_buf` cut a replicated tensor to the
   rank's columns or experts (backward: the chunks' gradients gathered),
   :func:`moe_gather` gathers the experts' outputs;
 - :func:`data_ranks` and :func:`slot_offsets` size an MoE's capacity
-  and number its slots over the whole microbatch of every data rank, and
+  and number its slots over the whole microbatch of every FSDP rank
+  (``("pod", "data")``, pod-major, as the batch's rows), and
   :func:`sum_over_data` / :func:`sum_over_mesh` make the loss's mean and
   the gradient's norm global.
 
@@ -70,11 +77,23 @@ class _Ctx(NamedTuple):
     train: bool
     comm: object       # collectives.Comm of a train context's rank
     specs: object      # the train placements' spec tree (whole params)
+    whole: frozenset   # sublayer keys run whole over model in training
+
+
+class Whole(dict):
+    """A sublayer's weights gathered whole over ``model`` as well as
+    FSDP (:func:`weights`): every model rank runs it whole on the same
+    input, so no Megatron collective applies inside it."""
+
+
+def whole(p) -> bool:
+    """Whether the sublayer ``p`` runs whole on every model rank."""
+    return isinstance(p, Whole)
 
 
 @contextlib.contextmanager
 def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
-             specs=None):
+             specs=None, whole=frozenset()):
     """Arm the hints for the calling rank's model code. ``attn``: how
     this dispatch's KV cache is laid out over ``model`` — ``"heads"``
     (each rank its KV heads), ``"seq"`` (each rank a range of positions;
@@ -84,17 +103,20 @@ def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
     plan on every shard.
 
     ``train``: the train placements, over the params' ``specs`` (the
-    spec tree of the whole params). Around a train step's call, on the
-    controller, it names the mesh :func:`~repro_torch.launch.steps.
-    build_train_step` runs over; inside a rank's worker it also takes
-    the rank and its call from the thread."""
+    spec tree of the whole params); ``whole``: the sublayer keys that
+    run whole over ``model`` (``sharding.whole_sublayers``). Around a
+    train step's call, on the controller, it names the mesh
+    :func:`~repro_torch.launch.steps.build_train_step` runs over; inside
+    a rank's worker it also takes the rank and its call from the
+    thread."""
     if attn not in ("heads", "seq", "replicated"):
         raise ValueError(f"unknown attention layout {attn!r}")
     comm = None
     if train and mesh.rank() is not None:
         comm = C.Comm(mesh, mesh.rank(), mesh.current_call())
     prev = getattr(_STATE, "ctx", None)
-    _STATE.ctx = _Ctx(mesh, attn, plan, train, comm, specs)
+    _STATE.ctx = _Ctx(mesh, attn, plan, train, comm, specs,
+                      frozenset(whole))
     try:
         yield mesh
     finally:
@@ -141,6 +163,21 @@ def _comm():
     return None if ctx is None else ctx.comm
 
 
+def train_rank() -> int | None:
+    """The calling rank in a train context (None otherwise)."""
+    comm = _comm()
+    return None if comm is None else comm.rank
+
+
+def train_placement():
+    """(the rank's :class:`~repro_torch.distributed.collectives.Comm`,
+    the params' spec tree) in a rank's train context, else None."""
+    ctx = _ctx()
+    if ctx is None or ctx.comm is None:
+        return None
+    return ctx.comm, ctx.specs
+
+
 def attn_layout() -> str | None:
     """The armed attention layout (None outside a mesh)."""
     ctx = _ctx()
@@ -153,7 +190,7 @@ def model_index() -> int:
     if comm is not None:
         return comm.index("model")
     mesh = current_mesh()
-    return 0 if mesh is None else mesh.coords(mesh.rank())[1]
+    return 0 if mesh is None else mesh.coords(mesh.rank())[-1]
 
 
 def _gather_last(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -181,14 +218,17 @@ def row_input(x: torch.Tensor, width: int) -> torch.Tensor:
     return _gather_last(x, width)
 
 
-def hidden(x: torch.Tensor, width: int) -> torch.Tensor:
+def hidden(x: torch.Tensor, width: int, split: bool = True
+           ) -> torch.Tensor:
     """A sublayer's output (..., d_model / model) gathered to
     ``width`` = d_model on every rank, ahead of the residual add.
     Training: the row-parallel product's partial sums (..., d_model)
-    summed over ``model`` in rank order (Megatron's *g*)."""
+    summed over ``model`` in rank order (Megatron's *g*) — where the
+    product's contraction is ``split``; a whole sublayer's output is
+    already the sum."""
     comm = _comm()
     if comm is not None:
-        return C.reduce_from(x, "model", comm)
+        return C.reduce_from(x, "model", comm) if split else x
     return _gather_last(x, width)
 
 
@@ -294,65 +334,94 @@ def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
 def weights(tree, *path):
     """In training, ``tree`` — the params' subtree at ``path``, or one
     layer of a stacked subtree — with every leaf the placements split
-    over ``data`` gathered whole (FSDP at use; its gradient
-    reduce-scattered back to the shards). ``tree`` itself otherwise."""
+    over the FSDP axes gathered whole (FSDP at use; its gradient
+    reduce-scattered back to the shards), and each sublayer that runs
+    whole over ``model`` a :class:`Whole` dict with its leaves split
+    over ``model`` gathered too (their gradient the rank's slice).
+    ``tree`` itself otherwise."""
     ctx = _ctx()
-    if ctx is None or ctx.comm is None or ctx.comm.size("data") == 1:
+    if ctx is None or ctx.comm is None or (
+            ctx.comm.size(C.FSDP) == 1 and ctx.comm.size("model") == 1):
         return tree
     specs = ctx.specs
     for k in path:
         specs = specs[k]
-    return _gather_data(tree, specs, ctx.comm)
+    top = bool(path) and path[0] in ctx.whole
+    return _gather(tree, specs, ctx, top, path[-1] if path else "")
 
 
-def _gather_data(tree, specs, comm):
+def _whole_here(key, parent, specs, ctx) -> bool:
+    """Whether the subtree at ``key`` (under ``parent``, placed by
+    ``specs``) is a sublayer that runs whole over ``model``: a key of
+    ``ctx.whole``, or an MLP (``mlp``, an MoE's ``shared``) whose
+    placement keeps ``w_down``'s contraction whole — its width does not
+    divide."""
+    if key in ctx.whole:
+        return True
+    if key == "mlp" or (key == "shared" and parent == "moe"):
+        entry = specs["w_down"][-2]
+        return entry is None or "model" not in entry
+    return False
+
+
+def _gather(tree, specs, ctx, whole_, key=""):
     if isinstance(tree, dict):
-        return {k: _gather_data(v, specs[k], comm) for k, v in tree.items()}
+        out = {k: _gather(v, specs[k], ctx,
+                          whole_ or _whole_here(k, key, specs[k], ctx), k)
+               for k, v in tree.items()}
+        return Whole(out) if whole_ else out
     if isinstance(tree, list):
-        return [_gather_data(v, s, comm) for v, s in zip(tree, specs)]
+        return [_gather(v, s, ctx, whole_) for v, s in zip(tree, specs)]
     # a stacked leaf's layer drops the spec's leading (whole) entries
     for dim, entry in enumerate(specs[len(specs) - tree.dim():]):
-        if entry is not None and "data" in entry:
-            tree = C.fsdp_gather(tree, dim, comm)
+        if entry is None:
+            continue
+        if "model" in entry:
+            if whole_:
+                tree = C.gather_from(tree, dim, "model", ctx.comm)
+        else:
+            tree = C.fsdp_gather(tree, dim, ctx.comm, entry)
     return tree
 
 
 def data_ranks() -> int:
-    """Ranks the batch is split over in training (1 otherwise)."""
+    """Ranks the batch is split over in training — the FSDP group (1
+    otherwise)."""
     comm = _comm()
-    return 1 if comm is None else comm.size("data")
+    return 1 if comm is None else comm.size(C.FSDP)
 
 
 def slot_offsets(ids: torch.Tensor, n_experts: int):
-    """Per routed slot of ``ids`` (N, k), the slots the lower data ranks
-    route to its expert — in training over a data-split batch the
-    dispatch numbers slots over the whole microbatch, rank by rank, as
-    the reference's one program does; 0 otherwise."""
+    """Per routed slot of ``ids`` (N, k), the slots the lower FSDP ranks
+    route to its expert — in training over a split batch the dispatch
+    numbers slots over the whole microbatch, rank by rank in the rows'
+    order (pod-major), as the reference's one program does; 0
+    otherwise."""
     comm = _comm()
-    if comm is None or comm.size("data") == 1:
+    if comm is None or comm.size(C.FSDP) == 1:
         return 0
     counts = torch.bincount(ids.reshape(-1), minlength=n_experts)
-    every = comm.all_gather(counts[None], 0, "data")
-    below = every[:comm.index("data")].sum(0)
+    every = comm.all_gather(counts[None], 0, C.FSDP)
+    below = every[:comm.index(C.FSDP)].sum(0)
     return below[ids.reshape(-1)]
 
 
 def sum_over_data(x: torch.Tensor) -> torch.Tensor:
-    """In training, the data ranks' ``x`` summed in rank order (its
+    """In training, the FSDP ranks' ``x`` summed in rank order (its
     gradient passed to each as it is); ``x`` itself otherwise."""
     comm = _comm()
-    return x if comm is None else C.reduce_from(x, "data", comm)
+    return x if comm is None else C.reduce_from(x, C.FSDP, comm)
 
 
 @torch.no_grad()
 def sum_over_mesh(x: torch.Tensor) -> torch.Tensor:
     """In training, the sum of every rank's ``x`` — over ``model``, then
-    over ``data``, each in rank order, so every rank gets the same bits;
-    ``x`` itself otherwise."""
+    over the FSDP group, each in rank order, so every rank gets the same
+    bits; ``x`` itself otherwise."""
     comm = _comm()
     if comm is None:
         return x
-    return comm.all_reduce(comm.all_reduce(x, "model"), "data")
+    return comm.all_reduce(comm.all_reduce(x, "model"), C.FSDP)
 
 
 def kv_offset(c_local: int) -> int:

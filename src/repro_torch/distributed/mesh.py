@@ -1,4 +1,5 @@
-"""A (data, model) mesh of devices driven from one process.
+"""A (data, model) or (pod, data, model) mesh of devices driven from
+one process.
 
 Counterpart of ``jax.sharding.Mesh`` as the serving engine uses it: one
 controller, one worker thread per rank (``torch.nn.DataParallel``'s
@@ -13,9 +14,14 @@ each rank's device, so every rank gets the same bits. A cross-device
 barrier in front of it means the producing rank has already queued the
 work that makes its tensor.
 
-Rank ``r`` sits at ``(data, model) = divmod(r, model_size)``. A device
-may be named more than once: several shards then share it, and a gather
-between them is a local copy — the same code path and the same kernels.
+Rank ``r`` sits at its coordinates in row-major order over the axes —
+``(data, model) = divmod(r, model_size)`` on two, ``(pod, data,
+model)`` on three, as ``jax.make_mesh`` lays out ``("pod", "data",
+"model")``. A collective runs over one axis or over several flattened in
+the order named (the FSDP group ``("pod", "data")``, pod-major). A
+device may be named more than once: several shards then share it, and a
+gather between them is a local copy — the same code path and the same
+kernels.
 
 An exception in any rank aborts every barrier of the mesh, so no rank is
 left waiting, and :meth:`DeviceMesh.run` raises it in the caller.
@@ -23,6 +29,8 @@ left waiting, and :meth:`DeviceMesh.run` raises it in the caller.
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import queue
 import threading
 import weakref
@@ -31,7 +39,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-AXES = ("data", "model")
+AXES = ("pod", "data", "model")   # a two-axis mesh has the last two
 
 # a rank waits at most this long for the others at one gather before
 # the mesh gives up on the call (a rank that hangs instead of raising)
@@ -55,21 +63,25 @@ class _Exchange:
 
 
 class DeviceMesh:
-    """``shape`` (data, model) ranks over ``devices`` (``data * model``
-    of them, ``torch.device``\\ s or strings, in rank order)."""
+    """``shape`` (data, model) or (pod, data, model) ranks over
+    ``devices`` (the product of the sizes, ``torch.device``\\ s or
+    strings, in rank order)."""
 
     def __init__(self, shape, devices, *, timeout: float = BARRIER_TIMEOUT_S):
-        d, m = (int(x) for x in shape)
-        if d < 1 or m < 1:
-            raise ValueError(f"mesh shape {shape!r} must be two positive "
-                             "axis sizes (data, model)")
+        shape = tuple(int(x) for x in shape)
+        if len(shape) not in (2, 3) or min(shape) < 1:
+            raise ValueError(f"mesh shape {shape!r} must be two or three "
+                             "positive axis sizes: (data, model) or (pod, "
+                             "data, model)")
         devs = tuple(resolve_device(x) for x in devices)
-        if len(devs) != d * m:
-            raise ValueError(f"mesh {d}x{m} needs {d * m} devices, got "
-                             f"{len(devs)}")
-        self.shape = (d, m)
+        n = math.prod(shape)
+        if len(devs) != n:
+            raise ValueError(f"mesh {'x'.join(map(str, shape))} needs {n} "
+                             f"devices, got {len(devs)}")
+        self.shape = shape
+        self.axes = AXES[-len(shape):]
         self.devices = devs
-        self.size = d * m
+        self.size = n
         self.timeout = timeout
         self._local = threading.local()
         self._shared = _Shared()
@@ -78,25 +90,47 @@ class DeviceMesh:
         self._n_threads = torch.get_num_threads()
 
     # -- coordinates -------------------------------------------------------
-    def coords(self, rank: int) -> tuple[int, int]:
-        """(data, model) of ``rank``."""
-        return divmod(rank, self.shape[1])
+    def axis_size(self, axis: str) -> int:
+        """The size of ``axis`` (1 for an axis the mesh lacks)."""
+        return self.shape[self.axes.index(axis)] if axis in self.axes else 1
 
-    def rank_of(self, data: int, model: int) -> int:
-        return data * self.shape[1] + model
+    def coords(self, rank: int) -> tuple:
+        """``rank``'s coordinates, one per axis of the mesh."""
+        out = []
+        for n in reversed(self.shape):
+            rank, c = divmod(rank, n)
+            out.append(c)
+        return tuple(reversed(out))
 
-    def group(self, rank: int, axis: str) -> tuple:
-        """The ranks that share ``rank``'s other coordinate, in ``axis``
-        order: its model group (``axis="model"``) or data group."""
-        di, mi = self.coords(rank)
-        if axis == "model":
-            return tuple(self.rank_of(di, j) for j in range(self.shape[1]))
-        if axis == "data":
-            return tuple(self.rank_of(i, mi) for i in range(self.shape[0]))
-        raise ValueError(f"unknown mesh axis {axis!r}: {AXES}")
+    def rank_of(self, *coords: int) -> int:
+        r = 0
+        for c, n in zip(coords, self.shape):
+            r = r * n + c
+        return r
+
+    def group(self, rank: int, axis) -> tuple:
+        """The ranks that share ``rank``'s other coordinates, in order
+        over ``axis`` — one axis name, or several flattened row-major in
+        the order given (``("pod", "data")``: pod-major). An axis the
+        mesh lacks has size 1."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        for a in names:
+            if a not in AXES:
+                raise ValueError(f"unknown mesh axis {a!r}: {AXES}")
+        names = tuple(a for a in names if a in self.axes)
+        base = list(self.coords(rank))
+        out = []
+        for idx in itertools.product(*(range(self.axis_size(a))
+                                        for a in names)):
+            c = list(base)
+            for a, i in zip(names, idx):
+                c[self.axes.index(a)] = i
+            out.append(self.rank_of(*c))
+        return tuple(out)
 
     def data_group(self, data: int) -> tuple:
-        """The ``model`` ranks of data replica ``data``."""
+        """The ``model`` ranks of data replica ``data`` (a two-axis
+        mesh)."""
         return tuple(self.rank_of(data, j) for j in range(self.shape[1]))
 
     def rank(self) -> int | None:
@@ -334,12 +368,12 @@ class _Call:
 
 
 def mesh_devices(shape, devices=None) -> tuple:
-    """The ``data * model`` devices of a mesh: ``devices`` as given
-    (a name may repeat: several shards on one device), or the first
-    ``data * model`` visible CUDA devices — raising where there are
-    fewer, as the reference does, and never falling back to the CPU."""
-    d, m = (int(x) for x in shape)
-    n = d * m
+    """The devices of a mesh of ``shape`` (the product of its sizes):
+    ``devices`` as given (a name may repeat: several shards on one
+    device), or the first that many visible CUDA devices — raising where
+    there are fewer, as the reference does, and never falling back to
+    the CPU."""
+    n = math.prod(int(x) for x in shape)
     if devices is not None:
         devs = [resolve_device(x) for x in devices]
         if len(devs) < n:

@@ -1,14 +1,17 @@
-"""Sharding rules over the (data, model) mesh — serve mode and train
-mode — and the shards they give each rank.
+"""Sharding rules over the (data, model) or (pod, data, model) mesh —
+serve mode and train mode — and the shards they give each rank.
 
-Counterpart of ``repro/distributed/sharding.py`` over the port's two
-axes (``fsdp_axes``, ``axis_size``, ``_div``, ``_param_spec``,
-``param_shardings`` with its serve budget switch, ``opt_state_shardings``,
-``batch_shardings``, ``cache_shardings``' ``kv_spec``,
-``pool_shardings``, ``replicated``; the ``pod`` axis waits — ROADMAP
-M5c). The rules work on shapes: a spec is a tuple with one entry per
-dim, None (whole) or the tuple of mesh axes the dim is split over,
-leading stack dims whole. An axis of size 1 splits nothing.
+Counterpart of ``repro/distributed/sharding.py`` (``fsdp_axes``,
+``axis_size``, ``_div``, ``_param_spec``, ``param_shardings`` with its
+serve budget switch, ``opt_state_shardings``, ``batch_shardings``,
+``cache_shardings``' ``kv_spec``, ``pool_shardings``, ``replicated``).
+The rules work on shapes: a spec is a tuple with one entry per dim,
+None (whole) or the tuple of mesh axes the dim is split over, leading
+stack dims whole; an entry of several axes splits the dim row-major
+over them (``("pod", "data")``: pod-major). An axis of size 1 splits
+nothing. A mesh is a :class:`~repro_torch.distributed.mesh.DeviceMesh`
+or its shape: two sizes name (data, model), three (pod, data, model).
+Serving takes (data, model) meshes only.
 
 Weights follow the reference's "gather-rows" tensor parallelism: every
 product splits its output columns over ``model`` and keeps its
@@ -22,13 +25,17 @@ per step: such a placement on a mesh with ``data > 1`` raises
 (:func:`serve_specs`).
 
 Training keeps the reference's rules (``param_specs(serve=False)``):
-FSDP splits contraction dims over ``data``, the row-parallel ``wo`` /
-``w_down`` split their contraction (IN) dim over ``model`` (Megatron's
-partial sums), experts split their FFN dim over ``data``; the optimizer
-moments follow the params, the batch splits its rows over ``data``.
-:func:`train_specs` is the placement the train step realizes (the rules
-of one layer's shapes, the layer stack whole), and
-:func:`check_train_mesh` what it takes.
+FSDP splits contraction dims over ``("pod", "data")``, the row-parallel
+``wo`` / ``w_down`` split their contraction (IN) dim over ``model``
+(Megatron's partial sums), experts split their FFN dim over FSDP; a
+dim that does not divide falls back to whole, leaf by leaf; the
+optimizer moments follow the params, the batch splits its rows over
+FSDP. :func:`train_specs` is the placement the train step realizes (the
+rules of one layer's shapes, every layer stack whole), and
+:func:`check_train_mesh` what it takes. A sublayer whose split the port
+does not compute locally — Mamba2, mLSTM, sLSTM, and attention or an MLP
+whose heads or width do not divide ``model`` — runs whole on every
+model rank (:func:`whole_sublayers`).
 
 KV caches put the slot batch over ``data`` and the heads over
 ``model``; when the KV heads do not divide ``model`` a contiguous cache
@@ -45,10 +52,12 @@ exists; :func:`gather_tree` reassembles per-rank trees whole.
 from __future__ import annotations
 
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.mesh import PerRank
 from repro_torch.models import layers as L
 from repro_torch.models import model as MD
 
@@ -56,7 +65,6 @@ POD, DATA, MODEL = "pod", "data", "model"
 MOE_EXPERT_SHARD = "dff"   # the reference's default: experts' FFN dim
                            # over FSDP, contraction dims whole
 SERVE_BUDGET_BYTES = 8e9
-ROADMAP_TRAIN = "ROADMAP M5c"
 ROADMAP_DATA_SPLIT = ("weights split over 'data' (a model over the serve "
                       "budget on a mesh with data > 1) wait for per-step "
                       "weight gathers — ROADMAP, Queue 1, M4's \"what "
@@ -64,18 +72,22 @@ ROADMAP_DATA_SPLIT = ("weights split over 'data' (a model over the serve "
 
 
 def _sizes(mesh) -> dict:
-    """{axis: size} of a DeviceMesh or a (data, model) pair."""
-    shape = getattr(mesh, "shape", mesh)
-    return {DATA: int(shape[0]), MODEL: int(shape[1])}
+    """{axis: size} of a DeviceMesh or its shape."""
+    shape = tuple(int(x) for x in getattr(mesh, "shape", mesh))
+    return dict(zip(axis_names(shape), shape))
 
 
 def axis_names(mesh) -> tuple:
-    return (DATA, MODEL)
+    """``("data", "model")`` or ``("pod", "data", "model")``."""
+    n = len(getattr(mesh, "shape", mesh))
+    if n not in (2, 3):
+        raise ValueError(f"a mesh has 2 or 3 axes, not {n}")
+    return (POD, DATA, MODEL)[-n:]
 
 
 def fsdp_axes(mesh) -> tuple:
-    """Axes used for batch / FSDP sharding: ``("data",)`` (a serving
-    mesh has no ``pod`` axis)."""
+    """Axes used for batch / FSDP sharding: ``("pod", "data")`` when
+    the mesh has ``pod``, else ``("data",)``."""
     return tuple(a for a in (POD, DATA) if a in axis_names(mesh))
 
 
@@ -263,25 +275,71 @@ def serve_specs(params, mesh, *,
     return specs
 
 
+# the stacked subtrees of the params and their leading stack axes: the
+# decoder layers, whisper's encoder, zamba2's (groups, attn_every) Mamba2
+# stack, xLSTM's (n_super, n_inner) mLSTMs and (n_super,) sLSTMs
+STACKS = {"layers": 1, "enc_layers": 1, "mamba": 2, "mlstm": 2, "slstm": 1}
+
+
 def train_specs(params, mesh):
     """The placement the train step realizes: the train rules applied to
-    each layer's leaf — a stacked leaf (``params["layers"]``) keeps its
-    layer axis whole and takes the rule of one layer's shape, since the
-    step gathers and runs a layer at a time. :func:`param_specs` applies
-    the rules to the stacked shapes as the reference does, and there
-    they differ: it reads a stacked vector (L, d) — a norm's scale, a
-    bias — as a matrix and splits its layer axis over ``data``, and an
-    MoE's stacked shared experts (L, d, f) as an expert stack; here the
-    vector is whole and the shared experts take the dense MLP's rule."""
+    each layer's leaf — a leaf of a stacked subtree (:data:`STACKS`,
+    named anywhere on its path: an optimizer state's ``mu`` / ``nu`` or
+    a whole train state place as the params do) keeps its stack axes
+    whole and takes the rule of one layer's shape, since the step
+    gathers and runs a layer at a time. :func:`param_specs`
+    applies the rules to the stacked shapes as the reference does, and
+    there they differ: it reads a stacked vector (L, d) or (G, 6, H) — a
+    norm's scale, a bias, Mamba2's ``A_log`` — as a matrix and splits a
+    stack axis over FSDP, and an MoE's stacked shared experts (L, d, f)
+    as an expert stack; here the vector is whole and the shared experts
+    take the dense MLP's rule."""
     fsdp = fsdp_axes(mesh)
 
     def one(names, leaf):
         shape = tuple(leaf.shape)
-        if names and names[0] == "layers":
-            return (None,) + param_spec(names, shape[1:], mesh, fsdp)
-        return param_spec(names, shape, mesh, fsdp)
+        lead = next((STACKS[n] for n in names if n in STACKS), 0)
+        return (None,) * lead + param_spec(names, shape[lead:], mesh, fsdp)
 
     return _map(params, one)
+
+
+# the sublayers that run whole on every model rank whatever the widths:
+# Mamba2's in-projection concatenates z, x, B, C and dt (a split of its
+# columns cuts across them) and the xLSTM cells' heads mix every column
+WHOLE_STACKS = ("mamba", "mlstm", "slstm")
+
+
+def attention_whole(cfg, mesh) -> bool:
+    """Whether attention runs whole on every model rank: its query or
+    KV heads do not divide ``model`` (each rank would hold part of a
+    head)."""
+    m = axis_size(mesh, MODEL)
+    return cfg.n_heads % m != 0 or cfg.n_kv_heads % m != 0
+
+
+def whole_sublayers(cfg, mesh) -> frozenset:
+    """The sublayer keys that run whole over ``model`` in training:
+    :data:`WHOLE_STACKS`, and ``"attn"`` / ``"xattn"`` where
+    :func:`attention_whole`. An MLP runs whole where its width does not
+    divide ``model`` — its placement then keeps it whole, which the
+    hints read from the spec."""
+    keys = set(WHOLE_STACKS)
+    if attention_whole(cfg, mesh):
+        keys |= {"attn", "xattn"}
+    return frozenset(keys)
+
+
+def train_rank_cfg(cfg, mesh):
+    """The config each rank's model code runs in training: its own query
+    and KV heads where attention splits them over ``model`` (Megatron),
+    the whole config where attention runs whole or the family has none
+    (xLSTM's cells read ``n_heads`` as their own heads)."""
+    m = axis_size(mesh, MODEL)
+    if m == 1 or cfg.family == "ssm" or attention_whole(cfg, mesh):
+        return cfg
+    return cfg.replace(n_heads=cfg.n_heads // m,
+                       n_kv_heads=cfg.n_kv_heads // m)
 
 
 def opt_state_specs(opt_state, mesh):
@@ -330,36 +388,18 @@ def replicated(tree):
 
 
 def check_train_mesh(cfg, mesh) -> None:
-    """What training over ``mesh`` takes: an attention family; query
-    and KV heads and every dense FFN width dividing ``model`` (each rank
-    runs attention on its own heads, the MLP's Megatron pair on its own
-    units); on the card, one device per rank — autograd runs a device's
-    backward on one worker thread, where two ranks' backward collectives
-    would wait for each other."""
-    if cfg.family not in MD.TRANSFORMER_FAMILIES:
-        raise NotImplementedError(
-            f"training family {cfg.family!r} ({cfg.name}) over a mesh waits "
-            f"for its sharding in the port — {ROADMAP_TRAIN} (the recurrent "
-            "and audio families on a mesh)")
-    d, m = _sizes(mesh)[DATA], _sizes(mesh)[MODEL]
-    widths = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
-    if not cfg.is_moe:
-        widths["d_ff"] = cfg.d_ff
-    else:
-        widths["shared experts' d_ff"] = (cfg.n_shared_experts
-                                          * cfg.d_ff_expert)
-        if cfg.first_dense_layers:
-            widths["d_ff_first_dense"] = cfg.d_ff_first_dense or cfg.d_ff
-    bad = {k: v for k, v in widths.items() if v % m}
-    if bad:
-        raise NotImplementedError(
-            f"training {cfg.name} at model={m}: {bad} do not divide "
-            f"model — {ROADMAP_TRAIN}")
+    """What training over ``mesh`` takes: a family of the registry, any
+    axis sizes (widths that do not divide ``model`` run whole on every
+    model rank), and on the card one device per rank — autograd runs a
+    device's backward on one worker thread, where two ranks' backward
+    collectives would wait for each other."""
+    MD.check_supported(cfg)
     devs = list(getattr(mesh, "devices", ()))
     cuda = [x for x in devs if x.type == "cuda"]
     if len(set(cuda)) != len(cuda):
+        shape = "x".join(str(v) for v in _sizes(mesh).values())
         raise ValueError(
-            f"a training mesh of {d}x{m} on {[str(x) for x in devs]} names "
+            f"a training mesh of {shape} on {[str(x) for x in devs]} names "
             "a CUDA device twice: autograd runs each device's backward on "
             "one worker thread, so two ranks sharing a card would wait for "
             "each other at their first backward collective")
@@ -370,12 +410,12 @@ def counted_leaves(specs, mesh, coords) -> list:
     order, whether the rank at ``coords`` counts it in a sum over the
     mesh: a leaf whole over an axis is counted by the axis's first rank
     only, so every distinct shard counts once."""
-    pos = dict(zip((DATA, MODEL), coords))
+    axes = axis_names(mesh)
+    pos = dict(zip(axes, coords))
     out = []
     for _, spec in spec_leaves(specs):
         split = {a for e in spec if e is not None for a in e}
-        out.append(all(pos[a] == 0 for a in (DATA, MODEL)
-                       if a not in split))
+        out.append(all(pos[a] == 0 for a in axes if a not in split))
     return out
 
 
@@ -483,10 +523,10 @@ def split_count(entry, mesh) -> int:
 
 def shard_index(entry, mesh, coords) -> int:
     """Which shard of a dim with spec ``entry`` the rank at ``coords``
-    (data, model) holds: row-major over the entry's axes."""
+    (one per mesh axis) holds: row-major over the entry's axes."""
     if entry is None:
         return 0
-    pos = dict(zip((DATA, MODEL), coords))
+    pos = dict(zip(axis_names(mesh), coords))
     sizes = _sizes(mesh)
     i = 0
     for a in entry:
@@ -578,6 +618,34 @@ def gather_tree(per_rank, specs, mesh, device="cpu"):
     return _map(per_rank[0], one)
 
 
+class Placement(NamedTuple):
+    """How per-rank trees sit on a mesh: the mesh and the spec tree of
+    one rank's tree structure (a train state: ``{"params": MeshTrain.
+    specs, "opt_state": MeshTrain.state_specs}``, or
+    :func:`train_specs` of the whole state)."""
+    mesh: object
+    specs: object
+
+    def shard(self, whole) -> PerRank:
+        """Per-rank trees of the whole tree ``whole``."""
+        return PerRank(shard_tree(whole, self.specs, self.mesh))
+
+    def gather(self, per_rank, device="cpu"):
+        """The whole tree of ``per_rank``, each shard copied from the
+        first rank holding it onto ``device``: a device holds no whole
+        leaf unless ``device`` is one."""
+        return gather_tree(per_rank, self.specs, self.mesh, device)
+
+    def whole_like(self, rank_tree):
+        """A host tree of the whole leaves one rank's ``rank_tree``
+        holds shards of: their shapes and dtypes, no storage."""
+        def one(names, leaf):
+            shape = tuple(n * split_count(e, self.mesh) for n, e in
+                          zip(leaf.shape, _lookup(self.specs, names)))
+            return torch.empty((), dtype=leaf.dtype).expand(shape)
+        return _map(rank_tree, one)
+
+
 def _lookup(tree, names):
     for n in names:
         tree = tree[int(n)] if isinstance(tree, list) else tree[n]
@@ -587,14 +655,20 @@ def _lookup(tree, names):
 def _init_kind(names) -> str:
     """How :func:`repro_torch.models.model.init_params` fills the leaf
     at ``names``: a norm's weight (ones) or bias (zeros), a projection
-    bias (zeros), an embedding or head (N(0, 0.02)), or a dense weight
-    (N(0, 1 / fan_in), fan_in its second-last dim)."""
+    or gate bias (zeros), Mamba2's ``D`` (ones), ``A_log`` (the log of
+    1..16 over the heads) and xLSTM's ``f_bias`` (3), an embedding or
+    head (N(0, 0.02)), or a dense weight (N(0, 1 / fan_in), fan_in its
+    second-last dim)."""
     name = names[-1]
     parent = names[-2] if len(names) > 1 else ""
     if parent.startswith("ln") or parent.endswith("norm"):
         return "ones" if name == "w" else "zeros"
-    if name in ("bq", "bk", "bv"):
+    if name in ("bq", "bk", "bv", "dt_bias", "bias"):
         return "zeros"
+    if name == "D":
+        return "ones"
+    if name in ("A_log", "f_bias"):
+        return name
     if name in _EMBED:
         return "embed"
     return "dense"
@@ -610,10 +684,11 @@ def init_params_sharded(cfg, mesh, *, seed: int = 0, specs=None) -> list:
     placement is ``specs`` (a spec tree of the whole params: to train,
     :func:`train_specs`' — the optimizer state then comes from
     ``AdamW.init`` of each rank's tree, zeros of its shards), by default
-    :func:`serve_specs`'."""
-    check_family(cfg)
+    :func:`serve_specs`' (the families mesh serving takes)."""
     meta = MD.init_params(cfg, device="meta")
-    specs = serve_specs(meta, mesh) if specs is None else specs
+    if specs is None:
+        check_family(cfg)
+        specs = serve_specs(meta, mesh)
     made: dict = {}
 
     def one_rank(r):
@@ -629,6 +704,12 @@ def init_params_sharded(cfg, mesh, *, seed: int = 0, specs=None) -> list:
             if kind in ("ones", "zeros"):
                 t = (torch.ones if kind == "ones" else torch.zeros)(
                     shape, dtype=leaf.dtype, device=dev)
+            elif kind == "f_bias":
+                t = torch.full(shape, 3.0, dtype=leaf.dtype, device=dev)
+            elif kind == "A_log":   # whole: a vector of one layer's heads
+                t = torch.log(torch.linspace(
+                    1.0, 16.0, shape[-1], dtype=torch.float32)).to(
+                        dev, leaf.dtype).expand(shape).contiguous()
             else:
                 h = zlib.crc32(f"{seed}/{key[1]}/{key[2]}".encode())
                 gen = torch.Generator(device=dev).manual_seed(h)

@@ -8,7 +8,9 @@ Counterpart of ``repro/launch/steps.py``:
   as the reference's: it takes params and optimizer state and returns
   new ones; the params passed in need not require grad. Under
   ``hints.use_mesh(mesh, train=True)`` it trains over a (data, model)
-  mesh: FSDP over ``data``, Megatron tensor parallelism over ``model``
+  or (pod, data, model) mesh: FSDP over ``("pod", "data")``, Megatron
+  tensor parallelism over ``model`` where a sublayer's widths divide it,
+  the sublayer whole on every model rank where they do not
   (:class:`MeshTrain`).
 - :func:`build_prefill_step` — the prompt's last-token logits and a
   filled cache.
@@ -31,7 +33,7 @@ from repro_torch.optim import AdamW
 def microbatches(cfg, batch_size: int, fsdp: int = 1) -> int:
     """Slices of a batch of ``batch_size`` rows: the largest count up to
     ``cfg.microbatch`` that divides it into slices whose rows divide
-    ``fsdp`` (the mesh's FSDP extent, its ``data`` size) — the
+    ``fsdp`` (the mesh's FSDP extent, ``pod x data``) — the
     reference's ``_clamp_mb``."""
     mb = max(1, min(cfg.microbatch, batch_size))
     while mb > 1 and (batch_size % mb or (batch_size // mb) % fsdp):
@@ -92,15 +94,16 @@ def accumulated_grads(params, cfg, batch, *, attn_impl="chunked"):
 
 
 # ---------------------------------------------------------------------------
-# over a (data, model) mesh
+# over a (data, model) or (pod, data, model) mesh
 # ---------------------------------------------------------------------------
 
 def mesh_microbatches(batch, mb: int, data: int) -> list:
-    """``[data rank][microbatch]`` row slices of a global ``batch``, the
+    """``[FSDP rank][microbatch]`` row slices of a global ``batch``, the
     reference's order: the batch cut into ``mb`` microbatches of
     consecutive rows first, then each microbatch's rows into ``data``
-    consecutive blocks. (The other order would give an MoE dispatch
-    other tokens, and so other drops.)"""
+    (the FSDP extent) consecutive blocks, one per FSDP rank in pod-major
+    order. (The other orders would give an MoE dispatch other tokens,
+    and so other drops.)"""
     b = batch["tokens"].shape[0]
     if b % (mb * data):
         raise ValueError(f"a batch of {b} rows does not split into {mb} "
@@ -114,8 +117,10 @@ def mesh_microbatches(batch, mb: int, data: int) -> list:
 class MeshTrain:
     """The train placements of ``cfg`` over ``mesh``: the spec trees of
     the params (:func:`~repro_torch.distributed.sharding.train_specs`)
-    and of the AdamW state, and the config each rank runs (its own query
-    and KV heads)."""
+    and of the AdamW state, the sublayers that run whole over ``model``
+    (:func:`~repro_torch.distributed.sharding.whole_sublayers`), and the
+    config each rank runs (its own query and KV heads where attention
+    splits them, else the whole config)."""
 
     def __init__(self, cfg, mesh):
         SH.check_train_mesh(cfg, mesh)
@@ -123,9 +128,9 @@ class MeshTrain:
         self.specs = SH.train_specs(MD.init_params(cfg, device="meta"),
                                     mesh)
         self.state_specs = SH.train_state_specs(self.specs)
-        m = mesh.shape[1]
-        self.rank_cfg = cfg.replace(n_heads=cfg.n_heads // m,
-                                    n_kv_heads=cfg.n_kv_heads // m)
+        self.whole = SH.whole_sublayers(cfg, mesh)
+        self.rank_cfg = SH.train_rank_cfg(cfg, mesh)
+        self.fsdp = mesh.axis_size("pod") * mesh.axis_size("data")
 
     def shard(self, params, opt_state=None):
         """Per-rank trees of whole ``params`` (and ``opt_state``)."""
@@ -141,9 +146,11 @@ class MeshTrain:
     def grads(self, params, rank, parts, *, attn_impl="chunked"):
         """On ``rank``'s worker, in its train context: (loss, gradients)
         of its shard ``params`` over its microbatches ``parts``. Leaves
-        the placements split over ``data`` arrive reduce-scattered from
-        their gathers' backward; the others — whole over ``data`` — are
-        summed over ``data`` here, once, after the accumulation."""
+        the placements split over FSDP arrive reduce-scattered from
+        their gathers' backward; the others — whole over FSDP — are
+        summed over the FSDP group here, once, after the accumulation.
+        Over ``model`` nothing is summed: a leaf whole over it has the
+        same gradient on every model rank."""
         loss, grads, n = _accumulate(params, self.rank_cfg, parts,
                                      attn_impl=attn_impl)
         comm = C.Comm(self.mesh, rank, self.mesh.current_call())
@@ -151,16 +158,21 @@ class MeshTrain:
         out = []
         for (_, spec), g in zip(sp, T.leaves(grads)):
             if not any(e is not None and SH.DATA in e for e in spec):
-                g = comm.all_reduce(g, SH.DATA)
+                g = comm.all_reduce(g, C.FSDP)
             out.append(g / n if n > 1 else g)
         return (loss / n if n > 1 else loss), T.unflatten(grads, out)
 
     def step(self, opt, params, opt_state, parts, rank, *,
-             attn_impl="chunked"):
-        """On ``rank``'s worker: :meth:`grads`, then AdamW on the rank's
-        shard with the global norm. Returns (params, opt_state, metrics,
-        gradients), the metrics the same bits on every rank."""
+             attn_impl="chunked", grad_compression=None):
+        """On ``rank``'s worker: :meth:`grads`, then ``grad_compression
+        (grads, opt_state)`` on the rank's shards where given
+        (:func:`repro_torch.distributed.compression.apply` holds them to
+        the whole leaves' blocks), then AdamW on the rank's shard with
+        the global norm. Returns (params, opt_state, metrics, gradients),
+        the metrics the same bits on every rank."""
         loss, grads = self.grads(params, rank, parts, attn_impl=attn_impl)
+        if grad_compression is not None:
+            grads, opt_state = grad_compression(grads, opt_state)
         counted = SH.counted_leaves(self.specs, self.mesh,
                                     self.mesh.coords(rank))
         p, s, stats = opt.apply(grads, opt_state, params, counted=counted)
@@ -169,9 +181,15 @@ class MeshTrain:
     def run(self, fn) -> list:
         """``fn(rank)`` on every rank's worker, in its train context."""
         def one(r):
-            with H.use_mesh(self.mesh, train=True, specs=self.specs):
+            with H.use_mesh(self.mesh, train=True, specs=self.specs,
+                            whole=self.whole):
                 return fn(r)
         return self.mesh.run(one)
+
+    def fsdp_index(self, rank: int) -> int:
+        """``rank``'s place in its FSDP group (pod-major): which block
+        of every microbatch's rows it takes."""
+        return self.mesh.group(rank, C.FSDP).index(rank)
 
 
 def mesh_train(cfg) -> MeshTrain:
@@ -187,13 +205,12 @@ def mesh_train(cfg) -> MeshTrain:
 
 def mesh_parts(mt: MeshTrain, batch) -> list:
     """Each rank's microbatches of the global ``batch``
-    (``microbatches(cfg, B, data)`` of them, :func:`mesh_microbatches`'
-    rows), on its device."""
-    data = mt.mesh.shape[0]
-    mb = microbatches(mt.cfg, batch["tokens"].shape[0], data)
-    rows = mesh_microbatches(batch, mb, data)
+    (``microbatches(cfg, B, pod x data)`` of them,
+    :func:`mesh_microbatches`' rows), on its device."""
+    mb = microbatches(mt.cfg, batch["tokens"].shape[0], mt.fsdp)
+    rows = mesh_microbatches(batch, mb, mt.fsdp)
     return [[{k: v.to(mt.mesh.devices[r]) for k, v in part.items()}
-             for part in rows[mt.mesh.coords(r)[0]]]
+             for part in rows[mt.fsdp_index(r)]]
             for r in range(mt.mesh.size)]
 
 
@@ -202,7 +219,7 @@ def build_train_step(cfg, opt: AdamW, *, attn_impl="chunked",
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`accumulated_grads`, then
     ``grad_compression(grads, opt_state) -> (grads, opt_state)`` where
-    given, then the AdamW update.
+    given (on the mesh, on each rank's shards), then the AdamW update.
 
     Under ``hints.use_mesh(mesh, train=True)`` the step runs over the
     mesh: ``params`` and ``opt_state`` are per-rank trees placed by
@@ -210,21 +227,17 @@ def build_train_step(cfg, opt: AdamW, *, attn_impl="chunked",
     ``sharding.init_params_sharded(..., specs=MeshTrain(...).specs)``
     and ``opt.init`` of each), ``batch`` the global batch. Each rank
     accumulates its rows of every microbatch (:func:`mesh_microbatches`)
-    in fp32, its gradients are reduced over ``data`` once, and AdamW
-    runs on its shard with the global norm (:meth:`MeshTrain.step`); the
+    in fp32, its gradients are reduced over the FSDP group once, and
+    AdamW runs on its shard with the global norm (:meth:`MeshTrain.step`); the
     step returns per-rank trees and the metrics, the same bits on every
     rank (rank 0's)."""
     def train_step(params, opt_state, batch):
         if H.training():
-            if grad_compression is not None:
-                raise NotImplementedError(
-                    "gradient compression over a mesh waits for its place "
-                    f"in the reduction — {SH.ROADMAP_TRAIN}")
             mt = mesh_train(cfg)
             parts = mesh_parts(mt, batch)
-            outs = mt.run(lambda r: mt.step(opt, params[r], opt_state[r],
-                                            parts[r], r,
-                                            attn_impl=attn_impl))
+            outs = mt.run(lambda r: mt.step(
+                opt, params[r], opt_state[r], parts[r], r,
+                attn_impl=attn_impl, grad_compression=grad_compression))
             return (PerRank(o[0] for o in outs),
                     PerRank(o[1] for o in outs), outs[0][2])
         loss, grads = accumulated_grads(params, cfg, batch,

@@ -136,8 +136,11 @@ def apply_mlp(p, cfg, x, mm=torch.matmul):
     ``w_down`` (a row-parallel product that keeps its contraction
     whole), and its output columns gathered to x's width. In training
     ``w_down`` holds the rank's rows instead: x passes Megatron's *f*,
-    and the partial sums of ``w_down`` its *g*."""
-    x = H.col_input(x)
+    and the partial sums of ``w_down`` its *g* — unless the MLP runs
+    whole on every model rank (a :class:`~repro_torch.distributed.hints.
+    Whole` sublayer: its width does not divide ``model``)."""
+    split = not H.whole(p)
+    x = H.col_input(x, split)
     act = cfg.activation
     if act in GATED:
         g = mm(x, p["w_gate"])
@@ -152,7 +155,7 @@ def apply_mlp(p, cfg, x, mm=torch.matmul):
         else:
             raise ValueError(f"unknown activation {act}")
     w = p["w_down"]
-    return H.hidden(mm(H.row_input(h, w.shape[-2]), w), x.shape[-1])
+    return H.hidden(mm(H.row_input(h, w.shape[-2]), w), x.shape[-1], split)
 
 
 def row_tiled(tile: int):

@@ -282,8 +282,9 @@ def _proj_qkv(p, cfg, x, kv_x=None, mm=torch.matmul):
     """x: (B,S,d); ``kv_x`` (B,Skv,d), the keys' and values' input for
     cross-attention (x itself when None). Returns q (B,S,Hq,Dh), k/v
     (B,Skv,Hkv,Dh), each on a mesh as :func:`_proj_q` says."""
-    x = H.col_input(x)
-    kv_x = x if kv_x is None else H.col_input(kv_x)
+    split = not H.whole(p)
+    x = H.col_input(x, split)
+    kv_x = x if kv_x is None else H.col_input(kv_x, split)
     b, skv, _ = kv_x.shape
     width = cfg.n_kv_heads * cfg.d_head
     k = H.heads(mm(kv_x, p["wk"]), width)
@@ -299,9 +300,12 @@ def _proj_qkv(p, cfg, x, kv_x=None, mm=torch.matmul):
 def _out_proj(p, cfg, o, mm=torch.matmul):
     """The attention output (B, S, Hq * Dh) through ``wo``: on a mesh
     gathered whole first (the row-parallel product contracts every head
-    locally), the product's columns then gathered to d_model."""
+    locally), the product's columns then gathered to d_model; in
+    training the rank's heads' partial sums summed over ``model``, where
+    the heads split (not a :class:`~repro_torch.distributed.hints.Whole`
+    attention)."""
     return H.hidden(mm(H.row_input(o, p["wo"].shape[-2]), p["wo"]),
-                    cfg.d_model)
+                    cfg.d_model, not H.whole(p))
 
 
 def attn_full(p, cfg, x, *, positions, causal=True, window=None,
@@ -476,24 +480,30 @@ def _block_step(lp, cfg, where=(), **kw):
     """(x, delta) -> (residual, MLP output) of the decoder block ``lp``
     (:func:`decoder_block` with ``kw``), its K/V dropped. ``where``: the
     block's path in the params; in training over a mesh its weights
-    split over ``data`` are gathered here, inside the layer's
-    checkpoint, so a recompute gathers them again."""
+    split over FSDP (and a whole sublayer's over ``model``) are gathered
+    here, inside the layer's checkpoint, so a recompute gathers them
+    again."""
     def step(x, delta):
         return decoder_block(H.weights(lp, *where), cfg, x, delta, **kw)[0]
     return step
 
 
 def _mlstm_step(lp, cfg):
+    """One mLSTM layer, its weights gathered whole over the mesh in
+    training (it runs whole on every model rank)."""
     def step(x, delta):
-        return X.apply_mlstm(lp, cfg, x, delta)[0]
+        return X.apply_mlstm(H.weights(lp, "mlstm"), cfg, x, delta)[0]
     return step
 
 
 def _mamba_step(lp, cfg):
-    """One Zamba2 layer: its ``ln`` (with the pending add), then Mamba2."""
+    """One Zamba2 layer: its ``ln`` (with the pending add), then Mamba2,
+    its weights gathered whole over the mesh in training (it runs whole
+    on every model rank)."""
     def step(x, delta):
-        x, h = L.add_norm(lp["ln"], cfg, x, delta)
-        return x, S.apply_mamba2(lp["mamba"], cfg, h)[0]
+        p = H.weights(lp, "mamba")
+        x, h = L.add_norm(p["ln"], cfg, x, delta)
+        return x, S.apply_mamba2(p["mamba"], cfg, h)[0]
     return step
 
 
@@ -510,7 +520,10 @@ def forward(params, cfg, batch, *, attn_impl="chunked") -> torch.Tensor:
     under :func:`_remat` — the stacked decoder layers (not an MoE's
     leading dense ones), whisper's encoder and decoder layers, each
     mLSTM and each Zamba2 Mamba2 layer (not the sLSTMs nor the shared
-    block) — and every RMSNorm is K5 with K5b as its backward."""
+    block) — and every RMSNorm is K5 with K5b as its backward. In
+    training over a mesh each layer's weights are gathered at use
+    (``hints.weights``): zamba2's shared block once per application, its
+    gradient the sum over them."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -524,12 +537,15 @@ def forward(params, cfg, batch, *, attn_impl="chunked") -> torch.Tensor:
             for lp in unstack(sup, n_inner):
                 x, delta = _remat(cfg, _mlstm_step(lp, cfg))(x, delta)
             if slstm is not None:
-                (x, delta), _ = X.apply_slstm(slstm[i], cfg, x, delta)
+                (x, delta), _ = X.apply_slstm(H.weights(slstm[i], "slstm"),
+                                              cfg, x, delta)
     elif fam == "hybrid":
         for grp in unstack(params["mamba"], n_groups(cfg)):
             for lp in unstack(grp, cfg.attn_every):
                 x, delta = _remat(cfg, _mamba_step(lp, cfg))(x, delta)
-            (x, delta), _ = decoder_block(params["shared"], cfg, x, delta,
+            (x, delta), _ = decoder_block(H.weights(params["shared"],
+                                                    "shared"),
+                                          cfg, x, delta,
                                           positions=positions,
                                           attn_impl=attn_impl)
     else:
@@ -723,8 +739,8 @@ def _encode_audio(params, cfg, frames, *, attn_impl="pallas",
         frames.dtype)
     delta = None
     for lp in unstack(params["enc_layers"], cfg.n_encoder_layers):
-        step = _block_step(lp, cfg, positions=pos, causal=False,
-                           attn_impl=attn_impl)
+        step = _block_step(lp, cfg, ("enc_layers",), positions=pos,
+                           causal=False, attn_impl=attn_impl)
         x, delta = (_remat(cfg, step) if train else step)(x, delta)
     return L.add_norm(params["enc_norm"], cfg, x, delta)[1]
 

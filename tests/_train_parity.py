@@ -26,13 +26,17 @@ GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-6, 1e-6
 BATCH, SEQ = 2, 48
 
 
-def family(arch, seq=SEQ, batch=BATCH, **kw):
+def family(arch, seq=SEQ, batch=BATCH, jit_init=False, **kw):
     """(port cfg, port params requiring grad, port batch, JAX cfg, JAX
     params, JAX batch) of ``arch``'s float32 smoke model, ``batch`` rows
-    of ``seq`` tokens."""
+    of ``seq`` tokens. ``jit_init``: the reference's ``init_params``
+    jitted (the same keys; seconds faster than eager for the recurrent
+    families, its values not promised to the last bit)."""
     jcfg = jreg.get_smoke_config(arch).replace(dtype="float32", **kw)
     cfg = treg.get_smoke_config(arch).replace(dtype="float32", **kw)
-    jp = JMD.init_params(jax.random.PRNGKey(3), jcfg)
+    init = (jax.jit(JMD.init_params, static_argnums=1) if jit_init
+            else JMD.init_params)
+    jp = init(jax.random.PRNGKey(3), jcfg)
     jb = JMD.make_dummy_batch(jax.random.PRNGKey(5), jcfg, batch, seq,
                               "train")
     params = params_from_jax(jax.device_get(jp), cfg, device="cpu")

@@ -20,7 +20,6 @@ import torch
 
 from repro.optim import AdamW as JAdamW, OptConfig as JOpt
 from repro_torch import tree as T
-from repro_torch.configs import registry
 from repro_torch.distributed import hints as H
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.mesh import DeviceMesh
@@ -213,33 +212,6 @@ def test_mesh_collectives_sum_in_rank_order_and_agree():
                  + xs[dg[1]][2 * i:2 * i + 2].float()).to(torch.bfloat16)
         assert torch.equal(outs[r][1], chunk)
         assert torch.equal(outs[r][2], torch.cat([xs[j] for j in mg], 1))
-    mesh.close()
-
-
-def test_gradient_compression_over_a_mesh_waits_for_m5c(qwen):
-    cfg, params, batch, _ = qwen
-    opt = AdamW(OptConfig(**OPT))
-    step = ST.build_train_step(cfg, opt,
-                               grad_compression=lambda g, s: (g, s))
-    mesh = _mesh((2, 1))
-    with H.use_mesh(mesh, train=True), pytest.raises(
-            NotImplementedError, match="M5c"):
-        step([params] * 2, [opt.init(params)] * 2, batch)
-    mesh.close()
-
-
-@pytest.mark.parametrize("arch", ("xlstm-350m", "zamba2-2.7b",
-                                  "whisper-large-v3"))
-def test_recurrent_and_audio_steps_over_a_mesh_refuse(arch):
-    cfg = registry.get_smoke_config(arch).replace(dtype="float32")
-    params = MD.init_params(cfg, seed=0, device="cpu")
-    batch = MD.make_dummy_batch(cfg, 2, 16, seed=0, device="cpu")
-    opt = AdamW(OptConfig(**OPT))
-    mesh = _mesh((2, 1))
-    with H.use_mesh(mesh, train=True), pytest.raises(
-            NotImplementedError, match="M5c"):
-        ST.build_train_step(cfg, opt)([params] * 2,
-                                      [opt.init(params)] * 2, batch)
     mesh.close()
 
 

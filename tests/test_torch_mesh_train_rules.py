@@ -1,15 +1,18 @@
 """The port's train-mode sharding rules against the JAX package's, on
 shapes only (the port's meta tensors, the reference's ``jax.eval_shape``
-on an ``AbstractMesh``, no device): for every registry architecture at
-(2, 4), (4, 2), (2, 2), (1, 4) and (8, 1), the per-leaf placement of the
+on an ``AbstractMesh``, no device): for all 14 registry architectures
+at (data, model) = (2, 4), (4, 2), (2, 2), (1, 4), (8, 1) and (1, 3),
+and at (pod, data, model) = (2, 2, 2), the per-leaf placement of the
 params (``param_shardings``), of the AdamW state
 (``opt_state_shardings``), of the train batch (``batch_shardings``) and
 ``replicated``; the placement the step realizes (``train_specs``) and
 where it departs from the rules; which rank counts a leaf in the global
-norm; ``microbatches`` against the reference's ``_clamp_mb``; the
-microbatch-then-data row order; the families and meshes training over a
-mesh refuses."""
+norm; ``microbatches`` against the reference's ``_clamp_mb``, ``pod``
+included; the microbatch-then-data row order; the one mesh training
+refuses (a CUDA device named twice)."""
 from __future__ import annotations
+
+import math
 
 import jax
 import pytest
@@ -25,15 +28,20 @@ from repro.optim import AdamW as JAdamW, OptConfig as JOpt
 from repro_torch import tree as T
 from repro_torch.configs import registry
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.mesh import DeviceMesh
 from repro_torch.launch import steps as ST
 from repro_torch.models import model as MD
 from repro_torch.optim import AdamW, OptConfig
 from _torch_threads import one_thread  # noqa: F401
 
-MESHES = ((2, 4), (4, 2), (2, 2), (1, 4), (8, 1))
+MESHES = ((2, 4), (4, 2), (2, 2), (1, 4), (8, 1), (1, 3), (2, 2, 2))
 ARCHS = registry.list_archs(False)
 mesh_ids = pytest.mark.parametrize("mesh", MESHES,
-                                   ids=lambda m: f"{m[0]}x{m[1]}")
+                                   ids=lambda m: "x".join(map(str, m)))
+
+
+def _abstract(mesh):
+    return AbstractMesh(mesh, ("pod", "data", "model")[-len(mesh):])
 
 
 def _norm(spec, nd):
@@ -85,7 +93,7 @@ def shapes():
 
 @mesh_ids
 def test_param_and_opt_state_placement_equals_reference(shapes, mesh):
-    amesh = AbstractMesh(mesh, ("data", "model"))
+    amesh = _abstract(mesh)
     for arch in ARCHS:
         jp, js, meta, state = shapes[arch]
         n = _same(JSH.param_shardings(amesh, jp), SH.param_specs(meta, mesh),
@@ -99,7 +107,7 @@ def test_param_and_opt_state_placement_equals_reference(shapes, mesh):
 
 @mesh_ids
 def test_batch_placement_and_replicated_equal_reference(mesh):
-    amesh = AbstractMesh(mesh, ("data", "model"))
+    amesh = _abstract(mesh)
     for arch in ARCHS:
         jcfg, cfg = jreg.get_config(arch), registry.get_config(arch)
         for b in (16, 8, 6, 3):
@@ -116,10 +124,13 @@ def test_batch_placement_and_replicated_equal_reference(mesh):
 def test_realized_placement_departs_only_for_stacked_vectors_and_shared(
         shapes, mesh):
     """``train_specs`` is the rules applied to one layer's shapes: equal
-    to the reference's rules except a stacked vector (a norm's scale, a
-    bias — whole, not split along its layer axis) and an MoE's stacked
-    shared experts (the dense MLP's rule)."""
+    to the reference's rules except in a stacked subtree (the decoder
+    and encoder layers, zamba2's (G, 6) Mamba2 stack, xLSTM's
+    (n_super, n_inner) mLSTMs and (n_super,) sLSTMs) a stacked vector —
+    a norm's scale, a bias, ``A_log`` — whole, not split along a stack
+    axis, and an MoE's stacked shared experts (the dense MLP's rule)."""
     fsdp = SH.fsdp_axes(mesh)
+    departed = set()
     for arch in ARCHS:
         meta = shapes[arch][2]
         rules = SH.param_specs(meta, mesh)
@@ -127,30 +138,37 @@ def test_realized_placement_departs_only_for_stacked_vectors_and_shared(
         for names, leaf in SH._walk(meta):
             got, want = _lookup(real, names), _lookup(rules, names)
             assert len(got) == leaf.dim()
-            if names[0] != "layers":
+            lead = SH.STACKS.get(names[0], 0)
+            if not lead:
                 assert got == want, (arch, names)
                 continue
-            assert got[0] is None, (arch, names)
-            if leaf.dim() == 2:
-                assert got == (None, None), (arch, names)
+            assert got[:lead] == (None,) * lead, (arch, names)
+            if leaf.dim() == lead + 1:
+                assert got == (None,) * leaf.dim(), (arch, names)
+                if got != want:
+                    departed.add(names[0])
             elif "shared" in names:
                 dense = [n for n in names if n != "moe"]
                 assert got == (None,) + SH.param_spec(
                     dense, tuple(leaf.shape[1:]), mesh, fsdp), (arch, names)
             else:
                 assert got == want, (arch, names)
+    if SH.axis_size(mesh, fsdp) == 2:   # zamba2's (9, 6, H) A_log splits
+        assert {"layers", "enc_layers", "mamba"} <= departed, departed
 
 
-@pytest.mark.parametrize("mesh", ((2, 4), (4, 2), (1, 4)),
-                         ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("mesh", ((2, 4), (4, 2), (1, 4), (1, 3),
+                                  (2, 2, 2)),
+                         ids=lambda m: "x".join(map(str, m)))
 def test_every_shard_counts_once_in_the_global_norm(shapes, mesh):
     """Summed over the ranks that count it, a leaf's shards hold each of
-    its elements once."""
-    for arch in ("qwen1.5-0.5b", "deepseek-moe-16b", "internvl2-26b"):
+    its elements once — every family, two or three axes."""
+    dev = DeviceMesh(mesh, ("cpu",) * math.prod(mesh))
+    for arch in ARCHS:
         meta = shapes[arch][2]
         specs = SH.train_specs(meta, mesh)
-        counted = [SH.counted_leaves(specs, mesh, divmod(r, mesh[1]))
-                   for r in range(mesh[0] * mesh[1])]
+        counted = [SH.counted_leaves(specs, mesh, dev.coords(r))
+                   for r in range(dev.size)]
         for i, ((_, spec), leaf) in enumerate(zip(SH.spec_leaves(specs),
                                                   T.leaves(meta))):
             local = SH.local_shape(tuple(leaf.shape), spec, mesh)
@@ -171,10 +189,13 @@ def test_microbatches_equal_the_reference_clamp(mb):
     jcfg = jreg.get_smoke_config("qwen1.5-0.5b").replace(microbatch=mb)
     cfg = registry.get_smoke_config("qwen1.5-0.5b").replace(microbatch=mb)
     clamp = _clamp_mb(jcfg)
-    for data in (1, 2, 4, 8):
-        with JH.use_mesh(AbstractMesh((data, 2), ("data", "model"))):
+    for shape in ((1, 2), (2, 2), (4, 2), (8, 2), (2, 2, 2), (2, 4, 1)):
+        mt = ST.MeshTrain(cfg, DeviceMesh(shape, ("cpu",) * math.prod(
+            shape)))
+        with JH.use_mesh(_abstract(shape)):
             for b in (1, 2, 3, 4, 6, 8, 12, 16, 24):
-                assert ST.microbatches(cfg, b, data) == clamp(b), (b, data)
+                assert ST.microbatches(cfg, b, mt.fsdp) == clamp(b), (
+                    b, shape)
     for b in (1, 5, 8):
         assert ST.microbatches(cfg, b) == ST.microbatches(cfg, b, 1)
 
@@ -203,14 +224,6 @@ class _Stub:
         self.shape, self.devices = shape, tuple(devices)
 
 
-@pytest.mark.parametrize("arch", ("xlstm-350m", "zamba2-2.7b",
-                                  "whisper-large-v3"))
-def test_recurrent_and_audio_families_refuse_naming_m5c(arch):
-    cfg = registry.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="M5c"):
-        SH.check_train_mesh(cfg, _Stub((2, 2), [torch.device("cpu")] * 4))
-
-
 def test_a_cuda_training_mesh_with_a_repeated_device_refuses():
     """Two ranks on one card would share autograd's one worker thread
     for that device: their backward collectives would wait for each
@@ -222,9 +235,6 @@ def test_a_cuda_training_mesh_with_a_repeated_device_refuses():
     SH.check_train_mesh(cfg, _Stub(
         (2, 2), [torch.device("cuda", i) for i in range(4)]))
     SH.check_train_mesh(cfg, _Stub((2, 2), [torch.device("cpu")] * 4))
-
-
-def test_heads_that_do_not_divide_model_refuse():
-    cfg = registry.get_smoke_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="do not divide"):
-        SH.check_train_mesh(cfg, _Stub((1, 3), [torch.device("cpu")] * 3))
+    cuda = [torch.device("cuda", i) for i in (0, 1, 2, 3, 4, 5, 6, 0)]
+    with pytest.raises(ValueError, match="names a CUDA device twice"):
+        SH.check_train_mesh(cfg, _Stub((2, 2, 2), cuda))
