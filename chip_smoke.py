@@ -40,7 +40,10 @@ Phases, one line each (any failure exits non-zero):
    shapes: K1 and K3 at zamba2-2.7b's shared block, MHA 32 x Dh 80 (K1
    over 8 ragged slots at capacity 2048 with the self partial, K3
    causal over a 1024-token bucket), K5 at its gated norm's (8, 5120)
-   without the add and its layer norm's (8, 2560) with it;
+   without the add and its layer norm's (8, 2560) with it; phase 16's
+   shapes (nemotron-4-340b: head dim 192, GQA 96/8, G 12): K1 and K2
+   over 8 slots at capacity 2048, K4's verify window and 256-token
+   chunk, K3 over 512 tokens (hot times only);
 3. engine, float32 gate — full-width qwen1.5-0.5b, 12 of its 24 layers
    (``QWEN_F32_LAYERS``, as in phases 6, 10a and 13a; random weights from a
    seed) served greedily by ``ServingEngine``: contiguous + blocking
@@ -193,7 +196,10 @@ Phases, one line each (any failure exits non-zero):
    (``devices=("cuda:0",) * n``: the same sharded code and kernels as
    across cards, a gather a local copy): K1 split by position over the
    (1, 3) fallback's shards at its shapes, bitwise K1 over the whole
-   cache and within phase 2's tolerance of the plain version; (a)
+   cache and within phase 2's tolerance of the plain version, and K4's
+   partials over the same shards merged in rank order (a verify window
+   and a chunk: every shard the same bits, within tolerance of the
+   plain version over the whole history); (a)
    float32 qwen at phase 3's width and depth on its traffic at (2, 2)
    — contiguous and paged blocking and paged chunked 256 — equal to
    phase 3's streams, and the sequence-sharded fallback (16 KV heads
@@ -204,10 +210,13 @@ Phases, one line each (any failure exits non-zero):
    the first prompt's prefill and 8 greedy steps through the mesh with
    every K1 / K3 / K5 call of every shard held to its plain version on
    its own inputs (as 9b), each step's logits held to one device's on
-   the same tokens (3e-2, argmax equal or a tie). Every run's launches are
-   exactly the mesh path's (a prefill or chunk on one data replica's
-   model ranks, a decode on every rank), one target dispatch a step,
-   the KV partitioned.
+   the same tokens (3e-2, argmax equal or a tie); (d) float32
+   whisper-large-v3 (4 + 4 layers), zamba2-2.7b (12) and xlstm-350m (8)
+   at (1, 2) on 8a's and 9a's traffic, equal to those phases' one-device
+   streams, each mesh engine's dispatch audit clean. Every run's
+   launches are exactly the mesh path's (a prefill or chunk on one data
+   replica's model ranks, a decode on every rank), one target dispatch
+   a step, the KV partitioned (but xlstm's, which has none).
 14. train — single-device training, in a process of its own (cuBLAS's
    deterministic workspace set before CUDA starts): (a) K5's backward
    K5b in phase 2's table at qwen's training rows (8192 x 1024, with and
@@ -237,9 +246,20 @@ Phases, one line each (any failure exits non-zero):
    runs are ``scripts/torch_mesh_train_card.py`` and
    ``scripts/torch_mesh_train_families_card.py``.
 
+16. nemotron — nemotron-4-340b in bf16 at full width, 2 of its 96
+   layers (32.8 GB; LayerNorm, squared ReLU, head dim 192, GQA 96/8):
+   a 512-token prefill (K3), the same prompt as 256-token chunks (K4),
+   8 greedy decode steps (K1) and a verify window over the prefill's
+   cache (K4's split shape), each's logits held to the plain versions'
+   (3e-2, argmax equal or a tie); then 8 seeded requests of 64–512
+   tokens, 8 new each, on both caches under blocking, chunked 256 and
+   speculative gamma 4, every K1–K4 call held to its plain version on
+   its own inputs, exact launches.
+
 Every engine, cluster and mesh run and every W4 step checks each
 kernel's launch count against what its path must launch. The four-card
-run of the mesh is ``scripts/torch_mesh_card.py``.
+runs of mesh serving are ``scripts/torch_mesh_card.py`` and
+``scripts/torch_mesh_serve_families_card.py``.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. It needs CUDA and the repository's
@@ -475,8 +495,10 @@ def phase_device() -> str:
     build_s = time.perf_counter() - t0
     for name in _build.SOURCES:
         so = _build.library_path(name)
-        log("build", kernel=name, lib=so.name, sass=sass_counts(so),
-            ptxas=" ".join(ptxas_summary(so.with_suffix(".log").read_text())))
+        text = so.with_suffix(".log").read_text()
+        log("build", kernel=name, lib=so.name,
+            nvcc_seconds=_build.build_seconds(text), sass=sass_counts(so),
+            ptxas=" ".join(ptxas_summary(text)))
     log("build", seconds=f"{build_s:.1f}", parallel_nvcc=len(_build.SOURCES))
     return card
 
@@ -1107,6 +1129,22 @@ def flash_case(gen, dtype, label, sq, skv, hq, hkv, dh, *, causal,
                 lambda: lib(q, k, v)), q, k, v)})
 
 
+def nemotron_cases(gen, dtype):
+    """Phase 16's attention shapes (its own generator): nemotron-4-340b's
+    head dim 192 and GQA 96/8 (G 12). K1 and K2 over 8 slots at capacity
+    2048; K4's verify window (gamma 4) and its 256-token chunk over a
+    768-position history; K3 over a 512-token prompt."""
+    dh, hq, hkv = 192, 96, 8
+    cases = decode_cases(gen, dtype, 8, 2048, hq, hkv, dh)
+    cases += prefill_cases(gen, dtype, dh, (
+        ("verify,g12", 8, 5, hq, hkv, None),
+        ("chunk,g12", 1, 256, hq, hkv, 768)))
+    cases.append(flash_case(gen, dtype, "nemotron", 512, 512, hq, hkv, dh,
+                            causal=True))
+    # hot times only, 5 calls a timed round: the script's time is scarce
+    return [c[:8] + ({"reps": 5},) for c in cases]
+
+
 # phase 8's rolling decode rows: both sides of the 4096-position window
 ROLLING_LENS = (600, 4090, 4095, 4096, 4097, 4500, 6000, 8191)
 
@@ -1244,6 +1282,8 @@ def phase_kernels() -> dict:
     gen_win = torch.Generator(device="cuda").manual_seed(SEED + 19)
     gen_rec = torch.Generator(device="cuda").manual_seed(SEED + 20)
     gen_bwd = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    gen_nem = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    t0 = time.perf_counter()
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
@@ -1252,7 +1292,8 @@ def phase_kernels() -> dict:
                 + families_cases(gen_fam, dtype)
                 + window_audio_cases(gen_win, dtype)
                 + recurrent_cases(gen_rec, dtype)
-                + backward_cases(gen_bwd, dtype)):
+                + backward_cases(gen_bwd, dtype)
+                + nemotron_cases(gen_nem, dtype)):
             opts = opts[0] if opts else {}
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -1263,12 +1304,14 @@ def phase_kernels() -> dict:
                 if not equal:
                     raise AssertionError(f"{name} {case} {dname}: not "
                                          f"bitwise equal to {label}")
+            reps = opts.get("reps", 20)   # calls a timed round
             res = _compare(
-                name, case, dname, got, want, ms=time_ms(kfn),
-                plain_ms=time_ms(pfn),
-                lib_ms=None if lfn is None else time_ms(lfn),
-                dev_ms=device_ms(kfn),
-                lib_dev_ms=None if lfn is None else device_ms(lfn),
+                name, case, dname, got, want, ms=time_ms(kfn, reps=reps),
+                plain_ms=time_ms(pfn, reps=reps),
+                lib_ms=None if lfn is None else time_ms(lfn, reps=reps),
+                dev_ms=device_ms(kfn, reps=reps),
+                lib_dev_ms=None if lfn is None else device_ms(lfn,
+                                                               reps=reps),
                 nbytes=nbytes, flops=flops)
             if "cold" in opts:
                 res.update(_cold(name, case, dname, *opts["cold"]()))
@@ -1285,7 +1328,8 @@ def phase_kernels() -> dict:
                 row.update({k: v for k, v in res.items()
                             if k != "max_abs_err"}, case=case)
     log("kernels", device_time_misses=device_misses,
-        device_time_tries=DEVICE_TRIES)
+        device_time_tries=DEVICE_TRIES,
+        seconds=f"{time.perf_counter() - t0:.1f}")
     return rows
 
 
@@ -1302,7 +1346,7 @@ def plain_kernels():
     # ops.rmsnorm goes through ops.add_rmsnorm
     names = ("add_rmsnorm", "flash_attention", "decode_attention",
              "decode_attention_shard", "paged_decode_attention",
-             "prefill_attention", "quant_gemv")
+             "prefill_attention", "prefill_attention_shard", "quant_gemv")
     saved = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, getattr(ref, n))
@@ -1463,37 +1507,47 @@ def path_shape(cfg) -> tuple[int, int]:
     return (2 * cfg.n_layers + 1 if rms_final else 0), cfg.n_layers
 
 
-def expected_launches(eng) -> tuple[dict, set]:
+def expected_launches(eng, one: int = 1, every: int = 1
+                      ) -> tuple[dict, set]:
     """(launches per kernel, the kernels that must have run) of every
-    run ``eng`` has made. Target model (:func:`path_shape`: R RMSNorms
-    per dispatch, L attention layers): R RMSNorms per dispatch, L flash
-    prefills per blocking prefill, L split-KV decodes (contiguous) or L
-    paged decodes per decode step, L prefill-over-cache launches per
-    chunk and per verify dispatch; on whisper (E encoder layers) each
-    prefill is 2L + E flash launches (self, cross, encoder) and each
-    decode step 2L split-KV decodes (self, cross). Draft (k layers):
-    2k + 1 RMSNorms per dispatch, k flash prefills per draft prefill, k
-    split-KV decodes per draft decode (its shadow cache is
-    contiguous)."""
+    run ``eng`` has made, each one-request dispatch (a prefill or chunk,
+    the draft's prefill) launching on ``one`` device and every batched
+    one (a decode, a verify, a draft decode) on ``every`` — 1 on one
+    device; a mesh's ranks (:func:`mesh_expected_launches`). Target
+    model (:func:`path_shape`: R RMSNorms per dispatch, L attention
+    layers): R RMSNorms per dispatch, L flash prefills per blocking
+    prefill, L split-KV decodes (contiguous) or L paged decodes per
+    decode step, L prefill-over-cache launches per chunk and per verify
+    dispatch; on whisper (E encoder layers) each prefill is 2L + E flash
+    launches (self, cross, encoder) and each decode step 2L split-KV
+    decodes (self, cross). Draft (k layers): its :func:`path_shape`
+    RMSNorms per dispatch (2k + 1, none on a LayerNorm model), k flash
+    prefills per draft prefill, k split-KV decodes per draft decode (its
+    shadow cache is contiguous)."""
     s = eng.summary()
     cfg = eng.cfg
     norms, n = path_shape(cfg)
     audio = cfg.family == "audio"
     k = eng.draft_cfg.n_layers if eng.draft_cfg is not None else 0
+    draft_norms = path_shape(eng.draft_cfg)[0] if k else 0
     decodes = s["decode_dispatches"] - s["verify_dispatches"]
     draft_decodes = s["draft_dispatches"] - s["draft_prefills"]
-    over_cache = s["prefill_chunk_dispatches"] + s["verify_dispatches"]
+    requests = s["prefills"] + s["prefill_chunk_dispatches"]
     paged = s["kv_cache"] == "paged"
     want = {
-        "rmsnorm": (norms * (s["prefills"] + s["decode_dispatches"]
-                             + s["prefill_chunk_dispatches"])
-                    + (2 * k + 1) * s["draft_dispatches"]),
-        "flash_attention": ((2 * n + cfg.n_encoder_layers if audio else n)
-                            * s["prefills"] + k * s["draft_prefills"]),
-        "decode_attention": ((0 if paged else (2 if audio else 1) * n
-                              * decodes) + k * draft_decodes),
-        "paged_decode_attention": n * decodes if paged else 0,
-        "prefill_attention": n * over_cache,
+        "rmsnorm": (norms * (one * requests
+                             + every * s["decode_dispatches"])
+                    + draft_norms * (one * s["draft_prefills"]
+                                     + every * draft_decodes)),
+        "flash_attention": one * ((2 * n + cfg.n_encoder_layers if audio
+                                   else n) * s["prefills"]
+                                  + k * s["draft_prefills"]),
+        "decode_attention": every * ((0 if paged else
+                                      (2 if audio else 1) * n * decodes)
+                                     + k * draft_decodes),
+        "paged_decode_attention": every * n * decodes if paged else 0,
+        "prefill_attention": n * (one * s["prefill_chunk_dispatches"]
+                                  + every * s["verify_dispatches"]),
         "quant_gemv": 0,
     }
     # the kernels this path must have launched at least once
@@ -2638,6 +2692,9 @@ def phase_families(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 WINDOW_ARCHS = ("h2o-danube-1.8b", "mistral-7b", "whisper-large-v3")
+# arch -> (config, prompts, streams, engine config) of 8a's whisper and
+# 9a's float32 runs, which phase 13 serves again over a mesh
+FAMILY_STREAMS: dict = {}
 WINDOW_LAYERS = 4      # 8a's depth (whisper: 4 encoder + 4 decoder layers)
 WINDOW_CAPACITY = 8192
 # 8a's SWA prompts at the 4096 window: two roll in prefill, 4090 + 16
@@ -2786,6 +2843,9 @@ def phase_window_f32() -> dict:
                 window=cfg.sliding_window, config="contiguous+blocking",
                 requests=s["requests"], decode_steps=s["decode_steps"],
                 launches=json.dumps(counts), streams_equal=True)
+            if cfg.family == "audio":
+                FAMILY_STREAMS[arch] = (cfg, prompts, base,
+                                        {"max_seq_len": WINDOW_CAPACITY})
             window_fallbacks("window_f32", params, cfg, prompts, base, total)
             window_slo("window_f32", params, cfg, total)
             window_export_import("window_f32", params, cfg, prompts)
@@ -2859,18 +2919,23 @@ def ulp_noise(seed=SEED):
             setattr(ops, n, fn)
 
 
+CHECKED_OPS = ("add_rmsnorm", "flash_attention", "decode_attention")
+ATTENTION_OPS = ("flash_attention", "decode_attention",
+                 "paged_decode_attention", "prefill_attention")
+
+
 @contextlib.contextmanager
-def checked_kernels(errs: dict):
-    """Every call of the kernel ops a model path runs (K1, K3, K5) also
-    runs its plain version on the same inputs and must agree within
-    phase 2's bf16 tolerance; ``errs`` collects, per op, (calls, largest
-    |kernel - plain|). Holds each launch of a full-depth run to its
-    plain version where the run's logits cannot be held tightly (this
-    script's check only; the plain versions launch no kernel)."""
+def checked_kernels(errs: dict, names=CHECKED_OPS):
+    """Every call of the kernel ops ``names`` a model path runs (by
+    default K1, K3, K5) also runs its plain version on the same inputs
+    and must agree within phase 2's bf16 tolerance; ``errs`` collects,
+    per op, (calls, largest |kernel - plain|). Holds each launch of a
+    full-depth run to its plain version where the run's logits cannot be
+    held tightly (this script's check only; the plain versions launch no
+    kernel)."""
     import torch
     from repro_torch.kernels import ops, ref
-    saved = {n: getattr(ops, n) for n in ("add_rmsnorm", "flash_attention",
-                                          "decode_attention")}
+    saved = {n: getattr(ops, n) for n in names}
 
     def checked(name, pick):
         def call(*a, **k):
@@ -2887,9 +2952,10 @@ def checked_kernels(errs: dict):
             return got
         return call
 
-    ops.add_rmsnorm = checked("add_rmsnorm", lambda out: out[1])
-    ops.flash_attention = checked("flash_attention", lambda out: out)
-    ops.decode_attention = checked("decode_attention", lambda out: out)
+    for name in names:
+        setattr(ops, name, checked(name, (lambda out: out[1])
+                                   if name == "add_rmsnorm"
+                                   else (lambda out: out)))
     try:
         yield
     finally:
@@ -3142,6 +3208,7 @@ def phase_recurrent_f32() -> dict:
                 config="contiguous+blocking", requests=s["requests"],
                 decode_steps=s["decode_steps"], prefills=s["prefills"],
                 launches=json.dumps(counts), streams_equal=True)
+            FAMILY_STREAMS[arch] = (cfg, prompts, base, {})
             bucket_gate("recurrent_f32", params, cfg, prompts, base, total)
             window_fallbacks("recurrent_f32", params, cfg, prompts, base,
                              total, capacity=RECURRENT_CAPACITY)
@@ -3854,36 +3921,21 @@ def mesh_run(params, cfg, mesh, prompts, max_new, **ecfg):
 
 def mesh_expected_launches(eng) -> tuple[dict, set]:
     """(launches per kernel, the kernels that must have run) of a mesh
-    run: a prefill or chunk runs on the model ranks of one data replica,
-    a decode on every rank, each rank launching what one device would
-    (:func:`expected_launches`'s counts per dispatch); the sequence-
-    sharded decode counts as K1."""
-    s = eng.summary()
-    d, m = eng.mesh.shape
-    norms, n = path_shape(eng.cfg)
-    paged = s["kv_cache"] == "paged"
-    one = s["prefills"] + s["prefill_chunk_dispatches"]
-    want = {
-        "rmsnorm": norms * (m * one + d * m * s["decode_dispatches"]),
-        "flash_attention": n * m * s["prefills"],
-        "decode_attention": 0 if paged else n * d * m * s["decode_steps"],
-        "paged_decode_attention": n * d * m * s["decode_steps"] if paged
-        else 0,
-        "prefill_attention": n * m * s["prefill_chunk_dispatches"],
-        "quant_gemv": 0,
-    }
-    path = {"flash_attention" if s["prefills"] else "prefill_attention",
-            "paged_decode_attention" if paged else "decode_attention"}
-    if norms:
-        path.add("rmsnorm")
-    if s["prefill_chunk_dispatches"]:
-        path.add("prefill_attention")
-    return want, path
+    run: a one-request dispatch (prefill, chunk, draft prefill) runs on
+    the model ranks of one data replica — on every rank where the
+    weights are gathered over ``data`` or every replica holds every
+    slot —, a batched one on every rank, each rank launching what one
+    device would (:func:`expected_launches`); the sequence-sharded
+    decode and chunk count as K1 and K4."""
+    return expected_launches(eng, one=len(eng._request_ranks(0)),
+                             every=eng.mesh.size)
 
 
-def mesh_checks(phase, eng, counts, n_requests, **fields) -> dict:
+def mesh_checks(phase, eng, counts, n_requests, partitioned=True,
+                **fields) -> dict:
     """Launches exactly as the mesh path says, one target dispatch a
-    step, every request finished; one line with the mesh accounting."""
+    step, every request finished, the KV partitioned (``partitioned``;
+    an xLSTM holds none); one line with the mesh accounting."""
     s = eng.summary()
     _launch_gate(phase, counts, *mesh_expected_launches(eng))
     if s["decode_dispatches"] != s["decode_steps"]:
@@ -3892,7 +3944,7 @@ def mesh_checks(phase, eng, counts, n_requests, **fields) -> dict:
     if s["requests"] != n_requests:
         raise AssertionError(f"{phase}: {s['requests']} of {n_requests} "
                              "requests finished")
-    if s["kv_partitions"] < 2:
+    if partitioned and s["kv_partitions"] < 2:
         raise AssertionError(f"{phase}: the KV is not partitioned")
     log(phase, mesh=f"{s['mesh'][0]}x{s['mesh'][1]}",
         kv_cache=s["kv_cache"], layout=eng.kv.layout,
@@ -3941,8 +3993,8 @@ def sharded_decode_case() -> None:
                 return ops.decode_attention_shard(
                     q, k[:, r * c:(r + 1) * c].contiguous(),
                     v[:, r * c:(r + 1) * c].contiguous(), lens,
-                    offset=r * c, gather=H.gather_positions, extra_k=ek,
-                    extra_v=ev, split=K1.split_size(b, h))
+                    offset=r * c, capacity=cap, gather=H.gather_positions,
+                    extra_k=ek, extra_v=ev, split=K1.split_size(b, h))
 
         outs = mesh.run(shard)
         err = (outs[0].float() - want.float()).abs().max().item()
@@ -3957,24 +4009,113 @@ def sharded_decode_case() -> None:
     mesh.close()
 
 
-def mesh_forward(eng, prompt, n_steps, feed=None):
+def sharded_prefill_case() -> None:
+    """K4 split by position over the (1, 3) fallback's shards at a chunk
+    and a verify shape (8 rows at the verify, 16 heads of 64, 1152
+    positions, histories on both sides of the shard edges), bf16 and
+    float32: the shards' partials merged in rank order give every shard
+    the same bits, within phase 2's tolerance of the plain version over
+    the whole history."""
+    import torch
+    from repro_torch.distributed import hints as H
+    from repro_torch.distributed.mesh import DeviceMesh
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    m = FALLBACK_MESH[1]
+    mesh = DeviceMesh(FALLBACK_MESH, (CARD,) * m)
+    cap, h, dh = FALLBACK_CAPACITY, 16, 64
+    c = cap // m
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, b, s, hist in (
+                ("verify", 8, 5, [0, 17, 383, 384, 385, 700, 1000, 1147]),
+                ("chunk", 1, 256, [700])):
+            hl = torch.tensor(hist, dtype=torch.int32, device="cuda")
+            q = _rand(gen, (b, s, h, dh), dtype)
+            ks, vs = (_rand(gen, (b, s, h, dh), dtype) for _ in range(2))
+            k, v = (_rand(gen, (b, cap, h, dh), dtype) for _ in range(2))
+            want = ref.prefill_attention(q, k, v, hl, ks, vs)
+
+            def shard(r):
+                with H.use_mesh(mesh, attn="seq"):
+                    return ops.prefill_attention_shard(
+                        q, k[:, r * c:(r + 1) * c].contiguous(),
+                        v[:, r * c:(r + 1) * c].contiguous(), hl, ks, vs,
+                        offset=r * c, gather=H.gather_positions)
+
+            outs = mesh.run(shard)
+            err = (outs[0].float() - want.float()).abs().max().item()
+            name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+            same = all(torch.equal(o, outs[0]) for o in outs)
+            log("mesh", kernel="prefill_attention_shard", case=what,
+                dtype=name, shards=m, positions=cap, rows=b, queries=s,
+                shards_bitwise_equal=same,
+                max_abs_err_vs_plain=f"{err:.3e}", tol=TOL[name])
+            if not same or err > TOL[name]:
+                raise AssertionError(f"sharded K4 {what} ({name}): shards "
+                                     f"equal {same}, max |kernel - plain| "
+                                     f"{err:.3e}")
+    mesh.close()
+
+
+MESH_FAMILIES = ("whisper-large-v3", "zamba2-2.7b", "xlstm-350m")
+FAMILY_MESH = (1, 2)
+
+
+def mesh_families_f32(total) -> None:
+    """13d: whisper (4 + 4 layers, 8a's traffic over capacity 8192),
+    zamba2 (12 layers) and xlstm (8) in float32 at (1, 2) on 9a's
+    traffic: the streams of their one-device engines (8a, 9a), exact
+    launches, one dispatch a step, a clean dispatch audit of the mesh
+    engine."""
+    from repro_torch.core.costmodel import assert_no_drift, audit_engine
+    from repro_torch.models import model as MD
+    for arch in MESH_FAMILIES:
+        cfg, prompts, base, ekw = FAMILY_STREAMS[arch]
+        params = MD.init_params(cfg, seed=SEED, device="cuda")
+        eng, counts, wall = mesh_run(params, cfg, FAMILY_MESH, prompts, 16,
+                                     **ekw)
+        mesh_checks("mesh_f32", eng, counts, len(prompts),
+                    partitioned=cfg.family != "ssm", arch=arch,
+                    depth=cfg.n_layers, config="contiguous+blocking",
+                    wall_s=f"{wall:.2f}")
+        _add(total, counts)
+        mesh_stream_gate("mesh_f32", {r.rid: r.output for r in eng.finished},
+                         base, "its one-device engine's (8a / 9a)")
+        report = audit_engine(eng)
+        assert_no_drift(report)
+        log("mesh_f32", arch=arch, audit_ok=report["ok"],
+            audited_dispatches=report["dispatches"])
+        eng.mesh.close()
+        del eng, params
+        gc_empty()
+
+
+def mesh_forward(eng, prompt, n_steps, feed=None, capacity=None):
     """A prefill of ``prompt`` and ``n_steps`` greedy decode steps (or
     the tokens of ``feed``) through the engine's mesh: each rank runs the
     port's ``prefill`` / ``decode_step`` on its shard over a one-row
-    contiguous cache of its heads. Returns (every step's logits, whole
-    vocab, from rank 0; the tokens fed)."""
+    contiguous cache of ``capacity`` positions (by default the prompt
+    and the steps; a rolling window's rolls) holding its heads, or every
+    head in the engine's ``"replicated"`` layout — and, where the
+    engine's weights split over ``data``, each layer's gathered at use.
+    Returns (every step's logits, whole vocab, from rank 0; the tokens
+    fed)."""
     import torch
     from repro_torch.distributed import hints as H
     from repro_torch.models import model as MD
     mesh, cfg_r = eng.mesh, eng._cfg_rank
+    if eng._attn == "seq":
+        raise ValueError("mesh_forward holds whole positions on a rank: "
+                         "not the sequence-sharded layout")
     plan = (1, eng.cfg.n_kv_heads)
-    cap = len(prompt) + n_steps + 1
+    cap = capacity or len(prompt) + n_steps + 1
     caches = [None] * mesh.size
     toks = torch.as_tensor(prompt[None], dtype=torch.int32)
 
     def run(fn):
         def one(r):
-            with H.use_mesh(mesh, attn="heads", plan=plan):
+            with H.use_mesh(mesh, attn=eng._attn, plan=plan,
+                            specs=eng._gather_specs):
                 return fn(r)
         return mesh.run(one)
 
@@ -4188,15 +4329,17 @@ def s_tok(eng) -> int:
 
 def phase_mesh(base, card: str) -> dict:
     """Phase 13: mesh serving with every shard on the card — the
-    sharded K1 at the fallback's shapes, 13a, 13b and 13c. Returns the
-    launch counts of its runs."""
+    sharded K1 and K4 at the fallback's shapes, 13a, 13b, 13c and 13d.
+    Returns the launch counts of its runs."""
     t0 = time.perf_counter()
     total: dict = {}
     with step_deadline():
         sharded_decode_case()
+        sharded_prefill_case()
         mesh_qwen_f32(base, total)
         mesh_moe_f32(total)
         mesh_qwen_bf16(card, total)
+        mesh_families_f32(total)
     log("mesh", seconds=f"{time.perf_counter() - t0:.1f}",
         launches=json.dumps(total), card=f"'{card}'")
     return total
@@ -5322,6 +5465,128 @@ def train_phases(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: nemotron-4-340b's attention (Dh 192, G 12) at full width
+# ---------------------------------------------------------------------------
+
+NEMOTRON = "nemotron-4-340b"
+NEMOTRON_LAYERS = 2       # of 96: the embedding and head alone are 18.9 GB
+NEMOTRON_NEW = 8
+NEMOTRON_CAPACITY = 1024
+NEMOTRON_CONFIGS = ("contiguous+blocking", "paged+blocking",
+                    "contiguous+chunked", "paged+chunked",
+                    "contiguous+speculative", "paged+speculative")
+
+
+def nemotron_logits(phase, params, cfg, prompt) -> None:
+    """A prefill of ``prompt`` (K3), the same prompt as 256-token chunks
+    over a one-slot cache (K4), then ``NEMOTRON_NEW`` greedy decode steps
+    (K1) and the same tokens as one verify window (K4's split shape)
+    through the kernels, then through the plain versions: every logits
+    normwise <= 3e-2 with the argmax equal or tied (:func:`_tie_gate`)."""
+    import torch
+    from repro_torch.models import model as MD
+    n = len(prompt)
+    toks = torch.as_tensor(prompt[None, :], dtype=torch.int32, device="cuda")
+
+    def run(feed=None):
+        logits, cache = MD.prefill(params, cfg, {"tokens": toks},
+                                   NEMOTRON_CAPACITY)
+        verify_cache = {k: t.clone() for k, t in cache.items()}
+        _, chunked = _first_logits(params, cfg, prompt, CHUNK_TOKENS)
+        out, fed = [logits, chunked], []
+        for i in range(NEMOTRON_NEW):
+            tok = (feed[i] if feed is not None
+                   else torch.argmax(out[-1], -1)[:, None].to(torch.int32))
+            fed.append(tok)
+            logits, cache = MD.decode_step(params, cfg, tok, cache)
+            out.append(logits)
+        window = torch.cat(fed[:5], 1)
+        verify_cache["len"] = torch.tensor([n], dtype=torch.int32,
+                                           device="cuda")
+        ver, _ = MD.verify_tokens(params, cfg, window, verify_cache)
+        out.append(ver[0])
+        return out, fed
+
+    got, fed = run()
+    with plain_kernels():
+        want, _ = run(feed=fed)
+    names = (["prefill", "chunked_prefill"]
+             + [f"decode_{i}" for i in range(NEMOTRON_NEW)] + ["verify"])
+    for what, g, w in zip(names, got, want):
+        rel, ties = _tie_gate(f"{phase} {what}", g, w)
+        log(phase, logits=what, prompt_len=n, rel_err=f"{rel:.3e}",
+            max_abs_err=f"{(g - w).abs().max().item():.3e}",
+            tol=TOL["bfloat16"], argmax_flips=len(ties),
+            ties="none" if not ties else ",".join(
+                f"{r}:{m:.3e}<{e:.3e}" for r, m, e in ties))
+
+
+def phase_nemotron(card: str) -> dict:
+    """Phase 16: nemotron-4-340b in bf16 at full width, 2 of its 96
+    layers (LayerNorm, squared ReLU, GQA 96/8: Dh 192, G 12): its logits
+    through every K1–K4 route against the plain versions, then 8 seeded
+    requests of 64–512 tokens, 8 new tokens each, on both caches under
+    blocking, chunked (256) and speculative (gamma 4) scheduling, with
+    every K1–K4 call held to its plain version on its own inputs and
+    exact launches. Returns the launch counts of its runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    phase = "nemotron_bf16"
+    t0 = time.perf_counter()
+    cfg = registry.get_config(NEMOTRON).replace(n_layers=NEMOTRON_LAYERS)
+    if (cfg.d_head, cfg.n_heads // cfg.n_kv_heads, cfg.dtype) != \
+            (192, 12, "bfloat16"):
+        raise AssertionError(f"{NEMOTRON}: Dh {cfg.d_head}, G "
+                             f"{cfg.n_heads // cfg.n_kv_heads}, {cfg.dtype}")
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(phase, arch=NEMOTRON, layers=cfg.n_layers, params=cfg.param_count(),
+        d_head=cfg.d_head, g=cfg.n_heads // cfg.n_kv_heads,
+        weight_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+        init_s=f"{time.perf_counter() - t0:.1f}")
+    rng = np.random.default_rng(SEED + 16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in rng.integers(64, 513, size=8)]
+    prompts[0] = rng.integers(0, cfg.vocab_size, size=512).astype(np.int32)
+    nemotron_logits(phase, params, cfg, prompts[0])
+    total: dict = {}
+    for label in NEMOTRON_CONFIGS:
+        kw = GATE_CONFIGS.get(label, {})
+        torch.cuda.empty_cache()
+        errs: dict = {}
+        with checked_kernels(errs, ATTENTION_OPS):
+            eng, counts = run_engine(params, cfg, prompts, NEMOTRON_NEW,
+                                     max_seq_len=NEMOTRON_CAPACITY, **kw)
+        s = _check_engine(f"{phase} {label}", eng, counts, len(prompts))
+        for r in eng.finished:
+            if len(r.output) != NEMOTRON_NEW:
+                raise AssertionError(f"{phase} {label} request {r.rid}: "
+                                     f"{len(r.output)} tokens")
+        log(phase, config=label, requests=s["requests"],
+            tokens=s["tokens"], decode_steps=s["decode_steps"],
+            prefills=s["prefills"],
+            chunk_dispatches=s["prefill_chunk_dispatches"],
+            verify_dispatches=s["verify_dispatches"],
+            checked_calls=json.dumps({k: n for k, (n, _) in errs.items()}),
+            max_abs_err=json.dumps({k: f"{e:.3e}"
+                                    for k, (_, e) in errs.items()}),
+            tol=TOL["bfloat16"], launches=json.dumps(counts),
+            card=f"'{card}'")
+        _add(total, counts)
+        del eng
+    for name in ATTENTION_OPS:
+        if not total.get(name):
+            raise AssertionError(f"{phase}: {name} never launched")
+    log(phase, seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    del params
+    gc_empty()
+    return total
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
@@ -5389,6 +5654,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, c in phase_train(card).items():
         counts[name] = counts.get(name, 0) + c
+    with step_deadline():
+        for name, c in phase_nemotron(card).items():
+            counts[name] += c
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

@@ -204,19 +204,22 @@ def entry_tracer(engine, memo: dict | None = None):
     function. ``memo`` (optional) is shared between engines: an entry
     traced for one engine is not traced again for another of the same
     model (its ``"entries"`` dict holds the traces). Raises ``KeyError``
-    for a kind with no function, NotImplementedError for an engine on
-    a device mesh (its dispatches run per rank, gathers between)."""
-    if getattr(engine, "mesh", None) is not None:
-        raise NotImplementedError(
-            "the dispatch audit prices one device's dispatches; a mesh "
-            "engine's run per rank with gathers between them")
-    closures = engine._closures
-    draft_closures = getattr(engine, "_draft_closures", None)
+    for a kind with no function. An engine on a device mesh is priced as
+    the one program its dispatch is: its log holds the one-device
+    engine's operands, traced through the whole model's functions and
+    params (``ServingEngine.audit_functions``)."""
+    if hasattr(engine, "audit_functions"):
+        closures, params, draft_closures, draft_params = \
+            engine.audit_functions()
+    else:   # a record of an engine (its log, functions and params)
+        closures = engine._closures
+        draft_closures = getattr(engine, "_draft_closures", None)
+        params = engine.params
+        draft_params = getattr(engine, "draft_params", None)
     # params and operands as meta tensors (every tensor and TensorSpec);
     # other operands (slots, host lengths) keep their values
-    pspec = T.to_meta(engine.params)
-    dspec = (T.to_meta(engine.draft_params)
-             if getattr(engine, "draft_params", None) is not None else None)
+    pspec = T.to_meta(params)
+    dspec = T.to_meta(draft_params) if draft_params is not None else None
     # (model config, kind, spec repr) -> op stream, traced once
     traced = {} if memo is None else memo.setdefault("entries", {})
 

@@ -17,7 +17,12 @@ and the hints move the data:
 - :func:`moe_buf` / :func:`moe_gather` select the rank's experts of the
   (E, capacity, d) dispatch buffer and gather their outputs in expert
   order;
-- :func:`embed` looks a token up in a vocab-sharded table.
+- :func:`embed` looks a token up in a vocab-sharded table;
+- :func:`weights` gathers a layer's leaves split over ``data`` (a model
+  over the serve budget) at use, with no autograd;
+- :func:`kv_offset`, :func:`kv_shards` and :func:`gather_positions` place
+  and gather a cache split by position over ``model``, or over ``data``
+  and ``model`` where the batch does not divide over ``data``.
 
 Each is a no-op outside :func:`use_mesh` — every path that runs on one
 device is untouched — and a no-op on a tensor that is already whole (a
@@ -76,8 +81,10 @@ class _Ctx(NamedTuple):
     plan: object
     train: bool
     comm: object       # collectives.Comm of a train context's rank
-    specs: object      # the train placements' spec tree (whole params)
+    specs: object      # the params' spec tree: the train placements, or a
+                       # serve placement that splits weights over data
     whole: frozenset   # sublayer keys run whole over model in training
+    pos_axes: tuple    # the axes a "seq" cache splits its positions over
 
 
 class Whole(dict):
@@ -93,14 +100,18 @@ def whole(p) -> bool:
 
 @contextlib.contextmanager
 def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
-             specs=None, whole=frozenset()):
+             specs=None, whole=frozenset(), pos_axes=("model",)):
     """Arm the hints for the calling rank's model code. ``attn``: how
     this dispatch's KV cache is laid out over ``model`` — ``"heads"``
     (each rank its KV heads), ``"seq"`` (each rank a range of positions;
     q, k and v gathered to every head) or ``"replicated"`` (every head
     and position on every rank). ``plan``: the (batch, KV heads) of the
     whole decode, from which the split-KV kernels take their launch
-    plan on every shard.
+    plan on every shard. ``pos_axes``: the axes the "seq" layout splits
+    positions over, flattened in order (``("model",)``, or ``("data",
+    "model")`` where the batch does not divide over ``data``). ``specs``
+    in serving: the params' serve placement where it splits weights over
+    ``data`` (:func:`weights` gathers them), else None.
 
     ``train``: the train placements, over the params' ``specs`` (the
     spec tree of the whole params); ``whole``: the sublayer keys that
@@ -116,7 +127,7 @@ def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
         comm = C.Comm(mesh, mesh.rank(), mesh.current_call())
     prev = getattr(_STATE, "ctx", None)
     _STATE.ctx = _Ctx(mesh, attn, plan, train, comm, specs,
-                      frozenset(whole))
+                      frozenset(whole), tuple(pos_axes))
     try:
         yield mesh
     finally:
@@ -337,15 +348,21 @@ def weights(tree, *path):
     over the FSDP axes gathered whole (FSDP at use; its gradient
     reduce-scattered back to the shards), and each sublayer that runs
     whole over ``model`` a :class:`Whole` dict with its leaves split
-    over ``model`` gathered too (their gradient the rank's slice).
-    ``tree`` itself otherwise."""
+    over ``model`` gathered too (their gradient the rank's slice). In
+    serving under a placement that splits weights over
+    ``data``, ``tree`` with those leaves all-gathered over ``data`` in
+    shard order (no autograd; a leaf split over ``model`` stays the
+    rank's). ``tree`` itself otherwise."""
     ctx = _ctx()
-    if ctx is None or ctx.comm is None or (
-            ctx.comm.size(C.FSDP) == 1 and ctx.comm.size("model") == 1):
+    if ctx is None or ctx.specs is None:
         return tree
     specs = ctx.specs
     for k in path:
         specs = specs[k]
+    if ctx.comm is None:
+        return tree if ctx.train else _gather_data(tree, specs, ctx.mesh)
+    if ctx.comm.size(C.FSDP) == 1 and ctx.comm.size("model") == 1:
+        return tree
     top = bool(path) and path[0] in ctx.whole
     return _gather(tree, specs, ctx, top, path[-1] if path else "")
 
@@ -381,6 +398,21 @@ def _gather(tree, specs, ctx, whole_, key=""):
                 tree = C.gather_from(tree, dim, "model", ctx.comm)
         else:
             tree = C.fsdp_gather(tree, dim, ctx.comm, entry)
+    return tree
+
+
+@torch.no_grad()
+def _gather_data(tree, specs, mesh):
+    """Serving's gather at use: ``tree`` with every leaf's dims split
+    over ``data`` all-gathered whole (a stacked leaf's layer drops the
+    spec's leading entries)."""
+    if isinstance(tree, dict):
+        return {k: _gather_data(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_gather_data(v, s, mesh) for v, s in zip(tree, specs)]
+    for dim, entry in enumerate(specs[len(specs) - tree.dim():]):
+        if entry is not None and "data" in entry:
+            tree = mesh.all_gather(tree.contiguous(), dim, "data")
     return tree
 
 
@@ -424,19 +456,42 @@ def sum_over_mesh(x: torch.Tensor) -> torch.Tensor:
     return comm.all_reduce(comm.all_reduce(x, "model"), C.FSDP)
 
 
+def _pos_axes() -> tuple:
+    ctx = _ctx()
+    return ("model",) if ctx is None else ctx.pos_axes
+
+
+def kv_shards() -> int:
+    """Position shards of a "seq" cache (1 otherwise): the size of the
+    axes it splits positions over."""
+    mesh = current_mesh()
+    if mesh is None or attn_layout() != "seq":
+        return 1
+    n = 1
+    for a in _pos_axes():
+        n *= mesh.axis_size(a)
+    return n
+
+
 def kv_offset(c_local: int) -> int:
-    """First cache position a rank holds: ``model index x c_local`` in
-    the "seq" layout, 0 otherwise."""
-    return model_index() * c_local if attn_layout() == "seq" else 0
+    """First cache position a rank holds: its index over the position
+    axes (row-major) x ``c_local`` in the "seq" layout, 0 otherwise."""
+    if attn_layout() != "seq":
+        return 0
+    mesh = current_mesh()
+    rank = mesh.rank()
+    grp = mesh.group(rank, _pos_axes())
+    return grp.index(rank) * c_local
 
 
 def gather_positions(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The shards' split-KV partials of one decode (or any tensor split
-    by position over ``model``) gathered along ``dim`` in shard order."""
+    by position) gathered along ``dim`` in shard order, over the "seq"
+    layout's position axes."""
     mesh = current_mesh()
     if mesh is None:
         return x
-    return mesh.all_gather(x.contiguous(), dim, "model")
+    return mesh.all_gather(x.contiguous(), dim, _pos_axes())
 
 
 def decode_plan():

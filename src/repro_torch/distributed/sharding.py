@@ -20,9 +20,10 @@ split over ``model``, the embedding and head split their vocab over
 ``model``. A model that fits ``serve_budget_bytes`` a device on the
 model axis alone keeps its weights whole over ``data`` (each data
 replica then reads local weights); a larger one keeps the FSDP rules,
-which split contraction dims over ``data``. The port gathers no weight
-per step: such a placement on a mesh with ``data > 1`` raises
-(:func:`serve_specs`).
+which split contraction dims over ``data``, and serving gathers each
+layer's ``data`` shards at use (:func:`~repro_torch.distributed.hints.
+weights`). The recurrent sublayers (:data:`WHOLE_STACKS`) serve whole
+over ``model`` on every model rank, as they train.
 
 Training keeps the reference's rules (``param_specs(serve=False)``):
 FSDP splits contraction dims over ``("pod", "data")``, the row-parallel
@@ -41,7 +42,8 @@ KV caches put the slot batch over ``data`` and the heads over
 ``model``; when the KV heads do not divide ``model`` a contiguous cache
 splits its positions over ``model`` instead (the sequence-sharded
 decode of :mod:`repro_torch.models.attention`), and a paged pool stays
-whole.
+whole; when the batch does not divide over ``data`` a contiguous cache
+splits its positions over every axis (:func:`kv_spec`).
 
 :func:`shard_params` cuts a whole tree into per-rank trees (and
 :func:`shard_tree` any tree by a spec tree: the optimizer state);
@@ -65,10 +67,6 @@ POD, DATA, MODEL = "pod", "data", "model"
 MOE_EXPERT_SHARD = "dff"   # the reference's default: experts' FFN dim
                            # over FSDP, contraction dims whole
 SERVE_BUDGET_BYTES = 8e9
-ROADMAP_DATA_SPLIT = ("weights split over 'data' (a model over the serve "
-                      "budget on a mesh with data > 1) wait for per-step "
-                      "weight gathers — ROADMAP, Queue 1, M4's \"what "
-                      "waits\"")
 
 
 def _sizes(mesh) -> dict:
@@ -237,42 +235,60 @@ def param_specs(params, mesh, *, serve: bool = False,
 
 def serve_specs(params, mesh, *,
                 serve_budget_bytes: float = SERVE_BUDGET_BYTES):
-    """The placement the engine realizes: :func:`param_specs` with
-    ``serve=True``, except that an MoE's shared experts take the dense
-    MLP's rule (the reference's rule reads a stacked shared MLP
-    (L, d, f) as an expert stack and would split its layer axis). Raises
-    NotImplementedError where a weight would split over ``data`` on a
-    mesh with ``data > 1``."""
-    specs = param_specs(params, mesh, serve=True,
-                        serve_budget_bytes=serve_budget_bytes)
+    """The placement the engine realizes: the serve rules of
+    :func:`param_specs` (``serve=True``, the budget switch over the
+    whole tree) applied to each layer's leaf, as :func:`train_specs`
+    applies the train rules — a stacked subtree (:data:`STACKS`) keeps
+    its stack axes whole, since the engine runs a layer at a time and
+    gathers its ``data`` shards at use (:func:`~repro_torch.distributed.
+    hints.weights`). Where the reference's rule reads a stack as a
+    matrix they differ: a stacked norm or bias (L, d) stays whole, and an
+    MoE's stacked shared MLP (L, d, f) takes the dense MLP's rule, not
+    an expert stack's. The recurrent sublayers (:data:`WHOLE_STACKS`)
+    keep their columns whole over ``model``: every model rank runs them
+    whole."""
     fsdp = fsdp_axes(mesh)
     if tree_bytes(params) / axis_size(mesh, MODEL) <= serve_budget_bytes:
         fsdp = ()
 
-    def fix(names, leaf):
-        if "moe" in names and "shared" in names:
-            dense = [n for n in names if n != "moe"]
-            return param_spec(dense, tuple(leaf.shape), mesh, fsdp,
-                              serve=True)
-        return None
+    def one(names, leaf):
+        shape = tuple(leaf.shape)
+        lead = next((STACKS[n] for n in names if n in STACKS), 0)
+        spec = (None,) * lead + param_spec(names, shape[lead:], mesh, fsdp,
+                                           serve=True)
+        if any(n in WHOLE_STACKS for n in names):
+            spec = tuple(None if e is not None and MODEL in e else e
+                         for e in spec)
+        return spec
 
-    fixed = _map(params, fix)
+    return _map(params, one)
 
-    def merged(a, b):
-        if isinstance(a, dict):
-            return {k: merged(a[k], b[k]) for k in a}
-        if isinstance(a, list):
-            return [merged(x, y) for x, y in zip(a, b)]
-        return a if b is None else b
 
-    specs = merged(specs, fixed)
-    if _sizes(mesh)[DATA] > 1:
-        for names, spec in _walk_specs(specs):
-            if any(e is not None and DATA in e for e in spec):
-                raise NotImplementedError(
-                    f"{'/'.join(names)} would split over 'data' at mesh "
-                    f"{tuple(_sizes(mesh).values())}: {ROADMAP_DATA_SPLIT}")
-    return specs
+def splits_over_data(specs, mesh) -> bool:
+    """Whether a placement splits any leaf over ``data`` (of size > 1):
+    then serving gathers those leaves at use."""
+    if _sizes(mesh)[DATA] == 1:
+        return False
+    return any(e is not None and DATA in e
+               for _, spec in _walk_specs(specs) for e in spec)
+
+
+def infer_serve_specs(rank_tree, cfg, mesh):
+    """The serve placement a rank's param tree (one of
+    :func:`init_params_sharded`'s or :func:`shard_tree`'s) was made
+    under: :func:`serve_specs` at the default budget, or with every
+    weight over the FSDP rules (a budget of 0, the reference's placement
+    of a model over its budget) — whichever its local shapes match."""
+    meta = MD.init_params(cfg, device="meta")
+    for budget in (SERVE_BUDGET_BYTES, 0):
+        specs = serve_specs(meta, mesh, serve_budget_bytes=budget)
+        if all(tuple(leaf.shape) == local_shape(
+                tuple(_lookup(meta, names).shape), _lookup(specs, names),
+                mesh) for names, leaf in _walk(rank_tree)):
+            return specs
+    raise ValueError(f"{cfg.name}: a rank's param tree matches neither "
+                     "serve placement (within the budget, or FSDP over "
+                     "'data')")
 
 
 # the stacked subtrees of the params and their leading stack axes: the
@@ -560,16 +576,6 @@ def shard_key(spec, mesh, coords) -> tuple:
     return tuple(shard_index(e, mesh, coords) for e in spec)
 
 
-def check_family(cfg) -> None:
-    """Mesh serving takes the attention decoder families; the others
-    raise, naming the family."""
-    if cfg.family not in MD.TRANSFORMER_FAMILIES:
-        raise NotImplementedError(
-            f"mesh serving of family {cfg.family!r} ({cfg.name}) waits for "
-            "its sharding rules in the port — ROADMAP, Queue 1, M4's "
-            "\"what waits\" (whisper and the recurrent families on a mesh)")
-
-
 def shard_tree(tree, specs, mesh) -> list:
     """Per-rank trees of ``tree`` (a whole tree, any device) under
     ``specs``, each on its rank's device. A leaf a rank holds whole is
@@ -590,10 +596,12 @@ def shard_tree(tree, specs, mesh) -> list:
     return out
 
 
-def shard_params(params, cfg, mesh) -> list:
-    """Per-rank trees of ``params`` under :func:`serve_specs`."""
-    check_family(cfg)
-    return shard_tree(params, serve_specs(params, mesh), mesh)
+def shard_params(params, cfg, mesh, specs=None) -> list:
+    """Per-rank trees of ``params`` under ``specs`` (by default
+    :func:`serve_specs`)."""
+    if specs is None:
+        specs = serve_specs(params, mesh)
+    return shard_tree(params, specs, mesh)
 
 
 def gather_tree(per_rank, specs, mesh, device="cpu"):
@@ -684,10 +692,9 @@ def init_params_sharded(cfg, mesh, *, seed: int = 0, specs=None) -> list:
     placement is ``specs`` (a spec tree of the whole params: to train,
     :func:`train_specs`' — the optimizer state then comes from
     ``AdamW.init`` of each rank's tree, zeros of its shards), by default
-    :func:`serve_specs`' (the families mesh serving takes)."""
+    :func:`serve_specs`'."""
     meta = MD.init_params(cfg, device="meta")
     if specs is None:
-        check_family(cfg)
         specs = serve_specs(meta, mesh)
     made: dict = {}
 

@@ -14,9 +14,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -24,7 +26,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("rmsnorm", "flash_attention", "decode_attention",
-           "prefill_attention", "quant_gemv")
+           "prefill_attention", "prefill_attention_wide", "quant_gemv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,17 +46,34 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (hash of sources + flags)."""
+    """Where ``csrc/<name>.cu`` builds to (hash of sources + flags: the
+    headers, the source and a ``.cu`` it includes)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h.update(src)
+    for inc in re.findall(rb'#include "([^"]+\.cu)"', src):
+        h.update((CSRC / inc.decode()).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+NVCC_SECONDS = "# nvcc seconds: "   # the last line of a build's log
+
+
+def build_seconds(log_text: str) -> float | None:
+    """The wall seconds of the ``nvcc`` whose log this is (None for a
+    log without the line)."""
+    for line in reversed(log_text.splitlines()):
+        if line.startswith(NVCC_SECONDS):
+            return float(line[len(NVCC_SECONDS):])
+    return None
 
 
 def build_all(names=SOURCES) -> None:
     """Compile every named source that has no current build: one
-    ``nvcc`` per source, all started together, all waited for. Raises
+    ``nvcc`` per source, all started together, all waited for (each
+    one's output and wall seconds in its library's ``.log``). Raises
     with the compiler's output if any of them fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -66,11 +85,18 @@ def build_all(names=SOURCES) -> None:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, proc, tmp, so))
+        done = {}
+        # a thread a compiler drains its pipe and stamps its end
+        waiter = threading.Thread(target=lambda p=proc, d=done: d.update(
+            out=p.communicate()[0], end=time.perf_counter()))
+        waiter.start()
+        jobs.append((name, proc, tmp, so, waiter, done, time.perf_counter()))
     errors = []
-    for name, proc, tmp, so in jobs:
-        out, _ = proc.communicate()
-        so.with_suffix(".log").write_text(out)
+    for name, proc, tmp, so, waiter, done, t0 in jobs:
+        waiter.join()
+        out = done["out"]
+        so.with_suffix(".log").write_text(
+            f"{out}{NVCC_SECONDS}{done['end'] - t0:.1f}\n")
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed for {name}.cu "

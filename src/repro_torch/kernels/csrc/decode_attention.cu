@@ -70,7 +70,9 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 32;    // positions per staged tile (one per lane)
-constexpr int kMaxG = 8;     // query heads per KV head (GM: 1 or this)
+constexpr int kMidG = 8;     // query heads per KV head: GM 1 or 8, and
+constexpr int kMaxG = 12;    // 12 at kWideDh (nemotron-4-340b's 96 / 8)
+constexpr int kWideDh = 192;
 
 // Where logical position p of batch row b lives: the row index into a
 // (rows, Hkv, Dh) K or V array.
@@ -110,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ m_part,
                           float* __restrict__ l_part, int cap, int hkv,
                           int g, int ns, int psplit, float scale,
-                          int window) {
+                          int window, int pos_off, int whole_cap) {
   constexpr int NE = port::Vec<T>::N;   // elements per 16 bytes
   constexpr int LD = DH + NE;           // shared row stride, 16 B padded
   constexpr int CH = DH / NE;           // 16-byte chunks per row
@@ -120,10 +122,16 @@ __global__ void __launch_bounds__(kThreads)
   static_assert(DH % NE == 0, "rows are whole 16-byte chunks");
   static_assert(2 * kTile * CH % kThreads == 0, "staging rounds are whole");
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int len = min(lens[b], cap);
-  // a full rolling cache (cap == window): slot lens[b] % cap holds the
-  // position ``window`` back, outside the decoded token's window
-  const int stale = window == cap && lens[b] >= cap ? lens[b] % cap : -1;
+  // this block's cache holds slots pos_off .. pos_off + cap - 1 of a row
+  // of whole_cap slots (a shard of a position-split cache; the whole row
+  // when pos_off is 0 and whole_cap is cap), valid to min(len, whole_cap)
+  const int len = min(max(min(lens[b], whole_cap) - pos_off, 0), cap);
+  // a full rolling cache (whole_cap == window): slot lens[b] % whole_cap
+  // holds the position ``window`` back, outside the decoded token's
+  // window (never matched when it lies in another shard)
+  const int stale = window == whole_cap && lens[b] >= whole_cap
+                        ? lens[b] % whole_cap - pos_off
+                        : -1;
   // this warp's 16-byte chunks of Dh in the QK product
   const int c_lo = (threadIdx.x >> 5) * CH / kWarps;
   const int c_hi = ((threadIdx.x >> 5) + 1) * CH / kWarps;
@@ -288,14 +296,22 @@ __global__ void decode_combine_kernel(
     const T* __restrict__ ev, const int* __restrict__ lens,
     const float* __restrict__ o_part, const float* __restrict__ m_part,
     const float* __restrict__ l_part, T* __restrict__ out, int cap, int hkv,
-    int g, int ns, int psplit, float scale, int has_self) {
+    int g, int ns, int psplit, float scale, int has_self, int shard_cap) {
   __shared__ float red[32];
   const int hq_idx = blockIdx.x, b = blockIdx.y;
   const int h = hq_idx / g;
   const int d = threadIdx.x;
   const bool dim_ok = d < DH;
   const int len = min(lens[b], cap);
-  const int nv = (len + psplit - 1) / psplit;
+  // partial s covers positions from its shard's first (shards of
+  // shard_cap slots, ns_sh splits each, in shard order) plus its split's;
+  // it was written iff that start is below the row's length. One shard
+  // (shard_cap == cap): the first nv partials, split by split.
+  const int ns_sh = (shard_cap + psplit - 1) / psplit;
+  const int n_iter = shard_cap >= cap ? (len + psplit - 1) / psplit : ns;
+  auto live = [&](int s) {
+    return (s / ns_sh) * shard_cap + (s % ns_sh) * psplit < len;
+  };
   const size_t row = static_cast<size_t>(b) * hkv * g + hq_idx;
 
   float s_self = port::NEG_INF;
@@ -310,10 +326,11 @@ __global__ void decode_combine_kernel(
   // the threads; then the sums in split order
   extern __shared__ float wl[];  // [ns] exp(m - max), [ns] l exp(m - max)
   float mloc = port::NEG_INF;
-  for (int s = d; s < nv; s += blockDim.x)
-    mloc = fmaxf(mloc, m_part[row * ns + s]);
+  for (int s = d; s < n_iter; s += blockDim.x)
+    if (live(s)) mloc = fmaxf(mloc, m_part[row * ns + s]);
   const float mx = fmaxf(s_self, port::block_reduce<true>(mloc, red));
-  for (int s = d; s < nv; s += blockDim.x) {
+  for (int s = d; s < n_iter; s += blockDim.x) {
+    if (!live(s)) continue;
     const float a = expf(m_part[row * ns + s] - mx);
     wl[s] = a;
     wl[ns + s] = l_part[row * ns + s] * a;
@@ -321,7 +338,8 @@ __global__ void decode_combine_kernel(
   __syncthreads();
   float num = 0.f, den = 0.f;
 #pragma unroll 8
-  for (int s = 0; s < nv; ++s) {
+  for (int s = 0; s < n_iter; ++s) {
+    if (!live(s)) continue;
     den += wl[ns + s];
     if (dim_ok) num += o_part[(row * ns + s) * DH + d] * wl[s];
   }
@@ -342,18 +360,26 @@ cudaError_t launch_dh(const void* q, const void* kc, const void* vc,
                       Rows rows, float* o_part, float* m_part,
                       float* l_part, void* out, int b, int cap, int hkv,
                       int g, int ns, int psplit, float scale, int window,
-                      int passes, cudaStream_t stream) {
+                      int pos_off, int whole_cap, int shard_cap, int passes,
+                      cudaStream_t stream) {
   if (passes & 1) {
     const size_t smem = partial_smem<T, DH>(g, psplit);
-    // register arrays sized for one query head (MHA) or for up to kMaxG
-    const auto kernel = g == 1 ? decode_partial_kernel<T, DH, 1, Rows>
-                               : decode_partial_kernel<T, DH, kMaxG, Rows>;
+    // register arrays sized for one query head (MHA), up to kMidG, or —
+    // at kWideDh only, the one head dim with more query heads per KV
+    // head in the registry — up to kMaxG
+    auto kernel = g == 1 ? decode_partial_kernel<T, DH, 1, Rows>
+                         : decode_partial_kernel<T, DH, kMidG, Rows>;
+    if constexpr (DH == kWideDh) {
+      if (g > kMidG) kernel = decode_partial_kernel<T, DH, kMaxG, Rows>;
+    } else if (g > kMidG) {
+      return cudaErrorInvalidValue;
+    }
     cudaError_t err = tile::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(ns, hkv, b), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kc),
         static_cast<const T*>(vc), lens, rows, o_part, m_part, l_part, cap,
-        hkv, g, ns, psplit, scale, window);
+        hkv, g, ns, psplit, scale, window, pos_off, whole_cap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -364,38 +390,41 @@ cudaError_t launch_dh(const void* q, const void* kc, const void* vc,
         static_cast<const T*>(q), static_cast<const T*>(ek),
         static_cast<const T*>(ev), lens, o_part, m_part, l_part,
         static_cast<T*>(out), cap, hkv, g, ns, psplit, scale,
-        ek != nullptr);
+        ek != nullptr, shard_cap);
   }
   return cudaGetLastError();
 }
+
+// Where a call's cache sits in the row (``Where``): the shard's first
+// slot and the row's whole capacity for pass 1, the slots per shard of
+// the partials for the combine — a whole cache is one shard at 0.
+struct Where {
+  int pos_off, whole_cap, shard_cap;
+};
 
 template <typename T, typename Rows>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* ek, const void* ev, const int* lens,
                    Rows rows, float* o_part, float* m_part, float* l_part,
                    void* out, int b, int cap, int hkv, int g, int dh, int ns,
-                   int psplit, float scale, int window, int passes,
+                   int psplit, float scale, int window, Where at, int passes,
                    cudaStream_t s) {
+#define DECODE_DH(D)                                                        \
+  case D:                                                                   \
+    return launch_dh<T, D>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,   \
+                           l_part, out, b, cap, hkv, g, ns, psplit, scale,  \
+                           window, at.pos_off, at.whole_cap, at.shard_cap,  \
+                           passes, s);
   switch (dh) {
-    case 64:
-      return launch_dh<T, 64>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
-                              l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              window, passes, s);
-    case 80:
-      return launch_dh<T, 80>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
-                              l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              window, passes, s);
-    case 96:
-      return launch_dh<T, 96>(q, kc, vc, ek, ev, lens, rows, o_part, m_part,
-                              l_part, out, b, cap, hkv, g, ns, psplit, scale,
-                              window, passes, s);
-    case 128:
-      return launch_dh<T, 128>(q, kc, vc, ek, ev, lens, rows, o_part,
-                               m_part, l_part, out, b, cap, hkv, g, ns,
-                               psplit, scale, window, passes, s);
+    DECODE_DH(64)
+    DECODE_DH(80)
+    DECODE_DH(96)
+    DECODE_DH(128)
+    DECODE_DH(192)
     default:
       return cudaErrorInvalidValue;
   }
+#undef DECODE_DH
 }
 
 template <typename Rows>
@@ -404,25 +433,31 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
                  void* o_part, void* m_part, void* l_part, void* out, int b,
                  int cap, int hkv, int g, int dh, int ns, int psplit,
                  float scale, int window, int dtype, void* stream,
-                 int passes = 3) {
+                 int passes = 3, Where at = {0, 0, 0}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
   float* op = static_cast<float*>(o_part);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
+  if (at.whole_cap == 0) at = {0, cap, cap};  // one whole cache
+  // pass 1 covers ``cap`` slots; the combine ns partials, whole shards
+  // of ceil(shard_cap / psplit) each
+  const int per_shard = (at.shard_cap + psplit - 1) / max(psplit, 1);
   if (g < 1 || g > kMaxG || cap < 1 ||
-      (psplit != 32 && psplit != 128) ||
-      ns != (cap + psplit - 1) / psplit || window < 0 || passes < 1 ||
-      passes > 3)
+      (psplit != 32 && psplit != 128) || window < 0 || passes < 1 ||
+      passes > 3 || at.pos_off < 0 || at.whole_cap < 1 ||
+      at.shard_cap < 1 ||
+      ((passes & 1) && ns != (cap + psplit - 1) / psplit) ||
+      ((passes & 2) && ns % per_shard))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::DT_F32)
     return launch<float>(q, kc, vc, ek, ev, ln, rows, op, mp, lp, out, b,
-                         cap, hkv, g, dh, ns, psplit, scale, window, passes,
-                         s);
+                         cap, hkv, g, dh, ns, psplit, scale, window, at,
+                         passes, s);
   if (dtype == port::DT_BF16)
     return launch<__nv_bfloat16>(q, kc, vc, ek, ev, ln, rows, op, mp, lp,
                                  out, b, cap, hkv, g, dh, ns, psplit, scale,
-                                 window, passes, s);
+                                 window, at, passes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -432,8 +467,8 @@ int launch_dtype(const void* q, const void* kc, const void* vc,
 // dh) or both null (no self partial); lens: (b,) int32 on the device.
 // ``psplit`` positions per split (32 or 128: decode_attention.py::
 // launch_plan), ns = ceil(cap / psplit). o_part (b, hkv, g, ns, dh),
-// m_part / l_part (b, hkv, g, ns): fp32 scratch from the caller. g <= 8,
-// dh in {64, 80, 96, 128}; pointers 16-byte aligned. window: the
+// m_part / l_part (b, hkv, g, ns): fp32 scratch from the caller. g <= 8
+// (12 at dh 192), dh in {64, 80, 96, 128, 192}; pointers 16-byte aligned. window: the
 // rolling cache's sliding window (0: none); when it equals cap, a full
 // row's slot lens[b] % cap is masked.
 KERNEL_EXPORT int decode_attention_launch(
@@ -466,29 +501,33 @@ KERNEL_EXPORT int paged_decode_attention_launch(
 }
 
 // K1's passes one at a time, for a cache split by position over several
-// shards (the sequence-sharded decode of a mesh): each shard runs pass 1
-// over its positions with its own lengths (``cap`` its positions, ``ns``
-// = cap / psplit), the shards' partials are concatenated along the split
-// axis in shard order, and the combine runs over them with the whole
-// cache's capacity and lengths — the partials the single cache's pass 1
-// would have written, when every shard holds whole splits.
+// shards (the sequence-sharded decode of a mesh). Each shard runs pass 1
+// over its ``cap`` slots — slots pos_off .. pos_off + cap - 1 of rows of
+// whole_cap slots, ``lens`` the whole rows' lengths, ``window`` the
+// rolling window as decode_attention_launch takes it on the whole row —
+// with ns = ceil(cap / psplit); the shards' partials are concatenated
+// along the split axis in shard order, and the combine runs over them
+// with the whole capacity ``cap``, the slots per shard ``shard_cap``
+// and the whole rows' lengths. When every shard holds whole splits these
+// are the partials the single cache's pass 1 would have written.
 KERNEL_EXPORT int decode_partial_launch(
     const void* q, const void* kc, const void* vc, const void* lens,
     void* o_part, void* m_part, void* l_part, int b, int cap, int hkv,
-    int g, int dh, int ns, int psplit, float scale, int dtype,
-    void* stream) {
+    int g, int dh, int ns, int psplit, float scale, int window, int pos_off,
+    int whole_cap, int dtype, void* stream) {
   return launch_dtype(q, kc, vc, nullptr, nullptr, lens,
                       ContiguousRows{cap}, o_part, m_part, l_part, nullptr,
-                      b, cap, hkv, g, dh, ns, psplit, scale, 0, dtype,
-                      stream, 1);
+                      b, cap, hkv, g, dh, ns, psplit, scale, window, dtype,
+                      stream, 1, Where{pos_off, whole_cap, cap});
 }
 
 KERNEL_EXPORT int decode_combine_launch(
     const void* q, const void* ek, const void* ev, const void* lens,
     void* o_part, void* m_part, void* l_part, void* out, int b, int cap,
-    int hkv, int g, int dh, int ns, int psplit, float scale, int dtype,
-    void* stream) {
+    int hkv, int g, int dh, int ns, int psplit, float scale, int shard_cap,
+    int dtype, void* stream) {
   return launch_dtype(q, nullptr, nullptr, ek, ev, lens, ContiguousRows{cap},
                       o_part, m_part, l_part, out, b, cap, hkv, g, dh, ns,
-                      psplit, scale, 0, dtype, stream, 2);
+                      psplit, scale, 0, dtype, stream, 2,
+                      Where{0, cap, shard_cap});
 }

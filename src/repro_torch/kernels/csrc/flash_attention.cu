@@ -249,8 +249,9 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out,
   const int n_qt = (sq + kBQ - 1) / kBQ;
   if constexpr (std::is_same<T, float>::value) {
     // the CUDA-core body: K and V tiles of BK x DH fp32 in static shared
-    // memory (48 KiB at most): 64 keys at DH 64, 32 from DH 80 on
-    constexpr int BK = DH > 64 ? 32 : 64;
+    // memory (48 KiB at most): 64 keys at DH 64, 32 from DH 80 on, 16 at
+    // DH 192 (32 would fill the 48 KiB exactly)
+    constexpr int BK = DH > 128 ? 16 : DH > 64 ? 32 : 64;
     flash_fwd_kernel<float, DH, BK>
         <<<dim3(n_qt, b * hq), kThreads, 0, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
@@ -287,6 +288,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     case 128:
       return launch_dh<T, 128>(q, k, v, out, b, sq, skv, hq, hkv, causal,
                                window, q_offset, scale, s);
+    case 192:
+      return launch_dh<T, 192>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                               window, q_offset, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -295,7 +299,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q, out: (b, sq, hq, dh); k, v: (b, skv, hkv, dh); all contiguous, one
-// dtype. window <= 0 means no window. dh in {64, 80, 96, 128}.
+// dtype. window <= 0 means no window. dh in {64, 80, 96, 128, 192}.
 KERNEL_EXPORT int flash_attention_launch(const void* q, const void* k,
                                          const void* v, void* out, int b,
                                          int sq, int skv, int hq, int hkv,

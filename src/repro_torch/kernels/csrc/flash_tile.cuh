@@ -15,9 +15,9 @@
 //
 // Shared-memory rows are DH + 8 bf16 long: the 16-byte pad moves the 8
 // rows one ldmatrix phase reads onto 8 different 16-byte bank groups at
-// DH 64, 80, 96 and 128 (a row is 9, 11, 13 or 17 groups long, odd, so 8
-// consecutive rows land on 8 groups mod 8), so no load conflicts; every
-// row address stays 16-byte aligned (DH 80: 176 B).
+// DH 64, 80, 96, 128 and 192 (a row is 9, 11, 13, 17 or 25 groups
+// long, odd, so 8 consecutive rows land on 8 groups mod 8), so no load
+// conflicts; every row address stays 16-byte aligned (DH 80: 176 B).
 #pragma once
 
 #include <atomic>

@@ -49,6 +49,12 @@
 // histories with one-warp blocks (MHA) and pays a second launch for the
 // merge (PERF.md).
 //
+// Head dim 192 (nemotron-4-340b) builds apart: prefill_attention_wide.cu
+// is this source with PREFILL_WIDE defined, instantiating only Dh 192
+// (and this one without it), so the two nvcc of the parallel build share
+// the work of the widest tiles (prefill_attention.py picks the library
+// by head dim).
+//
 // float32 keeps the CUDA-core body of the first port
 // (prefill_hist_kernel: a q-tile of 8..64 rows sized from S, 128 / BQ
 // threads per row, fp32 K/V tiles in static shared memory, scalar
@@ -124,6 +130,14 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ k,
   }
 }
 
+// What one launch of the CUDA-core body does: the history then the self
+// keys into the output (one device's call); the history only, into the
+// unnormalised fp32 partial (o, m, l) of each (row, query, head) — a
+// shard of a position-split history, from position pos_off —; or the
+// shards' gathered partials merged in shard order, then the self keys,
+// into the output.
+enum Mode { kWhole = 0, kHistPartial = 1, kSelfCombine = 2 };
+
 template <typename T, int DH, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
     prefill_hist_kernel(const T* __restrict__ q, const T* __restrict__ kh,
@@ -131,7 +145,10 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ vsf,
                         const int* __restrict__ hist_len,
                         T* __restrict__ out, int s, int c, int hq, int hkv,
-                        float scale) {
+                        float scale, int mode, int pos_off,
+                        float* __restrict__ o_part,
+                        float* __restrict__ m_part,
+                        float* __restrict__ l_part, int n_parts) {
   constexpr int TPR = kThreads / BQ;  // threads per query row
   constexpr int PER = DH / TPR;       // dims per thread
   static_assert(TPR >= 1 && TPR <= 32 && DH % TPR == 0, "tile shape");
@@ -143,7 +160,13 @@ __global__ void __launch_bounds__(kThreads)
   const int par = threadIdx.x % TPR;
   const int q_row = blockIdx.x * BQ + threadIdx.x / TPR;
   const bool row_ok = q_row < s;
-  const int hl = min(max(hist_len[b], 0), c);
+  // the history valid here: none when merging partials; a shard's own
+  // positions from pos_off
+  const int hl = mode == kSelfCombine
+                     ? 0
+                     : min(max(hist_len[b] - pos_off, 0), c);
+  // (row, query, head) index of the partials: (b, hq, s[, part])
+  const size_t pidx = (static_cast<size_t>(b) * hq + h) * s + q_row;
 
   float qf[PER], acc[PER];
   const T* qr = q + ((static_cast<size_t>(b) * s + q_row) * hq + h) * DH;
@@ -153,6 +176,20 @@ __global__ void __launch_bounds__(kThreads)
     acc[i] = 0.f;
   }
   float m = port::NEG_INF, l = 0.f;
+  if (mode == kSelfCombine && row_ok) {
+    // every shard's history partial, in shard order (no atomics)
+    for (int pt = 0; pt < n_parts; ++pt) {
+      const size_t at = pidx * n_parts + pt;
+      const float mp = m_part[at];
+      const float m_new = fmaxf(m, mp);
+      const float alpha = expf(m - m_new), beta = expf(mp - m_new);
+      l = l * alpha + l_part[at] * beta;
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        acc[i] = acc[i] * alpha + o_part[at * DH + i * TPR + par] * beta;
+      m = m_new;
+    }
+  }
 
   // history: tiles up to the row's valid length, none past it
   const int nk_hist = (hl + BK - 1) / BK;
@@ -162,6 +199,18 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     attend_tile<DH, BK, TPR>(ks, vs, qf, acc, m, l, kt * BK, hl, false,
                              q_row, par);
+  }
+  if (mode == kHistPartial) {
+    if (row_ok) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        o_part[pidx * DH + i * TPR + par] = acc[i];
+      if (par == 0) {
+        m_part[pidx] = m;
+        l_part[pidx] = l;
+      }
+    }
+    return;
   }
   // self: causal, tiles up to this q-tile's last query
   const int q_hi = min(blockIdx.x * BQ + BQ, s) - 1;
@@ -183,21 +232,48 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// float32: the CUDA-core body. K and V tiles of BK x DH fp32 in static
-// shared memory (48 KiB at most): 64 keys at DH 64, 32 from DH 96 on.
-template <int DH, int BQ>
+// The CUDA-core body: float32 calls, and the position-split partials
+// and their merge in either dtype. K and V tiles of BK x DH fp32 in
+// static shared memory (48 KiB at most): 64 keys at DH 64, 32 from DH 96
+// on, 16 at DH 192 (32 would fill the 48 KiB exactly).
+struct Parts {
+  int mode, pos_off;
+  float *o, *m, *l;
+  int n;
+};
+
+template <typename T, int DH, int BQ>
 cudaError_t launch_bq(const void* q, const void* kh, const void* vh,
                       const void* ks, const void* vs, const int* hist_len,
                       void* out, int b, int s, int c, int hq, int hkv,
-                      float scale, cudaStream_t stream) {
-  constexpr int BK = DH > 64 ? 32 : 64;
+                      float scale, Parts pt, cudaStream_t stream) {
+  constexpr int BK = DH > 128 ? 16 : DH > 64 ? 32 : 64;
   dim3 grid((s + BQ - 1) / BQ, b * hq);
-  prefill_hist_kernel<float, DH, BQ, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kh),
-      static_cast<const float*>(vh), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), hist_len, static_cast<float*>(out), s,
-      c, hq, hkv, scale);
+  prefill_hist_kernel<T, DH, BQ, BK><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kh),
+      static_cast<const T*>(vh), static_cast<const T*>(ks),
+      static_cast<const T*>(vs), hist_len, static_cast<T*>(out), s, c, hq,
+      hkv, scale, pt.mode, pt.pos_off, pt.o, pt.m, pt.l, pt.n);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_cuda_core(const void* q, const void* kh, const void* vh,
+                             const void* ks, const void* vs,
+                             const int* hist_len, void* out, int b, int s,
+                             int c, int hq, int hkv, float scale, Parts pt,
+                             cudaStream_t st) {
+  if (s <= 8)
+    return launch_bq<T, DH, 8>(q, kh, vh, ks, vs, hist_len, out, b, s, c, hq,
+                               hkv, scale, pt, st);
+  if (s <= 16)
+    return launch_bq<T, DH, 16>(q, kh, vh, ks, vs, hist_len, out, b, s, c,
+                                hq, hkv, scale, pt, st);
+  if (s <= 32)
+    return launch_bq<T, DH, 32>(q, kh, vh, ks, vs, hist_len, out, b, s, c,
+                                hq, hkv, scale, pt, st);
+  return launch_bq<T, DH, 64>(q, kh, vh, ks, vs, hist_len, out, b, s, c, hq,
+                              hkv, scale, pt, st);
 }
 
 // bf16: tensor-core tiles (see the note at the top).
@@ -514,24 +590,34 @@ cudaError_t launch_dh(const void* q, const void* kh, const void* vh,
   if (dtype == port::DT_BF16)
     return launch_bf16<DH>(q, kh, vh, ks, vs, hist_len, o_part, m_part,
                            l_part, out, b, s, c, hq, hkv, ns, scale, st);
-  if (s <= 8)
-    return launch_bq<DH, 8>(q, kh, vh, ks, vs, hist_len, out, b, s, c, hq,
-                            hkv, scale, st);
-  if (s <= 16)
-    return launch_bq<DH, 16>(q, kh, vh, ks, vs, hist_len, out, b, s, c, hq,
-                             hkv, scale, st);
-  if (s <= 32)
-    return launch_bq<DH, 32>(q, kh, vh, ks, vs, hist_len, out, b, s, c, hq,
-                             hkv, scale, st);
-  return launch_bq<DH, 64>(q, kh, vh, ks, vs, hist_len, out, b, s, c, hq,
-                           hkv, scale, st);
+  return launch_cuda_core<float, DH>(q, kh, vh, ks, vs, hist_len, out, b, s,
+                                     c, hq, hkv, scale,
+                                     Parts{kWhole, 0, nullptr, nullptr,
+                                           nullptr, 0},
+                                     st);
+}
+
+// The position-split passes (``Parts``) on the CUDA-core body, in the
+// call's dtype, with 16-query tiles whatever S (one instantiation a
+// dtype: the verify window and the chunk alike).
+template <int DH>
+cudaError_t launch_parts(const void* q, const void* kh, const void* vh,
+                         const void* ks, const void* vs, const int* hist_len,
+                         void* out, int b, int s, int c, int hq, int hkv,
+                         float scale, int dtype, Parts pt, cudaStream_t st) {
+  if (dtype == port::DT_BF16)
+    return launch_bq<__nv_bfloat16, DH, 16>(q, kh, vh, ks, vs, hist_len, out,
+                                            b, s, c, hq, hkv, scale, pt, st);
+  return launch_bq<float, DH, 16>(q, kh, vh, ks, vs, hist_len, out, b, s, c,
+                                  hq, hkv, scale, pt, st);
 }
 
 }  // namespace
 
 // q, out: (b, s, hq, dh); kh, vh: (b, c, hkv, dh) history; ks, vs: (b, s,
 // hkv, dh) the queries' own KV; hist_len: (b,) int32 on the device. All
-// contiguous, one dtype; hq % hkv == 0, dh in {64, 96, 128}. bf16 with
+// contiguous, one dtype; hq % hkv == 0, dh in {64, 96, 128} (192 in the
+// PREFILL_WIDE build). bf16 with
 // s <= 16 also takes the fp32 partial scratch o_part (b, hq, s, ns + 1,
 // dh), m_part and l_part (b, hq, s, ns + 1) with ns = ceil(c / 128);
 // otherwise those may be null.
@@ -546,6 +632,7 @@ KERNEL_EXPORT int prefill_attention_launch(
       (dtype != port::DT_F32 && dtype != port::DT_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
+#ifndef PREFILL_WIDE
     case 64:
       return launch_dh<64>(q, kh, vh, ks, vs, hl, o_part, m_part, l_part,
                            out, b, s, c, hq, hkv, ns, scale, dtype, st);
@@ -555,7 +642,78 @@ KERNEL_EXPORT int prefill_attention_launch(
     case 128:
       return launch_dh<128>(q, kh, vh, ks, vs, hl, o_part, m_part, l_part,
                             out, b, s, c, hq, hkv, ns, scale, dtype, st);
+#else
+    case 192:
+      return launch_dh<192>(q, kh, vh, ks, vs, hl, o_part, m_part, l_part,
+                            out, b, s, c, hq, hkv, ns, scale, dtype, st);
+#endif
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+namespace {
+
+int launch_parts_dh(const void* q, const void* kh, const void* vh,
+                    const void* ks, const void* vs, const int* hist_len,
+                    void* out, int b, int s, int c, int hq, int hkv, int dh,
+                    float scale, int dtype, Parts pt, cudaStream_t st) {
+  if (hkv < 1 || hq % hkv || s < 1 || pt.o == nullptr || pt.m == nullptr ||
+      pt.l == nullptr || (dtype != port::DT_F32 && dtype != port::DT_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PARTS_DH(D)                                                       \
+  case D:                                                                 \
+    return launch_parts<D>(q, kh, vh, ks, vs, hist_len, out, b, s, c, hq,  \
+                           hkv, scale, dtype, pt, st);
+  switch (dh) {
+#ifndef PREFILL_WIDE
+    PARTS_DH(64)
+    PARTS_DH(96)
+    PARTS_DH(128)
+#else
+    PARTS_DH(192)
+#endif
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PARTS_DH
+}
+
+}  // namespace
+
+// K4 over a history split by position across shards (the sequence-
+// sharded chunk and verify of a mesh), in two calls. The partial: q (b,
+// s, hq, dh) against this shard's history kh, vh (b, c, hkv, dh) —
+// positions pos_off .. pos_off + c - 1 of the rows, valid below
+// hist_len[b] (the whole rows' lengths) — into the unnormalised fp32
+// partial o_part (b, hq, s, dh), m_part / l_part (b, hq, s). The
+// combine: the shards' partials gathered along a part axis in shard
+// order, o (b, hq, s, n_parts, dh), m / l (b, hq, s, n_parts), merged in
+// that order, then the queries' own causal keys ks, vs (b, s, hkv, dh),
+// into out (b, s, hq, dh). Both dtypes, dh as prefill_attention_launch.
+KERNEL_EXPORT int prefill_partial_launch(
+    const void* q, const void* kh, const void* vh, const void* hist_len,
+    void* o_part, void* m_part, void* l_part, int b, int s, int c, int hq,
+    int hkv, int dh, int pos_off, float scale, int dtype, void* stream) {
+  if (c < 1 || pos_off < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_parts_dh(
+      q, kh, vh, nullptr, nullptr, static_cast<const int*>(hist_len),
+      nullptr, b, s, c, hq, hkv, dh, scale, dtype,
+      Parts{kHistPartial, pos_off, static_cast<float*>(o_part),
+            static_cast<float*>(m_part), static_cast<float*>(l_part), 1},
+      static_cast<cudaStream_t>(stream));
+}
+
+KERNEL_EXPORT int prefill_combine_launch(
+    const void* q, const void* ks, const void* vs, void* o_part,
+    void* m_part, void* l_part, void* out, int b, int s, int hq, int hkv,
+    int dh, int n_parts, float scale, int dtype, void* stream) {
+  if (n_parts < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_parts_dh(
+      q, nullptr, nullptr, ks, vs, nullptr, out, b, s, 0, hq, hkv, dh, scale,
+      dtype,
+      Parts{kSelfCombine, 0, static_cast<float*>(o_part),
+            static_cast<float*>(m_part), static_cast<float*>(l_part),
+            n_parts},
+      static_cast<cudaStream_t>(stream));
 }

@@ -23,8 +23,9 @@ launches = 0
 
 SPLITS = (32, 128)   # positions per pass-1 block the source takes
 TILE = 32                # positions per staged tile (kTile)
-MAX_G = 8     # query heads per KV head (kMaxG)
-HEAD_DIMS = (64, 80, 96, 128)
+MAX_G = 8     # query heads per KV head (kMidG) ...
+WIDE = {192: 12}   # ... but 12 at Dh 192 (kWideDh, kMaxG): nemotron's
+HEAD_DIMS = (64, 80, 96, 128, 192)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # both exports of csrc/decode_attention.cu (K1 here, K2 in
@@ -37,10 +38,10 @@ SIG = {"decode_attention_launch":
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
        "decode_partial_launch":
        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-        _P],
+        _I, _I, _I, _P],
        "decode_combine_launch":
        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-        _P]}
+        _I, _P]}
 
 
 class Plan(NamedTuple):
@@ -91,9 +92,10 @@ def check_operands(what: str, q: torch.Tensor, kv_shape: tuple,
     hkv = kv_shape[-2]
     if q.shape[1] != 1 or kv_shape[-1] != dh:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)} kv {kv_shape}")
-    if hq % hkv or hq // hkv > MAX_G:
+    max_g = WIDE.get(dh, MAX_G)
+    if hq % hkv or hq // hkv > max_g:
         raise ValueError(f"{what}: Hq={hq}, Hkv={hkv} needs "
-                         f"Hq % Hkv == 0 and G <= {MAX_G}")
+                         f"Hq % Hkv == 0 and G <= {max_g} at Dh={dh}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"{what}: Dh={dh} not in {HEAD_DIMS}")
     if (extra_k is None) != (extra_v is None):
@@ -211,20 +213,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len, *,
-                           offset: int, gather,
+                           offset: int, gather, capacity: int | None = None,
                            extra_k: torch.Tensor | None = None,
                            extra_v: torch.Tensor | None = None,
+                           window: int | None = None,
                            split: int | None = None) -> torch.Tensor:
     """K1 over a cache split by position across shards: this shard holds
-    positions ``offset .. offset + C - 1`` of every row in ``k_cache`` /
-    ``v_cache`` (B,C,Hkv,Dh); ``cache_len`` (scalar or (B,)) counts the
-    whole row. Pass 1 runs over the shard's positions; ``gather(t,
-    dim)`` concatenates every shard's ``t`` along ``dim`` in shard order
-    (one call per partial), and the combine runs over all of them with
-    the whole row's length and the self partial — the partials one
-    cache's pass 1 would have written, so every shard returns K1's
-    result on the whole cache. C must hold whole splits. Returns
-    (B,1,Hq,Dh); one launch in ``launches``."""
+    slots ``offset .. offset + C - 1`` of every row in ``k_cache`` /
+    ``v_cache`` (B,C,Hkv,Dh), of rows of ``capacity`` slots (by default
+    ``offset + C``: the last shard); ``cache_len`` (scalar or (B,))
+    counts the whole row, and ``window`` is the rolling window of the
+    whole row, as :func:`decode_attention` takes it. Pass 1 runs over the
+    shard's slots; ``gather(t, dim)`` concatenates every shard's ``t``
+    along ``dim`` in shard order (one call per partial), and the combine
+    runs over all of them with the whole row's length and the self
+    partial — in shard order, then split order, then self, with no
+    atomics. Where every shard holds whole splits these are the partials
+    one cache's pass 1 would have written, so every shard returns K1's
+    result on the whole cache. Returns (B,1,Hq,Dh); one launch in
+    ``launches``."""
     global launches
     b, _, hq, dh = q.shape
     _, cap, hkv, _ = k_cache.shape
@@ -233,15 +240,17 @@ def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(q.shape)} k {tuple(k_cache.shape)}")
     extras = check_operands("decode_attention_shard", q,
                             tuple(k_cache.shape), extra_k, extra_v)
+    whole = offset + cap if capacity is None else int(capacity)
+    if offset < 0 or whole < offset + cap:
+        raise ValueError(f"decode_attention_shard: slots {offset} .. "
+                         f"{offset + cap - 1} outside a row of {whole}")
+    if window is not None and window < 1:
+        raise ValueError(f"decode_attention_shard: window={window} must "
+                         "be >= 1")
     plan = launch_plan(b, hkv, cap, split)
-    if cap % plan.split:
-        raise ValueError(f"decode_attention_shard: a shard of {cap} "
-                         f"positions holds no whole number of "
-                         f"{plan.split}-position splits")
     code = _build.launch_dtype("decode_attention_shard", q, k_cache,
                                v_cache, *extras)
     lens = row_lengths(cache_len, b, q.device)
-    local = (lens - offset).clamp(0, cap).to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0:
         return out
@@ -251,9 +260,10 @@ def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
     _build.launch(
         lib, "decode_partial_launch", "decode_attention_shard", q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        local.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
+        lens.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
         l_part.data_ptr(), b, cap, hkv, g, dh, plan.splits, plan.split,
-        scale, code, _build.stream_handle(q))
+        scale, int(window or 0), offset, whole, code,
+        _build.stream_handle(q))
     o_all = gather(o_part, 3).contiguous()
     m_all, l_all = gather(m_part, 3).contiguous(), gather(l_part, 3).contiguous()
     ns = o_all.shape[3]
@@ -262,8 +272,8 @@ def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
         q.data_ptr(), extra_k.data_ptr() if extras else None,
         extra_v.data_ptr() if extras else None, lens.data_ptr(),
         o_all.data_ptr(), m_all.data_ptr(), l_all.data_ptr(),
-        out.data_ptr(), b, ns * plan.split, hkv, g, dh, ns, plan.split,
-        scale, code, _build.stream_handle(q))
+        out.data_ptr(), b, (ns // plan.splits) * cap, hkv, g, dh, ns,
+        plan.split, scale, cap, code, _build.stream_handle(q))
     with _build.COUNTING:
         launches += 1
     return out

@@ -21,7 +21,7 @@ launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {"flash_attention_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]}
-HEAD_DIMS = (64, 80, 96, 128)
+HEAD_DIMS = (64, 80, 96, 128, 192)
 
 
 def kept_pairs(sq: int, skv: int, *, causal=True, window=None,

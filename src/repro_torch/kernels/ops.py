@@ -258,19 +258,22 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, extra_k=None,
 
 
 def decode_attention_shard(q, k_cache, v_cache, cache_len, *, offset,
-                           gather, extra_k=None, extra_v=None, split=None):
+                           gather, capacity=None, extra_k=None,
+                           extra_v=None, window=None, split=None):
     """K1 over one shard of a cache split by position across a mesh's
-    ranks: pass 1 over the shard, ``gather`` to every shard's partials,
-    the combine with the self partial (the sequence-sharded decode).
-    No backward: refuses operands that require grad."""
+    ranks (slots ``offset ..`` of rows of ``capacity``, rolling under
+    ``window``): pass 1 over the shard, ``gather`` to every shard's
+    partials, the combine with the self partial (the sequence-sharded
+    decode). No backward: refuses operands that require grad."""
     _refuse_grad("decode_attention", q, k_cache, v_cache, extra_k, extra_v)
     if _on_card(q):
         return _dec.decode_attention_shard(
             q, k_cache, v_cache, cache_len, offset=offset, gather=gather,
-            extra_k=extra_k, extra_v=extra_v, split=split)
+            capacity=capacity, extra_k=extra_k, extra_v=extra_v,
+            window=window, split=split)
     return ref.decode_attention_shard(
         q, k_cache, v_cache, cache_len, offset=offset, gather=gather,
-        extra_k=extra_k, extra_v=extra_v)
+        capacity=capacity, extra_k=extra_k, extra_v=extra_v, window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
@@ -307,6 +310,23 @@ def prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self):
         return _pre.prefill_attention(q, k_hist, v_hist, hist_len, k_self,
                                       v_self)
     return ref.prefill_attention(q, k_hist, v_hist, hist_len, k_self, v_self)
+
+
+def prefill_attention_shard(q, k_hist, v_hist, hist_len, k_self, v_self, *,
+                            offset, gather):
+    """K4 over one shard of a history split by position across a mesh's
+    ranks: the history pass over the shard's positions (from
+    ``offset``), ``gather`` to every shard's partials, the merge in
+    shard order with the queries' own causal keys (the sequence-sharded
+    chunk and verify). No backward: refuses operands that require
+    grad."""
+    _refuse_grad("prefill_attention", q, k_hist, v_hist, k_self, v_self)
+    if _on_card(q):
+        return _pre.prefill_attention_shard(q, k_hist, v_hist, hist_len,
+                                            k_self, v_self, offset=offset,
+                                            gather=gather)
+    return ref.prefill_attention_shard(q, k_hist, v_hist, hist_len, k_self,
+                                       v_self, offset=offset, gather=gather)
 
 
 def verify_attention(q, k_hist, v_hist, hist_len, k_self, v_self):

@@ -125,17 +125,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len, *,
-                           offset: int, gather,
+                           offset: int, gather, capacity: int | None = None,
                            extra_k: torch.Tensor | None = None,
                            extra_v: torch.Tensor | None = None,
+                           window: int | None = None,
                            split: int | None = None) -> torch.Tensor:
     """:func:`decode_attention` over a cache split by position across
-    shards, this one holding positions ``offset .. offset + C - 1``: one
-    unnormalised partial (o, m, l) over the shard's valid positions,
-    every shard's gathered in shard order by ``gather(t, dim)``, then
-    merged with the self partial — the same online softmax as one
-    cache's, summed by shard. ``split`` is the kernel's launch plan and
-    changes nothing here."""
+    shards, this one holding slots ``offset .. offset + C - 1`` of rows
+    of ``capacity`` slots (by default ``offset + C``): one unnormalised
+    partial (o, m, l) over the shard's valid slots — masked by their
+    slot in the whole row, with :func:`decode_attention`'s rolling mask
+    under ``window`` —, every shard's gathered in shard order by
+    ``gather(t, dim)``, then merged with the self partial — the same
+    online softmax as one cache's, summed by shard. ``split`` is the
+    kernel's launch plan and changes nothing here."""
     b, _, hq, dh = q.shape
     cap, hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.float().reshape(b, hkv, hq // hkv, dh)
@@ -143,7 +146,14 @@ def decode_attention_shard(q: torch.Tensor, k_cache: torch.Tensor,
                           k_cache.float()) / math.sqrt(dh)
     clen = torch.broadcast_to(
         torch.as_tensor(cache_len, device=q.device).reshape(-1, 1), (b, 1))
-    valid = (offset + torch.arange(cap, device=q.device)[None, :]) < clen
+    whole = offset + cap if capacity is None else int(capacity)
+    slot = offset + torch.arange(cap, device=q.device)[None, :]
+    if window is None:
+        valid = slot < clen
+    else:
+        valid = slot < torch.clamp(clen, max=whole)
+        if whole == window:
+            valid = valid & ((clen < whole) | (slot != clen % whole))
     valid = valid[:, None, None, :]
     scores = torch.where(valid, scores, NEG_INF)
     m1 = torch.clamp(scores.amax(-1), min=NEG_INF)
@@ -215,6 +225,47 @@ def prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     return out.reshape(b, s, hq, dh).to(q.dtype)
+
+
+def prefill_attention_shard(q: torch.Tensor, k_hist: torch.Tensor,
+                            v_hist: torch.Tensor, hist_len,
+                            k_self: torch.Tensor, v_self: torch.Tensor, *,
+                            offset: int, gather) -> torch.Tensor:
+    """:func:`prefill_attention` over a history split by position across
+    shards, this one holding positions ``offset .. offset + C - 1`` of
+    rows valid to ``hist_len``: one unnormalised partial (o, m, l) of
+    the shard's history per (row, head, query), every shard's gathered
+    in shard order by ``gather(t, dim)``, merged in that order, then the
+    queries' own causal keys — the kernel's online softmax, summed by
+    shard."""
+    b, s, hq, dh = q.shape
+    c, hkv = k_hist.shape[1], k_hist.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.float().reshape(b, s, hkv, g, dh)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_hist.float()) * scale
+    clen = torch.broadcast_to(torch.as_tensor(
+        hist_len, device=q.device).reshape(-1), (b,))
+    ok = (offset + torch.arange(c, device=q.device))[None, :] < clen[:, None]
+    ok = ok[:, None, None, None, :]
+    sc = torch.where(ok, sc, NEG_INF)
+    m1 = torch.clamp(sc.amax(-1), min=NEG_INF)           # (b, h, g, s)
+    p1 = torch.where(ok, torch.exp(sc - m1[..., None]), 0.0)
+    o1 = torch.einsum("bhgqk,bkhd->bhgqd", p1, v_hist.float())
+    o = gather(o1[..., None, :], 4)                      # (b, h, g, s, n, dh)
+    m = gather(m1[..., None], 4)                         # (b, h, g, s, n)
+    l = gather(p1.sum(-1)[..., None], 4)
+    ss = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_self.float()) * scale
+    rel = torch.arange(s, device=q.device)
+    ss = ss.masked_fill(~(rel[None, :] <= rel[:, None]), NEG_INF)
+    mx = torch.maximum(m.amax(-1), ss.amax(-1))
+    a = torch.exp(m - mx[..., None])
+    p2 = torch.exp(ss - mx[..., None])
+    num = (o * a[..., None]).sum(-2) + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p2, v_self.float())
+    den = (l * a).sum(-1) + p2.sum(-1)
+    out = num / torch.clamp(den, min=1e-30)[..., None]   # (b, h, g, s, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh).to(q.dtype)
 
 
 def pack_int4(w_int: torch.Tensor) -> torch.Tensor:

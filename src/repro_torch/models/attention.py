@@ -186,7 +186,8 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
                              kv_chunk=kv_chunk)
 
 
-def prefill_over_cache(q, k_hist, v_hist, hist_len, k_self, v_self):
+def prefill_over_cache(q, k_hist, v_hist, hist_len, k_self, v_self, *,
+                       by_position=False):
     """Chunked-prefill attention: one prompt chunk against cached history.
 
     q (B, S, Hq, Dh), RoPE applied at absolute positions ``hist_len ..
@@ -195,14 +196,25 @@ def prefill_over_cache(q, k_hist, v_hist, hist_len, k_self, v_self):
     valid to ``hist_len`` (scalar or per-row (B,)); ``k_self``/``v_self``
     (B, S, Hkv, Dh) the chunk's own KV, causal. Also the speculative-
     verify attention (per-row ``hist_len``, S = gamma + 1). Runs the
-    prefill-over-cache kernel (K4) on the card."""
+    prefill-over-cache kernel (K4) on the card.
+
+    ``by_position``: on a mesh's sequence layout the history is the
+    rank's range of the positions; K4 runs as ``prefill_attention_shard``
+    — the history pass over the range, every rank's partials gathered in
+    shard order, one merge with the self keys."""
+    if by_position:
+        return ops.prefill_attention_shard(
+            q.contiguous(), k_hist.contiguous(), v_hist.contiguous(),
+            hist_len, k_self.contiguous(), v_self.contiguous(),
+            offset=H.kv_offset(k_hist.shape[1]), gather=H.gather_positions)
     return ops.prefill_attention(q.contiguous(), k_hist.contiguous(),
                                  v_hist.contiguous(), hist_len,
                                  k_self.contiguous(), v_self.contiguous())
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
-                     extra_k=None, extra_v=None, block_tables=None):
+                     extra_k=None, extra_v=None, block_tables=None,
+                     by_position=True):
     """Single-token attention against a contiguous (possibly rolling) or
     paged KV cache.
 
@@ -222,8 +234,10 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
 
     On a mesh each rank's kernel cuts its cache where the whole decode's
     (B, Hkv) would (:func:`mesh_split`); in the sequence layout the
-    rank's cache holds a range of positions and K1 runs as
-    ``decode_attention_shard``: pass 1 over the range, every rank's
+    rank's cache holds a range of positions (unless ``by_position`` is
+    False: whisper's encoder cache) and K1 runs as
+    ``decode_attention_shard``: pass 1 over the range, masked by each
+    slot's place in the whole row (a rolling window too), every rank's
     partials gathered in shard order, one combine."""
     kw = {}
     split = mesh_split()
@@ -237,16 +251,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
                                           block_tables, cache_len,
                                           extra_k=extra_k, extra_v=extra_v,
                                           **kw)
-    if H.attn_layout() == "seq":
-        if window is not None:
-            raise NotImplementedError(
-                "the sequence-sharded decode takes a cache without a "
-                "rolling window")
+    if by_position and H.attn_layout() == "seq":
+        c = k_cache.shape[1]
         return ops.decode_attention_shard(
             q.contiguous(), k_cache, v_cache, cache_len,
-            offset=H.kv_offset(k_cache.shape[1]),
+            offset=H.kv_offset(c), capacity=c * H.kv_shards(),
             gather=H.gather_positions, extra_k=extra_k, extra_v=extra_v,
-            **kw)
+            window=window, **kw)
     return ops.decode_attention(q.contiguous(), k_cache, v_cache, cache_len,
                                 extra_k=extra_k, extra_v=extra_v,
                                 window=window, **kw)

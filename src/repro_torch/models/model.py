@@ -241,6 +241,17 @@ def blocks(params, cfg) -> list:
                     for i in range(cfg.n_layers - len(first))]
 
 
+def served_blocks(params, cfg):
+    """:func:`blocks` one at a time, as serving runs them: on a mesh
+    whose placement splits weights over ``data`` each block's shards are
+    gathered as it comes (:func:`~repro_torch.distributed.hints.
+    weights`), so one layer's whole weights live at a time."""
+    n_first = len(params.get("first_layers", []))
+    for i, lp in enumerate(blocks(params, cfg)):
+        yield (H.weights(lp, "first_layers", i) if i < n_first
+               else H.weights(lp, "layers"))
+
+
 def _head(params, cfg):
     return params["embed"]["table"] if cfg.tie_embeddings else params["head"]
 
@@ -348,20 +359,26 @@ def attn_cross_decode(p, cfg, x, cross_k, cross_v, cross_len):
     """One token's cross-attention over the fixed encoder cache
     ``cross_k``/``cross_v`` (B, T, Hkv, Dh): all ``cross_len`` (T, as
     an int32 tensor on the cache's device) slots valid, no self partial
-    (K1 without extras)."""
-    o = decode_attention(_proj_q(p, cfg, x), cross_k, cross_v, cross_len)
+    (K1 without extras). The encoder cache is never split by position:
+    on a mesh it holds the rank's heads, or every head."""
+    o = decode_attention(_proj_q(p, cfg, x), cross_k, cross_v, cross_len,
+                         by_position=False)
     return _out_proj(p, cfg, o.reshape(x.shape[0], 1, -1))
 
 
-def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions):
+def attn_chunk(p, cfg, x, k_hist, v_hist, hist_len, *, positions,
+               by_position=False):
     """Prefill-over-cache attention: x (B,S,d) sits at ``positions``
     ((S,) or (B,S)), after ``hist_len`` cached rows of ``k_hist``/
-    ``v_hist`` (B,C,Hkv,Dh). Returns (out (B,S,d), (k, v)) — the
-    chunk's own KV, for the caller to write at offset ``hist_len``."""
+    ``v_hist`` (B,C,Hkv,Dh) — on a mesh's sequence layout, with
+    ``by_position``, the rank's range of the positions. Returns (out
+    (B,S,d), (k, v)) — the chunk's own KV, for the caller to write at
+    offset ``hist_len``."""
     q, k, v = _proj_qkv(p, cfg, x)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = prefill_over_cache(q, k_hist, v_hist, hist_len, k, v)
+    o = prefill_over_cache(q, k_hist, v_hist, hist_len, k, v,
+                           by_position=by_position)
     return _out_proj(p, cfg, o.reshape(x.shape[0], x.shape[1], -1)), (k, v)
 
 
@@ -405,12 +422,12 @@ def decoder_block(p, cfg, x, delta, *, positions, causal=True,
 
 
 def decoder_block_chunk(p, cfg, x, delta, k_hist, v_hist, hist_len, *,
-                        positions):
+                        positions, by_position=False):
     """Decoder block over one chunk with a KV history (chunked prefill
     and speculative verify)."""
     x, h = L.add_norm(p["ln1"], cfg, x, delta)
     a, (k, v) = attn_chunk(p["attn"], cfg, h, k_hist, v_hist, hist_len,
-                           positions=positions)
+                           positions=positions, by_position=by_position)
     x, h = L.add_norm(p["ln2"], cfg, x, a)
     return (x, _apply_ffn(p, cfg, h)), (k, v)
 
@@ -783,13 +800,13 @@ def _prefill_recurrent(params, cfg, x, n_valid):
             sup = layer_params(params["mlstm"], i)
             for j in range(n_inner):
                 (x, delta), st = X.apply_mlstm(
-                    layer_params(sup, j), cfg, x, delta, n_valid=n_valid,
-                    mm=mm)
+                    H.weights(layer_params(sup, j), "mlstm"), cfg, x, delta,
+                    n_valid=n_valid, mm=mm)
                 m_states.append(st)
             if "slstm" in params:
                 (x, delta), st = X.apply_slstm(
-                    layer_params(params["slstm"], i), cfg, x, delta,
-                    n_valid=n_valid, mm=mm)
+                    H.weights(layer_params(params["slstm"], i), "slstm"),
+                    cfg, x, delta, n_valid=n_valid, mm=mm)
                 s_states.append(st)
         rows = {"mlstm": torch.stack(m_states).unflatten(
             0, (n_super, n_inner))}
@@ -800,14 +817,15 @@ def _prefill_recurrent(params, cfg, x, n_valid):
     for g in range(n_groups(cfg)):
         grp = layer_params(params["mamba"], g)
         for j in range(cfg.attn_every):
-            lp = layer_params(grp, j)
+            lp = H.weights(layer_params(grp, j), "mamba")
             x, h = L.add_norm(lp["ln"], cfg, x, delta)
             delta, (st, cv) = S.apply_mamba2(lp["mamba"], cfg, h,
                                              n_valid=n_valid, mm=mm)
             sts.append(st)
             cvs.append(cv)
-        (x, delta), kv = decoder_block(params["shared"], cfg, x, delta,
-                                       positions=positions, mm=mm)
+        (x, delta), kv = decoder_block(H.weights(params["shared"], "shared"),
+                                       cfg, x, delta, positions=positions,
+                                       mm=mm)
         kvs.append(kv)
     lead = (n_groups(cfg), cfg.attn_every)
     rows = {"ssm": torch.stack(sts).unflatten(0, lead),
@@ -858,7 +876,7 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None,
                if cfg.family == "audio" else None)
         kvs = []
         delta = None
-        for lp in blocks(params, cfg):
+        for lp in served_blocks(params, cfg):
             (x, delta), kv = decoder_block(lp, cfg, x, delta,
                                            positions=positions,
                                            window=cfg.sliding_window,
@@ -916,29 +934,35 @@ def _write_token_kv(cache_arr, kv, slot, live=None, *, shard=False):
                                         cache_arr[rows, slot])
 
 
-def _write_tokens_kv(cache_arr, kv, pos, live=None):
+def _write_tokens_kv(cache_arr, kv, pos, live=None, offset: int = 0):
     """Multi-token form of :func:`_write_token_kv` for the verify
     dispatch: ``kv`` (B, S, H, Dh) lands in one layer's cache
     ``cache_arr`` (B, C, H, Dh) at per-row positions ``pos[b] ..
-    pos[b] + S - 1``, in place. Non-live rows and positions past the
-    capacity drop their write: they write back the value already held
-    one position before the row's window — a position no kept write of
-    this call targets, so a dropped write never races a real one (kept
-    writes of a row are ``pos .. min(pos + S, C) - 1``, and a row only
-    drops inside a live window when ``pos >= C - S + 1 >= 1``)."""
+    pos[b] + S - 1``, in place — less ``offset`` on a shard of a
+    position-split cache, which holds positions ``offset ..``. Non-live
+    rows and positions outside the cache (or the shard) drop their
+    write: a dropped write repeats the row's first kept one (the same
+    index, the same value) or, in a row with none, writes back the
+    cache's first position as it is — so no index is written twice with
+    different values, and the result does not depend on write order."""
     b, c = cache_arr.shape[0], cache_arr.shape[1]
     s = kv.shape[1]
     dev = cache_arr.device
     pos = torch.broadcast_to(
-        torch.as_tensor(pos, device=dev).reshape(-1), (b,)).long()
-    pos2 = pos[:, None] + torch.arange(s, device=dev)[None, :]   # (B, S)
-    keep = pos2 < c
+        torch.as_tensor(pos, device=dev).reshape(-1), (b,)).long() - offset
+    ar = torch.arange(s, device=dev)
+    pos2 = pos[:, None] + ar[None, :]                            # (B, S)
+    keep = (pos2 >= 0) & (pos2 < c)
     if live is not None:
         keep = keep & live.reshape(-1, 1)
-    idx = torch.where(keep, pos2, (pos[:, None] - 1).clamp(min=0))
+    any_keep = keep.any(1, keepdim=True)
+    first = (-pos).clamp(0, s - 1)[:, None]                      # (B, 1)
+    src = torch.where(keep, ar[None, :], first)
+    idx = torch.where(keep, pos2, torch.where(any_keep, pos[:, None] + first,
+                                              0))
     rows = torch.arange(b, device=dev)[:, None].expand(b, s)
-    new = kv.to(cache_arr.dtype)
-    cache_arr[rows, idx] = torch.where(keep[..., None, None], new,
+    new = kv.to(cache_arr.dtype)[rows, src]
+    cache_arr[rows, idx] = torch.where(any_keep[..., None, None], new,
                                        cache_arr[rows, idx])
 
 
@@ -979,11 +1003,13 @@ def _merge_rows(dst, new, live):
     dst.copy_(new)
 
 
-def _decode_recurrent(params, cfg, x, cache, n, slot, live):
+def _decode_recurrent(params, cfg, x, cache, n, slot, live, shard=False):
     """The recurrent families' decode layers over x (B, 1, d); every
     state leaf of ``cache`` merged in place under ``live``, and Zamba2's
     shared block writes its K/V per group at the row's position (K1
-    reads the group's cache first). Returns (residual, last output)."""
+    reads the group's cache first; ``shard``: a position-split cache's,
+    ``slot`` relative to its first position). Returns (residual, last
+    output)."""
     delta = None
     if cfg.family == "ssm":
         n_super, n_inner = xlstm_dims(cfg)
@@ -991,11 +1017,13 @@ def _decode_recurrent(params, cfg, x, cache, n, slot, live):
             sup = layer_params(params["mlstm"], i)
             for j in range(n_inner):
                 (x, delta), st = X.mlstm_decode_step(
-                    layer_params(sup, j), cfg, x, delta, cache["mlstm"][i, j])
+                    H.weights(layer_params(sup, j), "mlstm"), cfg, x, delta,
+                    cache["mlstm"][i, j])
                 _merge_rows(cache["mlstm"][i, j], st, live)
             if "slstm" in params:
                 (x, delta), carry = X.slstm_decode_step(
-                    layer_params(params["slstm"], i), cfg, x, delta,
+                    H.weights(layer_params(params["slstm"], i), "slstm"),
+                    cfg, x, delta,
                     tuple(cache[name][i] for name in SLSTM_LEAVES))
                 for name, st in zip(SLSTM_LEAVES, carry):
                     _merge_rows(cache[name][i], st, live)
@@ -1003,16 +1031,17 @@ def _decode_recurrent(params, cfg, x, cache, n, slot, live):
     for g in range(n_groups(cfg)):
         grp = layer_params(params["mamba"], g)
         for j in range(cfg.attn_every):
-            lp = layer_params(grp, j)
+            lp = H.weights(layer_params(grp, j), "mamba")
             x, h = L.add_norm(lp["ln"], cfg, x, delta)
             delta, (st, cv) = S.mamba2_decode_step(
                 lp["mamba"], cfg, h, cache["ssm"][g, j], cache["conv"][g, j])
             _merge_rows(cache["ssm"][g, j], st, live)
             _merge_rows(cache["conv"][g, j], cv, live)
         (x, delta), k1, v1 = decoder_block_decode(
-            params["shared"], cfg, x, delta, cache["k"][g], cache["v"][g], n)
-        _write_token_kv(cache["k"][g], k1, slot, live)
-        _write_token_kv(cache["v"][g], v1, slot, live)
+            H.weights(params["shared"], "shared"), cfg, x, delta,
+            cache["k"][g], cache["v"][g], n)
+        _write_token_kv(cache["k"][g], k1, slot, live, shard=shard)
+        _write_token_kv(cache["v"][g], v1, slot, live, shard=shard)
     return x, delta
 
 
@@ -1043,21 +1072,27 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
                              or window is not None):
         raise ValueError("paged cache requires an attention family "
                          "without a rolling SWA cache")
-    slot = n if window is None else n % cache["k"].shape[2]
+    # a shard of a position-split cache (a mesh's sequence layout) holds
+    # slots from its offset on of rows of kv_shards times its own: the
+    # token's slot is relative to it
+    shard = "k" in cache and btab is None and H.attn_layout() == "seq"
+    if shard:
+        c_local = cache["k"].shape[-3]
+        slot = n if window is None else n % (c_local * H.kv_shards())
+        slot = slot - H.kv_offset(c_local)
+    elif window is not None:
+        slot = n % cache["k"].shape[2]
+    else:
+        slot = n
     if cfg.family in RECURRENT_FAMILIES:
-        x, delta = _decode_recurrent(params, cfg, x, cache, n, slot, live)
+        x, delta = _decode_recurrent(params, cfg, x, cache, n, slot, live,
+                                     shard)
         cache["len"] = n + 1 if live is None else n + live.to(torch.int32)
         _, h = L.add_norm(params["final_norm"], cfg, x, delta)
         return _logits(params, cfg, h)[:, 0], cache
     if cfg.family == "audio":
         x = x + L.sinusoidal_positions(n.reshape(-1, 1), cfg.d_model).to(
             x.dtype)
-    # a shard of a position-split cache (a mesh's sequence layout) holds
-    # positions from its offset on: the token's slot is relative to it
-    offset = 0 if btab is not None else H.kv_offset(cache["k"].shape[2])
-    if offset:
-        slot = slot - offset
-    shard = btab is None and H.attn_layout() == "seq"
     index = None
     if btab is not None:
         pool = cache["k"]
@@ -1069,7 +1104,7 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
     cross_len = (None if cross[0] is None else torch.full(
         (), cross[0].shape[2], dtype=torch.int32, device=x.device))
     delta = None
-    for i, lp in enumerate(blocks(params, cfg)):
+    for i, lp in enumerate(served_blocks(params, cfg)):
         (x, delta), k1, v1 = decoder_block_decode(
             lp, cfg, x, delta, cache["k"][i], cache["v"][i], n,
             window=window,
@@ -1104,16 +1139,19 @@ def check_over_cache(cfg, what: str) -> None:
         raise ValueError(f"{what} does not support rolling SWA caches")
 
 
-def _layers_over_cache(params, cfg, x, hist, hist_len, positions, write):
+def _layers_over_cache(params, cfg, x, hist, hist_len, positions, write,
+                       by_position=False):
     """Run every layer over ``x`` against layer ``i``'s history
-    ``hist(i)`` -> (k_hist, v_hist); ``write(i, k, v)`` takes the
+    ``hist(i)`` -> (k_hist, v_hist) (with ``by_position``, the rank's
+    positions of a mesh's sequence layout); ``write(i, k, v)`` takes the
     layer's own KV once its attention has read the history. Returns the
     last block's (residual, MLP output), un-added."""
     delta = None
-    for i, lp in enumerate(blocks(params, cfg)):
+    for i, lp in enumerate(served_blocks(params, cfg)):
         kh, vh = hist(i)
         (x, delta), (k, v) = decoder_block_chunk(
-            lp, cfg, x, delta, kh, vh, hist_len, positions=positions)
+            lp, cfg, x, delta, kh, vh, hist_len, positions=positions,
+            by_position=by_position)
         write(i, k, v)
     return x, delta
 
@@ -1149,7 +1187,8 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
     ks, vs = [], []
     x, delta = _layers_over_cache(
         params, cfg, x, hist, hl, positions,
-        lambda i, k, v: (ks.append(k), vs.append(v)))
+        lambda i, k, v: (ks.append(k), vs.append(v)),
+        by_position=block_table is None and H.attn_layout() == "seq")
     _, h = L.add_norm(params["final_norm"], cfg,
                       *_read_rows(logit_index, x, delta))
     logits = _logits(params, cfg, h)[:, 0]
@@ -1176,17 +1215,19 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
     positions = n[:, None] + torch.arange(s, device=dev)[None, :]
     btab = cache.get("block_tab")
     kc, vc = cache["k"], cache["v"]
+    by_position = btab is None and H.attn_layout() == "seq"
     if btab is None:
-        if s > kc.shape[2]:
+        if s > kc.shape[2] * H.kv_shards():
             raise ValueError(f"verify window {s} exceeds the cache "
-                             f"capacity {kc.shape[2]}")
+                             f"capacity {kc.shape[2] * H.kv_shards()}")
+        offset = H.kv_offset(kc.shape[2])
 
         def hist(i):
             return kc[i], vc[i]
 
         def write(i, k, v):
-            _write_tokens_kv(kc[i], k, n, live)
-            _write_tokens_kv(vc[i], v, n, live)
+            _write_tokens_kv(kc[i], k, n, live, offset)
+            _write_tokens_kv(vc[i], v, n, live, offset)
     else:
         index = _paged_write_index(btab, n, s, kc.shape[1] - 1, kc.shape[2],
                                   live)
@@ -1199,7 +1240,8 @@ def verify_tokens(params, cfg, tokens, cache, *, live=None):
             _write_paged(kc[i], k, index)
             _write_paged(vc[i], v, index)
 
-    x, delta = _layers_over_cache(params, cfg, x, hist, n, positions, write)
+    x, delta = _layers_over_cache(params, cfg, x, hist, n, positions, write,
+                                  by_position=by_position)
     cache["len"] = n + (s if live is None else s * live.to(torch.int32))
     _, h = L.add_norm(params["final_norm"], cfg, x, delta)
     return _logits(params, cfg, h), cache

@@ -55,19 +55,21 @@ engine in the vLLM style that consumes its KV cache only through the
 PyTorch runs eagerly, so a "dispatch" is one call of a model function
 built by :func:`build_closures`.
 
-``EngineConfig.mesh = (data, model)`` serves the attention decoder
-families (dense, MoE, vlm) over a
+``EngineConfig.mesh = (data, model)`` serves every family over a
 :class:`~repro_torch.distributed.mesh.DeviceMesh` of ``data * model``
 devices (``ServingEngine(..., devices=)``; the first CUDA devices by
 default, and a name may repeat — several shards on one device). Each
-data replica serves ``max_batch / data`` of the slots; within it the
-``model`` ranks hold the serve-mode shards of
-:mod:`~repro_torch.distributed.sharding` and run the unchanged model
-functions, one worker thread each, meeting at the gathers of
-:mod:`~repro_torch.distributed.hints`. Every dispatch is one
-``DeviceMesh.run`` — still one target dispatch a step — and the host
-scheduler and bookkeeping exist once. whisper and the recurrent
-families refuse a mesh.
+data replica serves ``max_batch / data`` of the slots (every slot, where
+the batch does not divide over ``data``: the cache then splits its
+positions over every axis); within it the ``model`` ranks hold the
+serve-mode shards of :mod:`~repro_torch.distributed.sharding` and run
+the unchanged model functions, one worker thread each, meeting at the
+gathers of :mod:`~repro_torch.distributed.hints` — the recurrent
+sublayers whole on every model rank, whisper's encoder at admission on
+every rank of the replica, a model over the serve budget gathering
+each layer's ``data`` shards at use (every rank then runs every
+dispatch). Every dispatch is one ``DeviceMesh.run`` — still one target
+dispatch a step — and the host scheduler and bookkeeping exist once.
 """
 from __future__ import annotations
 
@@ -148,6 +150,11 @@ def build_closures(cfg):
 
 
 _M32 = 0xFFFFFFFF
+
+# the dispatch kinds that serve one request (one slot): on a mesh their
+# logits come from the slot's data replica
+_ONE_REQUEST = ("prefill", "draft_prefill", "chunk_contiguous",
+                "chunk_paged")
 
 
 def stub_frames(cfg, device) -> torch.Tensor | None:
@@ -463,16 +470,20 @@ def shard_cfg(cfg, layout: str, model: int):
                        n_kv_heads=cfg.n_kv_heads // model)
 
 
-def place_params(params, cfg, mesh) -> PerRank:
-    """Per-rank param trees: ``params`` as given when it is already one
-    tree per rank (:func:`~repro_torch.distributed.sharding.
-    init_params_sharded`), else a whole tree cut by the serve rules."""
+def place_params(params, cfg, mesh) -> tuple:
+    """(per-rank param trees, their serve placement's spec tree):
+    ``params`` as given when it is already one tree per rank
+    (:func:`~repro_torch.distributed.sharding.init_params_sharded`, or
+    a whole tree cut by ``shard_tree``) under the placement its shapes
+    match (:func:`~repro_torch.distributed.sharding.
+    infer_serve_specs`), else a whole tree cut by the serve rules."""
     if isinstance(params, (list, tuple)):
         if len(params) != mesh.size:
             raise ValueError(f"{len(params)} per-rank param trees for a "
                              f"mesh of {mesh.size} ranks")
-        return PerRank(params)
-    return PerRank(SH.shard_params(params, cfg, mesh))
+        return PerRank(params), SH.infer_serve_specs(params[0], cfg, mesh)
+    specs = SH.serve_specs(params, mesh)
+    return PerRank(SH.shard_params(params, cfg, mesh, specs)), specs
 
 
 class ServingEngine:
@@ -486,12 +497,18 @@ class ServingEngine:
         # devices by default; the cluster hands each worker a disjoint
         # group) under the serve-mode sharding rules
         self.mesh = None
+        # a placement that splits weights over data: the hints gather a
+        # layer's shards at use (None where every rank holds its own)
+        self._gather_specs = self._draft_gather = None
+        self._self_draft = False   # the draft is the target's first layers
+        self._dispatch_group = 0   # the data replica of a one-request call
         if ecfg.mesh is not None:
-            SH.check_family(cfg)
             self.mesh = DeviceMesh(ecfg.mesh,
                                    mesh_devices(ecfg.mesh, devices))
             self.device = self.mesh.devices[0]
-            params = place_params(params, cfg, self.mesh)
+            params, specs = place_params(params, cfg, self.mesh)
+            if SH.splits_over_data(specs, self.mesh):
+                self._gather_specs = specs
         else:
             self.device = resolve_device(device)
             where = params["embed"]["table"].device
@@ -511,13 +528,6 @@ class ServingEngine:
         self._attn = getattr(self.kv, "layout", "heads")
         self._cfg_rank = (cfg if self.mesh is None
                           else shard_cfg(cfg, self._attn, self.mesh.shape[1]))
-        if (self._attn == "seq"
-                and self.scheduler.name in ("chunked", "speculative")):
-            raise NotImplementedError(
-                f"{self.scheduler.name} scheduling over a contiguous cache "
-                f"whose {cfg.n_kv_heads} KV heads do not divide model="
-                f"{ecfg.mesh[1]} (the sequence-sharded layout) waits in the "
-                "port — ROADMAP, Queue 1, M4's \"what waits\"")
         # host-side slot bookkeeping
         self.slot_req: list[Request | None] = [None] * B
         self.slot_len = np.zeros(B, np.int32)     # tokens generated
@@ -602,12 +612,17 @@ class ServingEngine:
         if draft_params is not None:
             dcfg = draft_cfg or cfg
         elif ecfg.draft == "self":
+            self._self_draft = True
             k = ecfg.spec_draft_layers or max(1, cfg.n_layers // 2)
             if self.mesh is not None:
                 # every rank's draft is a view of its own target shard
                 draft_params = PerRank(
                     MD.self_draft_params(p, cfg, k)[0] for p in self.params)
                 dcfg = MD.self_draft_params(self.params[0], cfg, k)[1]
+                self._draft_gather = self._gather_specs and {
+                    key: (self._gather_specs[key] if key != "first_layers"
+                          else self._gather_specs[key][:len(v)])
+                    for key, v in draft_params[0].items()}
             else:
                 draft_params, dcfg = MD.self_draft_params(self.params, cfg,
                                                           k)
@@ -617,8 +632,11 @@ class ServingEngine:
                 dtype=cfg.dtype)
             draft_params = MD.init_params(dcfg, seed=ecfg.seed,
                                           device=self.device)
-        if self.mesh is not None:
-            draft_params = place_params(draft_params, dcfg, self.mesh)
+        if self.mesh is not None and not isinstance(draft_params, PerRank):
+            draft_params, specs = place_params(draft_params, dcfg, self.mesh)
+            self._draft_gather = (specs if SH.splits_over_data(specs,
+                                                               self.mesh)
+                                  else None)
         if dcfg.vocab_size != cfg.vocab_size:
             raise ValueError(
                 f"draft vocab {dcfg.vocab_size} != target vocab "
@@ -696,13 +714,60 @@ class ServingEngine:
     # -- telemetry hooks ---------------------------------------------------
     def _log_dispatch(self, kind: str, *operands):
         """Append one dispatch-audit entry: the kind plus the shape and
-        dtype of every operand (params excluded; on a mesh, the first
-        rank's operands)."""
-        operands = tuple(next(v for v in x if v is not None)
-                         if isinstance(x, PerRank) else x for x in operands)
+        dtype of every operand (params excluded). On a mesh the dispatch
+        is one program over the whole model, as the reference's is: the
+        entry holds the operands the one-device engine passes
+        (:meth:`_whole_operands`), so the audit prices the whole
+        model's dispatch."""
+        if self.mesh is not None:
+            operands = self._whole_operands(kind, operands)
         self.dispatch_log.append({
             "step": self.step_index, "kind": kind,
             "spec": operand_spec(operands)})
+
+    def _whole_operands(self, kind: str, operands) -> tuple:
+        """A mesh dispatch's operands as the one-device engine's (meta
+        tensors where a rank holds a shard): a request's batch as every
+        rank has it, a cache view or a chunk's K/V history whole, a
+        per-slot array over every slot."""
+        kv = self.draft_kv if kind.startswith("draft") else self.kv
+        out = []
+        for i, x in enumerate(operands):
+            if not isinstance(x, PerRank):
+                out.append(x)
+                continue
+            first = next(v for v in x if v is not None)
+            if isinstance(first, dict):
+                out.append(first if "tokens" in first else kv.whole_spec())
+            elif kind in ("chunk_contiguous", "chunk_paged") and i in (1, 2):
+                out.append(kv.whole_spec()["kv"[i - 1]])
+            elif kind == "chunk_paged":
+                out.append(first)      # the slot's block-table row
+            else:
+                out.append(torch.empty((self.ecfg.max_batch,
+                                        *first.shape[1:]),
+                                       dtype=first.dtype, device="meta"))
+        return tuple(out)
+
+    def audit_functions(self) -> tuple:
+        """(dispatch functions, params, draft functions, draft params)
+        the audit traces a logged entry through: the engine's own; on a
+        mesh, the whole model's — its functions built for the whole
+        config and its params as meta tensors of the whole shapes, the
+        program its log's operands (:meth:`_log_dispatch`) belong to."""
+        if self.mesh is None:
+            return (self._closures, self.params,
+                    getattr(self, "_draft_closures", None), self.draft_params)
+        whole = MD.init_params(self.cfg, device="meta")
+        draft = dfns = None
+        if self.draft_cfg is not None:
+            dfns = build_closures(self.draft_cfg)
+            if self._self_draft:
+                draft = MD.self_draft_params(whole, self.cfg,
+                                             self.draft_cfg.n_layers)[0]
+            else:
+                draft = MD.init_params(self.draft_cfg, device="meta")
+        return build_closures(self.cfg), whole, dfns, draft
 
     def _vnow(self):
         """Virtual-clock stamp for spans: the replay clock when driven by
@@ -763,8 +828,10 @@ class ServingEngine:
         mesh = self.mesh
         draft = kind.startswith("draft")
         attn = self._draft_attn if draft else self._attn
+        kv = self.draft_kv if draft else self.kv
         heads = (self.draft_cfg if draft else self.cfg).n_kv_heads
         plan = (self.ecfg.max_batch, heads)
+        gather = self._draft_gather if draft else self._gather_specs
         ranks = [r for r in range(mesh.size)
                  if all(x[r] is not None for x in args
                         if isinstance(x, PerRank))]
@@ -772,12 +839,20 @@ class ServingEngine:
 
         def one(r):
             shares = [x[r] if isinstance(x, PerRank) else x for x in args]
-            with H.use_mesh(mesh, attn=attn, plan=plan):
+            with H.use_mesh(mesh, attn=attn, plan=plan, specs=gather,
+                            pos_axes=getattr(kv, "pos_axes", None)
+                            or ("model",)):
                 return fn(params[r], *shares)
 
         outs = mesh.run(one, ranks)
-        firsts = ([mesh.rank_of(g, 0) for g in range(mesh.shape[0])]
-                  if ranks is None else [ranks[0]])
+        if kind in _ONE_REQUEST:
+            # the request's data replica's first rank (every rank may run
+            # it: a gather over data, or a slot every replica holds)
+            firsts = [mesh.rank_of(self._dispatch_group, 0)]
+        elif not self.kv.split_rows:
+            firsts = [0]   # every replica computes every row
+        else:
+            firsts = [mesh.rank_of(g, 0) for g in range(mesh.shape[0])]
         logits = torch.cat([outs[r][0].to(self.device) for r in firsts])
         rest = [PerRank(None if o is None else o[i] for o in outs)
                 for i in range(1, len(outs[firsts[0]]))]
@@ -785,8 +860,19 @@ class ServingEngine:
 
     def _data_index(self, slot: int) -> int:
         """The data replica that serves ``slot`` (its rows of the slot
-        arrays, its ranks' caches)."""
+        arrays, its ranks' caches); 0 where every replica holds every
+        slot."""
+        if not self.kv.split_rows:
+            return 0
         return int(slot) // (self.ecfg.max_batch // self.mesh.shape[0])
+
+    def _request_ranks(self, slot: int) -> tuple:
+        """The ranks a one-request dispatch (prefill, chunk) for ``slot``
+        runs on: its data replica's, or every rank where the weights are
+        gathered over ``data`` at use or every replica holds the slot."""
+        if self._gather_specs is not None or not self.kv.split_rows:
+            return tuple(range(self.mesh.size))
+        return self.mesh.data_group(self._data_index(slot))
 
     def _finish(self, req: Request):
         """Retire ``req`` into ``finished`` (every finish site funnels
@@ -847,6 +933,9 @@ class ServingEngine:
         ``max_batch``) as each rank's data replica's rows on its device."""
         if self.mesh is None:
             return torch.from_numpy(a).to(self.device)
+        if not self.kv.split_rows:
+            return PerRank(torch.from_numpy(a).to(dev)
+                           for dev in self.mesh.devices)
         n = self.ecfg.max_batch // self.mesh.shape[0]
         out = PerRank()
         for r, dev in enumerate(self.mesh.devices):
@@ -999,7 +1088,8 @@ class ServingEngine:
 
         if self.mesh is None:
             return on(self.device)
-        group = self.mesh.data_group(self._data_index(slot))
+        self._dispatch_group = self._data_index(slot)
+        group = self._request_ranks(slot)
         return PerRank(on(dev) if r in group else None
                        for r, dev in enumerate(self.mesh.devices))
 

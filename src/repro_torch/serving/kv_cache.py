@@ -812,20 +812,22 @@ class PagedCache:
 # caches over a device mesh
 # ---------------------------------------------------------------------------
 
-def kv_layout(spec) -> str:
-    """How a K/V spec (.., B, C, H, Dh) splits over ``model``:
-    ``"heads"``, ``"seq"`` (positions) or ``"replicated"``."""
+_KV = ("k", "v")
+_CROSS = ("cross_k", "cross_v")
+
+
+def kv_placement(spec) -> tuple:
+    """(layout, position axes) of a K/V spec (.., B, C, H, Dh):
+    ``"heads"`` where the heads split over ``model`` (positions whole),
+    ``"seq"`` where the positions split — over ``model``, or over
+    ``data`` and ``model`` where the batch does not divide over ``data``
+    (the reference's ``cache_shardings``) —, else ``"replicated"``."""
     h_ax, c_ax = spec[-2], spec[-3]
     if h_ax is not None and SH.MODEL in h_ax:
-        return "heads"
-    if c_ax == (SH.MODEL,):
-        return "seq"
+        return "heads", None
     if c_ax is not None:
-        raise NotImplementedError(
-            f"a KV cache split {c_ax} over its positions (the batch does "
-            "not divide over 'data') waits in the port: give max_batch a "
-            "multiple of the mesh's data axis")
-    return "replicated"
+        return "seq", tuple(c_ax)
+    return "replicated", None
 
 
 def kv_partition_count(spec, mesh) -> int:
@@ -839,23 +841,50 @@ def kv_partition_count(spec, mesh) -> int:
 
 
 class _MeshSlots:
-    """What the mesh caches share: slot ``s`` lives on data replica ``s
-    // (B / data)`` at local row ``s % (B / data)``, and a rank's share
-    of a slot's rows (L, 1, S, H, Dh) is its heads (``"heads"``) or all
-    of them."""
+    """What the mesh caches share. Slot ``s`` lives on data replica ``s
+    // (B / data)`` at local row ``s % (B / data)``; where the batch does
+    not divide over ``data`` every data replica holds every slot (and a
+    contiguous cache splits its positions over every axis instead). A
+    rank's share of a slot's K/V rows (.., 1, S, H, Dh) is its heads
+    (``"heads"``) or all of them; of its other leaves, all of them (the
+    recurrent sublayers run whole on every model rank)."""
 
-    def _init_mesh(self, mesh, max_batch: int, layout: str, h_local: int):
-        d = mesh.shape[0]
-        if max_batch % d:
-            raise ValueError(f"max_batch={max_batch} must split evenly "
-                             f"over the mesh's data axis ({d})")
+    def _init_mesh(self, mesh, max_batch: int, layout: str, h_local: int,
+                   pos_axes=None):
         self.mesh = mesh
         self.layout = layout
-        self._rows_per_group = max_batch // d
+        self.pos_axes = pos_axes
+        self.split_rows = max_batch % mesh.shape[0] == 0
+        self._rows_per_group = (max_batch // mesh.shape[0] if self.split_rows
+                                else max_batch)
         self._h_local = h_local
 
     def _where(self, slot: int) -> tuple[int, int]:
+        if not self.split_rows:
+            return 0, int(slot)
         return divmod(int(slot), self._rows_per_group)
+
+    def slot_ranks(self, slot: int) -> tuple:
+        """The ranks that hold ``slot``'s rows."""
+        if not self.split_rows:
+            return tuple(range(self.mesh.size))
+        return self.mesh.data_group(self._where(slot)[0])
+
+    def _pos_index(self, rank: int) -> int:
+        """The rank's position shard in the ``"seq"`` layout."""
+        grp = self.mesh.group(rank, self.pos_axes)
+        return grp.index(rank)
+
+    def _export_ranks(self, slot: int, name: str) -> tuple:
+        """The ranks whose shares of ``name``, in order, make ``slot``'s
+        rows whole: its position shards, its data replica's heads, or
+        its replica's first rank."""
+        first = self.mesh.rank_of(self._where(slot)[0], 0)
+        if name in _KV and self.layout == "seq":
+            return self.mesh.group(first, self.pos_axes)
+        if name in _KV + _CROSS and self.layout == "heads":
+            return self.mesh.data_group(self._where(slot)[0])
+        return (first,)
 
     def _share(self, rows, name: str, rank: int) -> torch.Tensor:
         """Rank ``rank``'s share of a slot's rows, on its device: its own
@@ -869,96 +898,135 @@ class _MeshSlots:
                        and self.mesh.coords(i)[1] == mi)
             return src[name].to(dev)
         t = rows[name]
-        if self.layout == "heads":
+        if self.layout == "heads" and name in _KV + _CROSS:
             h = self._h_local
             t = t[..., mi * h:(mi + 1) * h, :]
         return t.to(dev)
 
-    def _gather_heads(self, parts: list) -> torch.Tensor:
-        """A slot's rows from one data replica's ranks (in model order)
-        as the single device holds them."""
-        if self.layout == "heads":
-            return torch.cat([p.cpu() for p in parts], dim=3)
-        if self.layout == "seq":
-            return torch.cat([p.cpu() for p in parts], dim=2)
-        return parts[0].cpu()
+    def _whole_rows(self, name: str, parts: list) -> torch.Tensor:
+        """A slot's rows of ``name`` from :meth:`_export_ranks`' shares
+        (in that order) as the single device holds them."""
+        if len(parts) == 1:
+            return parts[0].cpu()
+        dim = -2 if self.layout == "heads" else -3   # heads, or positions
+        return torch.cat([p.cpu() for p in parts], dim=dim)
 
 
 class MeshContiguousCache(_MeshSlots, ContiguousCache):
-    """:class:`ContiguousCache` over a mesh, for the attention decoders:
-    each rank holds its data replica's ``B / data`` slots and, by
+    """:class:`ContiguousCache` over a mesh, for every family: each rank
+    holds its data replica's ``B / data`` slots (every slot where the
+    batch does not divide over ``data``) and, by
     :func:`~repro_torch.distributed.sharding.cache_specs`, its KV heads
     (``"heads"``), a range of positions (``"seq"``: the heads do not
-    divide ``model``) or the whole rows (``"replicated"``). The host
-    bookkeeping is the base class's; exported packets are the single
-    device's, byte for byte."""
+    divide ``model``, or the batch ``data``) or the whole rows
+    (``"replicated"``). Whisper's encoder cache holds the rank's heads
+    in ``"heads"``, every position otherwise; a recurrent family's state
+    leaves are whole over ``model`` (their sublayers run whole on every
+    model rank), and an xLSTM, which holds no K/V, is ``"replicated"``.
+    The host bookkeeping is the base class's; exported packets are the
+    single device's, byte for byte."""
 
     def __init__(self, cfg, ecfg, mesh):
         B, C = ecfg.max_batch, ecfg.max_seq_len
         meta = MD.cache_spec(cfg, B, C)
-        if B % mesh.shape[0]:
-            raise ValueError(f"max_batch={B} must split evenly over the "
-                             f"mesh's data axis ({mesh.shape[0]})")
         self.specs = SH.cache_specs(meta, mesh)
-        spec = self.specs["k"]
-        layout = kv_layout(spec)
-        if layout == "seq" and cfg.sliding_window is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: a rolling window cache whose KV heads do not "
-                f"divide model={mesh.shape[1]} would split its positions — "
-                "the sequence-sharded decode takes no rolling window")
-        shape = SH.local_shape(tuple(meta["k"].shape), spec, mesh)
-        self._init_mesh(mesh, B, layout, shape[-2])
+        layout, pos_axes = (kv_placement(self.specs["k"]) if "k" in meta
+                            else ("replicated", None))
+        split_rows = B % mesh.shape[0] == 0
+        data = (SH.DATA,) if split_rows else None
+        place = {}
+        for name, leaf in meta.items():
+            nd = leaf.dim()
+            if name == "len":
+                continue
+            if name in _KV:
+                h = (SH.MODEL,) if layout == "heads" else None
+                c = pos_axes if layout == "seq" else None
+                place[name] = (None,) * (nd - 4) + (data, c, h, None)
+            elif name in _CROSS:
+                h = (SH.MODEL,) if layout == "heads" else None
+                place[name] = (None,) * (nd - 4) + (data, None, h, None)
+            else:
+                ax = MD.cache_batch_axes({name: leaf})[name]
+                place[name] = tuple(data if d == ax else None
+                                    for d in range(nd))
+        self.placement = place
+        local = {name: SH.local_shape(tuple(meta[name].shape), spec, mesh)
+                 for name, spec in place.items()}
+        h_local = local["k"][-2] if "k" in local else 0
+        self._init_mesh(mesh, B, layout, h_local, pos_axes)
         self._shards = PerRank(
-            {"k": torch.zeros(shape, dtype=meta["k"].dtype, device=dev),
-             "v": torch.zeros(shape, dtype=meta["v"].dtype, device=dev),
+            {**{name: torch.zeros(local[name], dtype=meta[name].dtype,
+                                  device=dev) for name in place},
              "len": torch.zeros((), dtype=torch.int32, device=dev)}
             for dev in mesh.devices)
         self._cache = None
-        self._axes = {"k": 1, "v": 1}
+        self._axes = {name: ax for name, ax in
+                      MD.cache_batch_axes(meta).items() if ax is not None}
         self._rolling = cfg.sliding_window is not None
         self._footprint = contiguous_kv_bytes(cfg, B, C)
         self.device = mesh.devices[0]
         self._occupied: set[int] = set()
-        self.kv_partitions = kv_partition_count(spec, mesh)
-        self._c_local = shape[2]
+        self.kv_partitions = (kv_partition_count(place["k"], mesh)
+                              if "k" in place else 1)
+        self._c_whole = meta["k"].shape[-3] if "k" in meta else 0
+        self._meta = meta
+        self._c_local = local["k"][-3] if "k" in local else 0
+
+    def whole_spec(self) -> dict:
+        """The one-device cache dict of a decode or verify dispatch, as
+        meta tensors of the whole shapes."""
+        return dict(self._meta)
 
     def splice(self, rows, slot: int, n_prompt: int, budget: int,
                prompt=None) -> None:
-        """As :meth:`ContiguousCache.splice` on each rank of the slot's
-        data replica; in the ``"seq"`` layout a rank keeps the prompt's
-        positions in its range."""
+        """As :meth:`ContiguousCache.splice` on each rank holding the
+        slot; in the ``"seq"`` layout a rank keeps the prompt's positions
+        in its range (of the rolled window, on a rolling cache the
+        prompt fills)."""
         self._occupied.add(slot)
-        g, lr = self._where(slot)
+        _, lr = self._where(slot)
         c = self._c_local
-        for r in self.mesh.data_group(g):
-            for name in ("k", "v"):
+        for r in self.slot_ranks(slot):
+            for name, ax in self._axes.items():
                 src = self._share(rows, name, r)
-                dst = self._shards[r][name][:, lr]
+                dst = self._shards[r][name].select(ax, lr)
+                if name not in _KV:
+                    dst.copy_(src.select(ax, 0))
+                    continue
                 s = src.shape[2]
+                if self._rolling and s >= self._c_whole:
+                    src = MD.roll_window(src, self._c_whole)
+                    s = self._c_whole
                 if self.layout == "seq":
-                    off = self.mesh.coords(r)[1] * c
+                    off = self._pos_index(r) * c
                     part = src[:, 0, off:off + c]
                     n = part.shape[1]
                     dst[:, :n] = part
                     dst[:, n:].zero_()
-                elif self._rolling and s >= c:
-                    dst.copy_(MD.roll_window(src, c)[:, 0])
                 else:
                     dst[:, :s] = src[:, 0]
                     dst[:, s:].zero_()
 
     def splice_partial(self, k_rows, v_rows, slot: int, offset: int,
                        n_valid: int) -> None:
-        if self.layout == "seq":
-            raise NotImplementedError("chunked prefill over a position-"
-                                      "split cache")
-        g, lr = self._where(slot)
-        for r in self.mesh.data_group(g):
+        """A chunk's K/V rows at positions ``offset .. offset + n_valid -
+        1`` of each rank holding the slot — in the ``"seq"`` layout only
+        those in the rank's range."""
+        _, lr = self._where(slot)
+        c = self._c_local
+        for r in self.slot_ranks(slot):
+            lo, hi = offset, offset + n_valid
+            base = 0
+            if self.layout == "seq":
+                base = self._pos_index(r) * c
+                lo, hi = max(lo, base), min(hi, base + c)
+                if lo >= hi:
+                    continue
             for name, rows in (("k", k_rows), ("v", v_rows)):
                 src = self._share(_named(rows, name), name, r)
-                self._shards[r][name][:, lr, offset:offset + n_valid] = \
-                    src[:, 0, :n_valid]
+                self._shards[r][name][:, lr, lo - base:hi - base] = \
+                    src[:, 0, lo - offset:hi - offset]
 
     def chunk_view(self, slot: int) -> dict:
         return {"kind": "contiguous",
@@ -977,16 +1045,18 @@ class MeshContiguousCache(_MeshSlots, ContiguousCache):
 
     def export_slot(self, slot: int, n_valid: int, prompt=None,
                     n_prompt=None) -> dict:
-        """The single device's packet: the slot's rows gathered from its
-        data replica's ranks (heads, or positions, in model order)."""
-        g, lr = self._where(slot)
+        """The single device's packet: the slot's rows gathered from the
+        ranks holding their shares (heads, or positions, in order)."""
+        _, lr = self._where(slot)
         rows = {}
-        for name in ("k", "v"):
-            full = self._gather_heads(
-                [self._shards[r][name][:, lr:lr + 1]
-                 for r in self.mesh.data_group(g)])
-            rows[name] = full[:, :, :min(_export_span(n_valid),
-                                         full.shape[2])]
+        for name, ax in self._axes.items():
+            full = self._whole_rows(name, [
+                self._shards[r][name].narrow(ax, lr, 1)
+                for r in self._export_ranks(slot, name)])
+            if name in _KV:
+                full = full[:, :, :min(_export_span(n_valid),
+                                       full.shape[2])]
+            rows[name] = full
         return _host_packet(n_valid, **rows)
 
     def import_slot(self, packet: dict, slot: int, n_prompt: int,
@@ -996,8 +1066,8 @@ class MeshContiguousCache(_MeshSlots, ContiguousCache):
                 f"import_slot into occupied slot {slot}: a live stream's "
                 "KV would be silently clobbered — free the slot first "
                 "(preemption/requeue must never double-import)")
-        self.splice({"k": packet["k"], "v": packet["v"]}, slot, n_prompt,
-                    budget)
+        self.splice({name: packet[name] for name in self._axes}, slot,
+                    n_prompt, budget)
 
 
 class MeshPagedCache(_MeshSlots, PagedCache):
@@ -1016,9 +1086,20 @@ class MeshPagedCache(_MeshSlots, PagedCache):
                         self._h_pool)
         self.kv_partitions = kv_partition_count(self._pool_spec, mesh)
 
+    def whole_spec(self) -> dict:
+        """The one-device cache dict of a decode or verify dispatch, as
+        meta tensors of the whole shapes."""
+        shape, dt = self._pool_whole
+        pool = torch.empty(shape, dtype=dt, device="meta")
+        return {"k": pool, "v": pool,
+                "block_tab": torch.empty(self.table.shape, dtype=torch.int32,
+                                         device="meta"),
+                "len": torch.empty((), dtype=torch.int32, device="meta")}
+
     def _make_pools(self, cfg, num_blocks, block_size, device):
         st = MD.paged_pool_struct(cfg, num_blocks, block_size)
         shape, dt = st["k"]
+        self._pool_whole = (shape, dt)
         self._pool_spec = spec = SH.pool_spec(shape, self.mesh)
         self._pool_layout = "heads" if spec[-2] is not None else "replicated"
         local = SH.local_shape(shape, spec, self.mesh)
@@ -1063,7 +1144,7 @@ class MeshPagedCache(_MeshSlots, PagedCache):
     def _view(self) -> PerRank:
         out = PerRank()
         for r, dev in enumerate(self.mesh.devices):
-            g = self.mesh.coords(r)[0]
+            g = self.mesh.coords(r)[0] if self.split_rows else 0
             rows = self.table[g * self._rows_per_group:
                               (g + 1) * self._rows_per_group]
             out.append({"k": self._pools_k[r], "v": self._pools_v[r],
@@ -1076,17 +1157,16 @@ class MeshPagedCache(_MeshSlots, PagedCache):
         self._pools_v = PerRank(c["v"] for c in new_cache)
 
     def _slot_rows(self, slot: int, nblk: int) -> tuple:
-        g, _ = self._where(slot)
         idx = torch.from_numpy(self.table[slot, :nblk].astype(np.int64))
         span = nblk * self.block_size
         out = []
         for pools in (self._pools_k, self._pools_v):
             parts = []
-            for r in self.mesh.data_group(g):
+            for r in self._export_ranks(slot, "k"):
                 p = pools[r]
                 parts.append(p[:, idx.to(p.device)].reshape(
                     p.shape[0], 1, span, *p.shape[3:]))
-            out.append(self._gather_heads(parts))
+            out.append(self._whole_rows("k", parts))
         return tuple(out)
 
 

@@ -3,12 +3,14 @@ n``, qwen1.5-0.5b's smoke config in float32, weights bridged from the
 JAX package): chunked and speculative equal blocking on the paged cache
 at (1, 2); an exported packet equals the single engine's leaf for leaf,
 and a preempted slot resumes its stream; the simulator's
-``serve(mesh=)`` accounts the KV as the engine does; the families
-without mesh rules, too few devices and CUDA-less defaults raise; an
-exception in one rank reaches the caller; launch counts and the decode
-split under threads."""
+``serve(mesh=)`` accounts the KV as the engine does; too few devices
+and CUDA-less defaults raise, the families, batches and layouts a mesh
+once refused serve; an exception in one rank reaches the caller; launch
+counts and the decode split under threads; telemetry's dispatch
+calibration of a mesh engine equals the one-device engine's."""
 from __future__ import annotations
 
+import math
 import threading
 
 import jax
@@ -26,7 +28,8 @@ from repro_torch.core.simulator import LLMSimulator, SimConfig
 from repro_torch.distributed.mesh import DeviceMesh
 from repro_torch.kernels import ops
 from repro_torch.models import model as MD
-from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving import EngineConfig, ServingEngine, Telemetry
+from repro_torch.serving import telemetry as TT
 from _torch_threads import one_thread  # noqa: F401
 
 KW = dict(max_batch=4, max_seq_len=96, max_new_tokens=8)
@@ -144,11 +147,18 @@ def test_simulator_mesh_accounting_equals_engine(models, kv):
 
 
 def test_refusals():
+    """What a mesh still refuses — too few devices, no CUDA by default,
+    a malformed shape — and what it once refused and now serves as the
+    single engine does: whisper and the recurrent families, a batch that
+    does not divide over ``data``, chunked prefill over the
+    sequence-sharded layout, and the dispatch audit."""
+    prompts = _prompts(256, (17, 33, 5, 40), seed=4)
     for arch in ("whisper-large-v3", "zamba2-2.7b", "xlstm-350m"):
         cfg = registry.get_smoke_config(arch).replace(dtype="float32")
         p = MD.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=cfg.family):
-            _engine(p, cfg, (1, 2))
+        _, single = _serve(_engine(p, cfg), prompts)
+        _, got = _serve(_engine(p, cfg, (1, 2)), prompts)
+        assert got == single, arch
     cfg = registry.get_smoke_config("qwen1.5-0.5b").replace(dtype="float32")
     p = MD.init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="needs 4 devices"):
@@ -159,14 +169,20 @@ def test_refusals():
             ServingEngine(p, cfg, EngineConfig(mesh=(1, 2), **KW))
     with pytest.raises(ValueError, match="data, model"):
         EngineConfig(mesh=(2, 0))
-    with pytest.raises(ValueError, match="max_batch"):
-        _engine(p, cfg, (3, 1), max_batch=4)
-    # the sequence-sharded layout serves blocking admission only
-    with pytest.raises(NotImplementedError, match="chunked"):
-        _engine(p, cfg, (1, 8), scheduler="chunked", chunk_tokens=16)
-    # the dispatch audit prices one device's dispatches
-    with pytest.raises(NotImplementedError, match="mesh"):
-        audit_engine(_engine(p, cfg, (1, 2)))
+    # 4 slots over 3 data replicas: every replica holds every slot and
+    # the cache splits its positions over (data, model)
+    _, single = _serve(_engine(p, cfg), prompts)
+    eng, got = _serve(_engine(p, cfg, (3, 1)), prompts)
+    assert got == single and not eng.kv.split_rows
+    assert eng.kv.pos_axes == ("data", "model")
+    # the sequence-sharded layout serves chunked prefill
+    eng, got = _serve(_engine(p, cfg, (1, 8), scheduler="chunked",
+                              chunk_tokens=16), prompts)
+    assert got == single and eng.kv.layout == "seq"
+    # the dispatch audit prices a mesh engine's whole-model program
+    eng, got = _serve(_engine(p, cfg, (1, 2)), prompts)
+    assert got == single
+    assert audit_engine(eng)["ok"]
 
 
 def test_rank_exception_reaches_caller():
@@ -235,3 +251,30 @@ def test_launch_counts_from_threads():
                          lens))):
         assert (ops.call_cost(name, *args, extra_k=q, split=128)
                 == ops.call_cost(name, *args, extra_k=q))
+
+
+def test_mesh_calibration_prices_the_whole_model(models):
+    """Telemetry's dispatch calibration covers a mesh engine: on the
+    same traffic its table keys the one-device engine's kinds and counts,
+    with their FLOPs and bytes (the whole model's dispatch), and a finite
+    measured / predicted ratio."""
+    _, _, cfg, tp = models["qwen1.5-0.5b"]
+    prompts = _prompts(cfg.vocab_size, (6, 11, 17), seed=3)
+    tables = []
+    for mesh in (None, (1, 2)):
+        tel = Telemetry()
+        kw = dict(KW, kv_cache="paged")
+        eng = (ServingEngine(tp, cfg, EngineConfig(**kw), device="cpu",
+                             telemetry=tel) if mesh is None else
+               ServingEngine(tp, cfg, EngineConfig(mesh=mesh, **kw),
+                             devices=("cpu",) * 2, telemetry=tel))
+        _serve(eng, prompts)
+        tables.append(TT.dispatch_calibration(eng, tel))
+    single, mesh_t = tables
+    assert mesh_t.keys() == single.keys() and single
+    for kind, row in mesh_t.items():
+        want = single[kind]
+        assert (row["n"], row["flops"], row["bytes"]) == (
+            want["n"], want["flops"], want["bytes"]), kind
+        assert math.isfinite(row["model_error_ratio"]) and \
+            row["model_error_ratio"] > 0

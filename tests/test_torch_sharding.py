@@ -121,8 +121,13 @@ def test_budget_switch_keeps_fsdp_over_budget(shapes):
 
 def test_serve_specs_refuse_data_split_and_fix_shared_experts(shapes):
     _, big = shapes["llama2-70b"]
-    with pytest.raises(NotImplementedError, match="split over 'data'"):
-        SH.serve_specs(big, (2, 4))
+    # over the budget at data 2 the weights split over data (gathered at
+    # use by the engine); the stacked norms stay whole
+    split = SH.serve_specs(big, (2, 4))
+    assert split["layers"]["attn"]["wq"] == (None, ("data",), ("model",))
+    assert split["layers"]["ln1"]["w"] == (None, None)
+    assert SH.splits_over_data(split, (2, 4))
+    assert not SH.splits_over_data(SH.serve_specs(big, (1, 4)), (1, 4))
     # at data = 1 the size-1 axis splits nothing: allowed
     specs = SH.serve_specs(big, (1, 4))
     assert specs["layers"]["attn"]["wq"] == (None, ("data",), ("model",))
@@ -178,6 +183,11 @@ def test_shards_cut_and_init(shapes):
     assert made[1]["layers"]["attn"]["bq"].eq(0).all()
     std = made[0]["layers"]["mlp"]["w_up"].std().item()
     assert abs(std - cfg.d_model ** -0.5) < 0.02
-    with pytest.raises(NotImplementedError, match="whisper"):
-        SH.shard_params(None, registry.get_smoke_config("whisper-large-v3"),
-                        mesh)
+    # whisper cuts as every family does: the shards make the whole tree
+    wcfg = registry.get_smoke_config("whisper-large-v3").replace(
+        dtype="float32")
+    wp = MD.init_params(wcfg, seed=3, device="cpu")
+    back = SH.gather_tree(SH.shard_params(wp, wcfg, mesh),
+                          SH.serve_specs(wp, mesh), mesh)
+    for names, leaf in SH._walk(wp):
+        assert torch.equal(_lookup(back, names), leaf), names
