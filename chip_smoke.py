@@ -256,6 +256,25 @@ Phases, one line each (any failure exits non-zero):
    speculative gamma 4, every K1–K4 call held to its plain version on
    its own inputs, exact launches.
 
+17. dryrun — the dry-run and roofline tooling against the card (at
+   most 60 s): (a) ``make_mesh((1, 1))`` and ``make_mesh((2, 2),
+   devices=["cuda:0"] * 4)`` run on the card, ``make_production_mesh()``
+   refuses one card for 256, and builds on 256 ``meta`` devices; (b)
+   bf16 qwen1.5-0.5b at full width and depth — a decode of 8 slots at
+   capacity 2048, a 1 x 1024 prefill and one train step at B 4 x S 2048
+   (remat full) — each dry-run at (1, 1) against the same step on the
+   card: argument bytes within 1% + 2 MiB of ``memory_allocated`` after
+   placement, the predicted peak within [0.85, 1.5] of
+   ``max_memory_allocated`` over the step, and the step's device time
+   at least 0.95 of the roofline bound at the H100 constants; (c) bf16
+   qwen at 8 layers on (2, 2), the card named four times: a decode and
+   a prefill's collectives per rank, kind and shape, from the card run,
+   equal the dry-run's meta rank run of the same cell. (The train
+   step's is held on four cards by ``scripts/torch_dryrun_card.py``: a
+   training mesh takes one card per rank.) Every step of (b) and (c) on
+   the card runs with the launch counts zeroed just before it and held
+   just after to what the step must launch (:func:`dryrun_expected`).
+
 Every engine, cluster and mesh run and every W4 step checks each
 kernel's launch count against what its path must launch. The four-card
 runs of mesh serving are ``scripts/torch_mesh_card.py`` and
@@ -5613,6 +5632,218 @@ SOURCES = {
 COUNTERS = {"add_rmsnorm": "rmsnorm"}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry-run and the roofline against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_DEVICE = "cuda:0"
+DRYRUN_STEPS = (("decode", 8, 2048), ("prefill", 1, 1024),
+                ("train", 4, 2048))
+DRYRUN_MESH_LAYERS = 8
+DRYRUN_MESH_STEPS = (("decode", 8, 2048), ("prefill", 2, 512))
+ARG_RTOL, ARG_ATOL = 0.01, 2 << 20     # argument bytes: 1% + 2 MiB
+PEAK_RANGE = (0.85, 1.5)               # predicted / measured peak
+BOUND_FLOOR = 0.95                     # device time / roofline bound
+
+
+def dryrun_expected(cfg, kind: str, ranks: int) -> tuple[dict, set]:
+    """(launches per kernel, the kernels that must have run) of one
+    phase-17 step on ``ranks`` ranks, each launching what one device
+    would (:func:`path_shape`: R RMSNorms, L attention layers): a decode
+    R K5 and L K1 (the contiguous cache), a prefill R K5 and L K3, a
+    train step R K5b and R K5 — 2R - 1 under remat "full", whose
+    backward runs each layer's norms again — and no attention kernel
+    (training attends through the plain path)."""
+    norms, n = path_shape(cfg)
+    want = {"rmsnorm": norms, "flash_attention": 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "prefill_attention": 0,
+            "quant_gemv": 0, "add_rmsnorm_bwd": 0}
+    if kind == "decode":
+        want["decode_attention"] = n
+    elif kind == "prefill":
+        want["flash_attention"] = n
+    else:
+        want["rmsnorm"] = 2 * norms - 1 if cfg.remat == "full" else norms
+        want["add_rmsnorm_bwd"] = norms
+    want = {k: ranks * v for k, v in want.items()}
+    return want, {k for k, v in want.items() if v}
+
+
+def dryrun_launched(phase, cfg, kind, ranks, fn, total: dict):
+    """``fn()``, one step on the card, with every launch count zeroed
+    just before it and read just after: held to :func:`dryrun_expected`
+    and added to ``total``."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {**ops.launch_counts(), **ops.backward_launch_counts()}
+    _launch_gate(phase, counts, *dryrun_expected(cfg, kind, ranks))
+    _add(total, counts)
+    return out
+
+
+def dryrun_mesh_builders() -> None:
+    """17a: the builders on the card, and the placeholder pod."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    one = make_mesh((1, 1))
+    got = one.run(lambda r: torch.ones(3, device=one.devices[r]).sum()
+                  .item())
+    if got != [3.0] or one.devices[0].type != "cuda":
+        raise AssertionError(f"dryrun: make_mesh((1, 1)) gave {got} on "
+                             f"{one.devices}")
+    four = make_mesh((2, 2), devices=[DRYRUN_DEVICE] * 4)
+    got = four.run(lambda r: four.all_gather(torch.full(
+        (1,), float(r), device=four.devices[r]), 0, "model").tolist())
+    if got != [[0.0, 1.0], [0.0, 1.0], [2.0, 3.0], [2.0, 3.0]]:
+        raise AssertionError(f"dryrun: a (2, 2) gather over model gave "
+                             f"{got}")
+    one.close()
+    four.close()
+    n = torch.cuda.device_count()
+    try:
+        make_production_mesh()
+    except ValueError as e:
+        if "256" not in str(e) or f"only {n}" not in str(e):
+            raise AssertionError(f"dryrun: the refusal {e} names neither "
+                                 f"256 nor the {n} visible") from e
+        refusal = str(e)
+    else:
+        raise AssertionError("dryrun: make_production_mesh() built on "
+                             f"{n} card(s)")
+    pod = make_production_mesh(devices=["meta"] * 256)
+    log("dryrun", builders="ok", pod=f"{pod.shape}", refusal=f"'{refusal}'")
+    pod.close()
+
+
+def _device_ms(fn) -> float:
+    """Device ms of one call of ``fn`` (``torch.profiler``, every
+    thread's kernels); raises when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("dryrun: the profiler saw no device time")
+    return us / 1e3
+
+
+def dryrun_step(card: str, kind: str, batch: int, seq: int,
+                total: dict) -> None:
+    """17b: one step's dry-run at (1, 1) against the card; its launches
+    added to ``total``."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as A
+    cfg = registry.get_config(ARCH)
+    t0 = time.perf_counter()
+    dry = D.Cell(cfg, kind, batch, seq, (1, 1))
+    rec = dry.run()
+    dry.close()
+    dry_s = time.perf_counter() - t0
+    mem = rec["memory"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cell = D.Cell(cfg, kind, batch, seq, (1, 1), devices=[DRYRUN_DEVICE])
+    args = cell.place(SEED)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    arg = mem["argument_size_in_bytes"]
+    if abs(placed - arg) > ARG_RTOL * arg + ARG_ATOL:
+        raise AssertionError(f"dryrun {kind}: argument bytes {arg} against "
+                             f"{placed} placed")
+    phase = f"dryrun {kind}"
+
+    def step():
+        return dryrun_launched(phase, cfg, kind, 1,
+                               lambda: cell.step_on(args), total)
+
+    step()                        # warm: the step's first call
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    ratio = mem["peak_memory_in_bytes"] / peak
+    if not PEAK_RANGE[0] <= ratio <= PEAK_RANGE[1]:
+        raise AssertionError(f"dryrun {kind}: predicted peak "
+                             f"{mem['peak_memory_in_bytes']} is {ratio:.3f}"
+                             f" x the measured {peak}")
+    dev_ms = _device_ms(step)
+    c = A.analyze_record({**rec, "arch": ARCH, "shape": kind, "devices": 1})
+    bound_ms = max(c["compute_s"], c["memory_s"]) * 1e3
+    if dev_ms < BOUND_FLOOR * bound_ms:
+        raise AssertionError(f"dryrun {kind}: {dev_ms:.3f} ms of device "
+                             f"time under the {bound_ms:.3f} ms bound")
+    log("dryrun", step=kind, batch=batch, seq=seq, arg_bytes=arg,
+        placed_bytes=placed, arg_rel=f"{(placed - arg) / arg:+.5f}",
+        peak_pred=mem["peak_memory_in_bytes"], peak_meas=peak,
+        peak_ratio=f"{ratio:.4f}", compute_ms=f"{c['compute_s'] * 1e3:.4f}",
+        memory_ms=f"{c['memory_s'] * 1e3:.4f}", bound_ms=f"{bound_ms:.4f}",
+        device_ms=f"{dev_ms:.4f}", bound_over_device=f"{bound_ms / dev_ms:.4f}",
+        bound_by=c["bottleneck"], dry_s=f"{dry_s:.1f}", card=f"'{card}'")
+    del args
+    cell.close()
+    gc_empty()
+    torch.cuda.empty_cache()
+
+
+def dryrun_collectives(card: str, total: dict) -> None:
+    """17c: the card's collectives at (2, 2) against the meta rank
+    run's, rank by rank, kind and shape; its launches added to
+    ``total``."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import collective_bytes as CB
+    cfg = registry.get_config(ARCH).replace(n_layers=DRYRUN_MESH_LAYERS)
+    for kind, batch, seq in DRYRUN_MESH_STEPS:
+        meta = D.Cell(cfg, kind, batch, seq, (2, 2), every_rank=True)
+        rec = meta.run(trace=False)
+        meta.close()
+        cell = D.Cell(cfg, kind, batch, seq, (2, 2),
+                      devices=[DRYRUN_DEVICE] * 4)
+        args = cell.place(SEED)
+        with CB.recording(cell.mesh) as got:
+            dryrun_launched(f"dryrun {kind} 2x2", cfg, kind, cell.mesh.size,
+                            lambda: cell.step_on(args), total)
+        if got.per_rank != meta.collectives.per_rank \
+                or got.report() != rec["collectives"]:
+            raise AssertionError(f"dryrun {kind} (2, 2): the card's "
+                                 f"collectives {got.report()} against the "
+                                 f"dry-run's {rec['collectives']}")
+        log("dryrun", collectives=kind, mesh="2x2",
+            layers=DRYRUN_MESH_LAYERS, bytes=json.dumps(got.report()["bytes"]),
+            counts=json.dumps(got.report()["counts"]), equal=True,
+            card=f"'{card}'")
+        del args
+        cell.close()
+    gc_empty()
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 17. Returns the launch counts of its steps on the card, K5b's
+    as ``add_rmsnorm_bwd``."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    dryrun_mesh_builders()
+    for kind, batch, seq in DRYRUN_STEPS:
+        dryrun_step(card, kind, batch, seq, total)
+    dryrun_collectives(card, total)
+    log("dryrun", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(total), card=f"'{card}'")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5657,6 +5888,10 @@ def main() -> int:
     with step_deadline():
         for name, c in phase_nemotron(card).items():
             counts[name] += c
+    torch.cuda.empty_cache()
+    with step_deadline():
+        for name, c in phase_dryrun(card).items():
+            counts[name] = counts.get(name, 0) + c
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

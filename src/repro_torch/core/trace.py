@@ -174,9 +174,19 @@ def _memoizable(func) -> bool:
                     for r in schema.returns))
 
 
+def _bincount(ids, weights=None, minlength=0):
+    """``bincount``'s meta output, which torch does not define (its
+    length depends on the values): a count over ids below
+    ``minlength`` — an MoE's per-expert slot counts."""
+    dt = torch.int64 if weights is None else weights.dtype
+    return torch.empty((minlength,), dtype=dt, device="meta")
+
+
 def _run_meta(func, args, kwargs):
     """``func(*args, **kwargs)``, its meta outputs from the memo where
     the same op met the same metadata before."""
+    if func is torch.ops.aten.bincount.default and args[0].is_meta:
+        return _bincount(*args, **kwargs)
     if not _memoizable(func):
         return func(*args, **kwargs)
     key = _meta_key((args, kwargs))
@@ -334,13 +344,15 @@ def to_meta(tree, memo: dict | None = None):
     return tree
 
 
-def trace_ops(fn, *operands, weights=None) -> list:
+def trace_ops(fn, *operands, weights=None, grad: bool = False) -> list:
     """Run ``fn(*operands)`` on meta tensors and return its op stream.
 
     Tensors and shape specs in ``operands`` become meta tensors (nothing
     is allocated, nothing computed); ``weights`` — a tree of the same
     objects, typically the params — names the tensors whose bytes a
-    product counts as ``weight_bytes``."""
+    product counts as ``weight_bytes``. ``grad``: run with grad mode on
+    (a train step's backward: autograd on meta runs in the calling
+    thread, so the recorder sees its ops too); off by default."""
     memo: dict = {}
     metas = to_meta(operands, memo)
     wmap = {}
@@ -351,7 +363,7 @@ def trace_ops(fn, *operands, weights=None) -> list:
     prev = K._meta_sink
     K.set_meta_sink(rec.kernel)
     try:
-        with torch.no_grad(), rec:
+        with torch.set_grad_enabled(grad), rec:
             fn(*metas)
     finally:
         K.set_meta_sink(prev)

@@ -88,6 +88,10 @@ class DeviceMesh:
         self._queues = None
         self._threads: list[threading.Thread] = []
         self._n_threads = torch.get_num_threads()
+        # a collective recorder (``roofline.collective_bytes``): each
+        # collective of a group of more than one rank hands it the
+        # calling rank, its kind and its result
+        self.recorder = None
 
     # -- coordinates -------------------------------------------------------
     def axis_size(self, axis: str) -> int:
@@ -209,6 +213,19 @@ class DeviceMesh:
                                                              self.timeout)
             return ex
 
+    def _post(self, x, grp: tuple, rank: int, call) -> list:
+        """Post ``x`` as ``rank``'s part in group ``grp``'s exchange:
+        the slot list it went into, one of two by the parity of this
+        rank's gathers in the group during ``call`` (every rank of it
+        counts alike). It stays there until the rank's next-but-one
+        gather in the group."""
+        counts = call.gathers[rank]
+        k = counts.get(grp, 0)
+        counts[grp] = k + 1
+        slots = self._exchange(grp).slots[k % 2]
+        slots[grp.index(rank)] = x
+        return slots
+
     def _meet(self, x, axis, what, rank, call):
         """Post ``x`` for the calling rank's ``axis`` group and wait for the
         others: (group, the group's posted tensors in group order, this
@@ -229,13 +246,7 @@ class DeviceMesh:
         ex = self._exchange(grp)
         if call.aborted:   # a rank failed before this group's barrier
             raise threading.BrokenBarrierError   # existed to be broken
-        # which of the two slot lists: the parity of this rank's gathers
-        # in the group during this call (every rank of it counts alike)
-        counts = call.gathers[rank]
-        k = counts.get(grp, 0)
-        counts[grp] = k + 1
-        slots = ex.slots[k % 2]
-        slots[grp.index(rank)] = x
+        slots = self._post(x, grp, rank, call)
         # the baton is released by whichever thread waits here: the rank's
         # own, or autograd's worker running the rank's backward while the
         # rank's thread waits for it
@@ -254,8 +265,8 @@ class DeviceMesh:
         grp, parts, dev = self._meet(x, axis, "all_gather", rank, call)
         if len(grp) == 1:
             return x
-        return torch.cat([t if t.device == dev else t.to(dev)
-                          for t in parts], dim)
+        return self._noted("all-gather", rank, torch.cat(
+            [t if t.device == dev else t.to(dev) for t in parts], dim))
 
     def all_reduce(self, x: torch.Tensor, axis: str, *,
                    rank: int | None = None, call=None) -> torch.Tensor:
@@ -267,7 +278,8 @@ class DeviceMesh:
         grp, parts, dev = self._meet(x, axis, "all_reduce", rank, call)
         if len(grp) == 1:
             return x
-        return _ordered_sum([t.to(dev) for t in parts]).to(x.dtype)
+        return self._noted("all-reduce", rank, _ordered_sum(
+            [t.to(dev) for t in parts]).to(x.dtype))
 
     def reduce_scatter(self, x: torch.Tensor, dim: int, axis: str, *,
                        rank: int | None = None, call=None) -> torch.Tensor:
@@ -282,8 +294,16 @@ class DeviceMesh:
         rank = self.rank() if rank is None else rank
         w = x.shape[dim] // len(grp)
         i = grp.index(rank) * w
-        return _ordered_sum([t.narrow(dim, i, w).to(dev)
-                             for t in parts]).to(x.dtype)
+        return self._noted("reduce-scatter", rank, _ordered_sum(
+            [t.narrow(dim, i, w).to(dev) for t in parts]).to(x.dtype))
+
+    def _noted(self, kind: str, rank, out: torch.Tensor) -> torch.Tensor:
+        """``out``, the result of a collective of ``kind``, after handing
+        it to the recorder where one is installed."""
+        if self.recorder is not None:
+            self.recorder.note(self.rank() if rank is None else rank, kind,
+                               out)
+        return out
 
 
 def _ordered_sum(parts) -> torch.Tensor:

@@ -11,6 +11,10 @@ hands the kernel's name, its ``cost()`` and the outputs it writes to the
 installed tracer (:func:`set_meta_sink`, used by
 :mod:`repro_torch.core.trace`) and returns meta outputs of the kernel's
 shapes and dtypes. With no tracer installed a meta operand raises.
+Under autograd a meta :func:`add_rmsnorm` is priced as K5 forward and
+K5b (``add_rmsnorm_bwd``) backward, so a traced train step carries its
+norms' backward; a shard entry gathers its kernel's partials over the
+mesh as the kernel does.
 
 Under autograd — grad mode on and an operand that requires grad —
 :func:`add_rmsnorm` runs as an ``autograd.Function``: K5 forward, K5b
@@ -67,6 +71,17 @@ def _priced(name: str, cost: tuple, outs: tuple, ret):
                          "repro_torch.core.trace.trace_ops")
     _meta_sink(name, cost[0], cost[1], outs)
     return ret
+
+
+def _priced_shard(name: str, cost: tuple, q, parts, gather):
+    """A shard entry on meta operands: its kernel's fp32 partials
+    ``parts`` gathered over the shards as the kernel gathers them (the
+    mesh's collectives see them), one record of the shard's cost, an
+    output of q's shape."""
+    for t in parts:
+        gather(t, 3)
+    out = torch.empty_like(q)
+    return _priced(name, cost, (out,), out)
 
 
 def _known(lens):
@@ -129,8 +144,15 @@ def _refuse_grad(name: str, *tensors) -> None:
 
 
 def _add_rmsnorm(x, a, w, eps, out_dtype):
-    """The forward on x's device: K5 on the card, else its plain
-    version under the kernel's contract."""
+    """The forward on x's device: K5 on the card, its cost on meta
+    operands, else its plain version under the kernel's contract."""
+    if x.is_meta:
+        hdt = _rn.check_shapes(x, a, w, out_dtype)
+        s = x if a is None else torch.empty_like(x)
+        h = torch.empty_like(x, dtype=hdt)
+        return _priced("add_rmsnorm", call_cost(
+            "add_rmsnorm", x, a, w, out_dtype=hdt),
+            (h,) if a is None else (s, h), (s, h))
     if _on_card(x):
         return _rn.add_rmsnorm(x, a, w, eps=eps, out_dtype=out_dtype)
     _rn.check_shapes(x, a, w, out_dtype)
@@ -142,6 +164,16 @@ def _add_rmsnorm_bwd(s, w, gh, gs, eps, add_dtype):
     version under the kernel's contract."""
     gh = gh.contiguous()
     gs = None if gs is None else gs.contiguous()
+    if s.is_meta:
+        _rn.check_bwd(s, w, gh, gs, add_dtype)
+        gx, gw = torch.empty_like(s), torch.empty_like(w)
+        ga = None if add_dtype is None else torch.empty_like(s,
+                                                             dtype=add_dtype)
+        outs = (gx, gw) if ga is None else (gx, ga, gw)
+        return _priced("add_rmsnorm_bwd", _rn.bwd_cost(
+            tuple(s.shape), s.dtype, add_dtype=add_dtype,
+            out_dtype=gh.dtype, residual=gs is not None), outs,
+            (gx, ga, gw))
     if _on_card(s):
         return _rn.add_rmsnorm_bwd(s, w, gh, gs, add_dtype=add_dtype,
                                    eps=eps)
@@ -200,13 +232,6 @@ def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None):
     With grad mode on and an operand requiring grad it is an autograd
     node whose backward is K5b (:func:`_AddRMSNorm`, :func:`_RMSNorm`);
     otherwise the same call as ever, saving nothing."""
-    if x.is_meta:
-        hdt = _rn.check_shapes(x, a, w, out_dtype)
-        s = x if a is None else torch.empty_like(x)
-        h = torch.empty_like(x, dtype=hdt)
-        return _priced("add_rmsnorm", call_cost(
-            "add_rmsnorm", x, a, w, out_dtype=hdt),
-            (h,) if a is None else (s, h), (s, h))
     if _needs_grad(x, a, w):
         if a is None:
             return x, _RMSNorm.apply(x, w, eps, out_dtype)
@@ -266,6 +291,12 @@ def decode_attention_shard(q, k_cache, v_cache, cache_len, *, offset,
     partials, the combine with the self partial (the sequence-sharded
     decode). No backward: refuses operands that require grad."""
     _refuse_grad("decode_attention", q, k_cache, v_cache, extra_k, extra_v)
+    if q.is_meta:   # the kernel's partials gathered, pass 1 priced
+        parts = _dec.split_scratch(q, k_cache.shape[2], k_cache.shape[1],
+                                   split)[:3]
+        return _priced_shard("decode_attention", call_cost(
+            "decode_attention", q, k_cache, v_cache, cache_len,
+            extra_k=extra_k, window=window), q, parts, gather)
     if _on_card(q):
         return _dec.decode_attention_shard(
             q, k_cache, v_cache, cache_len, offset=offset, gather=gather,
@@ -321,6 +352,14 @@ def prefill_attention_shard(q, k_hist, v_hist, hist_len, k_self, v_self, *,
     chunk and verify). No backward: refuses operands that require
     grad."""
     _refuse_grad("prefill_attention", q, k_hist, v_hist, k_self, v_self)
+    if q.is_meta:   # the kernel's partials gathered, the pass priced
+        b, s, hq, dh = q.shape
+        m = torch.empty((b, hq, s, 1), dtype=torch.float32, device="meta")
+        parts = (torch.empty((b, hq, s, 1, dh), dtype=torch.float32,
+                             device="meta"), m, torch.empty_like(m))
+        return _priced_shard("prefill_attention", call_cost(
+            "prefill_attention", q, k_hist, v_hist, hist_len, k_self,
+            v_self), q, parts, gather)
     if _on_card(q):
         return _pre.prefill_attention_shard(q, k_hist, v_hist, hist_len,
                                             k_self, v_self, offset=offset,

@@ -261,7 +261,8 @@ def logits_from_hidden(head_table: torch.Tensor, x: torch.Tensor
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         out = x2 @ head_table.T
-    elif not x.is_cuda:
+    elif x.device.type == "cpu":   # meta takes the card's route: a trace
+        # prices, and the dry-run meters, what the card runs
         out = x2.float() @ head_table.float().T
     elif torch.is_grad_enabled() and (x.requires_grad
                                       or head_table.requires_grad):
