@@ -213,7 +213,12 @@ Phases, one line each (any failure exits non-zero):
    the same tokens (3e-2, argmax equal or a tie); (d) float32
    whisper-large-v3 (4 + 4 layers), zamba2-2.7b (12) and xlstm-350m (8)
    at (1, 2) on 8a's and 9a's traffic, equal to those phases' one-device
-   streams, each mesh engine's dispatch audit clean. Every run's
+   streams, each mesh engine's dispatch audit clean — Mamba2 and the
+   mLSTM split by heads over model (rank 0 holds half the columns and
+   half the state's heads); (e) float32 deepseek-moe-16b, 4 layers at
+   capacity factor 1.25, at (2, 1), speculative on the paged cache:
+   the streams and every dispatch's dropped slots equal to the
+   one-device engine's, some dispatch dropping. Every run's
    launches are exactly the mesh path's (a prefill or chunk on one data
    replica's model ranks, a decode on every rank), one target dispatch
    a step, the KV partitioned (but xlstm's, which has none).
@@ -2498,34 +2503,82 @@ def dropless(cfg):
 
 
 @contextlib.contextmanager
-def counting_drops():
-    """Routed slots dropped past an expert's capacity, per dispatch kind,
-    while the engine runs: wrappers around the port's ``moe.apply_moe``
-    and the engine's ``_dispatch`` (this script's measurement only; the
-    outputs are the unwrapped ones). Yields {kind: [count tensors]}."""
+def _drop_wrappers(record):
+    """Wrappers around the port's ``moe.apply_moe`` and the engine's
+    ``_dispatch`` (this script's measurement only; the outputs are the
+    unwrapped ones) that call ``record(kind, dispatch number, count)``
+    with the routed slots each MoE layer drops past its experts'
+    capacity (a device tensor). On a mesh a data replica's rows count at
+    their places in the whole dispatch (the capacity and slot offsets
+    ``apply_moe`` takes) — on the rank of model index 0 of each replica
+    where the rows split over data, else on the call's first rank (every
+    rank of a replica, or of the mesh, computes the same rows) — so the
+    counts add up as one device's."""
+    import threading
+    from repro_torch.distributed import hints as H
     from repro_torch.models import moe as M
     from repro_torch.serving import engine as E
-    drops: dict = {}
-    kind = [None]
+    seq = [0, None]   # the dispatch's number and kind
+    lock = threading.Lock()
     apply_moe, dispatch = M.apply_moe, E.ServingEngine._dispatch
+
+    def counts_here():
+        mesh = H.current_mesh()
+        if mesh is None:
+            return True
+        rank = mesh.rank()
+        if H.data_ranks() > 1:
+            return mesh.coords(rank)[-1] == 0
+        return rank == min(mesh.current_call().ranks)
 
     def counted(p, cfg, x):
         xf = x.reshape(-1, x.shape[-1])
         _, ids = M.route(p["router"], xf, cfg.moe_top_k)
-        pos = M.slot_positions(ids, cfg.n_experts)
-        drops.setdefault(kind[0], []).append(
-            (pos >= M._capacity(xf.shape[0], cfg)).sum())
+        pos = (M.slot_positions(ids, cfg.n_experts)
+               + H.slot_offsets(ids, cfg.n_experts))
+        cap = M._capacity(xf.shape[0] * H.data_ranks(), cfg)
+        if counts_here():
+            with lock:
+                record(seq[1], seq[0], (pos >= cap).sum())
         return apply_moe(p, cfg, x)
 
-    def tagged(self, k, *args):
-        kind[0] = k
-        return dispatch(self, k, *args)
+    def tagged(self, kind, *args):
+        seq[0], seq[1] = seq[0] + 1, kind
+        return dispatch(self, kind, *args)
 
     M.apply_moe, E.ServingEngine._dispatch = counted, tagged
     try:
-        yield drops
+        yield
     finally:
         M.apply_moe, E.ServingEngine._dispatch = apply_moe, dispatch
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Routed slots dropped past an expert's capacity, per dispatch kind,
+    while the engine runs (:func:`_drop_wrappers`). Yields {kind: [count
+    tensors]}."""
+    drops: dict = {}
+    with _drop_wrappers(lambda kind, _, n: drops.setdefault(kind,
+                                                             []).append(n)):
+        yield drops
+
+
+@contextlib.contextmanager
+def counting_dispatch_drops():
+    """{dispatch number: routed slots dropped} while an engine runs, its
+    MoE layers summed (:func:`_drop_wrappers`, on one device or a mesh);
+    summed on the host once the run is over: yields a dict filled at
+    exit."""
+    parts: dict = {}
+    out: dict = {}
+    try:
+        with _drop_wrappers(lambda _, i, n: parts.setdefault(i,
+                                                              []).append(n)):
+            yield out
+    finally:
+        out.update({i: sum(int(t.item()) for t in v)
+                    for i, v in parts.items()})
 
 
 def drop_runs(params, cfg, prompts, total) -> None:
@@ -4083,9 +4136,10 @@ FAMILY_MESH = (1, 2)
 def mesh_families_f32(total) -> None:
     """13d: whisper (4 + 4 layers, 8a's traffic over capacity 8192),
     zamba2 (12 layers) and xlstm (8) in float32 at (1, 2) on 9a's
-    traffic: the streams of their one-device engines (8a, 9a), exact
-    launches, one dispatch a step, a clean dispatch audit of the mesh
-    engine."""
+    traffic — the recurrent sublayers split by heads over model
+    (:func:`recurrent_split_check`): the streams of their one-device
+    engines (8a, 9a), exact launches, one dispatch a step, a clean
+    dispatch audit of the mesh engine."""
     from repro_torch.core.costmodel import assert_no_drift, audit_engine
     from repro_torch.models import model as MD
     for arch in MESH_FAMILIES:
@@ -4100,6 +4154,8 @@ def mesh_families_f32(total) -> None:
         _add(total, counts)
         mesh_stream_gate("mesh_f32", {r.rid: r.output for r in eng.finished},
                          base, "its one-device engine's (8a / 9a)")
+        if cfg.family in ("ssm", "hybrid"):
+            recurrent_split_check(eng, params)
         report = audit_engine(eng)
         assert_no_drift(report)
         log("mesh_f32", arch=arch, audit_ok=report["ok"],
@@ -4107,6 +4163,29 @@ def mesh_families_f32(total) -> None:
         eng.mesh.close()
         del eng, params
         gc_empty()
+
+
+def recurrent_split_check(eng, whole) -> None:
+    """13d's zamba2 and xlstm run split: rank 0's Mamba2 in-projection,
+    mLSTM ``wq`` and recurrent state hold 1 / model of the whole."""
+    m = eng.mesh.shape[1]
+    if "mamba" in whole:
+        leaf, full = (t["mamba"]["mamba"]["in_proj"]
+                      for t in (eng.params[0], whole))
+        state = "ssm"
+    else:
+        leaf, full = (t["mlstm"]["wq"] for t in (eng.params[0], whole))
+        state = "mlstm"
+    heads = eng.kv._shards[0][state].shape[-3]
+    whole_heads = eng.kv._meta[state].shape[-3]
+    split = (leaf.shape[-1] * m == full.shape[-1]
+             and heads * m == whole_heads)
+    log("mesh_f32", arch=eng.cfg.name, recurrent_split=split,
+        rank_columns=leaf.shape[-1], whole_columns=full.shape[-1],
+        rank_state_heads=heads, whole_state_heads=whole_heads)
+    if not split:
+        raise AssertionError(f"{eng.cfg.name}: the recurrent sublayers are "
+                             f"not split over model {m}")
 
 
 def mesh_forward(eng, prompt, n_steps, feed=None, capacity=None):
@@ -4282,6 +4361,57 @@ def mesh_moe_f32(total) -> None:
     gc_empty()
 
 
+MOE_DROP_MESH = (2, 1)
+
+
+def mesh_moe_drops_f32(total) -> None:
+    """13e: float32 deepseek-moe-16b, 4 layers, at capacity factor 1.25
+    over (2, 1) — each data replica 4 of the 8 slots — speculative on the
+    paged cache, on phase 3's traffic: a verify dispatch drops routed
+    slots, and the mesh drops the one-device engine's (its capacity of
+    every replica's rows, its slots numbered after the lower replica's).
+    The streams and the dropped slots of every dispatch equal the
+    one-device engine's, and some dispatch drops."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    arch = FAMILY_ARCHS[0]
+    cfg = registry.get_config(arch).replace(dtype="float32",
+                                            n_layers=GATE_LAYERS)
+    params = MD.init_params(cfg, seed=SEED, device="cuda")
+    prompts = gate_prompts(cfg)
+    kw = {"kv_cache": "paged", **SPECULATIVE}
+    t0 = time.perf_counter()
+    with counting_dispatch_drops() as want_drops:
+        single, _ = run_engine(params, cfg, prompts, 16, **kw)
+    want = {r.rid: r.output for r in single.finished}
+    del single
+    with counting_dispatch_drops() as drops:
+        eng, counts, wall = mesh_run(params, cfg, MOE_DROP_MESH, prompts,
+                                     16, **kw)
+    # model 1: every rank holds every head, and the pools are whole over
+    # data, as the reference's pool_shardings place them
+    mesh_checks("mesh_f32", eng, counts, len(prompts), partitioned=False,
+                arch=arch, depth=GATE_LAYERS,
+                capacity_factor=cfg.moe_capacity_factor,
+                config="paged+speculative", wall_s=f"{wall:.2f}")
+    _add(total, counts)
+    n_drops = sum(want_drops.values())
+    log("mesh_f32", arch=arch, dropped_slots=n_drops,
+        dispatches_dropping=sum(v > 0 for v in want_drops.values()),
+        drops_equal=drops == want_drops,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    mesh_stream_gate("mesh_f32", {r.rid: r.output for r in eng.finished},
+                     want, "the one-device engine's")
+    if not n_drops:
+        raise AssertionError("13e: no dispatch dropped a routed slot")
+    if drops != want_drops:
+        raise AssertionError(f"13e: the mesh drops {drops}, one device "
+                             f"{want_drops}")
+    eng.mesh.close()
+    del eng, params
+    gc_empty()
+
+
 def single_forward(params, cfg, prompt, feed):
     """One device's prefill of ``prompt`` and a decode step for each of
     ``feed``'s tokens (the reference for :func:`mesh_forward`): every
@@ -4348,7 +4478,8 @@ def s_tok(eng) -> int:
 
 def phase_mesh(base, card: str) -> dict:
     """Phase 13: mesh serving with every shard on the card — the
-    sharded K1 and K4 at the fallback's shapes, 13a, 13b, 13c and 13d.
+    sharded K1 and K4 at the fallback's shapes, 13a, 13b, 13c, 13d and
+    13e.
     Returns the launch counts of its runs."""
     t0 = time.perf_counter()
     total: dict = {}
@@ -4359,6 +4490,7 @@ def phase_mesh(base, card: str) -> dict:
         mesh_moe_f32(total)
         mesh_qwen_bf16(card, total)
         mesh_families_f32(total)
+        mesh_moe_drops_f32(total)
     log("mesh", seconds=f"{time.perf_counter() - t0:.1f}",
         launches=json.dumps(total), card=f"'{card}'")
     return total

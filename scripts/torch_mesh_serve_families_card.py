@@ -4,7 +4,7 @@ batch that does not divide over ``data``, the sequence-sharded layout
 under chunked prefill and speculation, a rolling window, weights split
 over ``data``, and nemotron-4-340b's attention.
 
-    python3 scripts/torch_mesh_serve_families_card.py [--parts abcdef]
+    python3 scripts/torch_mesh_serve_families_card.py [--parts abcdefhi]
 
 It needs four CUDA devices of one host and exits non-zero with fewer (a
 missing card is an error, never a skip). It builds the kernels from
@@ -40,7 +40,29 @@ one line per result:
     each, paged + chunked (256), every K1–K4 call held to its plain
     version on its own inputs; a prefill and 8 steps through the mesh
     against the plain versions on the same mesh;
-(g) ``audit_engine`` clean on every engine run above.
+(g) ``audit_engine`` clean on every engine run above;
+(h) an MoE's capacity over a batch split over ``data``: float32
+    deepseek-moe-16b (4 layers) and dbrx-132b (2) at capacity factor
+    1.25, speculative (gamma 4) on both caches, on phase 3's traffic at
+    (2, 2) and (4, 1): the streams and every dispatch's dropped slots
+    equal one engine's on ``cuda:0``, some dispatch dropping;
+(i) the recurrent sublayers split over ``model``: zamba2-2.7b at all
+    54 layers and xlstm-350m at full width (8 layers in float32, all 24
+    in bf16) at (2, 2) and (1, 4) — float32 streams on phase 3's
+    traffic equal one engine's on ``cuda:0``, rank 0 holding 1 / model
+    of Mamba2's and the mLSTM's columns and state heads; bf16 shards
+    made on their cards, each card's bytes for the weights and the
+    engine's cache (8 slots of 2048) — the bytes its tensors asked the
+    allocator for, and ``memory_allocated`` less the whole cached blocks
+    the allocator handed over where under 1 MB of a block would remain
+    (read from its snapshot) — within 0.1% of the dry-run's meta
+    prediction, beside ``memory_allocated`` itself, gated on nothing,
+    and the prediction of the placement that kept them whole over
+    model; a 256-token prefill and 8 greedy
+    steps through the mesh against one card's on the gathered weights
+    under phase 9b's rule (max(3e-2, 2 x a one-ulp-noise witness of the
+    one-card run)); one decode step of 8 live slots traced (device ms
+    and idle share per card).
 
 The line before last lists the cards' names and power limits; the last
 line is ``{"ok": true, "device": {...}}`` with ``count`` 4. It imports
@@ -75,6 +97,13 @@ ODD_BATCH = 7
 LLAMA_NEW = 16
 NEMOTRON_LAYERS = 16
 STEPS = 8
+DROP_ARCHS = (("deepseek-moe-16b", CS.GATE_LAYERS),
+              ("dbrx-132b", CS.DBRX_LAYERS))
+DROP_MESHES = ((2, 2), (4, 1))
+SPLIT_ARCHS = (("zamba2-2.7b", 54, 54), ("xlstm-350m", 8, 24))
+SPLIT_MESHES = ((2, 2), (1, 4))
+SPLIT_PROMPT = 256
+MEM_RTOL = 1e-3
 
 
 def audited(phase, eng) -> None:
@@ -379,11 +408,280 @@ def nemotron(card_names) -> None:
     CS.gc_empty()
 
 
+# ---------------------------------------------------------------------------
+# (h) an MoE's capacity over a data-split batch
+# ---------------------------------------------------------------------------
+
+def moe_drops() -> None:
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    phase = "mesh4_moe_drops"
+    for arch, depth in DROP_ARCHS:
+        cfg = registry.get_config(arch).replace(dtype="float32",
+                                                n_layers=depth)
+        params = MD.init_params(cfg, seed=CS.SEED, device="cuda:0")
+        prompts = CS.gate_prompts(cfg)
+        for kv in ("contiguous", "paged"):
+            kw = {"kv_cache": kv, **CS.SPECULATIVE}
+            with CS.counting_dispatch_drops() as want_drops:
+                single, _, _ = MC.serve(params, cfg, None, prompts, 16, **kw)
+            want = MC.streams(single)
+            del single
+            for mesh in DROP_MESHES:
+                with CS.counting_dispatch_drops() as drops:
+                    eng, counts, wall = MC.serve(params, cfg, mesh, prompts,
+                                                 16, **kw)
+                CS.mesh_checks(phase, eng, counts, len(prompts),
+                               partitioned=not (kv == "paged"
+                                                and mesh[1] == 1),
+                               arch=arch, depth=depth,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               config=f"{kv}+speculative",
+                               wall_s=f"{wall:.2f}")
+                n = sum(want_drops.values())
+                log(phase, arch=arch, kv_cache=kv,
+                    mesh=f"{mesh[0]}x{mesh[1]}", dropped_slots=n,
+                    dispatches_dropping=sum(v > 0
+                                            for v in want_drops.values()),
+                    drops_equal=drops == want_drops)
+                CS.mesh_stream_gate(phase, MC.streams(eng), want,
+                                    "one engine on cuda:0")
+                if not n:
+                    raise AssertionError(f"{phase} {arch}: no dispatch "
+                                         "dropped a routed slot")
+                if drops != want_drops:
+                    raise AssertionError(f"{phase} {arch} {kv} {mesh}: "
+                                         f"dropped {drops}, one card "
+                                         f"{want_drops}")
+                audited(phase, eng)
+                MC.close(eng)
+                del eng
+                CS.gc_empty()
+        del params
+        CS.gc_empty()
+
+
+# ---------------------------------------------------------------------------
+# (i) the recurrent sublayers split over model
+# ---------------------------------------------------------------------------
+
+def _allocated() -> list:
+    """Per card, (``memory_allocated``, the bytes its tensors asked for,
+    {address: excess} of its live blocks). The allocator splits a free
+    block for a request of over 1 MB only where more than 1 MB would
+    remain, and otherwise hands over the whole block: a block's excess
+    is its size less its request in 512-byte blocks, read from
+    ``torch.cuda.memory_snapshot()``, and ``memory_allocated`` less the
+    excess of the blocks a placement made is the 512-byte blocks its
+    tensors asked for."""
+    import torch
+    from repro_torch.launch import dryrun as D
+    MC.sync_all()
+    excess = [{} for _ in range(MC.N_CARDS)]
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] >= MC.N_CARDS:
+            continue
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                excess[seg["device"]][b["address"]] = (
+                    b["size"] - D._block(b.get("requested_size", 0)))
+    return [(torch.cuda.memory_allocated(i),
+             torch.cuda.memory_stats(i)["requested_bytes.all.current"],
+             excess[i]) for i in range(MC.N_CARDS)]
+
+
+def _new_excess(before, after) -> tuple:
+    """(bytes, blocks) of whole-block excess in the live blocks of
+    ``after`` that ``before`` did not hold."""
+    new = [v for a, v in after.items() if a not in before]
+    return sum(new), sum(v > 0 for v in new)
+
+
+def _block_bytes(shape, dtype) -> int:
+    import math
+    import torch
+    from repro_torch.launch import dryrun as D
+    n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return D._block(n)
+
+
+def predicted_bytes(cfg, mesh) -> dict:
+    """A card's bytes of the bf16 weights and of the engine's cache (8
+    slots of 2048) as the dry-run places them on ``meta`` — its argument
+    bytes (each storage in the allocator's 512-byte blocks) and the
+    tensors' own — and as the placement before the split held them: the
+    recurrent sublayers' leaves and their state whole over ``model``."""
+    from repro_torch.core import trace as T
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    cell = D.Cell(cfg, "decode", 8, 2048, mesh)
+    args = cell._arg_shapes(0)
+    new = {"params": D.storage_bytes(args["params"]),
+           "cache": D.storage_bytes(args["cache"]),
+           "tensor_bytes": sum(t.numel() * t.element_size() for t in
+                               T._tensors([args["params"], args["cache"]]))}
+
+    def whole_over_model(spec):
+        return tuple(None if e is not None and SH.MODEL in e else e
+                     for e in spec)
+
+    old_params = 0
+    for names, leaf in SH._walk(cell.params):
+        spec = SH._lookup(cell.param_specs, names)
+        if any(n in SH.WHOLE_STACKS for n in names):
+            spec = whole_over_model(spec)
+        old_params += _block_bytes(SH.local_shape(tuple(leaf.shape), spec,
+                                                  cell.mesh), leaf.dtype)
+    kv = cell.kv
+    old_cache = _block_bytes((), kv._meta["len"].dtype)
+    for name, spec in kv.placement.items():
+        if name in kv.model_specs:
+            spec = whole_over_model(spec)
+        leaf = kv._meta[name]
+        old_cache += _block_bytes(SH.local_shape(tuple(leaf.shape), spec,
+                                                 cell.mesh), leaf.dtype)
+    cell.close()
+    return {**new, "old_params": old_params, "old_cache": old_cache}
+
+
+def split_f32(arch, depth) -> None:
+    """(i)'s float32 streams."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MD
+    phase = "mesh4_split_f32"
+    cfg = registry.get_config(arch).replace(dtype="float32", n_layers=depth)
+    params = MD.init_params(cfg, seed=CS.SEED, device="cuda:0")
+    prompts = CS.gate_prompts(cfg)
+    want = run(phase, params, cfg, None, prompts, 16, None, "")
+    for mesh in SPLIT_MESHES:
+        eng, counts, wall = MC.serve(params, cfg, mesh, prompts, 16)
+        CS.mesh_checks(phase, eng, counts, len(prompts),
+                       partitioned=cfg.family != "ssm", arch=arch,
+                       depth=depth, wall_s=f"{wall:.2f}")
+        CS.mesh_stream_gate(phase, MC.streams(eng), want,
+                            "one engine on cuda:0")
+        CS.recurrent_split_check(eng, params)
+        audited(phase, eng)
+        MC.close(eng)
+        del eng
+        CS.gc_empty()
+    del params
+    CS.gc_empty()
+
+
+def split_bf16(arch, depth, card_names) -> None:
+    """(i)'s bf16 bytes, logits and profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.mesh import DeviceMesh
+    from repro_torch.serving import EngineConfig, ServingEngine
+    phase = "mesh4_split_bf16"
+    cfg = registry.get_config(arch).replace(n_layers=depth)
+    rng = np.random.default_rng(CS.SEED + 31)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          size=SPLIT_PROMPT).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in rng.integers(64, 257, size=8)]
+    for shape in SPLIT_MESHES:
+        CS.gc_empty()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pred = predicted_bytes(cfg, shape)
+        dry_s = time.perf_counter() - t0
+        n = shape[0] * shape[1]
+        mesh = DeviceMesh(shape, MC.devices()[:n])
+        base = _allocated()
+        shards = SH.init_params_sharded(cfg, mesh, seed=CS.SEED)
+        after_w = _allocated()
+        eng = ServingEngine(shards, cfg, EngineConfig(
+            max_batch=8, max_seq_len=2048, max_new_tokens=10_000,
+            mesh=shape), devices=MC.devices()[:n])
+        after_c = _allocated()
+        want = pred["params"] + pred["cache"]
+        old = pred["old_params"] + pred["old_cache"]
+        for i in range(n):
+            w, c = (after_w[i][0] - base[i][0],
+                    after_c[i][0] - after_w[i][0])
+            asked = after_c[i][1] - base[i][1]
+            extra, handed = _new_excess(base[i][2], after_c[i][2])
+            rel = abs(w + c - want) / want
+            rel_b = abs(w + c - extra - want) / want
+            rel_t = abs(asked - pred["tensor_bytes"]) / pred["tensor_bytes"]
+            log(phase, arch=arch, layers=depth, mesh=f"{shape[0]}x{shape[1]}",
+                card=f"cuda:{i}", weights_gb=f"{w / 1e9:.4f}",
+                cache_gb=f"{c / 1e9:.4f}",
+                measured_gb=f"{(w + c) / 1e9:.4f}",
+                predicted_gb=f"{want / 1e9:.4f}",
+                predicted_weights_gb=f"{pred['params'] / 1e9:.4f}",
+                predicted_cache_gb=f"{pred['cache'] / 1e9:.4f}",
+                rel_err_allocated=f"{rel:.2e}",
+                allocated_within_tol=rel <= MEM_RTOL,
+                whole_block_excess=extra, whole_blocks=handed,
+                allocated_less_excess=w + c - extra,
+                predicted_blocks=want, rel_err_blocks=f"{rel_b:.2e}",
+                tensor_bytes=asked, predicted_tensor_bytes=pred[
+                    "tensor_bytes"], rel_err=f"{rel_t:.2e}", tol=MEM_RTOL,
+                before_split_gb=f"{old / 1e9:.4f}",
+                before_split_weights_gb=f"{pred['old_params'] / 1e9:.4f}",
+                dryrun_s=f"{dry_s:.1f}", name_power=f"'{card_names[i]}'")
+            if rel_t > MEM_RTOL or rel_b > MEM_RTOL:
+                raise AssertionError(f"{phase} {arch} {shape} cuda:{i}: "
+                                     f"{asked} bytes asked, "
+                                     f"{w + c - extra} in blocks, against "
+                                     f"{pred['tensor_bytes']} and {want} "
+                                     "predicted")
+        # the prefill and 8 steps through the mesh, then one card's on
+        # the gathered weights, and the one-card run under one-ulp noise
+        got, fed = CS.mesh_forward(eng, prompt, STEPS)
+        specs = SH.infer_serve_specs(shards[0], cfg, mesh)
+        whole = SH.gather_tree(shards, specs, mesh, "cuda:0")
+        capacity = len(prompt) + STEPS + 1
+        want_l, _ = single_forward(whole, cfg, prompt, capacity, feed=fed)
+        with CS.ulp_noise():
+            noisy, _ = single_forward(whole, cfg, prompt, capacity,
+                                      feed=fed)
+        del whole
+        for i, (g, w, z) in enumerate(zip(got, want_l, noisy)):
+            g = g.to(w.device)
+            wit = ((z - w).norm() / w.norm()).item()
+            tol = max(CS.TOL["bfloat16"], CS.FLIP_WITNESS_FACTOR * wit)
+            rel, ties = CS._tie_gate(f"{phase} {arch} step {i}", g, w, tol)
+            log(phase, arch=arch, mesh=f"{shape[0]}x{shape[1]}",
+                logits="prefill" if i == 0 else f"decode_{i}",
+                rel_err=f"{rel:.3e}", witness_rel=f"{wit:.3e}",
+                limit=f"{tol:.3e}",
+                within_3e_2=rel <= CS.TOL["bfloat16"],
+                ties=json.dumps(ties), against="one card")
+        del want_l, noisy
+        for p in prompts:
+            eng.submit(p)
+        while eng.waiting:
+            eng.step()
+        for _ in range(2):
+            eng.step()
+        MC.profile_step(phase, eng, card_names)
+        MC.memory(phase, f"{arch} {shape[0]}x{shape[1]} serving", peak=True)
+        MC.close(eng)
+        mesh.close()
+        del eng, shards
+        CS.gc_empty()
+        torch.cuda.empty_cache()
+
+
+def recurrent_split(card_names) -> None:
+    for arch, f32_depth, bf16_depth in SPLIT_ARCHS:
+        split_f32(arch, f32_depth)
+        split_bf16(arch, bf16_depth, card_names)
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parts", default="abcdef",
-                    help="which of (a)-(f) to run; (g) runs with each")
+    ap.add_argument("--parts", default="abcdefhi",
+                    help="which of (a)-(f), (h) and (i) to run; (g) runs "
+                    "with each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_mesh_serve_families_card: torch.cuda.is_available() "
@@ -408,7 +706,8 @@ def main() -> int:
             for n in _build.SOURCES}))
     steps = (("a", families, ()), ("bd", qwen_layouts, (args.parts,)),
              ("c", windows, ()), ("e", llama_data_split, (names,)),
-             ("f", nemotron, (names,)))
+             ("f", nemotron, (names,)), ("h", moe_drops, ()),
+             ("i", recurrent_split, (names,)))
     failed = []
     for label, fn, fargs in steps:
         if not set(label) & set(args.parts):

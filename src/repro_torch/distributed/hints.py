@@ -14,6 +14,9 @@ and the hints move the data:
 - :func:`hidden` all-gathers a sublayer's output columns over ``model``
   before the residual add;
 - :func:`logits` all-gathers the vocab over ``model`` before sampling;
+- :func:`cols` gathers a recurrent sublayer's product columns to what
+  the rank computes on — every column, or its own heads'
+  (:func:`model_split` ranks split them);
 - :func:`moe_buf` / :func:`moe_gather` select the rank's experts of the
   (E, capacity, d) dispatch buffer and gather their outputs in expert
   order;
@@ -54,7 +57,9 @@ autograd function of :mod:`repro_torch.distributed.collectives`:
   :func:`moe_gather` gathers the experts' outputs;
 - :func:`data_ranks` and :func:`slot_offsets` size an MoE's capacity
   and number its slots over the whole microbatch of every FSDP rank
-  (``("pod", "data")``, pod-major, as the batch's rows), and
+  (``("pod", "data")``, pod-major, as the batch's rows) — in serving,
+  over every data replica's rows of a dispatch split over ``data``
+  (``use_mesh(..., data_rows=True)``) —, and
   :func:`sum_over_data` / :func:`sum_over_mesh` make the loss's mean and
   the gradient's norm global.
 
@@ -85,6 +90,7 @@ class _Ctx(NamedTuple):
                        # serve placement that splits weights over data
     whole: frozenset   # sublayer keys run whole over model in training
     pos_axes: tuple    # the axes a "seq" cache splits its positions over
+    data_rows: bool    # serving: the dispatch's rows split over data
 
 
 class Whole(dict):
@@ -100,7 +106,8 @@ def whole(p) -> bool:
 
 @contextlib.contextmanager
 def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
-             specs=None, whole=frozenset(), pos_axes=("model",)):
+             specs=None, whole=frozenset(), pos_axes=("model",),
+             data_rows: bool = False):
     """Arm the hints for the calling rank's model code. ``attn``: how
     this dispatch's KV cache is laid out over ``model`` — ``"heads"``
     (each rank its KV heads), ``"seq"`` (each rank a range of positions;
@@ -127,7 +134,7 @@ def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
         comm = C.Comm(mesh, mesh.rank(), mesh.current_call())
     prev = getattr(_STATE, "ctx", None)
     _STATE.ctx = _Ctx(mesh, attn, plan, train, comm, specs,
-                      frozenset(whole), tuple(pos_axes))
+                      frozenset(whole), tuple(pos_axes), bool(data_rows))
     try:
         yield mesh
     finally:
@@ -278,6 +285,26 @@ def heads(x: torch.Tensor, width: int) -> torch.Tensor:
     return _gather_last(x, width)
 
 
+def model_split() -> int:
+    """The ``model`` ranks a serving dispatch splits the recurrent
+    sublayers' heads and columns over (1 outside a serving mesh; in
+    training they run whole on every model rank)."""
+    mesh = current_mesh()
+    if mesh is None or _comm() is not None:
+        return 1
+    return mesh.axis_size("model")
+
+
+def cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    """A product's output columns, split over ``model`` by the serve
+    rule, gathered to ``width`` — the columns the rank computes on next
+    (every column, or its heads'); ``x`` itself when it has them, and in
+    training, where the recurrent sublayers run whole."""
+    if _comm() is not None:
+        return x
+    return _gather_last(x, width)
+
+
 def local_cols(b: torch.Tensor, n: int) -> torch.Tensor:
     """The rank's ``n`` columns of a whole bias ``b`` (..., n * model)
     that is added to a column-sharded product; ``b`` itself when it
@@ -416,25 +443,44 @@ def _gather_data(tree, specs, mesh):
     return tree
 
 
+def _serve_data_rows() -> bool:
+    """Whether a serving dispatch's rows are split over ``data`` (of
+    size > 1)."""
+    ctx = _ctx()
+    return (ctx is not None and ctx.comm is None and ctx.data_rows
+            and ctx.mesh.axis_size("data") > 1)
+
+
 def data_ranks() -> int:
-    """Ranks the batch is split over in training — the FSDP group (1
-    otherwise)."""
+    """Ranks a dispatch's rows are split over: in training the FSDP
+    group, in serving over a data-split batch ``data`` (1 otherwise)."""
     comm = _comm()
-    return 1 if comm is None else comm.size(C.FSDP)
+    if comm is not None:
+        return comm.size(C.FSDP)
+    return current_mesh().axis_size("data") if _serve_data_rows() else 1
 
 
 def slot_offsets(ids: torch.Tensor, n_experts: int):
-    """Per routed slot of ``ids`` (N, k), the slots the lower FSDP ranks
-    route to its expert — in training over a split batch the dispatch
-    numbers slots over the whole microbatch, rank by rank in the rows'
-    order (pod-major), as the reference's one program does; 0
+    """Per routed slot of ``ids`` (N, k), the slots the lower data ranks
+    route to its expert — over a split batch the dispatch numbers slots
+    over every rank's rows, rank by rank in the rows' order (in training
+    the FSDP group's, pod-major), as the reference's one program does; 0
     otherwise."""
     comm = _comm()
-    if comm is None or comm.size(C.FSDP) == 1:
+    if comm is not None and comm.size(C.FSDP) > 1:
+        def gather(t):
+            return comm.all_gather(t, 0, C.FSDP)
+        index = comm.index(C.FSDP)
+    elif comm is None and _serve_data_rows():
+        mesh, rank = current_mesh(), current_mesh().rank()
+
+        def gather(t):
+            return mesh.all_gather(t, 0, "data")
+        index = mesh.group(rank, "data").index(rank)
+    else:
         return 0
     counts = torch.bincount(ids.reshape(-1), minlength=n_experts)
-    every = comm.all_gather(counts[None], 0, C.FSDP)
-    below = every[:comm.index(C.FSDP)].sum(0)
+    below = gather(counts[None])[:index].sum(0)
     return below[ids.reshape(-1)]
 
 

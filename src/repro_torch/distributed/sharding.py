@@ -22,8 +22,12 @@ model axis alone keeps its weights whole over ``data`` (each data
 replica then reads local weights); a larger one keeps the FSDP rules,
 which split contraction dims over ``data``, and serving gathers each
 layer's ``data`` shards at use (:func:`~repro_torch.distributed.hints.
-weights`). The recurrent sublayers (:data:`WHOLE_STACKS`) serve whole
-over ``model`` on every model rank, as they train.
+weights`). The recurrent sublayers take the serve rules too: Mamba2's
+and the mLSTM's products split their output columns over ``model``
+where they divide, in the reference's column order, and each rank
+runs the scan over its own heads where the heads divide; the sLSTM, and
+a recurrence whose heads do not divide, runs whole on every model rank
+on its products' gathered columns.
 
 Training keeps the reference's rules (``param_specs(serve=False)``):
 FSDP splits contraction dims over ``("pod", "data")``, the row-parallel
@@ -38,8 +42,10 @@ does not compute locally — Mamba2, mLSTM, sLSTM, and attention or an MLP
 whose heads or width do not divide ``model`` — runs whole on every
 model rank (:func:`whole_sublayers`).
 
-KV caches put the slot batch over ``data`` and the heads over
-``model``; when the KV heads do not divide ``model`` a contiguous cache
+Caches put the slot batch over ``data`` and the heads over ``model``
+— KV heads, and the ``ssm`` and ``mlstm`` state's heads and the
+``conv`` state's channels where they divide (:func:`cache_specs`);
+when the KV heads do not divide ``model`` a contiguous cache
 splits its positions over ``model`` instead (the sequence-sharded
 decode of :mod:`repro_torch.models.attention`), and a paged pool stays
 whole; when the batch does not divide over ``data`` a contiguous cache
@@ -244,9 +250,7 @@ def serve_specs(params, mesh, *,
     hints.weights`). Where the reference's rule reads a stack as a
     matrix they differ: a stacked norm or bias (L, d) stays whole, and an
     MoE's stacked shared MLP (L, d, f) takes the dense MLP's rule, not
-    an expert stack's. The recurrent sublayers (:data:`WHOLE_STACKS`)
-    keep their columns whole over ``model``: every model rank runs them
-    whole."""
+    an expert stack's."""
     fsdp = fsdp_axes(mesh)
     if tree_bytes(params) / axis_size(mesh, MODEL) <= serve_budget_bytes:
         fsdp = ()
@@ -254,12 +258,8 @@ def serve_specs(params, mesh, *,
     def one(names, leaf):
         shape = tuple(leaf.shape)
         lead = next((STACKS[n] for n in names if n in STACKS), 0)
-        spec = (None,) * lead + param_spec(names, shape[lead:], mesh, fsdp,
+        return (None,) * lead + param_spec(names, shape[lead:], mesh, fsdp,
                                            serve=True)
-        if any(n in WHOLE_STACKS for n in names):
-            spec = tuple(None if e is not None and MODEL in e else e
-                         for e in spec)
-        return spec
 
     return _map(params, one)
 
@@ -320,9 +320,10 @@ def train_specs(params, mesh):
     return _map(params, one)
 
 
-# the sublayers that run whole on every model rank whatever the widths:
-# Mamba2's in-projection concatenates z, x, B, C and dt (a split of its
-# columns cuts across them) and the xLSTM cells' heads mix every column
+# the sublayers that train whole on every model rank whatever the
+# widths (their gathers under autograd are the next slice's): Mamba2's
+# in-projection concatenates z, x, B, C and dt, and the xLSTM cells'
+# heads mix every column. Serving splits them by the serve rules.
 WHOLE_STACKS = ("mamba", "mlstm", "slstm")
 
 

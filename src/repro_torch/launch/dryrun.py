@@ -480,18 +480,24 @@ class Cell:
             layout = self.kv.layout
             pos_axes = self.kv.pos_axes or ("model",)
             fn = ST.build_serve_step(shard_cfg(cfg, layout, mesh.shape[1]))
+            data_rows = self.kv.split_rows
         else:
             layout, pos_axes = "heads", ("model",)
-            if SH.attention_whole(cfg, mesh):
+            # as the engine's cache: no K/V (an xLSTM) is "replicated"
+            if (SH.attention_whole(cfg, mesh)
+                    or "k" not in MD.cache_struct(cfg, 1, 1)):
                 layout = "replicated"
             fn = ST.build_prefill_step(shard_cfg(cfg, layout, mesh.shape[1]),
                                        capacity=self.seq_len)
+            data_rows = self.batch_specs["tokens"][0] is not None
         plan = (self.batch, cfg.n_kv_heads)
 
         def one(r):
             a = args[r] if r in args else args[0]
+            # rows split over data: an MoE sizes and numbers its slots
+            # over the whole dispatch, as the engine's decode does
             with H.use_mesh(mesh, attn=layout, plan=plan, specs=gather,
-                            pos_axes=pos_axes):
+                            pos_axes=pos_axes, data_rows=data_rows):
                 if self.kind == "decode":
                     return fn(a["params"], a["batch"]["tokens"], a["cache"])
                 return fn(a["params"], a["batch"])

@@ -887,12 +887,21 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None,
     if capacity is None:
         cache = rows
     else:
-        cache = init_cache(cfg, b, capacity, device=x.device)
-        for name, r in rows.items():
+        cache = {}
+        for name, (shape, dt) in cache_struct(cfg, b, capacity).items():
+            if name == "len":
+                cache[name] = None
+            elif name not in ("k", "v"):
+                # whole, or on a serving mesh the rank's heads / channels
+                cache[name] = rows[name].to(dt, copy=True)
+            else:
+                cache[name] = torch.zeros(shape, dtype=dt, device=x.device)
+        for name in ("k", "v"):
+            if name not in rows:
+                continue
+            r = rows[name]
             c = cache[name].shape[2]
-            if name not in ("k", "v"):
-                cache[name].copy_(r)
-            elif cfg.sliding_window is not None and s >= c:
+            if cfg.sliding_window is not None and s >= c:
                 cache[name].copy_(roll_window(r, c))
             elif s > c:
                 raise ValueError(f"prompt of {s} positions exceeds the "
@@ -989,8 +998,15 @@ def _write_paged(pool, kv, index):
     """Scatter ``kv`` (B, s, H, Dh) into one layer's pool (NB + 1, bs, H,
     Dh) at ``index`` = :func:`_paged_write_index`'s (block, offset), in
     place. Kept writes hit distinct positions of blocks their rows own;
-    dropped ones all hit the scratch block."""
-    pool[index[0], index[1]] = kv.to(pool.dtype)
+    dropped ones all hit the scratch block and write back what it holds,
+    as :func:`_write_token_kv` drops a write — so the scratch block stays
+    zero, whatever the order of the writes, and a row whose table is all
+    sentinels (a free slot, still computed in a batched dispatch) reads
+    the same zeros on one device as on each data replica of a mesh,
+    whose pools take their own rows' writes."""
+    blk, off = index
+    kept = (blk != pool.shape[0] - 1)[..., None, None]
+    pool[blk, off] = torch.where(kept, kv.to(pool.dtype), pool[blk, off])
 
 
 def _merge_rows(dst, new, live):

@@ -75,15 +75,16 @@ def apply_moe(p, cfg, x):
     routes the whole (gathered) hidden over all ``cfg.n_experts`` and
     fills the whole buffer; its three products run over its own experts
     (:func:`~repro_torch.distributed.hints.moe_buf`), whose outputs are
-    gathered in expert order before the combine. In training over a
-    data-split batch a rank's buffer holds its own tokens' slots at
-    their places in the whole microbatch's dispatch."""
+    gathered in expert order before the combine. Over a data-split
+    batch — a training microbatch, or a serving decode or verify whose
+    slots each data replica holds a block of — a rank's buffer holds its
+    own tokens' slots at their places in the whole dispatch's."""
     b, s, d = x.shape
     n, k, e = b * s, cfg.moe_top_k, cfg.n_experts
-    # in training over a data-split batch the dispatch is the whole
-    # microbatch's, as in the reference's one program: its capacity is
-    # of every data rank's tokens, and a rank's slots follow the lower
-    # ranks' on each expert, so the same slots drop
+    # over a data-split batch the dispatch is the whole batch's, as in
+    # the reference's one program: its capacity is of every data rank's
+    # tokens, and a rank's slots follow the lower ranks' on each expert,
+    # so the same slots drop
     cap = _capacity(n * H.data_ranks(), cfg)
     xf = x.reshape(n, d)
     w, ids = route(p["router"], xf, k)

@@ -17,6 +17,15 @@ input) gives the exact-length prompt's state bit for bit.
 
 Decode is O(1) a token through the recurrent state (B, H, P, N) and a
 rolling conv state (B, k - 1, C). The gated norm runs K5 without the add.
+
+On a serving mesh (:func:`~repro_torch.distributed.hints.model_split`
+ranks over ``model``) the in-projection's columns, split by the serve
+rule in the reference's order, are gathered whole; the conv runs on the
+rank's channels where its weight splits them (the conv state holds
+those channels) and its output is gathered; the scan runs over the
+rank's heads where they divide, with their state, and y is gathered for
+the gated norm over the whole width; ``out_proj`` computes the rank's
+output columns, gathered.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import hints as H
 from repro_torch.models import layers as L
 
 
@@ -139,11 +149,56 @@ def _causal_conv(x, w, state=None, n_valid=None):
     return y, xp[:, at:at + k - 1]
 
 
-def _gated_out(p, y, z, u_dtype, mm):
-    """y (B, S, d_in) fp32 gated by silu(z), RMSNorm'd at d_in (K5
-    without the add) in the model's dtype, then projected out."""
-    y = y * F.silu(z.float())
-    return mm(L.rmsnorm(y.to(u_dtype), p["norm"]["w"]), p["out_proj"])
+def _rank_heads(cfg) -> int:
+    """Heads the calling rank scans: its share where they divide the
+    serving mesh's ``model`` ranks, else all of them."""
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    m = H.model_split()
+    return nh // m if nh % m == 0 else nh
+
+
+def _scan_inputs(p, cfg, u, conv_state, n_valid, mm):
+    """The in-projection and the conv of u (B, S, d) as the calling rank
+    computes them: (x (B, S, Hr, P) and dt (B, S, Hr) of its ``Hr`` heads,
+    B and C (B, S, N) whole, z (B, S, d_in) whole, its new conv
+    state)."""
+    bsz, s, d = u.shape
+    d_in, hp, n = cfg.ssm_expand * d, cfg.ssm_head_dim, cfg.ssm_state
+    nh, hr = d_in // hp, _rank_heads(cfg)
+    zx = H.cols(mm(u, p["in_proj"]), 2 * d_in + 2 * n + nh)
+    z, x, b, c, dt = _split_proj(cfg, zx)
+    xbc = torch.cat([x, b, c], dim=-1)
+    cw = p["conv_w"].shape[-1]
+    if cw != xbc.shape[-1]:
+        # the conv's channels split over model in the reference's order
+        i = H.model_index()
+        xbc, conv = _causal_conv(xbc[..., i * cw:(i + 1) * cw], p["conv_w"],
+                                 conv_state, n_valid=n_valid)
+        xbc = H.cols(F.silu(xbc), d_in + 2 * n)
+    else:
+        xbc, conv = _causal_conv(xbc, p["conv_w"], conv_state,
+                                 n_valid=n_valid)
+        xbc = F.silu(xbc)
+    lo = H.model_index() * hr if hr != nh else 0
+    x = xbc[..., :d_in].reshape(bsz, s, nh, hp)[:, :, lo:lo + hr]
+    return (x, xbc[..., d_in:d_in + n], xbc[..., d_in + n:],
+            dt[..., lo:lo + hr], z, conv)
+
+
+def _gated_out(p, cfg, y, z, u_dtype, mm):
+    """y (B, S, the rank's heads' columns) fp32, gathered to d_in, gated
+    by silu(z), RMSNorm'd at d_in (K5 without the add) in the model's
+    dtype, then projected out and gathered to d_model."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    y = H.cols(y, d_in) * F.silu(z.float())
+    return H.cols(mm(L.rmsnorm(y.to(u_dtype), p["norm"]["w"]),
+                     p["out_proj"]), cfg.d_model)
+
+
+def _head_params(p, hr):
+    """The rank's ``hr`` heads of ``A_log``, ``D`` and ``dt_bias``."""
+    return (H.local_cols(p["A_log"], hr), H.local_cols(p["D"], hr),
+            H.local_cols(p["dt_bias"], hr))
 
 
 def apply_mamba2(p, cfg, u, state=None, conv_state=None, n_valid=None,
@@ -155,52 +210,47 @@ def apply_mamba2(p, cfg, u, state=None, conv_state=None, n_valid=None,
     input. Pad steps get decay 1 (``log_a = 0``) and zero input — the
     values :func:`ssd_chunked` pads its own chunks with — so the states
     coming out are bitwise the exact-length prompt's; pad outputs are
-    garbage nobody reads. ``mm`` computes the projections."""
+    garbage nobody reads. ``mm`` computes the projections. On a serving
+    mesh the state and conv state are the rank's (the module's
+    docstring)."""
     bsz, s, d = u.shape
-    d_in = cfg.ssm_expand * d
-    hp = cfg.ssm_head_dim
-    nh = d_in // hp
-    n = cfg.ssm_state
-    z, x, b, c, dt = _split_proj(cfg, mm(u, p["in_proj"]))
-    xbc, new_conv = _causal_conv(torch.cat([x, b, c], dim=-1), p["conv_w"],
-                                 conv_state, n_valid=n_valid)
-    xbc = F.silu(xbc)
-    x = xbc[..., :d_in].reshape(bsz, s, nh, hp)
-    bmat = xbc[..., None, d_in:d_in + n].expand(bsz, s, nh, n)
-    cmat = xbc[..., None, d_in + n:].expand(bsz, s, nh, n)
-    dt = F.softplus(dt.float() + p["dt_bias"])          # (B, S, H)
-    log_a = dt * -torch.exp(p["A_log"])                  # <= 0
+    hp, n = cfg.ssm_head_dim, cfg.ssm_state
+    hr = _rank_heads(cfg)
+    x, bvec, cvec, dt, z, new_conv = _scan_inputs(p, cfg, u, conv_state,
+                                                  n_valid, mm)
+    a_log, dd, dt_bias = _head_params(p, hr)
+    bmat = bvec[..., None, :].expand(bsz, s, hr, n)
+    cmat = cvec[..., None, :].expand(bsz, s, hr, n)
+    dt = F.softplus(dt.float() + dt_bias)                # (B, S, Hr)
+    log_a = dt * -torch.exp(a_log)                       # <= 0
     x_bar = x.float() * dt[..., None]
     if n_valid is not None:
         keep = torch.arange(s, device=u.device) < int(n_valid)
         log_a = torch.where(keep[None, :, None], log_a, 0.0)
         x_bar = torch.where(keep[None, :, None, None], x_bar, 0.0)
     y, h = ssd_chunked(x_bar, log_a, bmat, cmat, cfg.chunk_len, h0=state)
-    y = y + x.float() * p["D"][:, None]
-    return _gated_out(p, y.reshape(bsz, s, d_in), z, u.dtype, mm), \
+    y = y + x.float() * dd[:, None]
+    return _gated_out(p, cfg, y.reshape(bsz, s, hr * hp), z, u.dtype, mm), \
         (h, new_conv)
 
 
 def mamba2_decode_step(p, cfg, u, state, conv_state):
     """u (B, 1, d): one token's O(1) recurrent update. Returns (y,
     (state, conv))."""
-    bsz, _, d = u.shape
-    d_in = cfg.ssm_expand * d
+    bsz = u.shape[0]
     hp = cfg.ssm_head_dim
-    nh = d_in // hp
-    n = cfg.ssm_state
-    z, x, b, c, dt = _split_proj(cfg, u @ p["in_proj"])
-    xbc, new_conv = _causal_conv(torch.cat([x, b, c], dim=-1), p["conv_w"],
-                                 conv_state)
-    xbc = F.silu(xbc)[:, 0]
-    x = xbc[:, :d_in].reshape(bsz, nh, hp)
-    bvec, cvec = xbc[:, d_in:d_in + n].float(), xbc[:, d_in + n:].float()
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])    # (B, H)
-    decay = torch.exp(dt * -torch.exp(p["A_log"]))
-    x_bar = x.float() * dt[..., None]                    # (B, H, P)
+    hr = _rank_heads(cfg)
+    x, bvec, cvec, dt, z, new_conv = _scan_inputs(p, cfg, u, conv_state,
+                                                  None, torch.matmul)
+    a_log, dd, dt_bias = _head_params(p, hr)
+    x = x[:, 0]                                          # (B, Hr, P)
+    bvec, cvec = bvec[:, 0].float(), cvec[:, 0].float()
+    dt = F.softplus(dt[:, 0].float() + dt_bias)         # (B, Hr)
+    decay = torch.exp(dt * -torch.exp(a_log))
+    x_bar = x.float() * dt[..., None]                    # (B, Hr, P)
     upd = torch.einsum("bhp,bn->bhpn", x_bar, bvec)
     state = decay[..., None, None] * state + upd
     y = torch.einsum("bhpn,bn->bhp", state, cvec)
-    y = y + x.float() * p["D"][:, None]
-    return _gated_out(p, y.reshape(bsz, 1, d_in), z, u.dtype,
+    y = y + x.float() * dd[:, None]
+    return _gated_out(p, cfg, y.reshape(bsz, 1, hr * hp), z, u.dtype,
                       torch.matmul), (state, new_conv)

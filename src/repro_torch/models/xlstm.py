@@ -19,6 +19,15 @@ residual ``x`` and the previous block's output ``delta`` (None before
 the first) and adds them in its first norm (K5 with the add), and it
 returns (residual, its output) un-added: the reference's adds, in its
 order, each fused into the norm after it.
+
+On a serving mesh every product computes the output columns the serve
+rule gives the rank (:func:`~repro_torch.distributed.hints.cols` gathers
+them to what it computes on next). The mLSTM, where its heads divide the
+:func:`~repro_torch.distributed.hints.model_split` ranks, gathers u
+whole (``wq``, ``wk`` and ``wv`` contract all of it), runs the scan over
+its own heads with its state, and gathers y and z for ``out_norm``; the
+sLSTM, and an mLSTM whose heads do not divide, runs its recurrence whole
+on every model rank.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import hints as H
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import ssd_chunked
 
@@ -68,24 +78,36 @@ def _key_scale(pdim: int, dtype: torch.dtype) -> float:
                  .to(dtype))
 
 
+def _rank_heads(cfg) -> int:
+    """mLSTM heads the calling rank scans: its share where they divide
+    the serving mesh's ``model`` ranks, else all of them."""
+    m = H.model_split()
+    return cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
+
+
 def _mlstm_heads(p, cfg, u, mm):
-    """u (B, S, d_in) -> q, k, v (B, S, H, P), log_f (B, S, H), i
-    (B, S, H)."""
+    """u (B, S, d_in) whole -> the rank's heads' q, k, v (B, S, Hr, P),
+    log_f (B, S, Hr), i (B, S, Hr)."""
     b, s, d_in = u.shape
-    h = cfg.n_heads
-    pdim = d_in // h
-    q, k, v = (mm(u, p[w]).reshape(b, s, h, pdim) for w in ("wq", "wk",
-                                                            "wv"))
+    hr = _rank_heads(cfg)
+    pdim = d_in // cfg.n_heads
+    q, k, v = (H.cols(mm(u, p[w]), hr * pdim).reshape(b, s, hr, pdim)
+               for w in ("wq", "wk", "wv"))
     k = k / _key_scale(pdim, k.dtype)
-    i_pre = mm(u, p["w_i"]).float()
-    f_pre = mm(u, p["w_f"]).float()
-    return q, k, v, F.logsigmoid(f_pre + p["f_bias"]), torch.sigmoid(i_pre)
+    i_pre = H.cols(mm(u, p["w_i"]), hr).float()
+    f_pre = H.cols(mm(u, p["w_f"]), hr).float()
+    return q, k, v, F.logsigmoid(f_pre + H.local_cols(p["f_bias"], hr)), \
+        torch.sigmoid(i_pre)
 
 
 def _mlstm_out(p, x, y, z, mm):
-    """y (B, S, d_in) normalised (K5), gated by silu(z), projected down."""
-    y = L.rmsnorm(y.to(x.dtype), p["out_norm"]["w"])
-    return mm(y * F.silu(z.to(y.dtype)), p["w_down"])
+    """y (B, S, the rank's heads' columns) gathered to d_in and
+    normalised (K5), gated by silu(z) (z gathered too), projected down
+    and gathered to d_model."""
+    d_in = p["out_norm"]["w"].shape[-1]
+    y = L.rmsnorm(H.cols(y, d_in).to(x.dtype), p["out_norm"]["w"])
+    z = H.cols(z, d_in)
+    return H.cols(mm(y * F.silu(z.to(y.dtype)), p["w_down"]), x.shape[-1])
 
 
 def apply_mlstm(p, cfg, x, delta=None, state=None, n_valid=None,
@@ -98,9 +120,9 @@ def apply_mlstm(p, cfg, x, delta=None, state=None, n_valid=None,
     input. Pad steps get ``log_f = 0`` (forget gate 1) and a zero
     augmented value, the values :func:`ssd_chunked` pads its own chunks
     with, so the final state is bitwise the exact-length prompt's."""
-    b, s, _ = x.shape
+    b, s, d = x.shape
     x, xin = L.add_rmsnorm(x, delta, p["norm"]["w"])
-    u, z = mm(xin, p["w_up"]), mm(xin, p["w_gate"])
+    u, z = H.cols(mm(xin, p["w_up"]), 2 * d), mm(xin, p["w_gate"])
     q, k, v, log_f, i_gate = _mlstm_heads(p, cfg, u, mm)
     # the normalizer channel rides in the SSD state
     ones = v.new_ones(v.shape[:-1] + (1,))
@@ -118,9 +140,9 @@ def apply_mlstm(p, cfg, x, delta=None, state=None, n_valid=None,
 def mlstm_decode_step(p, cfg, x, delta, state):
     """x (B, 1, d), ``delta`` as in :func:`apply_mlstm`; state (B, H,
     P + 1, N). Returns ((residual, output), state): the O(1) update."""
-    b = x.shape[0]
+    b, _, d = x.shape
     x, xin = L.add_rmsnorm(x, delta, p["norm"]["w"])
-    u, z = xin @ p["w_up"], xin @ p["w_gate"]
+    u, z = H.cols(xin @ p["w_up"], 2 * d), xin @ p["w_gate"]
     q, k, v, log_f, i_gate = _mlstm_heads(p, cfg, u, torch.matmul)
     q1, k1, v1 = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
     ones = v1.new_ones(v1.shape[:-1] + (1,))
@@ -203,7 +225,7 @@ def apply_slstm(p, cfg, x, delta=None, state=None, n_valid=None,
     the exact-length prompt's."""
     b, s, d = x.shape
     x, xin = L.add_rmsnorm(x, delta, p["norm"]["w"])
-    xproj = mm(xin, p["w_in"])                           # (B, S, 4d)
+    xproj = H.cols(mm(xin, p["w_in"]), 4 * d)            # (B, S, 4d)
     if state is None:
         zero = torch.zeros((b, cfg.n_heads, d // cfg.n_heads),
                            dtype=torch.float32, device=x.device)
@@ -218,8 +240,8 @@ def apply_slstm(p, cfg, x, delta=None, state=None, n_valid=None,
         y = torch.cat([y, y.new_zeros((b, s - steps, d))], dim=1)
     # the small GeLU feed-forward, its residual add fused into ff_norm
     x, xf = L.add_rmsnorm(x, y.to(x.dtype), p["ff_norm"]["w"])
-    f = L.gelu(mm(xf, p["w_ff_up"]))
-    return (x, mm(f, p["w_ff_down"])), state
+    f = L.gelu(H.cols(mm(xf, p["w_ff_up"]), slstm_ff(d)))
+    return (x, H.cols(mm(f, p["w_ff_down"]), d)), state
 
 
 def slstm_decode_step(p, cfg, x, delta, state):

@@ -836,12 +836,17 @@ class ServingEngine:
                  if all(x[r] is not None for x in args
                         if isinstance(x, PerRank))]
         ranks = None if len(ranks) == mesh.size else ranks
+        # a dispatch over every slot whose rows each replica holds its own
+        # block of: an MoE's capacity and slot numbers are the whole
+        # dispatch's, as one device's (a one-request dispatch's rows are
+        # its replica's alone)
+        data_rows = kind not in _ONE_REQUEST and kv.split_rows
 
         def one(r):
             shares = [x[r] if isinstance(x, PerRank) else x for x in args]
             with H.use_mesh(mesh, attn=attn, plan=plan, specs=gather,
                             pos_axes=getattr(kv, "pos_axes", None)
-                            or ("model",)):
+                            or ("model",), data_rows=data_rows):
                 return fn(params[r], *shares)
 
         outs = mesh.run(one, ranks)

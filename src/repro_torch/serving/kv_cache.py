@@ -846,14 +846,17 @@ class _MeshSlots:
     not divide over ``data`` every data replica holds every slot (and a
     contiguous cache splits its positions over every axis instead). A
     rank's share of a slot's K/V rows (.., 1, S, H, Dh) is its heads
-    (``"heads"``) or all of them; of its other leaves, all of them (the
-    recurrent sublayers run whole on every model rank)."""
+    (``"heads"``) or all of them; of a recurrent state leaf, its heads
+    or channels where :attr:`model_specs` splits them over ``model``,
+    else all of it."""
 
     def _init_mesh(self, mesh, max_batch: int, layout: str, h_local: int,
-                   pos_axes=None):
+                   pos_axes=None, model_specs=None):
         self.mesh = mesh
         self.layout = layout
         self.pos_axes = pos_axes
+        # a state leaf split over model -> its spec's model entries alone
+        self.model_specs = model_specs or {}
         self.split_rows = max_batch % mesh.shape[0] == 0
         self._rows_per_group = (max_batch // mesh.shape[0] if self.split_rows
                                 else max_batch)
@@ -882,7 +885,8 @@ class _MeshSlots:
         first = self.mesh.rank_of(self._where(slot)[0], 0)
         if name in _KV and self.layout == "seq":
             return self.mesh.group(first, self.pos_axes)
-        if name in _KV + _CROSS and self.layout == "heads":
+        if (name in _KV + _CROSS and self.layout == "heads"
+                or name in self.model_specs):
             return self.mesh.data_group(self._where(slot)[0])
         return (first,)
 
@@ -901,6 +905,9 @@ class _MeshSlots:
         if self.layout == "heads" and name in _KV + _CROSS:
             h = self._h_local
             t = t[..., mi * h:(mi + 1) * h, :]
+        elif name in self.model_specs:
+            t = t[SH.shard_slices(tuple(t.shape), self.model_specs[name],
+                                  self.mesh, self.mesh.coords(rank))]
         return t.to(dev)
 
     def _whole_rows(self, name: str, parts: list) -> torch.Tensor:
@@ -908,7 +915,12 @@ class _MeshSlots:
         (in that order) as the single device holds them."""
         if len(parts) == 1:
             return parts[0].cpu()
-        dim = -2 if self.layout == "heads" else -3   # heads, or positions
+        if name in self.model_specs:
+            # the state's heads or channels: the one dim split over model
+            dim = next(d for d, e in enumerate(self.model_specs[name])
+                       if e is not None)
+        else:
+            dim = -2 if self.layout == "heads" else -3   # heads, positions
         return torch.cat([p.cpu() for p in parts], dim=dim)
 
 
@@ -920,9 +932,11 @@ class MeshContiguousCache(_MeshSlots, ContiguousCache):
     (``"heads"``), a range of positions (``"seq"``: the heads do not
     divide ``model``, or the batch ``data``) or the whole rows
     (``"replicated"``). Whisper's encoder cache holds the rank's heads
-    in ``"heads"``, every position otherwise; a recurrent family's state
-    leaves are whole over ``model`` (their sublayers run whole on every
-    model rank), and an xLSTM, which holds no K/V, is ``"replicated"``.
+    in ``"heads"``, every position otherwise; a recurrent family's
+    ``ssm`` and ``mlstm`` state hold the rank's heads and its ``conv``
+    state its channels where they divide ``model`` (the sLSTM's state
+    whole, as its recurrence runs), and an xLSTM, which holds no K/V, is
+    ``"replicated"``.
     The host bookkeeping is the base class's; exported packets are the
     single device's, byte for byte."""
 
@@ -934,7 +948,7 @@ class MeshContiguousCache(_MeshSlots, ContiguousCache):
                             else ("replicated", None))
         split_rows = B % mesh.shape[0] == 0
         data = (SH.DATA,) if split_rows else None
-        place = {}
+        place, model_specs = {}, {}
         for name, leaf in meta.items():
             nd = leaf.dim()
             if name == "len":
@@ -947,14 +961,20 @@ class MeshContiguousCache(_MeshSlots, ContiguousCache):
                 h = (SH.MODEL,) if layout == "heads" else None
                 place[name] = (None,) * (nd - 4) + (data, None, h, None)
             else:
+                # the state's batch over data; its heads or channels as
+                # the rule splits them over model
                 ax = MD.cache_batch_axes({name: leaf})[name]
-                place[name] = tuple(data if d == ax else None
+                model = tuple(e if e is not None and SH.MODEL in e
+                              else None for e in self.specs[name])
+                place[name] = tuple(data if d == ax else model[d]
                                     for d in range(nd))
+                if any(e is not None for e in model):
+                    model_specs[name] = model
         self.placement = place
         local = {name: SH.local_shape(tuple(meta[name].shape), spec, mesh)
                  for name, spec in place.items()}
         h_local = local["k"][-2] if "k" in local else 0
-        self._init_mesh(mesh, B, layout, h_local, pos_axes)
+        self._init_mesh(mesh, B, layout, h_local, pos_axes, model_specs)
         self._shards = PerRank(
             {**{name: torch.zeros(local[name], dtype=meta[name].dtype,
                                   device=dev) for name in place},

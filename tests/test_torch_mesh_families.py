@@ -2,8 +2,9 @@
 shard a rank of ``devices=("cpu",) * n`` (smoke configs in float32,
 weights bridged from the JAX package): whisper-large-v3 at (1, 2) — its
 encoder at admission on every rank, its cross K/V by heads —,
-zamba2-2.7b at (2, 2) and xlstm-350m at (1, 2) — Mamba2, the mLSTM and
-the sLSTM whole on every model rank, their state over ``data`` — give
+zamba2-2.7b at (2, 2) and xlstm-350m at (1, 2) — Mamba2 and the mLSTM
+split by heads over ``model``, the sLSTM's recurrence whole on every
+model rank, their state over ``data`` — give
 the port's single engine's and the JAX package's greedy streams, one
 dispatch a step; an exported slot is the single engine's packet, leaf
 for leaf; zamba2 with its weights split over ``data`` (gathered at use)
@@ -79,17 +80,20 @@ def test_family_streams_equal_single_and_reference(models, arch, mesh):
     s = eng.summary()
     assert s["dispatches_per_step"] == pytest.approx(1.0)
     assert s["mesh"] == mesh
-    # the recurrent sublayers' weights stay whole over model on every
-    # rank; attention's split by heads
+    # the recurrent sublayers' columns split over model by the serve
+    # rule, as attention's heads do
     rank = eng.params[0]
     if cfg.family == "ssm":
         assert eng.kv.layout == "replicated"
+        w = rank["mlstm"]["wq"]
+        assert w.shape[-1] * mesh[1] == tp["mlstm"]["wq"].shape[-1]
     else:
         assert eng.kv.layout == "heads"
         assert rank["embed"]["table"].shape[0] == cfg.vocab_size // mesh[1]
     if cfg.family == "hybrid":
         w = rank["mamba"]["mamba"]["in_proj"]
-        assert w.shape[-1] == tp["mamba"]["mamba"]["in_proj"].shape[-1]
+        assert w.shape[-1] * mesh[1] == \
+            tp["mamba"]["mamba"]["in_proj"].shape[-1]
 
 
 @pytest.mark.parametrize("arch,mesh", CASES)
