@@ -247,9 +247,19 @@ Phases, one line each (any failure exits non-zero):
    smoke-depth zamba2, xlstm and whisper bitwise the one-device step
    (params, AdamW state, metrics) with the same K5 / K5b launches, and
    a checkpoint of the mesh state saved from its shards read into the
-   one-device trainer's state bitwise (at most 60 s). The four-card
-   runs are ``scripts/torch_mesh_train_card.py`` and
-   ``scripts/torch_mesh_train_families_card.py``.
+   one-device trainer's state bitwise (at most 60 s). Then the
+   reference's two activation placements at (1, 2), the float32 smoke
+   qwen (vocab 256): training over ``cuda:0`` and the CPU (one device a
+   rank) — the vocab-split logits' loss within 1e-6 of the gathered
+   logits' and every gradient leaf within 14b's gate, and act_shard
+   "dmodel" and "seq" the loss and gradients of "none" bit for bit once
+   each norm's input gradient is taken, chunk by chunk, from the rank
+   that holds the chunk — and serving on ``cuda:0`` twice (qwen at full
+   width, 2 layers), "dmodel" and "seq" streams equal to "none"'s (at
+   most 60 s). The four-card runs are
+   ``scripts/torch_mesh_train_card.py``,
+   ``scripts/torch_mesh_train_families_card.py`` and
+   ``scripts/torch_act_split_card.py``.
 
 16. nemotron — nemotron-4-340b in bf16 at full width, 2 of its 96
    layers (32.8 GB; LayerNorm, squared ReLU, head dim 192, GQA 96/8):
@@ -5539,6 +5549,197 @@ def mesh_train_one_card(total) -> None:
             mesh.close()
 
 
+SPLIT_SECONDS = 60         # phase 15's placements check
+SPLIT_SERVE_LAYERS = 2     # the serving check's full-width qwen
+SPLIT_LOSS_RTOL = 1e-6     # the CPU parity tests' loss tolerance
+SPLIT_TRAIN_DEVICES = ("cuda:0", "cpu")   # a training mesh: a device a rank
+SPLIT_MODES = ("dmodel", "seq")
+
+
+@contextlib.contextmanager
+def gathered_logits():
+    """Training's logits as the port computed them before the
+    vocab-parallel loss: ``hints.logits`` gathers the vocab-split logits
+    whole on every model rank (its backward the rank's slice), and the
+    loss runs over the whole vocab — what the split path is held to."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import hints as H
+    split = H.logits
+
+    def gathered(x, vocab):
+        comm = H._comm()
+        if comm is not None and x.shape[-1] != vocab:
+            return C.gather_from(x, x.dim() - 1, "model", comm)
+        return split(x, vocab)
+
+    H.logits = gathered
+    try:
+        yield
+    finally:
+        H.logits = split
+
+
+@contextlib.contextmanager
+def assembled_norm_grads(mode):
+    """act_shard "none" whose norms' operands take their gradient as a
+    stream split by ``mode`` assembles it: each model rank's chunk, along
+    the split dim, of its own whole gradient, gathered over ``model``.
+    Where the ranks' whole gradients of a norm's input differ (K5b on
+    ``cuda:0`` against its plain version on the CPU), this is what the
+    split stream computes: each rank keeps its own chunk of them. Where
+    they agree it changes no bit."""
+    import torch
+    from repro_torch.distributed import hints as H
+    from repro_torch.models import layers as L
+    plain = L._add_norm
+
+    class Assemble(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, comm):
+            ctx.comm = comm
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            d = g.dim() - 1 if mode == "dmodel" else 1
+            return ctx.comm.all_gather(ctx.comm.chunk(g, d, "model"), d,
+                                       "model"), None
+
+    def assembled(p, cfg, x, a, out_dtype):
+        comm = H._comm()
+        if comm is not None and comm.size("model") > 1:
+            x = Assemble.apply(x, comm)
+            a = None if a is None else Assemble.apply(a, comm)
+        return plain(p, cfg, x, a, out_dtype)
+
+    L._add_norm = assembled
+    try:
+        yield
+    finally:
+        L._add_norm = plain
+
+
+def same_bits(out, want) -> tuple:
+    """(every rank's loss, every rank's gradients) of two per-rank
+    (loss, gradients) lists the same bits."""
+    import torch
+    from repro_torch import tree as T
+    return (all(torch.equal(a[0], w[0]) for a, w in zip(out, want)),
+            all(torch.equal(x, y) for a, w in zip(out, want)
+                for x, y in zip(T.leaves(a[1]), T.leaves(w[1]))))
+
+
+def max_leaf_diff(out, want) -> float:
+    """The largest |difference| of any rank's gradient leaf."""
+    from repro_torch import tree as T
+    return max(float((x.double() - y.double()).abs().max())
+               for a, w in zip(out, want)
+               for x, y in zip(T.leaves(a[1]), T.leaves(w[1])))
+
+
+def mesh_split_one_card(total) -> None:
+    """15, the activation placements: the float32 smoke qwen at (1, 2).
+    Training runs over ``cuda:0`` and the CPU (a training mesh takes one
+    device per rank), under deterministic algorithms: the vocab-split
+    logits' loss (``collectives.vocab_nll``) within SPLIT_LOSS_RTOL of
+    the gathered logits' (:func:`gathered_logits`) and every gradient
+    leaf within 14b's gate, the split loss the same bits on both ranks.
+    act_shard "dmodel" and "seq": the loss and every rank's gradients
+    the same bits as "none" with each norm's input gradient assembled
+    from its ranks' chunks (:func:`assembled_norm_grads`) — the one
+    place a split stream's gradient differs from "none"'s on these two
+    devices, whose whole gradients of a norm's input differ by K5b's
+    rounding against its plain version's (logged: "none" against the
+    split, and against the assembled "none"). Serving runs both shards
+    on ``cuda:0``, qwen at full width and SPLIT_SERVE_LAYERS layers (the
+    kernels take its head dim): "dmodel" and "seq" streams equal to
+    "none"'s on the contiguous cache (blocking) and the paged one
+    (speculative). Launches go to ``total``."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.mesh import DeviceMesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    from repro_torch.serving import EngineConfig, ServingEngine
+    phase = "mesh_train_split"
+    cfg = family_cfg(ARCH)
+    b, s = FAMILY_SHAPE
+    params = MD.init_params(cfg, seed=SEED, device=TRAIN_DEVICE)
+    batch = MD.make_dummy_batch(cfg, b, s, seed=SEED, device="cpu")
+    mesh = DeviceMesh((1, 2), SPLIT_TRAIN_DEVICES)
+
+    def grads(c):
+        mt = ST.MeshTrain(c, mesh)
+        pr, parts = mt.shard(params), ST.mesh_parts(mt, batch)
+        out, c1, b1 = train_counted(
+            lambda: mt.run(lambda r: mt.grads(pr[r], r, parts[r])))
+        _add(total, {**c1, **b1})
+        return mt, out
+
+    with deterministic():
+        mt, split = grads(cfg)
+        # the gathered logits' loss is each rank's own, over the whole
+        # vocab on its device; the split loss is one sum, every rank's
+        if not torch.equal(split[0][0].cpu(), split[1][0].cpu()):
+            raise AssertionError(f"{phase}: the split loss differs by rank")
+        with gathered_logits():
+            _, whole = grads(cfg)
+        modes = {}
+        for m in SPLIT_MODES:
+            with assembled_norm_grads(m):
+                assembled = grads(cfg)[1]
+            modes[m] = (grads(cfg.replace(act_shard=m))[1], assembled)
+    got, want = split[0][0].item(), whole[0][0].item()
+    rel = abs(got - want) / abs(want)
+    log(phase, mesh="1x2", devices=json.dumps(SPLIT_TRAIN_DEVICES),
+        check="vocab_split_loss_vs_gathered", split=f"{got:.8f}",
+        gathered=f"{want:.8f}", rel_err=f"{rel:.3e}", tol=SPLIT_LOSS_RTOL)
+    if rel > SPLIT_LOSS_RTOL:
+        raise AssertionError(f"{phase}: the vocab-split loss {got} against "
+                             f"the gathered {want}")
+    grad_gate(phase, "vocab_split_vs_gathered",
+              mt.gather([o[1] for o in split], TRAIN_DEVICE),
+              mt.gather([o[1] for o in whole], TRAIN_DEVICE))
+    for m, (out, assembled) in modes.items():
+        loss_eq, grads_eq = same_bits(out, assembled)
+        log(phase, act_shard=m, check="train_bitwise_assembled_none",
+            loss_equal=loss_eq, grads_equal=grads_eq,
+            loss_equal_none=same_bits(out, split)[0],
+            max_grad_diff_none=f"{max_leaf_diff(out, split):.3e}",
+            max_grad_diff_assembled=f"{max_leaf_diff(out, assembled):.3e}",
+            none_vs_assembled=f"{max_leaf_diff(split, assembled):.3e}")
+        if not (loss_eq and grads_eq):
+            raise AssertionError(f"{phase}: act_shard {m}'s loss or "
+                                 "gradients differ from the assembled "
+                                 "none's")
+    mesh.close()
+    cfg = train_cfg(dtype="float32", n_layers=SPLIT_SERVE_LAYERS)
+    params = MD.init_params(cfg, seed=SEED, device=TRAIN_DEVICE)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (17, 40, 64)]
+    for kv, sched in (("contiguous", "blocking"), ("paged", "speculative")):
+        out = {}
+        for m in ("none",) + SPLIT_MODES:
+            eng = ServingEngine(params, cfg.replace(act_shard=m), EngineConfig(
+                mesh=(1, 2), max_batch=4, max_seq_len=128, max_new_tokens=8,
+                kv_cache=kv, scheduler=sched, eos_token=-1),
+                devices=(TRAIN_DEVICE,) * 2)
+            for p in prompts:
+                eng.submit(p)
+            _, c1, _ = train_counted(eng.run)
+            _add(total, c1)
+            out[m] = {r.rid: r.output for r in eng.finished}
+            eng.mesh.close()
+        same = all(out[m] == out["none"] for m in SPLIT_MODES)
+        log(phase, serve=f"{kv}+{sched}", mesh="1x2",
+            check="streams_equal_none", equal=same,
+            tokens=sum(len(v) for v in out["none"].values()))
+        if not same:
+            raise AssertionError(f"{phase} {kv}+{sched}: the split "
+                                 "streams differ from none's")
+
+
 TRAIN_SECONDS = 600    # the phase's own process ends past this
 TRAIN_COUNTS = "train_counts="
 
@@ -5611,6 +5812,8 @@ def train_phases(card: str) -> dict:
     t0 = time.perf_counter()
     with step_deadline(MESH_TRAIN_SECONDS), deterministic():
         mesh_train_one_card(total)
+    with step_deadline(SPLIT_SECONDS):
+        mesh_split_one_card(total)
     log("mesh_train", seconds=f"{time.perf_counter() - t0:.1f}",
         card=f"'{card}'")
     return total

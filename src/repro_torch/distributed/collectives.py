@@ -28,7 +28,16 @@ partial sum).
   model rank, on the same input), that chunk is the leaf's gradient:
   no sum;
 - :func:`split_to` — a replicated tensor cut to the rank's chunk: slice
-  forward, all-gather of the chunks' gradients backward.
+  forward, all-gather of the chunks' gradients backward;
+- :func:`scatter_from` — Megatron's *g* where the sum stays split (the
+  residual stream held split over ``model``, Megatron-SP): the rank's
+  chunk of the group's sum forward (reduce-scatter), all-gather of the
+  chunks' gradients backward. Each chunk is bitwise the one
+  :func:`reduce_from` would give, summed in the same order;
+- :func:`vocab_nll` — the cross-entropy of logits split over ``model``
+  by vocabulary (Megatron's vocab-parallel loss): every rank of the
+  group gets the same per-position negative log likelihood, and its
+  logits' gradient ``softmax - onehot`` over its own columns only.
 
 Every sum is the mesh's rank-ordered one, so the ranks of a group get
 the same bits forward and backward. An ``axis`` is one mesh axis or a
@@ -131,6 +140,50 @@ class _Split(torch.autograd.Function):
         return ctx.comm.all_gather(g, ctx.dim, ctx.axis), None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, comm):
+        ctx.dim, ctx.axis, ctx.comm = dim, axis, comm
+        return comm.reduce_scatter(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, ctx.axis), None, None, None
+
+
+class _VocabNll(torch.autograd.Function):
+    """z (..., V / n) fp32, the rank's vocab columns ``index * V / n``
+    on; labels (...) over the whole vocab -> nll (...), the same bits on
+    every rank of the group. lse = max + log(sum exp(z - max)), the max
+    over the group's maxima (exact), the sums of exp added in rank
+    order; the gold logit the one rank's whose columns hold the label,
+    zero elsewhere, summed in rank order (exact)."""
+
+    @staticmethod
+    def forward(ctx, z, labels, axis, comm):
+        v = z.shape[-1]
+        local = labels.long() - comm.index(axis) * v
+        inside = (local >= 0) & (local < v)
+        local = local.clamp(0, v - 1)[..., None]
+        m = comm.all_gather(z.amax(-1, keepdim=True), -1, axis).amax(
+            -1, keepdim=True)
+        lse = m[..., 0] + torch.log(comm.all_reduce(
+            torch.exp(z - m).sum(-1), axis))
+        gold = comm.all_reduce(torch.where(
+            inside, z.gather(-1, local)[..., 0], 0.0), axis)
+        ctx.save_for_backward(z, lse, local, inside)
+        return lse - gold
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        z, lse, local, inside = ctx.saved_tensors
+        p = torch.exp(z - lse[..., None])
+        p.scatter_(-1, local, p.gather(-1, local)
+                   - inside[..., None].to(p.dtype))
+        return p * g[..., None], None, None, None
+
+
 def _lone(comm: Comm, axis: str) -> bool:
     return comm.size(axis) == 1
 
@@ -164,3 +217,18 @@ def split_to(x: torch.Tensor, dim: int, axis: str, comm: Comm
              ) -> torch.Tensor:
     """The rank's chunk of the replicated ``x`` along ``dim``."""
     return x if _lone(comm, axis) else _Split.apply(x, dim, axis, comm)
+
+
+def scatter_from(x: torch.Tensor, dim: int, axis: str, comm: Comm
+                 ) -> torch.Tensor:
+    """The rank's chunk along ``dim`` of the sum of the group's ``x``;
+    its gradient the chunks' gradients gathered."""
+    return x if _lone(comm, axis) else _Scatter.apply(x, dim, axis, comm)
+
+
+def vocab_nll(z: torch.Tensor, labels: torch.Tensor, axis: str, comm: Comm
+              ) -> torch.Tensor:
+    """Per position, the negative log likelihood of ``labels`` under the
+    logits whose vocabulary the group splits, ``z`` the rank's columns
+    (:class:`_VocabNll`)."""
+    return _VocabNll.apply(z, labels, axis, comm)

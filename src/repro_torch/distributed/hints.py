@@ -13,6 +13,13 @@ and the hints move the data:
   contracts the whole dim locally;
 - :func:`hidden` all-gathers a sublayer's output columns over ``model``
   before the residual add;
+- :func:`residual` holds a call's residual stream split over ``model``
+  as ``cfg.act_shard`` says (the reference's ``hints.hidden(x,
+  act_shard)``): d_model (``"dmodel"``) or the positions (``"seq"``)
+  where they divide. :func:`hidden` then leaves each rank its part of
+  the sublayer's output, :func:`embed` its part of the lookups, and a
+  norm gathers the rank's parts of its input whole (:func:`stream_whole`;
+  :func:`stream_part` cuts a whole tensor to the rank's part);
 - :func:`logits` all-gathers the vocab over ``model`` before sampling;
 - :func:`cols` gathers a recurrent sublayer's product columns to what
   the rank computes on — every column, or its own heads'
@@ -49,9 +56,15 @@ autograd function of :mod:`repro_torch.distributed.collectives`:
   passes the rank's columns on, and :func:`hidden` is Megatron's *g*,
   the rank-ordered all-reduce of the row-parallel product's partial
   sums (``wo`` / ``w_down`` split their contraction over ``model``);
-  both are identities for a :class:`Whole` sublayer;
-- :func:`logits` gathers the vocab-split logits, its backward the rank's
-  slice; :func:`embed` sums the vocab-split lookups by *g*;
+  both are identities for a :class:`Whole` sublayer. Where the call's
+  residual stream is split (:func:`residual`), :func:`hidden`
+  reduce-scatters the partial sums instead — each rank's part bitwise
+  the all-reduce's — and cuts a whole sublayer's output;
+- :func:`logits` leaves the vocab-split logits split, and
+  :func:`vocab_nll` takes the loss from them (Megatron's vocab-parallel
+  cross-entropy): no rank forms the whole vocab; :func:`embed` sums the
+  vocab-split lookups by *g* (reduce-scattered where the stream is
+  split);
 - :func:`local_cols` and :func:`moe_buf` cut a replicated tensor to the
   rank's columns or experts (backward: the chunks' gradients gathered),
   :func:`moe_gather` gathers the experts' outputs;
@@ -91,6 +104,8 @@ class _Ctx(NamedTuple):
     whole: frozenset   # sublayer keys run whole over model in training
     pos_axes: tuple    # the axes a "seq" cache splits its positions over
     data_rows: bool    # serving: the dispatch's rows split over data
+    resid: int | None = None   # the dim of the call's (B, S, d) residual
+                               # stream split over model (residual)
 
 
 class Whole(dict):
@@ -139,6 +154,110 @@ def use_mesh(mesh, *, attn: str = "heads", plan=None, train: bool = False,
         yield mesh
     finally:
         _STATE.ctx = prev
+
+
+@contextlib.contextmanager
+def residual(mode: str, shape):
+    """Within the block, the armed rank's model call holds its residual
+    stream — the (B, S, d) activation that runs between the sublayers,
+    ``shape`` whole — split over ``model`` as ``mode`` (a config's
+    ``act_shard``) says, as the
+    reference's ``hints.hidden(x, act_shard)`` pins it: ``"dmodel"``
+    splits d where it divides ``model``, ``"seq"`` the positions where
+    they divide, ``"none"`` (or a dim that does not divide, or no mesh)
+    nothing. In training and in serving alike: the bits do not change,
+    only where they are held. A nested call (whisper's encoder) arms its
+    own stream."""
+    ctx = _ctx()
+    if ctx is None:
+        yield
+        return
+    if mode not in ("none", "dmodel", "seq"):
+        raise ValueError(f"unknown act_shard {mode!r}: none, dmodel or seq")
+    n = ctx.mesh.axis_size("model")
+    dim = {"dmodel": 2, "seq": 1}.get(mode)
+    split = dim is not None and n > 1 and shape[dim] % n == 0
+    _STATE.ctx = ctx._replace(resid=dim if split else None)
+    try:
+        yield
+    finally:
+        _STATE.ctx = ctx
+
+
+def stream_dim(x: torch.Tensor) -> int | None:
+    """The dim of ``x`` — a tensor of the residual stream's layout: (B,
+    S, d), or (N, d) rows under a d split — that the armed call's
+    residual split cuts (:func:`residual`); None where nothing is cut."""
+    ctx = _ctx()
+    if ctx is None or ctx.resid is None:
+        return None
+    if ctx.resid == 2:
+        return x.dim() - 1
+    return 1 if x.dim() == 3 else None
+
+
+def stream_part(x: torch.Tensor) -> torch.Tensor:
+    """The rank's part of ``x``, a whole tensor of the residual stream's
+    layout, the same on every model rank: its chunk along
+    :func:`stream_dim` (in training its gradient the chunks' gathered);
+    ``x`` itself where the stream is not split."""
+    dim = stream_dim(x)
+    if dim is None:
+        return x
+    comm = _comm()
+    if comm is not None:
+        return C.split_to(x, dim, "model", comm)
+    n = current_mesh().axis_size("model")
+    w = x.shape[dim] // n
+    return x.narrow(dim, model_index() * w, w).contiguous()
+
+
+def stream_whole(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' parts ``x`` of a split residual stream gathered whole
+    (in training its gradient the rank's chunk: every model rank
+    computes the same whole gradient); ``x`` itself where the stream is
+    not split."""
+    dim = stream_dim(x)
+    if dim is None:
+        return x
+    comm = _comm()
+    if comm is not None:
+        return C.gather_from(x, dim, "model", comm)
+    return current_mesh().all_gather(x.contiguous(), dim, "model")
+
+
+class StreamPart(NamedTuple):
+    """A rank's part of the residual stream held split over ``model`` in
+    training (:func:`residual`): its chunk along ``dim``, of ``comm``'s
+    model group. Its moves are untracked by autograd, for a function
+    that makes its own backward (``ops.add_rmsnorm(..., part=)``)."""
+    dim: int
+    comm: object
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The group's parts ``x`` gathered whole."""
+        return self.comm.all_gather(x, self.dim, "model")
+
+    def cut(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's part of the whole ``x``."""
+        return self.comm.chunk(x, self.dim, "model").contiguous()
+
+    def place(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole tensor that holds the part ``x`` at the rank's place
+        and zeros elsewhere."""
+        shape = list(x.shape)
+        shape[self.dim] *= self.comm.size("model")
+        out = x.new_zeros(shape)
+        self.comm.chunk(out, self.dim, "model").copy_(x)
+        return out
+
+
+def stream_layout(x: torch.Tensor) -> StreamPart | None:
+    """In training, where the armed call holds its stream split
+    (:func:`residual`), the layout of ``x``, a rank's part of it; None
+    elsewhere."""
+    dim, comm = stream_dim(x), _comm()
+    return None if dim is None or comm is None else StreamPart(dim, comm)
 
 
 def snapshot():
@@ -243,11 +362,21 @@ def hidden(x: torch.Tensor, width: int, split: bool = True
     Training: the row-parallel product's partial sums (..., d_model)
     summed over ``model`` in rank order (Megatron's *g*) — where the
     product's contraction is ``split``; a whole sublayer's output is
-    already the sum."""
+    already the sum. Where the call's residual stream is split
+    (:func:`residual`), each rank keeps its part of the output: in
+    training the partial sums reduce-scattered (the rank's part of the
+    same sum, bitwise), in serving the rank's own output columns (d
+    split) or its positions of the gathered output."""
     comm = _comm()
+    dim = stream_dim(x)
     if comm is not None:
-        return C.reduce_from(x, "model", comm) if split else x
-    return _gather_last(x, width)
+        if dim is None:
+            return C.reduce_from(x, "model", comm) if split else x
+        return (C.scatter_from(x, dim, "model", comm) if split
+                else stream_part(x))
+    if dim == x.dim() - 1 and x.shape[-1] != width:
+        return x     # the rank's own columns: its part of a d split
+    return stream_part(_gather_last(x, width))
 
 
 def col_input(x: torch.Tensor, split: bool = True) -> torch.Tensor:
@@ -263,12 +392,24 @@ def col_input(x: torch.Tensor, split: bool = True) -> torch.Tensor:
 
 def logits(x: torch.Tensor, vocab: int) -> torch.Tensor:
     """(..., V / model) logits of a vocab-sharded head gathered to the
-    whole vocab (in training, the gradient's slice back to each rank)."""
-    comm = _comm()
-    if comm is not None:
-        return x if x.shape[-1] == vocab else C.gather_from(
-            x, x.dim() - 1, "model", comm)
+    whole vocab for sampling. Training keeps them split, as the
+    reference's ``hints.logits`` pins them: the loss is vocab-parallel
+    (:func:`vocab_nll`)."""
+    if _comm() is not None:
+        return x
     return _gather_last(x, vocab)
+
+
+def vocab_nll(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """In training, the per-position negative log likelihood of
+    ``labels`` under logits split over ``model`` by vocabulary, ``z``
+    the rank's columns: Megatron's vocab-parallel cross-entropy
+    (:func:`~repro_torch.distributed.collectives.vocab_nll`), the same
+    bits on every model rank."""
+    comm = _comm()
+    if comm is None:
+        raise RuntimeError("vocab-split logits outside a train context")
+    return C.vocab_nll(z, labels, "model", comm)
 
 
 def heads(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -348,11 +489,13 @@ def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
     each rank looks up its own id range, zero elsewhere, and the ranks'
     rows are summed in rank order — every token's row is one rank's,
     exactly, plus zeros (in training by Megatron's *g*, so each rank's
-    table rows take the gradient of the tokens in its range)."""
+    table rows take the gradient of the tokens in its range). Where the
+    call's residual stream is split (:func:`residual`), each rank gets
+    its part of the rows (in training the sum reduce-scattered)."""
     rows = table.shape[0]
     mesh = current_mesh()
     if mesh is None or rows == vocab:
-        return table[ids.long()]
+        return stream_part(table[ids.long()])
     lo = model_index() * rows
     local = ids.long() - lo
     inside = (local >= 0) & (local < rows)
@@ -360,13 +503,16 @@ def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
     comm = _comm()
+    dim = stream_dim(x)
     if comm is not None:
+        if dim is not None:
+            return C.scatter_from(x, dim, "model", comm)
         return C.reduce_from(x, "model", comm)
     parts = mesh.all_gather(x.unsqueeze(0), 0, "model")
     out = parts[0]
     for p in parts[1:]:
         out = out + p
-    return out
+    return stream_part(out)
 
 
 def weights(tree, *path):

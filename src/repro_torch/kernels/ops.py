@@ -223,7 +223,41 @@ class _AddRMSNorm(torch.autograd.Function):
         return gx, ga, gw if ctx.needs_input_grad[2] else None, None, None
 
 
-def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None):
+class _PartAddRMSNorm(torch.autograd.Function):
+    """(s, h) = (x + a, RMSNorm(whole(s)) * w) where x and a are a rank's
+    parts of a residual stream split across ranks, ``part`` their layout
+    (``hints.StreamPart``): K5 without the add on the gathered sum
+    (K5's ``s`` is torch's add). Backward K5b on the whole rows with the
+    residual cotangent at the rank's part and zeros elsewhere: the
+    rank's part of its gradient is K5b's fused sum, the bits of one
+    device; the other parts are dropped, each rank keeping its own."""
+
+    @staticmethod
+    def forward(ctx, x, a, w, eps, out_dtype, part):
+        ctx.set_materialize_grads(False)
+        s = x + a
+        sw = part.whole(s)
+        _, h = _add_rmsnorm(sw, None, w, eps, out_dtype)
+        ctx.save_for_backward(sw, w)
+        ctx.eps, ctx.add_dtype, ctx.part = eps, a.dtype, part
+        return s, h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gs, gh):
+        sw, w = ctx.saved_tensors
+        if gh is None:      # h unused: s passes its cotangent through
+            return (gs, None if gs is None else gs.to(ctx.add_dtype), None,
+                    None, None, None)
+        part = ctx.part
+        gx, ga, gw = _add_rmsnorm_bwd(
+            sw, w, gh, None if gs is None else part.place(gs), ctx.eps,
+            ctx.add_dtype)
+        return (part.cut(gx), part.cut(ga),
+                gw if ctx.needs_input_grad[2] else None, None, None, None)
+
+
+def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None, part=None):
     """Residual add and RMSNorm over the last axis in one pass (K5):
     (s, h) with s = x + a as torch rounds it (x itself when a is None)
     and h = RMSNorm(s) * w in ``out_dtype`` (default x's dtype). The
@@ -231,7 +265,17 @@ def add_rmsnorm(x, a, w, *, eps=1e-6, out_dtype=None):
 
     With grad mode on and an operand requiring grad it is an autograd
     node whose backward is K5b (:func:`_AddRMSNorm`, :func:`_RMSNorm`);
-    otherwise the same call as ever, saving nothing."""
+    otherwise the same call as ever, saving nothing.
+
+    ``part``: x and a (not None) are a rank's parts of a residual stream
+    split across ranks (``hints.StreamPart``); s is the rank's part of
+    the sum and h the norm of the whole, gathered (:class:`_PartAddRMSNorm`
+    under autograd)."""
+    if part is not None:
+        if _needs_grad(x, a, w):
+            return _PartAddRMSNorm.apply(x, a, w, eps, out_dtype, part)
+        s = x + a
+        return s, _add_rmsnorm(part.whole(s), None, w, eps, out_dtype)[1]
     if _needs_grad(x, a, w):
         if a is None:
             return x, _RMSNorm.apply(x, w, eps, out_dtype)

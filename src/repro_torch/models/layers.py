@@ -93,7 +93,28 @@ def add_norm(p, cfg, x, a=None, *, out_dtype=None):
     """The residual add and the norm after it: (s, h) with s = x + a as
     torch rounds it (x itself when a is None) and h the norm of s in
     ``out_dtype`` (default s's dtype). RMSNorm runs both in one pass
-    (K5 on the card); LayerNorm is the add, then :func:`layernorm`."""
+    (K5 on the card); LayerNorm is the add, then :func:`layernorm`.
+
+    Where the call holds its residual stream split over ``model``
+    (:func:`~repro_torch.distributed.hints.residual`), x and a are the
+    rank's parts and so is s; h is whole, the norm of the whole sum: s
+    is added on the parts and gathered, and the norm runs on it (K5
+    without the add: the same bits, K5's ``s`` is torch's add). In
+    training an RMSNorm's gradient is K5b's on the whole rows with the
+    residual cotangent fused, as on one device (``ops.add_rmsnorm(...,
+    part=)``); a LayerNorm's is autograd's sum of the two, as on one
+    device."""
+    if H.stream_dim(x) is None:
+        return _add_norm(p, cfg, x, a, out_dtype)
+    part = H.stream_layout(x)
+    if part is not None and a is not None and cfg.norm == "rmsnorm":
+        return ops.add_rmsnorm(x.contiguous(), a.contiguous(), p["w"],
+                               out_dtype=out_dtype, part=part)
+    s = x if a is None else x + a
+    return s, _add_norm(p, cfg, H.stream_whole(s), None, out_dtype)[1]
+
+
+def _add_norm(p, cfg, x, a, out_dtype):
     if cfg.norm == "rmsnorm":
         return add_rmsnorm(x, a, p["w"], out_dtype=out_dtype)
     if cfg.norm != "layernorm":
@@ -273,16 +294,24 @@ def logits_from_hidden(head_table: torch.Tensor, x: torch.Tensor
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
+                          mask: torch.Tensor | None = None,
+                          vocab: int | None = None) -> torch.Tensor:
     """logits fp32 (..., V), labels integer (...,): the mean negative log
     likelihood over the positions ``mask`` keeps (all when None; at least
     one counted), as the reference's. In training over a data-split
     batch the mean is the whole batch's: each rank's sum and count are
     summed over ``data`` before the divide (ranks may keep different
-    counts of positions)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    counts of positions). ``vocab``: the whole vocabulary, where the
+    logits may be a rank's columns of it (training over a mesh whose
+    head splits the vocab over ``model``): then the NLL is the
+    vocab-parallel one (:func:`~repro_torch.distributed.hints.
+    vocab_nll`)."""
+    if vocab is not None and logits.shape[-1] != vocab:
+        nll = H.vocab_nll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - gold
     if H.data_ranks() > 1:
         keep = (torch.ones_like(nll) if mask is None
                 else mask.to(nll.dtype))

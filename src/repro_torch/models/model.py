@@ -83,6 +83,10 @@ TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 RECURRENT_FAMILIES = ("ssm", "hybrid")   # O(1)-state decode; prefill
 # length-masked over a right-padded bucket
 PORTED_FAMILIES = TRANSFORMER_FAMILIES + ("audio",) + RECURRENT_FAMILIES
+# the families whose residual stream ``cfg.act_shard`` splits: the
+# reference pins it in its decoder blocks and at the embedding — whisper's
+# encoder too, which runs the decoder block (``model.py:326-338``)
+STREAM_FAMILIES = TRANSFORMER_FAMILIES + ("audio",)
 SLSTM_LEAVES = ("slstm_c", "slstm_n", "slstm_h")
 
 
@@ -252,15 +256,46 @@ def served_blocks(params, cfg):
                else H.weights(lp, "layers"))
 
 
+def _residual(shape_of):
+    """``fn(params, cfg, *args)`` with its residual stream, of the whole
+    shape ``shape_of(cfg, *args)``, held split over ``model`` as
+    ``cfg.act_shard`` says (:func:`~repro_torch.distributed.hints.
+    residual`) in the :data:`STREAM_FAMILIES`: each rank holds its part
+    of the pending (residual, delta) pair between sublayers, and a norm
+    gathers it whole. The recurrent families keep their path."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(params, cfg, *args, **kw):
+            mode = cfg.act_shard if cfg.family in STREAM_FAMILIES else "none"
+            with H.residual(mode, shape_of(cfg, *args)):
+                return fn(params, cfg, *args, **kw)
+        return call
+    return wrap
+
+
+def _batch_stream(cfg, batch, *_):
+    """(B, S, d) of a batch's stream: its tokens after a vlm's images."""
+    b, s = batch["tokens"].shape
+    if cfg.family == "vlm" and "images" in batch:
+        s += batch["images"].shape[1]
+    return b, s, cfg.d_model
+
+
+def _tokens_stream(cfg, tokens, *_):
+    """(B, S, d) of a stream of ``tokens`` (B, S)."""
+    return (*tokens.shape, cfg.d_model)
+
+
 def _head(params, cfg):
     return params["embed"]["table"] if cfg.tie_embeddings else params["head"]
 
 
 def _logits(params, cfg, h):
     """fp32 logits (..., V) of the final hidden ``h``: on a mesh the
-    vocab-sharded head's columns gathered to the whole vocab (in
-    training the head gathered over ``data`` first, and ``h`` behind
-    Megatron's *f*)."""
+    vocab-sharded head's columns gathered to the whole vocab — in
+    training left split, the rank's (..., V / model), for the
+    vocab-parallel loss (the head gathered over ``data`` first, and
+    ``h`` behind Megatron's *f*)."""
     head = H.weights(_head(params, cfg),
                      *(("embed", "table") if cfg.tie_embeddings
                        else ("head",)))
@@ -524,9 +559,12 @@ def _mamba_step(lp, cfg):
     return step
 
 
+@_residual(_batch_stream)
 def forward(params, cfg, batch, *, attn_impl="chunked") -> torch.Tensor:
     """Full-sequence logits (B, S, V) fp32 — the training path
-    (reference ``forward``, ``model.py:344``), differentiable end to end.
+    (reference ``forward``, ``model.py:344``), differentiable end to end;
+    in training over a mesh whose head splits the vocab, the rank's
+    columns (B, S, V / model).
 
     ``batch``: ``tokens`` (B, S_tok); a vlm's ``images`` (B, n_img, d)
     first, whose positions count; whisper's ``frames`` (B, encoder_len,
@@ -540,10 +578,12 @@ def forward(params, cfg, batch, *, attn_impl="chunked") -> torch.Tensor:
     block) — and every RMSNorm is K5 with K5b as its backward. In
     training over a mesh each layer's weights are gathered at use
     (``hints.weights``): zamba2's shared block once per application, its
-    gradient the sum over them."""
+    gradient the sum over them. Where ``cfg.act_shard`` splits the
+    residual stream over ``model`` (:func:`_residual`), the layers'
+    checkpoints save the rank's part of their inputs."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(_batch_stream(cfg, batch)[1], device=x.device)
     delta = None
     fam = cfg.family
     if fam == "ssm":
@@ -586,12 +626,15 @@ def loss_fn(params, cfg, batch, *, attn_impl="chunked"):
     """Next-token cross-entropy of :func:`forward` against
     ``batch["labels"]`` (B, S_tok), aligned to the tokens: a vlm's
     image-prefix positions carry no loss; ``batch["loss_mask"]``, where
-    given, keeps the positions it marks. Returns (loss, {"loss": loss})."""
+    given, keeps the positions it marks. Over a mesh whose head splits
+    the vocab the loss is vocab-parallel: no rank forms the whole vocab.
+    Returns (loss, {"loss": loss})."""
     logits = forward(params, cfg, batch, attn_impl=attn_impl)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # a vlm's image prefix
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    loss = L.softmax_cross_entropy(logits, labels, batch.get("loss_mask"))
+    loss = L.softmax_cross_entropy(logits, labels, batch.get("loss_mask"),
+                                   cfg.vocab_size)
     return loss, {"loss": loss}
 
 
@@ -735,16 +778,35 @@ def paged_cache_spec(cfg, batch_size, capacity, block_size,
 def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     """(B, S, d): the tokens' embeddings, after the vlm's image prefix
     ``batch["images"]`` (B, n_img, d) where the batch carries one; plus
-    the sinusoid of each position on whisper's decoder."""
-    x = _embed(params, cfg, batch["tokens"])
+    the sinusoid of each position on whisper's decoder. Where the call's
+    residual stream is split (:func:`_residual`), the rank's part: the
+    lookups come split, or, behind an image prefix, the stream is cut
+    once whole."""
     if cfg.family == "vlm" and "images" in batch:
-        x = torch.cat([batch["images"].to(x.dtype), x], dim=1)
+        with H.residual("none", ()):
+            x = _embed(params, cfg, batch["tokens"])
+        return H.stream_part(torch.cat([batch["images"].to(x.dtype), x],
+                                       dim=1))
+    x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "audio":
-        pos = torch.arange(x.shape[1], device=x.device)
-        x = x + L.sinusoidal_positions(pos, cfg.d_model)[None].to(x.dtype)
+        pos = torch.arange(batch["tokens"].shape[1], device=x.device)
+        x = x + H.stream_part(
+            L.sinusoidal_positions(pos, cfg.d_model)[None].to(x.dtype))
     return x
 
 
+def _final_rows(params, cfg, logit_index, x, delta) -> torch.Tensor:
+    """The final norm of the stream's (residual, delta) at
+    ``logit_index``'s rows (:func:`_read_rows`): (B, 1, d). Where the
+    stream is split by position, every position is normed (its rows
+    gathered whole) and the rows read after."""
+    norm = params["final_norm"]
+    if H.stream_dim(x) == 1:
+        return _read_rows(logit_index, L.add_norm(norm, cfg, x, delta)[1])[0]
+    return L.add_norm(norm, cfg, *_read_rows(logit_index, x, delta))[1]
+
+
+@_residual(lambda cfg, frames: frames.shape)
 def _encode_audio(params, cfg, frames, *, attn_impl="pallas",
                   train=False) -> torch.Tensor:
     """Whisper's encoder over the frame embeddings (B, T, d): sinusoidal
@@ -752,8 +814,8 @@ def _encode_audio(params, cfg, frames, *, attn_impl="pallas",
     then ``enc_norm``; each layer under :func:`_remat` when ``train``.
     Returns (B, T, d) in the frames' dtype."""
     pos = torch.arange(frames.shape[1], device=frames.device)
-    x = frames + L.sinusoidal_positions(pos, cfg.d_model)[None].to(
-        frames.dtype)
+    x = H.stream_part(frames + L.sinusoidal_positions(
+        pos, cfg.d_model)[None].to(frames.dtype))
     delta = None
     for lp in unstack(params["enc_layers"], cfg.n_encoder_layers):
         step = _block_step(lp, cfg, ("enc_layers",), positions=pos,
@@ -834,6 +896,7 @@ def _prefill_recurrent(params, cfg, x, n_valid):
     return x[:, :s], delta[:, :s], rows
 
 
+@_residual(_batch_stream)
 def prefill(params, cfg, batch, capacity, *, logit_index=None,
             length=None):
     """Process the prompt. Returns (logits (B, V) fp32, cache).
@@ -866,7 +929,7 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None,
     leaves whole beside the ``k``/``v`` rows."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
-    b, s = x.shape[:2]
+    b, s = _batch_stream(cfg, batch)[:2]
     if cfg.family in RECURRENT_FAMILIES:
         x, delta, rows = _prefill_recurrent(
             params, cfg, x, s if length is None else int(length))
@@ -909,8 +972,7 @@ def prefill(params, cfg, batch, capacity, *, logit_index=None,
             else:
                 cache[name][:, :, :s] = r
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    _, h = L.add_norm(params["final_norm"], cfg,
-                      *_read_rows(logit_index, x, delta))
+    h = _final_rows(params, cfg, logit_index, x, delta)
     return _logits(params, cfg, h)[:, 0], cache
 
 
@@ -1061,6 +1123,7 @@ def _decode_recurrent(params, cfg, x, cache, n, slot, live, shard=False):
     return x, delta
 
 
+@_residual(_tokens_stream)
 def decode_step(params, cfg, tokens, cache, *, live=None):
     """tokens: (B, 1) int. Returns (logits (B, V) fp32, cache).
 
@@ -1107,8 +1170,8 @@ def decode_step(params, cfg, tokens, cache, *, live=None):
         _, h = L.add_norm(params["final_norm"], cfg, x, delta)
         return _logits(params, cfg, h)[:, 0], cache
     if cfg.family == "audio":
-        x = x + L.sinusoidal_positions(n.reshape(-1, 1), cfg.d_model).to(
-            x.dtype)
+        x = x + H.stream_part(L.sinusoidal_positions(
+            n.reshape(-1, 1), cfg.d_model).to(x.dtype))
     index = None
     if btab is not None:
         pool = cache["k"]
@@ -1172,6 +1235,7 @@ def _layers_over_cache(params, cfg, x, hist, hist_len, positions, write,
     return x, delta
 
 
+@_residual(_batch_stream)
 def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
                   logit_index=None, block_table=None):
     """One prompt chunk against cached history (chunked prefill).
@@ -1189,7 +1253,7 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
     rows, to be written at offset ``hist_len``."""
     check_over_cache(cfg, "chunked prefill")
     x = _embed_inputs(params, cfg, batch)
-    s = x.shape[1]
+    s = _batch_stream(cfg, batch)[1]
     hl = torch.as_tensor(hist_len, dtype=torch.int32, device=x.device)
     positions = ((hl.reshape(-1, 1) if hl.ndim else hl)
                  + torch.arange(s, device=x.device))
@@ -1205,12 +1269,12 @@ def prefill_chunk(params, cfg, batch, k_hist, v_hist, hist_len, *,
         params, cfg, x, hist, hl, positions,
         lambda i, k, v: (ks.append(k), vs.append(v)),
         by_position=block_table is None and H.attn_layout() == "seq")
-    _, h = L.add_norm(params["final_norm"], cfg,
-                      *_read_rows(logit_index, x, delta))
-    logits = _logits(params, cfg, h)[:, 0]
+    logits = _logits(params, cfg,
+                     _final_rows(params, cfg, logit_index, x, delta))[:, 0]
     return logits, torch.stack(ks), torch.stack(vs)
 
 
+@_residual(_tokens_stream)
 def verify_tokens(params, cfg, tokens, cache, *, live=None):
     """Verify ``S = gamma + 1`` candidate tokens per row in one dispatch.
 

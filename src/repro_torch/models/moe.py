@@ -78,7 +78,10 @@ def apply_moe(p, cfg, x):
     gathered in expert order before the combine. Over a data-split
     batch — a training microbatch, or a serving decode or verify whose
     slots each data replica holds a block of — a rank's buffer holds its
-    own tokens' slots at their places in the whole dispatch's."""
+    own tokens' slots at their places in the whole dispatch's. Where the
+    call holds its residual stream split over ``model``
+    (:func:`~repro_torch.distributed.hints.residual`), the output is the
+    rank's part of it."""
     b, s, d = x.shape
     n, k, e = b * s, cfg.moe_top_k, cfg.n_experts
     # over a data-split batch the dispatch is the whole batch's, as in
@@ -103,9 +106,12 @@ def apply_moe(p, cfg, x):
     y_slots = torch.where(keep[:, None], y_buf[dest.clamp(max=e * cap - 1)],
                           0)
     y = (y_slots * w.reshape(-1, 1).to(y_slots.dtype)).view(n, k, d).sum(1)
+    # whole on every model rank: where the call's residual stream is
+    # split, the rank keeps its part, and so does the shared MLP's g
+    y = H.stream_part(y.reshape(b, s, d))
     if "shared" in p:
-        y = y + L.apply_mlp(p["shared"], cfg, xf)
-    return y.reshape(b, s, d).to(x.dtype)
+        y = y + L.apply_mlp(p["shared"], cfg, x)
+    return y.to(x.dtype)
 
 
 def aux_load_balance_loss(p, cfg, x) -> torch.Tensor:
